@@ -1,0 +1,149 @@
+"""Primitive inference layers, NHWC at every boundary.
+
+Counterpart of kpvid_tpu/models/layers.py. Parameters keep the JAX
+package's values and, where the layout differs, the bridge converts them:
+conv weights are OIHW here (HWIO in Flax); the LSTM kernels
+``lstm_{i}_kernel`` [D+H, 4H] and the Dense kernels [in, out] are kept as
+they are. Parity points:
+
+- TF ``SAME`` padding is asymmetric for even inputs at stride 2
+  (0 before, 1 after), which torch's ``padding=1`` is not;
+- BatchNorm (eval) uses the moving statistics with eps 1e-5;
+- the LSTM gate order is i, j, f, o with ``sigmoid(f + 1.0)`` and an f32
+  cell state: not ``nn.LSTM``'s layout;
+- ``Dense(relu=True)`` keeps the reference's default-ReLU quirk, and
+  ``Dense(tanh=True)`` is the ``to_coord`` head.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops.resize import upsample2x
+
+
+def _same_pads(size: int, kernel: int, stride: int) -> tuple[int, int]:
+    out = -(-size // stride)
+    total = max((out - 1) * stride + kernel - size, 0)
+    return total // 2, total - total // 2
+
+
+class Conv(nn.Module):
+    """2D conv with TF SAME padding; NHWC in and out, computed in ``dtype``."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel: int, stride: int = 1,
+                 use_bias: bool = True, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.stride = stride
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.zeros(out_ch, in_ch, kernel, kernel))
+        self.bias = nn.Parameter(torch.zeros(out_ch)) if use_bias else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.to(self.dtype).permute(0, 3, 1, 2)
+        k = self.weight.shape[-1]
+        (t, b), (l, r) = (_same_pads(s, k, self.stride) for s in x.shape[2:])
+        if t == b and l == r:
+            y = F.conv2d(x, self.weight.to(self.dtype), stride=self.stride, padding=(t, l))
+        else:
+            y = F.conv2d(F.pad(x, (l, r, t, b)), self.weight.to(self.dtype), stride=self.stride)
+        y = y.permute(0, 2, 3, 1)
+        return y if self.bias is None else y + self.bias.to(self.dtype)
+
+
+class BatchNorm(nn.Module):
+    """Inference-mode BN over the last (channel) axis, eps 1e-5, in f32."""
+
+    def __init__(self, features: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("running_mean", torch.zeros(features))
+        self.register_buffer("running_var", torch.ones(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        mul = self.weight * torch.rsqrt(self.running_var + self.eps)
+        y = (x.float() - self.running_mean) * mul + self.bias
+        return y.to(x.dtype)
+
+
+class ConvBNReLU(nn.Module):
+    """conv + BN + ReLU. ``up2`` upsamples the input 2x first (TF1-legacy);
+    ``skip`` is concatenated after it along the channels."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel: int, stride: int = 1,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.conv = Conv(in_ch, out_ch, kernel, stride, dtype=dtype)
+        self.bn = BatchNorm(out_ch)
+
+    def forward(self, x: torch.Tensor, up2: bool = False,
+                skip: torch.Tensor | None = None) -> torch.Tensor:
+        if up2:
+            x = upsample2x(x)
+        if skip is not None:
+            x = torch.cat([x.to(self.conv.dtype), skip.to(self.conv.dtype)], dim=-1)
+        return torch.relu(self.bn(self.conv(x)))
+
+
+class StackedLSTM(nn.Module):
+    """Multi-layer LSTM over a whole sequence: [B, T, D] -> [B, T, H] f32.
+
+    Per step and layer one [B, D+H] @ [D+H, 4H] product in ``dtype``, the
+    gates and the cell state in f32."""
+
+    def __init__(self, in_dim: int, features, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.features = tuple(int(f) for f in features)
+        self.dtype = dtype
+        dims = [in_dim] + list(self.features[:-1])
+        for i, (d, h) in enumerate(zip(dims, self.features)):
+            self.register_parameter(f"lstm_{i}_kernel", nn.Parameter(torch.zeros(d + h, 4 * h)))
+            self.register_parameter(f"lstm_{i}_bias", nn.Parameter(torch.zeros(4 * h)))
+
+    def forward(self, xs: torch.Tensor) -> torch.Tensor:
+        b, t = xs.shape[:2]
+        kernels = [getattr(self, f"lstm_{i}_kernel").to(self.dtype) for i in range(len(self.features))]
+        biases = [getattr(self, f"lstm_{i}_bias") for i in range(len(self.features))]
+        state = [
+            (xs.new_zeros((b, h), dtype=torch.float32), xs.new_zeros((b, h), dtype=torch.float32))
+            for h in self.features
+        ]
+        outs = []
+        for step in range(t):
+            inp = xs[:, step]
+            for li, (c, h) in enumerate(state):
+                z = torch.cat([inp.to(self.dtype), h.to(self.dtype)], dim=-1)
+                gates = torch.matmul(z, kernels[li]).float() + biases[li]
+                i, j, f, o = torch.chunk(gates, 4, dim=-1)
+                c = torch.sigmoid(f + 1.0) * c + torch.sigmoid(i) * torch.tanh(j)
+                h = torch.sigmoid(o) * torch.tanh(c)
+                state[li] = (c, h)
+                inp = h
+            outs.append(inp)
+        return torch.stack(outs, dim=1)
+
+
+class Dense(nn.Module):
+    """Fully connected layer, kernel [in, out], computed in ``dtype``.
+    ``relu``: the reference's default-ReLU quirk; ``tanh``: the to_coord head."""
+
+    def __init__(self, in_dim: int, out_dim: int, relu: bool = False, tanh: bool = False,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.relu = relu
+        self.tanh = tanh
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.zeros(in_dim, out_dim))
+        self.bias = nn.Parameter(torch.zeros(out_dim))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = torch.matmul(x.to(self.dtype), self.weight.to(self.dtype)) + self.bias.to(self.dtype)
+        if self.tanh:
+            return torch.tanh(y)
+        if self.relu:
+            return torch.relu(y)
+        return y
