@@ -7,15 +7,20 @@ Run from the root of a checkout on a machine with one NVIDIA H100. It
 imports nothing of JAX or of the JAX package, and:
 
 1. builds the CUDA kernels from ``kpvid_tpu_torch/csrc`` (one nvcc per
-   source, started together) and prints the build time;
+   source, started together), prints the build time, and reads the built
+   library's SASS (``cuobjdump -sass``): every bf16 conv kernel must hold
+   tensor-core instructions (``HGMMA`` or ``HMMA``);
 2. holds every kernel of the generation path against its plain PyTorch
    version, on the card, at the shapes the path gives it at ``Config()``
    with 4 requests (N = 4 * 32 frames): float32 with TF32 off (rtol 1e-4,
    atol 1e-4) and bfloat16 (max |kernel - plain| <= 2% of max |plain|: the
    kernel rounds once, the plain version rounds the conv output and then
-   the affine). It times the kernel, the plain version and, for the conv,
-   one ``F.conv2d`` call in channels_last bfloat16 with the BN scale folded
-   into the weights (a yardstick the port never calls), with CUDA events;
+   the affine), and the Gaussian render on the bf16 grid the future maps
+   use. It times the kernel, the plain version and, for the conv, one
+   ``F.conv2d`` call in channels_last bfloat16 with the BN scale folded
+   into the weights (a yardstick the port never calls), with CUDA events,
+   and prints for every conv shape its TFLOP/s, its share of the bound and
+   its ratio to ``F.conv2d``;
 3. serves 4 requests through ``InferenceEngine`` at ``Config()`` with random
    weights from a seed (BN statistics and biases randomized), checks the
    shapes, the uint8 outputs, the mask range, that a seed gives the same
@@ -32,9 +37,11 @@ before the last holds the kernels' JSON record, the last line the device.
 from __future__ import annotations
 
 import json
+import shutil
 import subprocess
 import sys
 import time
+from pathlib import Path
 from unittest import mock
 
 import numpy as np
@@ -162,8 +169,8 @@ def kernel_phase(cfg) -> dict:
             n_ops = 2.0 * nb * oh * ow * cout * 9 * c
             n_bytes = 2.0 * (nb * h * w * c + 9 * c * cout + nb * oh * ow * cout) + 8 * cout
             b_ms, _ = bound_ms(n_bytes, n_ops, "bfloat16")
-            line = (f"{name} {label} bf16: kernel {t_k:.4f} ms, plain {t_p:.4f} ms, "
-                    f"bound {b_ms:.4f} ms ({n_ops / t_k / 1e9:.1f} TFLOP/s)")
+            line = (f"{name} {label} bf16: kernel {t_k:.4f} ms ({n_ops / t_k / 1e9:.1f} TFLOP/s, "
+                    f"{100 * b_ms / t_k:.1f}% of the bound {b_ms:.4f} ms), plain {t_p:.4f} ms")
             if not up2:
                 xc = x.permute(0, 3, 1, 2)  # channels_last view
                 wc = (k.float() * sc).to(x.dtype).permute(3, 2, 0, 1).contiguous(
@@ -171,13 +178,19 @@ def kernel_phase(cfg) -> dict:
                 bias = sh.to(x.dtype)
                 t_l = time_ms(lambda: F.conv2d(xc, wc, bias, padding=1))
                 rec["library_ms"] += mult * t_l
-                line += f", F.conv2d {t_l:.4f} ms"
+                line += f", F.conv2d {t_l:.4f} ms, kernel / F.conv2d {t_k / t_l:.2f}"
+            else:
+                line += ", F.conv2d n/a"
             print(line + f", x{mult} per generate", flush=True)
             rec["ms"] += mult * t_k
             rec["plain_ms"] += mult * t_p
             rec["ops"] += mult * n_ops
             rec["bytes"] += mult * n_bytes
         rec["bound_ms"], rec["bound_by"] = bound_ms(rec["bytes"], rec["ops"], "bfloat16")
+        ratio = "n/a" if up2 else f"{rec['ms'] / rec['library_ms']:.2f}"
+        print(f"{name} per generate at batch {BATCH} bf16: {rec['ops'] / rec['ms'] / 1e9:.1f} "
+              f"TFLOP/s, {100 * rec['bound_ms'] / rec['ms']:.1f}% of the bound, "
+              f"kernel / F.conv2d {ratio}", flush=True)
         records[name] = rec
 
     # pose head: raw heatmaps of the 4 request images; the path computes them in
@@ -197,23 +210,27 @@ def kernel_phase(cfg) -> dict:
     rec["bound_ms"], rec["bound_by"] = bound_ms(n_bytes, n_ops, "float32")
     records["pose_head"] = rec
 
-    # gaussian render: the current maps ([B, K, 2]) and the future maps ([B*T, K, 2])
+    # gaussian render: the current maps ([B, K, 2], f32 grid) and the future
+    # maps ([B*T, K, 2]), whose grid takes the compute dtype
     rec = dict(ms=0.0, plain_ms=0.0, library_ms=None, max_abs_err=0.0, max_abs_err_f32=0.0)
     tot_bytes = tot_ops = 0.0
     for rows in (BATCH, n):
         for dtype in (torch.float32, torch.bfloat16):
+            gd = dtype if rows == n else torch.float32
             mu = (torch.rand((rows, k_pts, 2), generator=gen, device="cuda") * 2 - 1)
             mu = mu.to(dtype).float()
-            got = ops.gaussian_render(mu, hs, hs, m.heatmap_inv_std)
+            got = ops.gaussian_render(mu, hs, hs, m.heatmap_inv_std, grid_dtype=gd)
             torch.cuda.synchronize()
-            want = ops.render_gaussian_maps(mu, hs, hs, m.heatmap_inv_std)
+            want = ops.render_gaussian_maps(mu, hs, hs, m.heatmap_inv_std, grid_dtype=gd)
             err = compare(got, want, torch.float32)
             key = "max_abs_err" if dtype == torch.bfloat16 else "max_abs_err_f32"
             rec[key] = max(rec[key], err)
-            print(f"gaussian_render {tuple(mu.shape)} from {dtype}: max abs err {err:.3e}",
-                  flush=True)
-        rec["ms"] += time_ms(lambda: ops.gaussian_render(mu, hs, hs, m.heatmap_inv_std))
-        rec["plain_ms"] += time_ms(lambda: ops.render_gaussian_maps(mu, hs, hs, m.heatmap_inv_std))
+            print(f"gaussian_render {tuple(mu.shape)} from {dtype}, {gd} grid: max abs err "
+                  f"{err:.3e}", flush=True)
+        rec["ms"] += time_ms(
+            lambda: ops.gaussian_render(mu, hs, hs, m.heatmap_inv_std, grid_dtype=gd))
+        rec["plain_ms"] += time_ms(
+            lambda: ops.render_gaussian_maps(mu, hs, hs, m.heatmap_inv_std, grid_dtype=gd))
         tot_bytes += 4.0 * (rows * k_pts * 2 + rows * hs * hs * k_pts)
         tot_ops += rows * (hs * hs * k_pts + 8.0 * k_pts * 2 * hs)
     rec["bound_ms"], rec["bound_by"] = bound_ms(tot_bytes, tot_ops, "float32")
@@ -224,6 +241,28 @@ def kernel_phase(cfg) -> dict:
               f"{r['plain_ms']:.4f} ms, library {lib}, bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']})", flush=True)
     return records
+
+
+def sass_phase() -> None:
+    """Every bf16 conv kernel of the built library runs on the tensor cores:
+    its SASS holds HGMMA (wgmma) or HMMA (mma.sync) instructions."""
+    from kpvid_tpu_torch.ops import _build
+
+    tool = Path(_build.nvcc()).with_name("cuobjdump")
+    tool = str(tool) if tool.is_file() else shutil.which("cuobjdump")
+    check(tool is not None, "cuobjdump found")
+    lib = _build._target("conv3x3.cu")
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
+                          check=True).stdout
+    found = {}
+    for section in sass.split("Function : ")[1:]:
+        name = section.split(maxsplit=1)[0]
+        if "conv3x3_bf16_mma_kernel" in name:
+            found[name] = next((op for op in ("HGMMA", "HMMA") if op in section), None)
+    print(f"bf16 conv kernels in {lib.name}: " + ", ".join(
+        f"{name[:60]}...: {op}" for name, op in found.items()), flush=True)
+    check(bool(found) and all(found.values()),
+          f"all {len(found)} bf16 conv kernels hold {sorted(set(found.values()) - {None})}")
 
 
 def randomized_params(cfg, seed: int) -> dict:
@@ -395,9 +434,10 @@ def plain_path(ops):
 
 
 KERNEL_META = {
-    "conv3x3_affine": ("cuda", "kpvid_tpu_torch/csrc/conv3x3.cu",
+    # the bf16 body the path runs; conv3x3.cu includes it and holds the f32 route
+    "conv3x3_affine": ("cuda", "kpvid_tpu_torch/csrc/conv3x3_mma.cuh",
                        "kpvid_tpu/ops/pallas_conv.py:158"),
-    "up2_conv3_affine": ("cuda", "kpvid_tpu_torch/csrc/conv3x3.cu",
+    "up2_conv3_affine": ("cuda", "kpvid_tpu_torch/csrc/conv3x3_mma.cuh",
                          "kpvid_tpu/ops/pallas_conv.py:434"),
     "pose_head": ("triton", "kpvid_tpu_torch/ops/keypoint_kernels.py",
                   "kpvid_tpu/ops/pallas_kernels.py:92"),
@@ -424,6 +464,7 @@ def main() -> int:
         regs = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
         print(f"{src}: " + " | ".join(regs), flush=True)
     print(f"kernel build: {build_s:.1f} s", flush=True)
+    sass_phase()
 
     cfg = Config().validate()
     records = kernel_phase(cfg)

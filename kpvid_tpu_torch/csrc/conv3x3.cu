@@ -9,17 +9,22 @@
 // edge-clamped) straight into the shared-memory halo tile, so it is exact on
 // every border without the TPU kernel's phase decomposition or border splices.
 //
-// Design: one block computes a TH x TW tile of output pixels times TCO output
-// channels. For each chunk of CI input channels it stages the (TH+2) x (TW+2)
-// input halo and the 3 x 3 x CI x TCO weight slice in shared memory as f32, then
-// every thread accumulates PX pixels x CO_T channels with FMAs. Bound on the
-// card: at the translator's shapes the work is 2 * 9 * C * Cout flops per output
-// pixel against a few bytes per pixel, far above the bf16 ridge point, so the
-// bound is operations. This first version runs on the CUDA cores (no wgmma or
-// TMA yet); its times stand beside the tensor-core bound in PERF.md.
+// Bound on the card: at the translator's shapes the work is 2 * 9 * C * Cout
+// flops per output pixel against a few bytes per pixel, far above the bf16
+// ridge point, so the bound is operations. Two routes:
+//   - bfloat16, the serving path: an implicit GEMM on the tensor cores
+//     (conv3x3_mma.cuh);
+//   - float32, for the parity checks: the CUDA-core kernel below. TF32 tensor
+//     cores would round the inputs to 10 mantissa bits, which the f32 checks
+//     (rtol 1e-4) do not allow. One block computes a TH x TW tile of output
+//     pixels times TCO output channels; for each chunk of CI input channels it
+//     stages the (TH+2) x (TW+2) input halo and the 3 x 3 x CI x TCO weight
+//     slice in shared memory, then every thread accumulates PX pixels x CO_T
+//     channels with FMAs.
 
 #include <cuda_runtime.h>
-#include <cuda_bf16.h>
+
+#include "conv3x3_mma.cuh"
 
 namespace {
 
@@ -29,26 +34,14 @@ constexpr int CI = 16;
 constexpr int NTHREADS = 256;
 constexpr int HALO = (TH + 2) * (TW + 2);
 
-template <typename T> __device__ __forceinline__ float to_f(T v);
-template <> __device__ __forceinline__ float to_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
-
 // x: [N, H, W, C]; w: [3, 3, C, Cout]; out: [N, OH, OW, Cout] with
 // (OH, OW) = (H, W), or (2H, 2W) when UP2 (the conv then runs on the
 // upsampled input).
-template <typename T, int TCO, int CO_T, int PX, bool UP2>
+template <int TCO, int CO_T, int PX, bool UP2>
 __global__ void __launch_bounds__(NTHREADS)
-conv3x3_affine_kernel(const T* __restrict__ x, const T* __restrict__ w,
+conv3x3_affine_kernel(const float* __restrict__ x, const float* __restrict__ w,
                       const float* __restrict__ scale, const float* __restrict__ shift,
-                      T* __restrict__ out, int H, int W, int C, int Cout, int OH, int OW,
+                      float* __restrict__ out, int H, int W, int C, int Cout, int OH, int OW,
                       int tiles_w, int tiles_per_img, int relu) {
   static_assert((TH * TW / PX) * (TCO / CO_T) == NTHREADS, "thread layout");
   constexpr int NPG = TH * TW / PX;  // pixel groups; thread t owns pixels pg + p * NPG
@@ -64,7 +57,7 @@ conv3x3_affine_kernel(const T* __restrict__ x, const T* __restrict__ w,
   const int co0 = blockIdx.y * TCO;
   const int pg = tid % NPG;
   const int cg = tid / NPG;
-  const T* xn = x + (size_t)n * H * W * C;
+  const float* xn = x + (size_t)n * H * W * C;
 
   float acc[PX][CO_T];
 #pragma unroll
@@ -84,17 +77,17 @@ conv3x3_affine_kernel(const T* __restrict__ x, const T* __restrict__ w,
       float v = 0.f;
       if (c < C && gy >= 0 && gy < OH && gx >= 0 && gx < OW) {
         if (!UP2) {
-          v = to_f(xn[((size_t)gy * W + gx) * C + c]);
+          v = xn[((size_t)gy * W + gx) * C + c];
         } else {
           // upsample along H first, then along W (the order of
           // ops/resize.py::upsample2x), in f32
           const int r0 = gy >> 1, q0 = gx >> 1;
           const int r1 = min(r0 + 1, H - 1), q1 = min(q0 + 1, W - 1);
-          float a = to_f(xn[((size_t)r0 * W + q0) * C + c]);
-          if (gy & 1) a = (a + to_f(xn[((size_t)r1 * W + q0) * C + c])) * 0.5f;
+          float a = xn[((size_t)r0 * W + q0) * C + c];
+          if (gy & 1) a = (a + xn[((size_t)r1 * W + q0) * C + c]) * 0.5f;
           if (gx & 1) {
-            float b = to_f(xn[((size_t)r0 * W + q1) * C + c]);
-            if (gy & 1) b = (b + to_f(xn[((size_t)r1 * W + q1) * C + c])) * 0.5f;
+            float b = xn[((size_t)r0 * W + q1) * C + c];
+            if (gy & 1) b = (b + xn[((size_t)r1 * W + q1) * C + c]) * 0.5f;
             a = (a + b) * 0.5f;
           }
           v = a;
@@ -110,7 +103,7 @@ conv3x3_affine_kernel(const T* __restrict__ x, const T* __restrict__ w,
       const int c = c0 + ci;
       const int o = co0 + co;
       float v = 0.f;
-      if (c < C && o < Cout) v = to_f(w[((size_t)tap * C + c) * Cout + o]);
+      if (c < C && o < Cout) v = w[((size_t)tap * C + c) * Cout + o];
       s_w[(ci * 9 + tap) * TCO + co] = v;
     }
     __syncthreads();
@@ -152,24 +145,24 @@ conv3x3_affine_kernel(const T* __restrict__ x, const T* __restrict__ w,
     const int oy = oy0 + pix / TW;
     const int ox = ox0 + pix % TW;
     if (oy >= OH || ox >= OW) continue;
-    T* op = out + (((size_t)n * OH + oy) * OW + ox) * Cout;
+    float* op = out + (((size_t)n * OH + oy) * OW + ox) * Cout;
 #pragma unroll
     for (int j = 0; j < CO_T; ++j) {
       const int o = co0 + cg * CO_T + j;
       if (o < Cout) {
         float y = acc[p][j] * scale[o] + shift[o];
         if (relu) y = fmaxf(y, 0.f);
-        op[o] = from_f<T>(y);
+        op[o] = y;
       }
     }
   }
 }
 
-template <typename T, int TCO, int CO_T, int PX, bool UP2>
-cudaError_t launch(const void* x, const void* w, const float* scale, const float* shift,
-                   void* out, int N, int H, int W, int C, int Cout, int relu,
+template <int TCO, int CO_T, int PX, bool UP2>
+cudaError_t launch(const float* x, const float* w, const float* scale, const float* shift,
+                   float* out, int N, int H, int W, int C, int Cout, int relu,
                    cudaStream_t stream) {
-  auto kern = conv3x3_affine_kernel<T, TCO, CO_T, PX, UP2>;
+  auto kern = conv3x3_affine_kernel<TCO, CO_T, PX, UP2>;
   const size_t smem = (size_t)(CI * HALO + CI * 9 * TCO) * sizeof(float);
   static bool attr_set = false;
   if (!attr_set) {
@@ -183,43 +176,42 @@ cudaError_t launch(const void* x, const void* w, const float* scale, const float
   const int tiles_w = (OW + TW - 1) / TW;
   const int tiles_per_img = ((OH + TH - 1) / TH) * tiles_w;
   dim3 grid((unsigned)(N * tiles_per_img), (unsigned)((Cout + TCO - 1) / TCO));
-  kern<<<grid, NTHREADS, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w), scale, shift, static_cast<T*>(out),
-      H, W, C, Cout, OH, OW, tiles_w, tiles_per_img, relu);
+  kern<<<grid, NTHREADS, smem, stream>>>(x, w, scale, shift, out, H, W, C, Cout, OH, OW,
+                                         tiles_w, tiles_per_img, relu);
   return cudaGetLastError();
 }
 
-template <typename T, bool UP2>
-cudaError_t dispatch_width(const void* x, const void* w, const float* scale,
-                           const float* shift, void* out, int N, int H, int W, int C,
+template <bool UP2>
+cudaError_t dispatch_width(const float* x, const float* w, const float* scale,
+                           const float* shift, float* out, int N, int H, int W, int C,
                            int Cout, int relu, cudaStream_t stream) {
   // wide layers: 64 output channels a block, 4 pixels x 16 channels a thread;
   // narrow ones (the 4-channel crude+mask head): 4 channels, 1 pixel a thread
   if (Cout >= 64)
-    return launch<T, 64, 16, 4, UP2>(x, w, scale, shift, out, N, H, W, C, Cout, relu, stream);
-  return launch<T, 4, 4, 1, UP2>(x, w, scale, shift, out, N, H, W, C, Cout, relu, stream);
+    return launch<64, 16, 4, UP2>(x, w, scale, shift, out, N, H, W, C, Cout, relu, stream);
+  return launch<4, 4, 1, UP2>(x, w, scale, shift, out, N, H, W, C, Cout, relu, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. up2: 0 = conv3x3_affine, 1 = up2_conv3_affine.
-// Returns the cudaError_t of the launch (0 on success).
+// dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores). up2: 0 =
+// conv3x3_affine, 1 = up2_conv3_affine. Returns the cudaError_t of the launch
+// (0 on success).
 int kpvid_conv3x3_affine(int dtype, int up2, const void* x, const void* w,
                          const float* scale, const float* shift, void* out, int N, int H,
                          int W, int C, int Cout, int relu, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    return up2 ? dispatch_width<float, true>(x, w, scale, shift, out, N, H, W, C, Cout, relu, s)
-               : dispatch_width<float, false>(x, w, scale, shift, out, N, H, W, C, Cout, relu, s);
+    auto xf = static_cast<const float*>(x);
+    auto wf = static_cast<const float*>(w);
+    auto of = static_cast<float*>(out);
+    return up2 ? dispatch_width<true>(xf, wf, scale, shift, of, N, H, W, C, Cout, relu, s)
+               : dispatch_width<false>(xf, wf, scale, shift, of, N, H, W, C, Cout, relu, s);
   }
-  if (dtype == 1) {
-    return up2 ? dispatch_width<__nv_bfloat16, true>(x, w, scale, shift, out, N, H, W, C, Cout,
-                                                     relu, s)
-               : dispatch_width<__nv_bfloat16, false>(x, w, scale, shift, out, N, H, W, C,
-                                                      Cout, relu, s);
-  }
+  if (dtype == 1)
+    return kpvid_mma::conv3x3_bf16(up2, x, w, scale, shift, out, N, H, W, C, Cout, relu, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -130,10 +130,12 @@ class FinalGenerator:
         m = self.config.model
         hs, dt = m.heatmap_size, self.dtype
         emb = self.stage1.embed(im)
+        # JAX renders each map on the grid of its keypoints' dtype: f32 for
+        # the detected points, the compute dtype for the decoded ones
         cur_map = gaussian_render(current_mu.float().contiguous(), hs, hs, m.heatmap_inv_std)
         fut_map = gaussian_render(
             future_mu_seq.reshape(b * t, self.n_pts, 2).float().contiguous(),
-            hs, hs, m.heatmap_inv_std,
+            hs, hs, m.heatmap_inv_std, grid_dtype=future_mu_seq.dtype,
         )
         static = torch.cat([emb.to(dt), cur_map.to(dt)], dim=-1)
         conv = self.stage1.translator.oct0a.conv

@@ -6,7 +6,7 @@ from .conv3x3 import (
     up2_conv3_affine,
     up2_conv3_affine_plain,
 )
-from .coords import blend, heatmaps_to_keypoints, render_gaussian_maps, soft_argmax_1d
+from .coords import blend, grid, heatmaps_to_keypoints, render_gaussian_maps, soft_argmax_1d
 from .keypoint_kernels import gaussian_render, pose_head
 from .resize import up2_conv3, upsample2x
 
@@ -35,6 +35,7 @@ __all__ = [
     "conv3x3_affine_plain",
     "fold_bn",
     "gaussian_render",
+    "grid",
     "heatmaps_to_keypoints",
     "launch_counts",
     "pose_head",

@@ -5,7 +5,8 @@ Each ``csrc/*.cu`` file is compiled by ``nvcc`` for Hopper
 plain C interface, which is loaded with ``ctypes``. Libraries are cached in
 a build directory (``build/kpvid_tpu_torch`` at the root of the checkout,
 or ``$KPVID_TORCH_BUILD_DIR``) under a name that carries the hash of the
-source and the flags, so an edited source is rebuilt at its next use.
+source, of every header in ``csrc`` (``*.cuh``, ``*.h``) and of the flags,
+so an edited source or header is rebuilt at its next use.
 Nothing is built when a module is imported: the first kernel launch, or
 :func:`build_all`, builds.
 """
@@ -54,9 +55,11 @@ def nvcc() -> str:
 
 
 def _target(source: str) -> Path:
-    text = (CSRC / source).read_bytes()
-    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return build_dir() / f"{Path(source).stem}-{digest}.so"
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(p for pattern in ("*.cuh", "*.h") for p in CSRC.glob(pattern))
+    for path in (CSRC / source, *headers):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    return build_dir() / f"{Path(source).stem}-{h.hexdigest()[:16]}.so"
 
 
 def build_all(sources=SOURCES) -> float:

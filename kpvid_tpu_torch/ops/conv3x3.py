@@ -12,7 +12,10 @@ Both compute ``act(conv3x3_SAME(x, k) * scale + shift)`` with f32
 accumulation, NHWC in and out in ``x.dtype`` (float32 or bfloat16), an HWIO
 kernel and f32 ``scale``/``shift`` from :func:`fold_bn`. What bounds them on
 an H100: the operations (2 * 9 * C * Cout per output pixel, hundreds of
-flops per byte moved); the kernel runs them on the CUDA cores for now.
+flops per byte moved). bfloat16, the serving path, runs them on the tensor
+cores (an implicit GEMM with ``wgmma``, ``csrc/conv3x3_mma.cuh``); float32
+runs on the CUDA cores, since TF32 tensor cores would not hold the f32 parity
+checks.
 
 Each wrapper takes its plain PyTorch version for a tensor on the CPU, and
 launches its kernel for a CUDA tensor or raises. ``launches`` on each

@@ -8,11 +8,31 @@ stored as (x, y). The fused kernels of the same functions are in
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 
-def _grid(size: int, device) -> torch.Tensor:
-    return torch.linspace(-1.0, 1.0, size, dtype=torch.float32, device=device)
+@functools.lru_cache(maxsize=None)
+def grid(size: int, device, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``linspace(-1, 1, size)`` as f32 values. For bfloat16, computed as
+    jnp.linspace computes it in bf16: ``step = i / (size - 1)``, then
+    ``-(1 - step) + step``, each operation rounded to bf16, which is not
+    ``linspace(...).to(bfloat16)``: at size 8 the two differ by 0.0039.
+    Cached per (size, device, dtype); callers must not write to it."""
+    if dtype == torch.float32 or size < 2:
+        return torch.linspace(-1.0, 1.0, size, dtype=torch.float32, device=device)
+    div = size - 1
+    step = torch.arange(div, dtype=dtype, device=device) / torch.tensor(div, dtype=dtype)
+    ends = torch.ones(1, dtype=dtype, device=device)
+    return torch.cat([-(1 - step) + step, ends]).float()
+
+
+def inv_std_squared(inv_std: float, dtype: torch.dtype = torch.float32) -> float:
+    """``inv_std ** 2`` as JAX computes it in ``dtype``: ``inv_std`` rounded
+    to dtype, squared, and the square rounded to dtype."""
+    c = torch.tensor(inv_std, dtype=dtype)
+    return float(c * c)
 
 
 def soft_argmax_1d(logits: torch.Tensor, dim: int) -> torch.Tensor:
@@ -20,8 +40,8 @@ def soft_argmax_1d(logits: torch.Tensor, dim: int) -> torch.Tensor:
     probs = torch.softmax(logits, dim=dim)
     shape = [1] * logits.dim()
     shape[dim] = logits.shape[dim]
-    grid = _grid(logits.shape[dim], logits.device).reshape(shape)
-    return torch.sum(probs * grid, dim=dim)
+    g = grid(logits.shape[dim], logits.device).reshape(shape)
+    return torch.sum(probs * g, dim=dim)
 
 
 def heatmaps_to_keypoints(raw_maps: torch.Tensor) -> torch.Tensor:
@@ -34,19 +54,23 @@ def heatmaps_to_keypoints(raw_maps: torch.Tensor) -> torch.Tensor:
 
 
 def render_gaussian_maps(
-    mu: torch.Tensor, height: int, width: int, inv_std: float = 14.3
+    mu: torch.Tensor, height: int, width: int, inv_std: float = 14.3,
+    grid_dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
     """Keypoints [..., K, 2] (x, y) -> maps [..., H, W, K] in f32:
     exp(-((gy - mu_y)^2 + (gx - mu_x)^2) * inv_std^2), computed separably as
-    exp(-(gy - mu_y)^2 c2) * exp(-(gx - mu_x)^2 c2)."""
+    exp(-(gy - mu_y)^2 c2) * exp(-(gx - mu_x)^2 c2).
+
+    The grid and c2 = inv_std^2 take the values JAX gives them in
+    ``grid_dtype`` (the keypoints' dtype there); the arithmetic is f32."""
     batch_shape = mu.shape[:-2]
     k = mu.shape[-2]
     mu2 = mu.float().reshape(-1, k, 2)
-    c2 = torch.tensor(inv_std, dtype=torch.float32) ** 2
-    gy = _grid(height, mu.device)[None, None, :]
-    gx = _grid(width, mu.device)[None, None, :]
-    ey = torch.exp(-torch.square(gy - mu2[..., 1:2]) * c2.to(mu.device))  # [B, K, H]
-    ex = torch.exp(-torch.square(gx - mu2[..., 0:1]) * c2.to(mu.device))  # [B, K, W]
+    c2 = inv_std_squared(inv_std, grid_dtype)
+    gy = grid(height, mu.device, grid_dtype)[None, None, :]
+    gx = grid(width, mu.device, grid_dtype)[None, None, :]
+    ey = torch.exp(-torch.square(gy - mu2[..., 1:2]) * c2)  # [B, K, H]
+    ex = torch.exp(-torch.square(gx - mu2[..., 0:1]) * c2)  # [B, K, W]
     maps = ey[:, :, :, None] * ex[:, :, None, :]  # [B, K, H, W]
     maps = maps.permute(0, 2, 3, 1)
     return maps.reshape(*batch_shape, height, width, k)

@@ -10,8 +10,10 @@
   sum) of the H-marginal. Bound: the bytes of the heatmap, read once.
 - :func:`gaussian_render` replaces pallas_kernels.py::gaussian_render_pallas
   (pallas_kernels.py:146): keypoints [B, K, 2] -> maps [B, H, W, K] in f32,
-  written straight in NHWC. One program per (batch, row). Bound: the bytes
-  of the maps, written once.
+  written straight in NHWC. One program per (batch, row). It reads its grid
+  values from the same cached tables as the plain version (coords.grid), so
+  a bfloat16 ``grid_dtype`` rounds them exactly as JAX does. Bound: the
+  bytes of the maps, written once.
 
 K = 40 needs no padding: Triton masks the ragged channel block. The plain
 PyTorch versions are ops/coords.py::heatmaps_to_keypoints and
@@ -23,10 +25,9 @@ launch, never when this module is imported.
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
-from .coords import heatmaps_to_keypoints, render_gaussian_maps
+from .coords import grid, heatmaps_to_keypoints, inv_std_squared, render_gaussian_maps
 
 tl = None  # triton.language, bound at the first launch
 _jitted: dict = {}
@@ -70,7 +71,7 @@ def _pose_head_kernel(raw_ptr, out_ptr, H, W, K, inv_h, inv_w, step_h, step_w,
     tl.store(optr + 1, y, mask=kmask)
 
 
-def _render_kernel(mu_ptr, out_ptr, H, W, K, step_h, step_w, c2,
+def _render_kernel(mu_ptr, gy_ptr, gx_ptr, out_ptr, H, W, K, c2,
                    BW: "tl.constexpr", BK: "tl.constexpr"):
     n = tl.program_id(0).to(tl.int64)
     h = tl.program_id(1)
@@ -78,12 +79,12 @@ def _render_kernel(mu_ptr, out_ptr, H, W, K, step_h, step_w, c2,
     kmask = ks < K
     mx = tl.load(mu_ptr + (n * K + ks) * 2, mask=kmask, other=0.0)
     my = tl.load(mu_ptr + (n * K + ks) * 2 + 1, mask=kmask, other=0.0)
-    gy = h.to(tl.float32) * step_h - 1.0
+    gy = tl.load(gy_ptr + h)
     dy = gy - my
     ey = tl.exp(-(dy * dy) * c2)  # [BK]
     ws = tl.arange(0, BW)
     wmask = ws < W
-    gx = ws.to(tl.float32) * step_w - 1.0
+    gx = tl.load(gx_ptr + ws, mask=wmask, other=0.0)
     dx = gx[:, None] - mx[None, :]
     ex = tl.exp(-(dx * dx) * c2)  # [BW, BK]
     val = ey[None, :] * ex
@@ -135,19 +136,22 @@ def pose_head(raw_maps: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def gaussian_render(mu: torch.Tensor, height: int, width: int, inv_std: float = 14.3) -> torch.Tensor:
-    """Gaussian maps straight into NHWC: [B, K, 2] f32 -> [B, H, W, K] f32."""
+def gaussian_render(mu: torch.Tensor, height: int, width: int, inv_std: float = 14.3,
+                    grid_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Gaussian maps straight into NHWC: [B, K, 2] f32 -> [B, H, W, K] f32,
+    on the grid and inv_std^2 of ``grid_dtype`` (see render_gaussian_maps)."""
     if mu.device.type == "cpu":
-        return render_gaussian_maps(mu, height, width, inv_std)
+        return render_gaussian_maps(mu, height, width, inv_std, grid_dtype)
     _check_cuda(mu, "gaussian_render", 3)
     b, k, _ = mu.shape
     out = torch.empty((b, height, width, k), dtype=torch.float32, device=mu.device)
-    c2 = float(np.float32(inv_std) * np.float32(inv_std))
+    gy = grid(height, mu.device, grid_dtype)
+    gx = grid(width, mu.device, grid_dtype)
     bw = max(16, 1 << (width - 1).bit_length())
     bk = max(16, 1 << (k - 1).bit_length())
     kern = _jit(_render_kernel)
     kern[(b, height)](
-        mu, out, height, width, k, _step(height), _step(width), c2,
+        mu, gy, gx, out, height, width, k, inv_std_squared(inv_std, grid_dtype),
         BW=bw, BK=bk, num_warps=4,
     )
     gaussian_render.launches += 1

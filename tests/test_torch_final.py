@@ -6,7 +6,7 @@ tests/test_final.py in f32, with every BN statistic, BN affine and bias of
 the JAX variables drawn at random before the same trees go through the
 bridge. The JAX reference is its default configuration (XLA convs); JAX's
 own slow test holds that equal to the Pallas chain the port's kernels
-replace.
+replace. One test repeats the generation in bfloat16.
 """
 
 import numpy as np
@@ -57,18 +57,22 @@ def randomize(tree, rng):
     return out
 
 
-@pytest.fixture(scope="module")
-def setup():
+def _setup(dtype: str):
     cfg = Config(
-        model=ModelConfig(**SMOKE), training=TrainingConfig(batch_size=2, compute_dtype="float32")
+        model=ModelConfig(**SMOKE), training=TrainingConfig(batch_size=2, compute_dtype=dtype)
     ).validate()
-    tcfg = TConfig(model=TModelConfig(**SMOKE), training=TTrainingConfig("float32")).validate()
+    tcfg = TConfig(model=TModelConfig(**SMOKE), training=TTrainingConfig(dtype)).validate()
     jgen = JaxFinalGenerator(cfg)
     s1, s2 = jgen.init_variables(jax.random.PRNGKey(0))
     rng = np.random.default_rng(7)
     s1 = {"params": randomize(s1["params"], rng), "batch_stats": randomize(s1["batch_stats"], rng)}
     s2p = randomize(s2["params"], rng)
     return cfg, tcfg, jgen, s1, s2p, bridge.from_jax(s1, s2p)
+
+
+@pytest.fixture(scope="module")
+def setup():
+    return _setup("float32")
 
 
 def test_generate_matches_jax(setup):
@@ -88,6 +92,50 @@ def test_generate_matches_jax(setup):
         np.testing.assert_allclose(got[key].numpy(), np.asarray(want[key]), rtol=0, atol=atol,
                                    err_msg=key)
     assert float(got["mask"].min()) > 0.0 and float(got["mask"].max()) < 1.0
+
+
+def test_generate_bf16_matches_jax():
+    """compute_dtype bfloat16 through both packages, same parameters and z.
+    The two round bf16 at other places (the port's conv kernels round once
+    after the affine, XLA after the conv and again after BN), so each output
+    is held to a bound with room over what that rounding gives:
+    - current points (f32 soft-argmax of bf16 heatmaps): atol 1e-4;
+    - future points (bf16): one bf16 step of the largest, 2^-8 * max|x|;
+    - the future Gaussian maps each renders from its own future points:
+      0.008, one bf16 step at the peak, as in the render test of
+      test_torch_ops.py;
+    - images, crude and mask (in [-1, 1] / [0, 1]): atol 0.02, 2.5 bf16
+      steps at 1.0, and a mean error under 0.002."""
+    from kpvid_tpu.ops import render_gaussian_maps as jax_render_gaussian_maps
+    from kpvid_tpu_torch.ops import gaussian_render
+
+    cfg, tcfg, jgen, s1, s2p, params = _setup("bfloat16")
+    rng = np.random.default_rng(11)
+    im = rng.uniform(-1, 1, (2, 32, 32, 3)).astype(np.float32)
+    act = np.eye(5, dtype=np.float32)[[1, 3]]
+    z = rng.standard_normal((2, 8)).astype(np.float32)
+    want = jax.jit(lambda a, b, c, d, e: jgen.generate(a, b, c, d, None, z=e))(s1, s2p, im, act, z)
+    gen = FinalGenerator(tcfg, device="cpu")
+    gen.load_parameters(params)
+    got = gen.generate(im, act, z)
+    assert got["future_points"].dtype == torch.bfloat16
+
+    def err(key):
+        assert got[key].shape == tuple(want[key].shape), key
+        return np.abs(got[key].float().numpy() - np.asarray(want[key], np.float32))
+
+    assert err("current_points").max() <= 1e-4
+    fut = np.asarray(want["future_points"], np.float32)
+    assert err("future_points").max() <= 2.0**-8 * np.abs(fut).max()
+    hs, inv_std = cfg.model.heatmap_size, cfg.model.heatmap_inv_std
+    want_maps = np.asarray(jax_render_gaussian_maps(want["future_points"], hs, hs, inv_std),
+                           np.float32)
+    got_maps = gaussian_render(got["future_points"].float(), hs, hs, inv_std,
+                               grid_dtype=torch.bfloat16)
+    assert np.abs(got_maps.numpy() - want_maps).max() <= 0.008
+    for key in ("pred_im_seq", "pred_im_crude", "mask"):
+        e = err(key)
+        assert e.max() <= 0.02 and e.mean() <= 0.002, (key, e.max(), e.mean())
 
 
 def test_inference_engine_matches_jax(setup):

@@ -9,12 +9,21 @@ Tolerances: float32 with TF32 off agrees to reassociation (rtol 1e-4,
 atol 1e-4); bfloat16 outputs round once in the kernel and twice in the plain
 version (conv output, then the affine), so they are held to 2% of the
 output's largest magnitude.
+
+The conv shapes cover the main path at N = 2 (Config() widths), ragged
+spatial tiles, C not a multiple of the 32-channel chunk, Cout not a multiple
+of the output-channel tile, ReLU on and off, and C % 8 != 0, which takes the
+bf16 kernel's element-wise loader.
 """
+
+import contextlib
+from unittest import mock
 
 import numpy as np
 import pytest
 import torch
 
+from kpvid_tpu_torch import ops
 from kpvid_tpu_torch.configs import load_config
 from kpvid_tpu_torch.eval import FinalGenerator, InferenceEngine, request_z
 from kpvid_tpu_torch.ops import (
@@ -62,7 +71,13 @@ def _conv_inputs(dev, dtype, n, h, w, c, cout, seed=0):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize(
     "shape,relu",
-    [((2, 16, 16, 64, 64), True), ((3, 20, 12, 24, 72), True), ((2, 32, 32, 64, 4), False)],
+    [((2, 16, 16, 64, 64), True), ((3, 20, 12, 24, 72), True), ((2, 32, 32, 64, 4), False),
+     # the main path's shapes at N = 2: oct0, oct1, oct2b, the fused heads
+     ((2, 32, 32, 256, 256), True), ((2, 64, 64, 128, 128), True),
+     ((2, 128, 128, 64, 64), True), ((2, 128, 128, 64, 4), False),
+     # ragged tiles, C = 40, Cout = 8, ReLU off; C = 4 and 12 (element-wise loader)
+     ((2, 7, 5, 32, 64), True), ((2, 16, 16, 40, 64), False), ((2, 16, 16, 64, 8), True),
+     ((2, 16, 16, 4, 16), True), ((2, 12, 20, 12, 64), False), ((1, 9, 9, 4, 4), False)],
 )
 def test_conv3x3_kernel_matches_plain(dev, dtype, shape, relu):
     x, k, s, t = _conv_inputs(dev, dtype, *shape)
@@ -72,13 +87,20 @@ def test_conv3x3_kernel_matches_plain(dev, dtype, shape, relu):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(2, 8, 8, 32, 64), (2, 7, 5, 16, 8)])
-def test_up2_kernel_matches_plain(dev, dtype, shape):
+@pytest.mark.parametrize(
+    "shape,relu",
+    [((2, 8, 8, 32, 64), True), ((2, 7, 5, 16, 8), True),
+     # the main path's shapes at N = 2: oct1a, oct2a
+     ((2, 32, 32, 256, 128), True), ((2, 64, 64, 128, 64), True),
+     # ragged, C = 24, Cout = 72, ReLU off; C = 4 and 12 (element-wise loader)
+     ((2, 10, 6, 24, 72), False), ((2, 8, 8, 4, 16), True), ((2, 5, 7, 12, 8), False)],
+)
+def test_up2_kernel_matches_plain(dev, dtype, shape, relu):
     x, k, s, t = _conv_inputs(dev, dtype, *shape, seed=1)
-    got = up2_conv3_affine(x, k, s, t)
+    got = up2_conv3_affine(x, k, s, t, relu=relu)
     torch.cuda.synchronize()
     assert got.shape == (shape[0], 2 * shape[1], 2 * shape[2], shape[4])
-    _close(got, up2_conv3_affine_plain(x, k, s, t), dtype)
+    _close(got, up2_conv3_affine_plain(x, k, s, t, relu=relu), dtype)
 
 
 def test_keypoint_kernels_match_plain(dev):
@@ -90,6 +112,11 @@ def test_keypoint_kernels_match_plain(dev):
     mu = (torch.rand(5, 40, 2, generator=g) * 2 - 1).to(dev)
     torch.testing.assert_close(
         gaussian_render(mu, 32, 16), render_gaussian_maps(mu, 32, 16), rtol=1e-4, atol=1e-5
+    )
+    mu = mu.to(torch.bfloat16).float()
+    torch.testing.assert_close(
+        gaussian_render(mu, 32, 32, grid_dtype=torch.bfloat16),
+        render_gaussian_maps(mu, 32, 32, grid_dtype=torch.bfloat16), rtol=1e-4, atol=1e-5,
     )
 
 
@@ -129,3 +156,47 @@ def test_generate_on_card_matches_cpu(dev):
     want = cpu.generate(im, act, z)
     for key in ("current_points", "future_points", "pred_im_seq", "mask"):
         torch.testing.assert_close(got[key].cpu(), want[key], rtol=1e-4, atol=1e-4)
+
+
+def test_generate_bf16_on_card_matches_plain(dev):
+    """The smoke config in bfloat16 on the card: the kernel path against the
+    same call through the plain versions. Its widths put C = 4 on the last
+    octave and the heads, the bf16 kernel's element-wise loader. BN
+    statistics, BN scales and biases are drawn at random, so that the
+    outputs are not the near-zero ones of the init laws."""
+    cfg = load_config("kpvid_tpu_torch/configs/smoke.yaml")
+    cfg.training.compute_dtype = "bfloat16"
+    gen = FinalGenerator(cfg, device="cuda")
+    params = gen.init_parameters(0)
+    g = torch.Generator().manual_seed(1)
+    for key, val in params.items():
+        if key.endswith("running_var"):
+            val.uniform_(0.5, 2.0, generator=g)
+        elif key.endswith(".bn.weight"):
+            val.uniform_(0.5, 1.5, generator=g)
+        elif key.endswith(("running_mean", "bias")):
+            val.normal_(0.0, 0.1, generator=g)
+    gen.load_parameters(params)
+    rng = np.random.default_rng(1)
+    im = rng.uniform(-1, 1, (2, 32, 32, 3)).astype(np.float32)
+    act = np.eye(cfg.model.n_action, dtype=np.float32)[[2, 5]]
+    z = np.stack([request_z(s, cfg.model.vae_dim) for s in (5, 6)])
+    reset_launch_counts()
+    got = gen.generate(im, act, z)
+    assert launch_counts() == {
+        "conv3x3_affine": 8, "up2_conv3_affine": 2, "pose_head": 1, "gaussian_render": 2,
+    }
+    with contextlib.ExitStack() as stack:
+        for target, fn in (
+            ("kpvid_tpu_torch.ops.chain.conv3x3_affine", ops.conv3x3_affine_plain),
+            ("kpvid_tpu_torch.ops.chain.up2_conv3_affine", ops.up2_conv3_affine_plain),
+            ("kpvid_tpu_torch.models.networks.pose_head", ops.heatmaps_to_keypoints),
+            ("kpvid_tpu_torch.eval.final.gaussian_render", ops.render_gaussian_maps),
+        ):
+            stack.enter_context(mock.patch(target, fn))
+        want = gen.generate(im, act, z)
+    torch.testing.assert_close(got["current_points"], want["current_points"], rtol=0, atol=1e-4)
+    fut = want["future_points"].float()
+    assert (got["future_points"].float() - fut).abs().max() <= 2.0**-8 * fut.abs().max()
+    for key in ("pred_im_seq", "pred_im_crude", "mask"):
+        _close(got[key], want[key], torch.bfloat16)

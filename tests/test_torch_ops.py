@@ -3,9 +3,11 @@
 Each kernel wrapper of the port takes its plain PyTorch version for a CPU
 tensor; these tests hold those plain versions against the JAX package's
 Pallas kernels run in interpret mode, and the plain ops against their jnp
-counterparts. Inputs come from numpy seeds; everything is float32.
+counterparts. Inputs come from numpy seeds; everything is float32 except
+the bfloat16 Gaussian-render checks.
 """
 
+import ml_dtypes
 import numpy as np
 import pytest
 import torch
@@ -119,6 +121,34 @@ def test_render_then_pose_head_round_trip_matches_pallas(rng):
     np.testing.assert_allclose(got.numpy(), mu, atol=0.02)
 
 
+@pytest.mark.parametrize("size", [8, 32, 33, 128])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_grid_matches_jax_linspace(size, dtype):
+    """The grid takes the values of jnp.linspace(-1, 1, size, dtype): exactly
+    in bfloat16, within 2.4e-7 in f32 (torch.linspace and jnp.linspace
+    round differently)."""
+    want = np.asarray(jnp.linspace(-1.0, 1.0, size, dtype=getattr(jnp, dtype)), np.float32)
+    got = ops.grid(size, torch.device("cpu"), getattr(torch, dtype))
+    assert got.dtype == torch.float32
+    atol = 0.0 if dtype == "bfloat16" else 2.0**-22
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=atol)
+
+
+def test_gaussian_render_bf16_matches_jax(rng):
+    """bfloat16 keypoints: JAX renders on a bf16 grid with a bf16 inv_std^2;
+    the port takes the same grid and c2 and computes in f32. The gap left is
+    JAX's bf16 arithmetic, under one bf16 step at the peak (2^-7 = 0.0078).
+    An f32 grid, as the port had before, misses by 0.07."""
+    mu = rng.uniform(-1, 1, (256, 40, 2)).astype(ml_dtypes.bfloat16)
+    want = np.asarray(jax_render_gaussian_maps(jnp.asarray(mu), 32, 32, 14.3), np.float32)
+    mu_t = torch.from_numpy(mu.astype(np.float32)).to(torch.bfloat16)
+    got = ops.gaussian_render(mu_t, 32, 32, 14.3, grid_dtype=torch.bfloat16)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert np.abs(got.numpy() - want).max() <= 0.008
+    f32_grid = ops.render_gaussian_maps(mu_t, 32, 32, 14.3).numpy()
+    assert np.abs(f32_grid - want).max() > 0.03
+
+
 def test_render_gaussian_maps_batch_dims(rng):
     mu = rng.uniform(-1, 1, (2, 3, 5, 2)).astype(np.float32)
     want = jax_render_gaussian_maps(jnp.asarray(mu), 8, 8)
@@ -143,6 +173,11 @@ def test_cpu_tensors_take_plain_versions_and_count_nothing(rng):
     )
     ops.pose_head(x)
     ops.gaussian_render(torch.zeros(1, 4, 2), 8, 8)
+    mu = torch.rand(2, 4, 2) * 2 - 1
+    torch.testing.assert_close(
+        ops.gaussian_render(mu, 8, 8, grid_dtype=torch.bfloat16),
+        ops.render_gaussian_maps(mu, 8, 8, grid_dtype=torch.bfloat16),
+    )
     assert ops.launch_counts() == {name: 0 for name in ops.KERNELS}
 
 
@@ -174,3 +209,25 @@ def test_build_needs_nvcc(monkeypatch, tmp_path):
     assert target.parent == tmp_path and target.suffix == ".so"
     with pytest.raises(RuntimeError, match="nvcc"):
         _build.build_all()
+
+
+def test_build_key_covers_headers(monkeypatch, tmp_path):
+    """An edited header, the source or the flags give another library name,
+    so the next use rebuilds; an unrelated file in csrc does not."""
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    (csrc / "k.cu").write_text('#include "k.cuh"\n')
+    (csrc / "k.cuh").write_text("// v1\n")
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    monkeypatch.setenv("KPVID_TORCH_BUILD_DIR", str(tmp_path / "build"))
+    first = _build._target("k.cu")
+    assert first == _build._target("k.cu")
+    (csrc / "notes.txt").write_text("not a source\n")
+    assert _build._target("k.cu") == first
+    (csrc / "k.cuh").write_text("// v2\n")
+    second = _build._target("k.cu")
+    assert second != first and second.parent == first.parent
+    (csrc / "k.cu").write_text('#include "k.cuh"\n// edited\n')
+    assert _build._target("k.cu") not in (first, second)
+    monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ("-lineinfo",))
+    assert _build._target("k.cu") not in (first, second)
