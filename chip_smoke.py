@@ -15,11 +15,16 @@ imports nothing of JAX or of the JAX package, and:
    with 4 requests (N = 4 * 32 frames): float32 with TF32 off (rtol 1e-4,
    atol 1e-4) and bfloat16 (max |kernel - plain| <= 2% of max |plain|: the
    kernel rounds once, the plain version rounds the conv output and then
-   the affine), and the Gaussian render on the bf16 grid the future maps
-   use. It times the kernel, the plain version and, for the conv, one
+   the affine); the soft-argmax from f32 and bf16 maps and the Gaussian
+   render into f32 and bf16 maps on both grids (bf16 maps within one bf16
+   step), at the slice's shapes and at batch 32's. Every kernel is timed two
+   ways: its device time (``device_ms``: launches captured in one CUDA
+   graph, the replays timed with CUDA events) and a host loop of launches
+   between two CUDA events (``time_ms``), which includes the host's launch
+   cost. The plain version is timed by the host loop; for the conv, one
    ``F.conv2d`` call in channels_last bfloat16 with the BN scale folded
-   into the weights (a yardstick the port never calls), with CUDA events,
-   and prints for every conv shape its TFLOP/s, its share of the bound and
+   into the weights (a yardstick the port never calls) by its device time.
+   It prints for every conv shape its TFLOP/s, its share of the bound and
    its ratio to ``F.conv2d``;
 3. serves 4 requests through ``InferenceEngine`` at ``Config()`` with random
    weights from a seed (BN statistics and biases randomized), checks the
@@ -28,7 +33,9 @@ imports nothing of JAX or of the JAX package, and:
    then runs the whole path in float32 through the kernels and through the
    plain versions on the card and compares them;
 4. times ``generate`` at batch 32 (1,024 frames, bfloat16), each of its
-   stages, and the same call through the plain versions.
+   stages both ways, and the same call through the plain versions; and
+   says whether the pose decoder's raw maps reach the soft-argmax
+   contiguous (else what the copy costs).
 
 It exits non-zero on any failed check, and without a CUDA device. The line
 before the last holds the kernels' JSON record, the last line the device.
@@ -51,6 +58,7 @@ PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}  # dense bf16 tensor cores; f3
 F32_TOL = dict(rtol=1e-4, atol=1e-4)
 BF16_REL_TOL = 0.02
 BATCH = 4
+BATCH_B32 = 32
 SLICE_TOL = 1e-3
 
 
@@ -91,6 +99,40 @@ def time_ms(fn, budget_s: float = 0.3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, reps: int = 10, budget_s: float = 0.3) -> float:
+    """Device time of one ``fn()``: ``reps`` calls captured in one CUDA
+    graph, the graph replayed back to back between two CUDA events, so the
+    host's launch cost is paid once a replay and hidden behind the device's
+    work. What is left of the host is the graph's gap between its kernels."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # warm-up outside the capture: builds, caches, attributes
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    graph.replay()
+    torch.cuda.synchronize()
+    n = int(min(max(budget_s / max(time.perf_counter() - t0, 1e-6), 3), 200))
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / (n * reps)
+    del graph
+    return ms
+
+
 def bound_ms(n_bytes: float, n_ops: float, dtype: str) -> tuple[float, str]:
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / PEAK_OPS[dtype] * 1e3
@@ -109,6 +151,19 @@ def compare(got, want, dtype) -> float:
     if not ok:
         raise CheckFailed(f"kernel disagrees with its plain version: max abs err {err}")
     return err
+
+
+def compare_one_bf16_step(got, want) -> float:
+    """bf16 outputs that round the same f32 value once: each within one bf16
+    step of the larger magnitude (2^-7 of it)."""
+    import torch
+
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    if not bool((err <= 2.0**-7 * torch.maximum(g.abs(), w.abs()) + 2.0**-126).all()):
+        raise CheckFailed(f"bf16 maps more than one bf16 step from plain: max abs err "
+                          f"{float(err.max())}")
+    return float(err.max())
 
 
 def kernel_phase(cfg) -> dict:
@@ -149,7 +204,7 @@ def kernel_phase(cfg) -> dict:
         ("conv3x3_affine", ops.conv3x3_affine, ops.conv3x3_affine_plain, conv_cases, False),
         ("up2_conv3_affine", ops.up2_conv3_affine, ops.up2_conv3_affine_plain, up2_cases, True),
     ):
-        rec = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, ops=0.0, bytes=0.0,
+        rec = dict(ms=0.0, host_loop_ms=0.0, plain_ms=0.0, bound_ms=0.0, ops=0.0, bytes=0.0,
                    library_ms=0.0 if not up2 else None, max_abs_err=0.0, max_abs_err_f32=0.0)
         for label, shape, cout, relu, mult in cases:
             for dtype in (torch.float32, torch.bfloat16):
@@ -162,27 +217,30 @@ def kernel_phase(cfg) -> dict:
                 print(f"{name} {label} {tuple(shape)}->{cout} {dtype}: max abs err {err:.3e}",
                       flush=True)
             # x, k, sc, sh are the bfloat16 inputs of the main path
-            t_k = time_ms(lambda: kernel(x, k, sc, sh, relu=relu))
+            t_k = device_ms(lambda: kernel(x, k, sc, sh, relu=relu))
+            t_h = time_ms(lambda: kernel(x, k, sc, sh, relu=relu))
             t_p = time_ms(lambda: plain(x, k, sc, sh, relu=relu))
             nb, h, w, c = shape
             oh, ow = (2 * h, 2 * w) if up2 else (h, w)
             n_ops = 2.0 * nb * oh * ow * cout * 9 * c
             n_bytes = 2.0 * (nb * h * w * c + 9 * c * cout + nb * oh * ow * cout) + 8 * cout
             b_ms, _ = bound_ms(n_bytes, n_ops, "bfloat16")
-            line = (f"{name} {label} bf16: kernel {t_k:.4f} ms ({n_ops / t_k / 1e9:.1f} TFLOP/s, "
-                    f"{100 * b_ms / t_k:.1f}% of the bound {b_ms:.4f} ms), plain {t_p:.4f} ms")
+            line = (f"{name} {label} bf16: device {t_k:.4f} ms ({n_ops / t_k / 1e9:.1f} TFLOP/s, "
+                    f"{100 * b_ms / t_k:.1f}% of the bound {b_ms:.4f} ms), host loop "
+                    f"{t_h:.4f} ms, plain {t_p:.4f} ms")
             if not up2:
                 xc = x.permute(0, 3, 1, 2)  # channels_last view
                 wc = (k.float() * sc).to(x.dtype).permute(3, 2, 0, 1).contiguous(
                     memory_format=torch.channels_last)
                 bias = sh.to(x.dtype)
-                t_l = time_ms(lambda: F.conv2d(xc, wc, bias, padding=1))
+                t_l = device_ms(lambda: F.conv2d(xc, wc, bias, padding=1))
                 rec["library_ms"] += mult * t_l
                 line += f", F.conv2d {t_l:.4f} ms, kernel / F.conv2d {t_k / t_l:.2f}"
             else:
                 line += ", F.conv2d n/a"
             print(line + f", x{mult} per generate", flush=True)
             rec["ms"] += mult * t_k
+            rec["host_loop_ms"] += mult * t_h
             rec["plain_ms"] += mult * t_p
             rec["ops"] += mult * n_ops
             rec["bytes"] += mult * n_bytes
@@ -193,51 +251,81 @@ def kernel_phase(cfg) -> dict:
               f"kernel / F.conv2d {ratio}", flush=True)
         records[name] = rec
 
-    # pose head: raw heatmaps of the 4 request images; the path computes them in
-    # the compute dtype and converts to f32, so the bf16 setting rounds first
+    # pose head: the raw heatmaps of the request images, which the path
+    # hands over in the compute dtype (bf16); f32 is checked too
     rec = dict(library_ms=None, max_abs_err=0.0, max_abs_err_f32=0.0)
-    for dtype in (torch.float32, torch.bfloat16):
-        raw = torch.randn((BATCH, s, s, k_pts), generator=gen, device="cuda").to(dtype).float()
-        got = ops.pose_head(raw)
-        torch.cuda.synchronize()
-        err = compare(got, ops.heatmaps_to_keypoints(raw), torch.float32)
-        rec["max_abs_err" if dtype == torch.bfloat16 else "max_abs_err_f32"] = err
-        print(f"pose_head {tuple(raw.shape)} from {dtype}: max abs err {err:.3e}", flush=True)
-    rec["ms"] = time_ms(lambda: ops.pose_head(raw))
-    rec["plain_ms"] = time_ms(lambda: ops.heatmaps_to_keypoints(raw))
-    n_bytes = 4.0 * (raw.numel() + BATCH * k_pts * 2)
-    n_ops = 2.0 * raw.numel() + 6.0 * BATCH * k_pts * 2 * s
-    rec["bound_ms"], rec["bound_by"] = bound_ms(n_bytes, n_ops, "float32")
+    for b in (BATCH, BATCH_B32):
+        for dtype in (torch.float32, torch.bfloat16):
+            raw = (3 * torch.randn((b, s, s, k_pts), generator=gen, device="cuda")).to(dtype)
+            got = ops.pose_head(raw)
+            torch.cuda.synchronize()
+            err = compare(got, ops.heatmaps_to_keypoints(raw), torch.float32)
+            key = "max_abs_err" if dtype == torch.bfloat16 else "max_abs_err_f32"
+            rec[key] = max(rec[key], err)
+            print(f"pose_head {tuple(raw.shape)} {dtype}: max abs err {err:.3e}", flush=True)
+        check(torch.equal(ops.pose_head(raw), ops.pose_head(raw)),
+              f"pose_head at batch {b} gives the same points twice")
+        # raw is the bf16 input of the main path
+        n_bytes = raw.numel() * raw.element_size() + 4.0 * b * k_pts * 2
+        n_ops = 2.0 * raw.numel() + 6.0 * b * k_pts * 2 * s
+        times = dict(ms=device_ms(lambda: ops.pose_head(raw), reps=100),
+                     host_loop_ms=time_ms(lambda: ops.pose_head(raw)),
+                     plain_ms=time_ms(lambda: ops.heatmaps_to_keypoints(raw)))
+        times["bound_ms"], times["bound_by"] = bound_ms(n_bytes, n_ops, "float32")
+        if b == BATCH:
+            rec.update(times)
+        else:
+            rec["b32"] = times
+        print(f"pose_head bf16 batch {b}: device {times['ms']:.4f} ms "
+              f"({100 * times['bound_ms'] / times['ms']:.1f}% of the bound "
+              f"{times['bound_ms']:.4f} ms), host loop {times['host_loop_ms']:.4f} ms, plain "
+              f"{times['plain_ms']:.4f} ms", flush=True)
     records["pose_head"] = rec
 
     # gaussian render: the current maps ([B, K, 2], f32 grid) and the future
-    # maps ([B*T, K, 2]), whose grid takes the compute dtype
-    rec = dict(ms=0.0, plain_ms=0.0, library_ms=None, max_abs_err=0.0, max_abs_err_f32=0.0)
-    tot_bytes = tot_ops = 0.0
-    for rows in (BATCH, n):
-        for dtype in (torch.float32, torch.bfloat16):
-            gd = dtype if rows == n else torch.float32
+    # maps ([B*T, K, 2]), whose grid takes the keypoints' dtype; the path
+    # writes both in the compute dtype (bf16); f32 maps are checked too
+    rec = dict(library_ms=None, max_abs_err=0.0, max_abs_err_f32=0.0)
+    t = m.n_future_frames
+    for b in (BATCH, BATCH_B32):
+        times = dict(ms=0.0, host_loop_ms=0.0, plain_ms=0.0)
+        tot_bytes = tot_ops = 0.0
+        for rows, gd in ((b, torch.float32), (b * t, torch.bfloat16)):
             mu = (torch.rand((rows, k_pts, 2), generator=gen, device="cuda") * 2 - 1)
-            mu = mu.to(dtype).float()
-            got = ops.gaussian_render(mu, hs, hs, m.heatmap_inv_std, grid_dtype=gd)
-            torch.cuda.synchronize()
-            want = ops.render_gaussian_maps(mu, hs, hs, m.heatmap_inv_std, grid_dtype=gd)
-            err = compare(got, want, torch.float32)
-            key = "max_abs_err" if dtype == torch.bfloat16 else "max_abs_err_f32"
-            rec[key] = max(rec[key], err)
-            print(f"gaussian_render {tuple(mu.shape)} from {dtype}, {gd} grid: max abs err "
-                  f"{err:.3e}", flush=True)
-        rec["ms"] += time_ms(
-            lambda: ops.gaussian_render(mu, hs, hs, m.heatmap_inv_std, grid_dtype=gd))
-        rec["plain_ms"] += time_ms(
-            lambda: ops.render_gaussian_maps(mu, hs, hs, m.heatmap_inv_std, grid_dtype=gd))
-        tot_bytes += 4.0 * (rows * k_pts * 2 + rows * hs * hs * k_pts)
-        tot_ops += rows * (hs * hs * k_pts + 8.0 * k_pts * 2 * hs)
-    rec["bound_ms"], rec["bound_by"] = bound_ms(tot_bytes, tot_ops, "float32")
+            mu = mu.to(gd).float()
+            for od in (torch.float32, torch.bfloat16):
+                got = ops.gaussian_render(mu, hs, hs, m.heatmap_inv_std, gd, od)
+                torch.cuda.synchronize()
+                want = ops.render_gaussian_maps(mu, hs, hs, m.heatmap_inv_std, gd, od)
+                if od == torch.float32:
+                    err = compare(got, want, torch.float32)
+                    rec["max_abs_err_f32"] = max(rec["max_abs_err_f32"], err)
+                else:
+                    err = compare_one_bf16_step(got, want)
+                    rec["max_abs_err"] = max(rec["max_abs_err"], err)
+                print(f"gaussian_render {tuple(mu.shape)} {gd} grid -> {od}: max abs err "
+                      f"{err:.3e}", flush=True)
+            # the main path's call: bf16 maps
+            args = (mu, hs, hs, m.heatmap_inv_std, gd, torch.bfloat16)
+            times["ms"] += device_ms(lambda: ops.gaussian_render(*args), reps=100)
+            times["host_loop_ms"] += time_ms(lambda: ops.gaussian_render(*args))
+            times["plain_ms"] += time_ms(lambda: ops.render_gaussian_maps(*args))
+            tot_bytes += 4.0 * rows * k_pts * 2 + 2.0 * rows * hs * hs * k_pts
+            tot_ops += rows * (hs * hs * k_pts + 8.0 * k_pts * 2 * hs)
+        times["bound_ms"], times["bound_by"] = bound_ms(tot_bytes, tot_ops, "float32")
+        if b == BATCH:
+            rec.update(times)
+        else:
+            rec["b32"] = times
+        print(f"gaussian_render bf16 per generate at batch {b}: device {times['ms']:.4f} ms "
+              f"({100 * times['bound_ms'] / times['ms']:.1f}% of the bound "
+              f"{times['bound_ms']:.4f} ms), host loop {times['host_loop_ms']:.4f} ms, plain "
+              f"{times['plain_ms']:.4f} ms", flush=True)
     records["gaussian_render"] = rec
     for name, r in records.items():
         lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
-        print(f"{name} per generate at batch {BATCH}: kernel {r['ms']:.4f} ms, plain "
+        print(f"{name} per generate at batch {BATCH}: device {r['ms']:.4f} ms, host loop "
+              f"{r['host_loop_ms']:.4f} ms, plain "
               f"{r['plain_ms']:.4f} ms, library {lib}, bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']})", flush=True)
     return records
@@ -405,8 +493,18 @@ def throughput_phase(cfg, params, card: str) -> float:
             "split first conv (+ gaussian_render)": lambda: gen._split_first_conv(images, mu, fut),
             "translator decode (conv kernels)": lambda: s1.translator(first, *heads),
         }
+        stages["the whole generate"] = lambda: gen.generate(images, act, z)
         for name, fn in stages.items():
-            print(f"stage at batch {b} bf16: {name} {time_ms(fn, 1.0):.3f} ms", flush=True)
+            print(f"stage at batch {b} bf16: {name}: device {device_ms(fn, 1, 1.0):.3f} ms, "
+                  f"host loop {time_ms(fn, 1.0):.3f} ms", flush=True)
+
+        # the raw maps reach pose_head in bf16; does .contiguous() copy them?
+        raw = s1.pose_encoder.raw_maps(images)
+        line = (f"raw maps at batch {b}: {raw.dtype} {tuple(raw.shape)}, contiguous "
+                f"{raw.is_contiguous()}")
+        if not raw.is_contiguous():
+            line += f", .contiguous() {device_ms(raw.contiguous, 10):.4f} ms"
+        print(line, flush=True)
 
     # the same call through the plain versions, for comparison only
     from kpvid_tpu_torch import ops
@@ -439,9 +537,9 @@ KERNEL_META = {
                        "kpvid_tpu/ops/pallas_conv.py:158"),
     "up2_conv3_affine": ("cuda", "kpvid_tpu_torch/csrc/conv3x3_mma.cuh",
                          "kpvid_tpu/ops/pallas_conv.py:434"),
-    "pose_head": ("triton", "kpvid_tpu_torch/ops/keypoint_kernels.py",
+    "pose_head": ("cuda", "kpvid_tpu_torch/csrc/keypoint.cu",
                   "kpvid_tpu/ops/pallas_kernels.py:92"),
-    "gaussian_render": ("triton", "kpvid_tpu_torch/ops/keypoint_kernels.py",
+    "gaussian_render": ("cuda", "kpvid_tpu_torch/csrc/keypoint.cu",
                         "kpvid_tpu/ops/pallas_kernels.py:146"),
 }
 
@@ -479,9 +577,12 @@ def main() -> int:
         kernels.append({
             "name": name, "route": route, "source": source, "replaces": replaces,
             "launches": counts[name], "max_abs_err": r["max_abs_err"],
-            "max_abs_err_f32": r["max_abs_err_f32"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "max_abs_err_f32": r["max_abs_err_f32"], "ms": r["ms"],
+            "host_loop_ms": r["host_loop_ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
         })
+        if "b32" in r:
+            kernels[-1]["batch32"] = r["b32"]
     print(json.dumps({"kernels": kernels, "batch": BATCH, "frames_per_s_b32_bf16": fps,
                       "card": card}))
     print(gpu_line(), flush=True)

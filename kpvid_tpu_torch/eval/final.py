@@ -131,13 +131,15 @@ class FinalGenerator:
         hs, dt = m.heatmap_size, self.dtype
         emb = self.stage1.embed(im)
         # JAX renders each map on the grid of its keypoints' dtype: f32 for
-        # the detected points, the compute dtype for the decoded ones
-        cur_map = gaussian_render(current_mu.float().contiguous(), hs, hs, m.heatmap_inv_std)
+        # the detected points, the compute dtype for the decoded ones; both
+        # are written once in the compute dtype
+        cur_map = gaussian_render(current_mu.float().contiguous(), hs, hs, m.heatmap_inv_std,
+                                  out_dtype=dt)
         fut_map = gaussian_render(
             future_mu_seq.reshape(b * t, self.n_pts, 2).float().contiguous(),
-            hs, hs, m.heatmap_inv_std, grid_dtype=future_mu_seq.dtype,
+            hs, hs, m.heatmap_inv_std, grid_dtype=future_mu_seq.dtype, out_dtype=dt,
         )
-        static = torch.cat([emb.to(dt), cur_map.to(dt)], dim=-1)
+        static = torch.cat([emb.to(dt), cur_map], dim=-1)
         conv = self.stage1.translator.oct0a.conv
         weight = conv.weight.to(dt)  # [F, 128 + 2K, 3, 3]
         n_static = static.shape[-1]
@@ -147,6 +149,6 @@ class FinalGenerator:
             return y.permute(0, 2, 3, 1)
 
         y_static = conv3(static, weight[:, :n_static]) + conv.bias.to(dt)  # [B, h, w, F]
-        y_dyn = conv3(fut_map.to(dt), weight[:, n_static:])  # [B*T, h, w, F]
+        y_dyn = conv3(fut_map, weight[:, n_static:])  # [B*T, h, w, F]
         y = y_dyn.reshape(b, t, *y_dyn.shape[1:]) + y_static[:, None]
         return y.reshape(b * t, *y_dyn.shape[1:])

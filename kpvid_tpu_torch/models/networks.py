@@ -96,8 +96,9 @@ class PoseEncoder(nn.Module):
         return self.heat(h)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """[B, H, W, 3] -> keypoints [B, K, 2] (x, y) in f32."""
-        return pose_head(self.raw_maps(x).float().contiguous())
+        """[B, H, W, 3] -> keypoints [B, K, 2] (x, y) in f32; the raw maps
+        go to the kernel in the compute dtype, which widens them in registers."""
+        return pose_head(self.raw_maps(x).contiguous())
 
 
 class Translator(nn.Module):

@@ -28,6 +28,7 @@ def grid(size: int, device, dtype: torch.dtype = torch.float32) -> torch.Tensor:
     return torch.cat([-(1 - step) + step, ends]).float()
 
 
+@functools.lru_cache(maxsize=None)
 def inv_std_squared(inv_std: float, dtype: torch.dtype = torch.float32) -> float:
     """``inv_std ** 2`` as JAX computes it in ``dtype``: ``inv_std`` rounded
     to dtype, squared, and the square rounded to dtype."""
@@ -55,14 +56,15 @@ def heatmaps_to_keypoints(raw_maps: torch.Tensor) -> torch.Tensor:
 
 def render_gaussian_maps(
     mu: torch.Tensor, height: int, width: int, inv_std: float = 14.3,
-    grid_dtype: torch.dtype = torch.float32,
+    grid_dtype: torch.dtype = torch.float32, out_dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
-    """Keypoints [..., K, 2] (x, y) -> maps [..., H, W, K] in f32:
+    """Keypoints [..., K, 2] (x, y) -> maps [..., H, W, K] in ``out_dtype``:
     exp(-((gy - mu_y)^2 + (gx - mu_x)^2) * inv_std^2), computed separably as
     exp(-(gy - mu_y)^2 c2) * exp(-(gx - mu_x)^2 c2).
 
     The grid and c2 = inv_std^2 take the values JAX gives them in
-    ``grid_dtype`` (the keypoints' dtype there); the arithmetic is f32."""
+    ``grid_dtype`` (the keypoints' dtype there); the arithmetic is f32, and
+    the product is rounded once to ``out_dtype``."""
     batch_shape = mu.shape[:-2]
     k = mu.shape[-2]
     mu2 = mu.float().reshape(-1, k, 2)
@@ -73,7 +75,7 @@ def render_gaussian_maps(
     ex = torch.exp(-torch.square(gx - mu2[..., 0:1]) * c2)  # [B, K, W]
     maps = ey[:, :, :, None] * ex[:, :, None, :]  # [B, K, H, W]
     maps = maps.permute(0, 2, 3, 1)
-    return maps.reshape(*batch_shape, height, width, k)
+    return maps.reshape(*batch_shape, height, width, k).to(out_dtype)
 
 
 def blend(background: torch.Tensor, crude: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:

@@ -1,159 +1,115 @@
-"""Triton kernels for the keypoint path: fused soft-argmax and Gaussian render.
+"""The keypoint path's kernels: fused soft-argmax and Gaussian render.
+
+Both are in ``csrc/keypoint.cu`` (CUDA C++ for sm_90a, built by ``_build``):
 
 - :func:`pose_head` replaces kpvid_tpu/ops/pallas_kernels.py::pose_head_pallas
-  (the ``pl.pallas_call`` at pallas_kernels.py:92): raw heatmaps
-  [B, H, W, K] -> keypoints [B, K, 2] (x, y), in one pass over the heatmap.
-  The TPU kernel carries the sum over H from one grid step to the next in
-  scratch memory; blocks on the card run in no order, so here one program
-  owns a (batch, K-block) pair and loops over H itself: it sums rows into
-  the W-marginal and keeps an online softmax (running max, sum and weighted
-  sum) of the H-marginal. Bound: the bytes of the heatmap, read once.
+  (the ``pl.pallas_call`` at pallas_kernels.py:92): raw heatmaps [B, H, W, K]
+  in f32 or bf16 -> keypoints [B, K, 2] (x, y) in f32, converting in
+  registers as the TPU kernel does. Bound: the heatmap's bytes, read once.
+  The TPU kernel carries the W-marginal across grid steps; here a cluster of
+  8 blocks takes one image, each block a band of rows, and the blocks
+  combine their partial sums through distributed shared memory: one launch,
+  no atomics, a fixed order of every sum.
 - :func:`gaussian_render` replaces pallas_kernels.py::gaussian_render_pallas
-  (pallas_kernels.py:146): keypoints [B, K, 2] -> maps [B, H, W, K] in f32,
-  written straight in NHWC. One program per (batch, row). It reads its grid
-  values from the same cached tables as the plain version (coords.grid), so
-  a bfloat16 ``grid_dtype`` rounds them exactly as JAX does. Bound: the
-  bytes of the maps, written once.
+  (pallas_kernels.py:146): keypoints [N, K, 2] f32 -> maps [N, H, W, K]
+  written once in ``out_dtype`` (the TPU kernel's ``dtype``), straight in
+  NHWC with 16-byte stores. Bound: the maps' bytes, written once. A block
+  takes a band of rows of one frame and computes the separable exponentials
+  once into shared memory. The grid and c2 are those of the plain version
+  (coords.grid and inv_std_squared), so a bf16 ``grid_dtype`` takes JAX's
+  values.
 
-K = 40 needs no padding: Triton masks the ragged channel block. The plain
-PyTorch versions are ops/coords.py::heatmaps_to_keypoints and
+The plain PyTorch versions are ops/coords.py::heatmaps_to_keypoints and
 ::render_gaussian_maps; each wrapper takes them for a tensor on the CPU and
 launches its kernel for a CUDA tensor or raises. ``launches`` on each
-wrapper counts its kernel launches. ``triton`` is imported at the first
-launch, never when this module is imported.
+wrapper counts its kernel launches.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
+from . import _build
 from .coords import grid, heatmaps_to_keypoints, inv_std_squared, render_gaussian_maps
 
-tl = None  # triton.language, bound at the first launch
-_jitted: dict = {}
+_SOURCE = "keypoint.cu"
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def _pose_head_kernel(raw_ptr, out_ptr, H, W, K, inv_h, inv_w, step_h, step_w,
-                      BH: "tl.constexpr", BW: "tl.constexpr", BK: "tl.constexpr"):
-    b = tl.program_id(0)
-    ks = tl.program_id(1) * BK + tl.arange(0, BK)
-    kmask = ks < K
-    ws = tl.arange(0, BW)
-    wmask = ws < W
-    base = raw_ptr + b.to(tl.int64) * H * W * K
-    sum_w = tl.zeros([BW, BK], dtype=tl.float32)
-    m_run = tl.full([BK], float("-inf"), tl.float32)
-    s_run = tl.zeros([BK], dtype=tl.float32)
-    t_run = tl.zeros([BK], dtype=tl.float32)
-    for h0 in range(0, H, BH):
-        hs = h0 + tl.arange(0, BH)
-        hmask = hs < H
-        ptrs = base + (hs[:, None, None] * W + ws[None, :, None]) * K + ks[None, None, :]
-        mask = hmask[:, None, None] & wmask[None, :, None] & kmask[None, None, :]
-        x = tl.load(ptrs, mask=mask, other=0.0)
-        sum_w += tl.sum(x, axis=0)
-        mh = tl.sum(x, axis=1) * inv_w  # [BH, BK] means over W
-        mh = tl.where(hmask[:, None], mh, float("-inf"))
-        m_new = tl.maximum(m_run, tl.max(mh, axis=0))
-        alpha = tl.exp(m_run - m_new)
-        e = tl.exp(mh - m_new[None, :])
-        gy = hs.to(tl.float32) * step_h - 1.0
-        s_run = s_run * alpha + tl.sum(e, axis=0)
-        t_run = t_run * alpha + tl.sum(e * gy[:, None], axis=0)
-        m_run = m_new
-    y = t_run / s_run
-    mw = tl.where(wmask[:, None], sum_w * inv_h, float("-inf"))  # [BW, BK] means over H
-    ew = tl.exp(mw - tl.max(mw, axis=0)[None, :])
-    gx = ws.to(tl.float32) * step_w - 1.0
-    x_out = tl.sum(ew * gx[:, None], axis=0) / tl.sum(ew, axis=0)
-    optr = out_ptr + (b.to(tl.int64) * K + ks) * 2
-    tl.store(optr, x_out, mask=kmask)
-    tl.store(optr + 1, y, mask=kmask)
+def _lib():
+    lib = _build.load(_SOURCE)
+    if not getattr(lib, "_kpvid_bound", False):
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.kpvid_pose_head.argtypes = [i, p, p, p, p, i, i, i, i, p]
+        lib.kpvid_pose_head.restype = i
+        lib.kpvid_gaussian_render.argtypes = [i, p, p, p, p, i, i, i, i, ctypes.c_float, p]
+        lib.kpvid_gaussian_render.restype = i
+        lib.kpvid_cuda_error_string.argtypes = [i]
+        lib.kpvid_cuda_error_string.restype = ctypes.c_char_p
+        lib._kpvid_bound = True
+    return lib
 
 
-def _render_kernel(mu_ptr, gy_ptr, gx_ptr, out_ptr, H, W, K, c2,
-                   BW: "tl.constexpr", BK: "tl.constexpr"):
-    n = tl.program_id(0).to(tl.int64)
-    h = tl.program_id(1)
-    ks = tl.arange(0, BK)
-    kmask = ks < K
-    mx = tl.load(mu_ptr + (n * K + ks) * 2, mask=kmask, other=0.0)
-    my = tl.load(mu_ptr + (n * K + ks) * 2 + 1, mask=kmask, other=0.0)
-    gy = tl.load(gy_ptr + h)
-    dy = gy - my
-    ey = tl.exp(-(dy * dy) * c2)  # [BK]
-    ws = tl.arange(0, BW)
-    wmask = ws < W
-    gx = tl.load(gx_ptr + ws, mask=wmask, other=0.0)
-    dx = gx[:, None] - mx[None, :]
-    ex = tl.exp(-(dx * dx) * c2)  # [BW, BK]
-    val = ey[None, :] * ex
-    optr = out_ptr + ((n * H + h) * W + ws[:, None]) * K + ks[None, :]
-    tl.store(optr, val, mask=wmask[:, None] & kmask[None, :])
-
-
-def _jit(fn):
-    global tl
-    if fn.__name__ not in _jitted:
-        import triton
-        import triton.language
-
-        tl = triton.language
-        _jitted[fn.__name__] = triton.jit(fn)
-    return _jitted[fn.__name__]
-
-
-def _step(size: int) -> float:
-    return 2.0 / (size - 1) if size > 1 else 0.0
-
-
-def _check_cuda(t: torch.Tensor, name: str, ndim: int):
+def _check_cuda(t: torch.Tensor, name: str, ndim: int, dtypes) -> None:
     if t.device.type != "cuda":
         raise ValueError(f"{name} kernel runs on a CUDA tensor, got {t.device}")
-    if t.dtype != torch.float32 or t.dim() != ndim or not t.is_contiguous():
+    if t.dtype not in dtypes or t.dim() != ndim or not t.is_contiguous():
         raise ValueError(
-            f"{name} kernel takes a contiguous float32 {ndim}-d tensor, "
-            f"got {t.dtype} {tuple(t.shape)}"
+            f"{name} kernel takes a contiguous {ndim}-d tensor of "
+            f"{', '.join(str(d) for d in dtypes)}, got {t.dtype} {tuple(t.shape)}"
+        )
+
+
+def _raise_on(err: int, lib, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(
+            f"{name} kernel launch failed: {lib.kpvid_cuda_error_string(err).decode()}"
         )
 
 
 def pose_head(raw_maps: torch.Tensor) -> torch.Tensor:
-    """Spatial soft-argmax, fused: [B, H, W, K] f32 -> [B, K, 2] (x, y)."""
+    """Spatial soft-argmax, fused: [B, H, W, K] f32 or bf16 -> [B, K, 2] f32 (x, y)."""
     if raw_maps.device.type == "cpu":
         return heatmaps_to_keypoints(raw_maps)
-    _check_cuda(raw_maps, "pose_head", 4)
+    _check_cuda(raw_maps, "pose_head", 4, _DTYPES)
     b, h, w, k = raw_maps.shape
     out = torch.empty((b, k, 2), dtype=torch.float32, device=raw_maps.device)
-    bw = max(16, 1 << (w - 1).bit_length())
-    bk = 8
-    bh = max(1, 8192 // (bw * bk))
-    kern = _jit(_pose_head_kernel)
-    kern[(b, -(-k // bk))](
-        raw_maps, out, h, w, k, 1.0 / h, 1.0 / w, _step(h), _step(w),
-        BH=bh, BW=bw, BK=bk, num_warps=8,
+    gx = grid(w, raw_maps.device)
+    gy = grid(h, raw_maps.device)
+    lib = _lib()
+    err = lib.kpvid_pose_head(
+        _DTYPES[raw_maps.dtype], raw_maps.data_ptr(), gx.data_ptr(), gy.data_ptr(),
+        out.data_ptr(), b, h, w, k, torch.cuda.current_stream(raw_maps.device).cuda_stream,
     )
+    _raise_on(err, lib, "pose_head")
     pose_head.launches += 1
     return out
 
 
 def gaussian_render(mu: torch.Tensor, height: int, width: int, inv_std: float = 14.3,
-                    grid_dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """Gaussian maps straight into NHWC: [B, K, 2] f32 -> [B, H, W, K] f32,
-    on the grid and inv_std^2 of ``grid_dtype`` (see render_gaussian_maps)."""
+                    grid_dtype: torch.dtype = torch.float32,
+                    out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Gaussian maps straight into NHWC: [B, K, 2] f32 -> [B, H, W, K] in
+    ``out_dtype`` (f32 or bf16), on the grid and inv_std^2 of ``grid_dtype``
+    (see render_gaussian_maps)."""
     if mu.device.type == "cpu":
-        return render_gaussian_maps(mu, height, width, inv_std, grid_dtype)
-    _check_cuda(mu, "gaussian_render", 3)
+        return render_gaussian_maps(mu, height, width, inv_std, grid_dtype, out_dtype)
+    _check_cuda(mu, "gaussian_render", 3, (torch.float32,))
+    if out_dtype not in _DTYPES:
+        raise ValueError(f"gaussian_render kernel writes float32 or bfloat16, got {out_dtype}")
     b, k, _ = mu.shape
-    out = torch.empty((b, height, width, k), dtype=torch.float32, device=mu.device)
+    out = torch.empty((b, height, width, k), dtype=out_dtype, device=mu.device)
     gy = grid(height, mu.device, grid_dtype)
     gx = grid(width, mu.device, grid_dtype)
-    bw = max(16, 1 << (width - 1).bit_length())
-    bk = max(16, 1 << (k - 1).bit_length())
-    kern = _jit(_render_kernel)
-    kern[(b, height)](
-        mu, gy, gx, out, height, width, k, inv_std_squared(inv_std, grid_dtype),
-        BW=bw, BK=bk, num_warps=4,
+    lib = _lib()
+    err = lib.kpvid_gaussian_render(
+        _DTYPES[out_dtype], mu.data_ptr(), gy.data_ptr(), gx.data_ptr(), out.data_ptr(),
+        b, height, width, k, inv_std_squared(inv_std, grid_dtype),
+        torch.cuda.current_stream(mu.device).cuda_stream,
     )
+    _raise_on(err, lib, "gaussian_render")
     gaussian_render.launches += 1
     return out
 

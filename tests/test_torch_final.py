@@ -165,6 +165,47 @@ def test_inference_engine_matches_jax(setup):
     np.testing.assert_allclose(one["future_points"], got["future_points"][1:2], rtol=0, atol=1e-6)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_generate_bit_identical_to_former_casts(dtype):
+    """The raw maps go to pose_head in the compute dtype and both Gaussian
+    maps are written in it (current maps on the f32 grid, future maps on the
+    keypoints' grid). On the CPU that gives the very bits of the former path:
+    pose_head on the raw maps widened to f32, the maps rendered in f32 and
+    cast with .to(dt) after."""
+    from unittest import mock
+
+    from kpvid_tpu_torch.ops import heatmaps_to_keypoints, render_gaussian_maps
+
+    def former_render(mu, h, w, inv_std=14.3, grid_dtype=torch.float32,
+                      out_dtype=torch.float32):
+        return render_gaussian_maps(mu, h, w, inv_std, grid_dtype).to(out_dtype)
+
+    tcfg = TConfig(model=TModelConfig(**SMOKE), training=TTrainingConfig(dtype)).validate()
+    gen = FinalGenerator(tcfg, device="cpu")
+    params = gen.init_parameters(0)
+    g = torch.Generator().manual_seed(3)
+    for key, val in params.items():
+        if key.endswith("running_var"):
+            val.uniform_(0.5, 2.0, generator=g)
+        elif key.endswith(".bn.weight"):
+            val.uniform_(0.5, 1.5, generator=g)
+        elif key.endswith(("running_mean", "bias")):
+            val.normal_(0.0, 0.1, generator=g)
+    gen.load_parameters(params)
+    rng = np.random.default_rng(13)
+    im = rng.uniform(-1, 1, (2, 32, 32, 3)).astype(np.float32)
+    act = np.eye(5, dtype=np.float32)[[0, 4]]
+    z = rng.standard_normal((2, 8)).astype(np.float32)
+    got = gen.generate(im, act, z)
+    with mock.patch("kpvid_tpu_torch.models.networks.pose_head",
+                    lambda raw: heatmaps_to_keypoints(raw.float().contiguous())), \
+            mock.patch("kpvid_tpu_torch.eval.final.gaussian_render", former_render):
+        want = gen.generate(im, act, z)
+    for key in ("current_points", "future_points", "pred_im_seq", "mask", "pred_im_crude"):
+        assert got[key].dtype == want[key].dtype, key
+        assert torch.equal(got[key], want[key]), key
+
+
 def test_quantization_matches_jax():
     x = np.linspace(-1.2, 1.2, 1001, dtype=np.float32)
     for rescale in (True, False):

@@ -8,7 +8,9 @@ neither JAX nor kpvid_tpu, so on a machine without JAX it runs with
 Tolerances: float32 with TF32 off agrees to reassociation (rtol 1e-4,
 atol 1e-4); bfloat16 outputs round once in the kernel and twice in the plain
 version (conv output, then the affine), so they are held to 2% of the
-output's largest magnitude.
+output's largest magnitude. The keypoints of the soft-argmax are f32 from f32
+or bf16 maps (rtol 1e-4, atol 1e-5); Gaussian maps written in bf16 round the
+same f32 product once on both sides, so they stay within one bf16 step.
 
 The conv shapes cover the main path at N = 2 (Config() widths), ragged
 spatial tiles, C not a multiple of the 32-channel chunk, Cout not a multiple
@@ -120,6 +122,54 @@ def test_keypoint_kernels_match_plain(dev):
     )
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "shape",
+    # the main path's [4, 128, 128, 40]; the smoke widths; H = 37, which the
+    # cluster's 8 bands do not divide; K = 5; W * K * 2 bytes not a multiple
+    # of 16 (the element-wise loader); H < 8 (blocks with no rows)
+    [(4, 128, 128, 40), (1, 32, 32, 8), (2, 37, 24, 40), (2, 32, 24, 5), (2, 20, 23, 5),
+     (3, 5, 16, 8)],
+)
+def test_pose_head_kernel_matches_plain(dev, dtype, shape):
+    g = torch.Generator().manual_seed(3)
+    raw = (torch.randn(*shape, generator=g) * 3).to(dev, dtype)
+    got = pose_head(raw)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == (shape[0], shape[3], 2)
+    torch.testing.assert_close(got, heatmaps_to_keypoints(raw), rtol=1e-4, atol=1e-5)
+
+
+def test_pose_head_same_points_twice(dev):
+    """One launch, no atomics: the order of every sum is fixed."""
+    g = torch.Generator().manual_seed(4)
+    raw = torch.randn(4, 128, 128, 40, generator=g).to(dev, torch.bfloat16)
+    assert torch.equal(pose_head(raw), pose_head(raw))
+
+
+def _within_one_bf16_step(got, want) -> bool:
+    g, w = got.float(), want.float()
+    return bool(((g - w).abs() <= 2.0**-7 * torch.maximum(g.abs(), w.abs()) + 2.0**-126).all())
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("grid_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,k", [(1, 40), (1024, 40), (1, 5), (1024, 5)])
+def test_gaussian_render_kernel_matches_plain(dev, out_dtype, grid_dtype, n, k):
+    """f32 maps at rtol 1e-4; bf16 maps within one bf16 step of the plain
+    version's f32 product rounded once. K = 5 takes the scalar stores."""
+    g = torch.Generator().manual_seed(5)
+    mu = (torch.rand(n, k, 2, generator=g) * 2 - 1).to(grid_dtype).float().to(dev)
+    got = gaussian_render(mu, 32, 32, 14.3, grid_dtype=grid_dtype, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    want = render_gaussian_maps(mu, 32, 32, 14.3, grid_dtype=grid_dtype, out_dtype=out_dtype)
+    assert got.dtype == out_dtype and got.shape == (n, 32, 32, k)
+    if out_dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+    else:
+        assert _within_one_bf16_step(got, want)
+
+
 def test_wrappers_count_launches_and_check_inputs(dev):
     reset_launch_counts()
     x, k, s, t = _conv_inputs(dev, torch.float32, 1, 8, 8, 16, 16)
@@ -134,6 +184,8 @@ def test_wrappers_count_launches_and_check_inputs(dev):
         conv3x3_affine(x.half(), k.half(), s, t)
     with pytest.raises(ValueError):
         pose_head(torch.zeros(1, 8, 8, 4, device=dev, dtype=torch.float64))
+    with pytest.raises(ValueError):
+        gaussian_render(torch.zeros(1, 4, 2, device=dev), 8, 8, out_dtype=torch.float64)
 
 
 def test_generate_on_card_matches_cpu(dev):

@@ -88,26 +88,48 @@ def test_upsample2x_and_up2_conv3_match(rng):
     )
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("shape", [(2, 32, 24, 8), (2, 16, 16, 8)])
-def test_pose_head_plain_matches_pallas(rng, shape):
+def test_pose_head_plain_matches_pallas(rng, shape, dtype):
+    """The raw maps in the compute dtype: both sides widen them to f32 first
+    (the TPU kernel in its body), so bf16 input keeps the f32 tolerance."""
     raw = rng.normal(size=shape).astype(np.float32)
+    if dtype == "bfloat16":
+        raw = raw.astype(ml_dtypes.bfloat16)
     want = pose_head_pallas(jnp.asarray(raw), interpret=True)
-    got = ops.pose_head(_t(raw))
-    assert got.shape == (shape[0], shape[3], 2)
+    got = ops.pose_head(_t(raw).to(getattr(torch, dtype)))
+    assert got.shape == (shape[0], shape[3], 2) and got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4, atol=1e-5)
     np.testing.assert_allclose(
-        got.numpy(), np.asarray(jax_heatmaps_to_keypoints(jnp.asarray(raw))),
+        got.numpy(), np.asarray(jax_heatmaps_to_keypoints(jnp.asarray(raw, jnp.float32))),
         rtol=1e-4, atol=1e-5,
     )
 
 
+def _within_one_bf16_step(got: torch.Tensor, want) -> bool:
+    """|got - want| is at most one bf16 step of the larger magnitude
+    (2^-7 of it), or below the smallest normal f32, 2^-126: XLA on the CPU
+    flushes subnormal results to zero, torch does not."""
+    g = got.float().numpy()
+    w = np.asarray(want, np.float32)
+    return bool(np.all(np.abs(g - w) <= 2.0**-7 * np.maximum(np.abs(g), np.abs(w)) + 2.0**-126))
+
+
+@pytest.mark.parametrize("out_dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("mu_shape,hw", [((3, 8, 2), (32, 16)), ((2, 8, 2), (8, 16))])
-def test_gaussian_render_plain_matches_pallas(rng, mu_shape, hw):
+def test_gaussian_render_plain_matches_pallas(rng, mu_shape, hw, out_dtype):
+    """f32 maps at rtol 1e-4; maps written in bf16 within one bf16 step (the
+    two grids differ in the last f32 bit, which can move a rounding)."""
     mu = rng.uniform(-1, 1, mu_shape).astype(np.float32)
-    want = gaussian_render_pallas(jnp.asarray(mu), *hw, interpret=True)
-    got = ops.gaussian_render(_t(mu), *hw)
+    want = gaussian_render_pallas(jnp.asarray(mu), *hw, dtype=getattr(jnp, out_dtype),
+                                  interpret=True)
+    got = ops.gaussian_render(_t(mu), *hw, out_dtype=getattr(torch, out_dtype))
     assert got.shape == (mu_shape[0], *hw, mu_shape[1])
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4, atol=1e-5)
+    assert got.dtype == getattr(torch, out_dtype)
+    if out_dtype == "float32":
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4, atol=1e-5)
+    else:
+        assert _within_one_bf16_step(got, want)
 
 
 def test_render_then_pose_head_round_trip_matches_pallas(rng):
