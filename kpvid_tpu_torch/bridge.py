@@ -67,15 +67,19 @@ def _convert(arr) -> torch.Tensor:
     return torch.from_numpy(np.array(a, copy=True, order="C"))
 
 
-def from_jax(stage1_vars: Mapping, stage2_params: Mapping) -> dict[str, torch.Tensor]:
+def from_jax(stage1_vars: Mapping | None = None,
+             stage2_params: Mapping | None = None) -> dict[str, torch.Tensor]:
     """stage1_vars: {'params': ..., 'batch_stats': ...} of Stage1Generator;
-    stage2_params: the MotionGenerator's ``params`` collection."""
+    stage2_params: the MotionGenerator's ``params`` collection. Either may be
+    left out (a stage-1 checkpoint alone feeds the labeler)."""
+    if stage1_vars is None and stage2_params is None:
+        raise ValueError("from_jax needs stage1_vars, stage2_params or both")
     out = {}
     for col in ("params", "batch_stats"):
-        for path, arr in _flatten(stage1_vars[col]):
+        for path, arr in _flatten((stage1_vars or {}).get(col, {})):
             if path[0] in STAGE1_MODULES:
                 out["stage1." + torch_name(path)] = _convert(arr)
-    for path, arr in _flatten(stage2_params):
+    for path, arr in _flatten(stage2_params or {}):
         if path[0] in STAGE2_DECODE_MODULES:
             out["stage2." + torch_name(path)] = _convert(arr)
     return out

@@ -1,3 +1,3 @@
-from .config import Config, ModelConfig, TrainingConfig, load_config
+from .config import Config, DataConfig, ModelConfig, PathsConfig, TrainingConfig, load_config
 
-__all__ = ["Config", "ModelConfig", "TrainingConfig", "load_config"]
+__all__ = ["Config", "DataConfig", "ModelConfig", "PathsConfig", "TrainingConfig", "load_config"]

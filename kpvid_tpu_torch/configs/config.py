@@ -1,10 +1,11 @@
 """The configuration fields the port reads, loadable from the same YAML files.
 
 Counterpart of kpvid_tpu/configs/config.py (ModelConfig, the
-``training.compute_dtype`` field and ``validate``'s shape checks). The YAML
+``training.compute_dtype`` field, ``paths.data_dir``, the ``data`` fields
+of serving and labeling, and ``validate``'s checks of them). The YAML
 schema is the JAX package's: ``model`` keys are checked strictly, the
-sections and ``training`` keys that the port does not read yet are accepted
-and left unread.
+sections and the ``paths``, ``training`` and ``data`` keys that the port
+does not read yet are accepted and left unread.
 """
 
 from __future__ import annotations
@@ -13,9 +14,25 @@ import dataclasses
 from pathlib import Path
 from typing import Any
 
-# top-level YAML sections of the full schema; only `model` and
-# `training.compute_dtype` are read here
+# top-level YAML sections of the full schema; `model` is read whole, the
+# other sections for the fields of the dataclasses below
 _SECTIONS = ("paths", "training", "model", "data", "parallel")
+
+
+@dataclasses.dataclass
+class PathsConfig:
+    data_dir: str = "./data/penn"
+
+
+@dataclasses.dataclass
+class DataConfig:
+    # the host C++ resize (kpvid_tpu_torch/native), byte-identical to PIL:
+    # 'auto' = use it when it builds and verifies; 'on' = require it;
+    # 'off' = PIL only
+    native_ops: str = "auto"
+    # frames per chunk streamed through the pose encoder by the labeler
+    labeler_chunk: int = 128
+    synthetic: bool = False
 
 
 @dataclasses.dataclass
@@ -43,8 +60,10 @@ class ModelConfig:
 
 @dataclasses.dataclass
 class Config:
+    paths: PathsConfig = dataclasses.field(default_factory=PathsConfig)
     training: TrainingConfig = dataclasses.field(default_factory=TrainingConfig)
     model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
+    data: DataConfig = dataclasses.field(default_factory=DataConfig)
 
     def validate(self) -> "Config":
         m, t = self.model, self.training
@@ -60,6 +79,12 @@ class Config:
                 f"image_size ({m.image_size}) must be a multiple of 8: the "
                 "encoder trunk has three stride-2 octaves"
             )
+        if self.data.native_ops not in ("auto", "on", "off"):
+            raise ValueError(
+                f"data.native_ops must be auto|on|off, got {self.data.native_ops!r}"
+            )
+        if self.data.labeler_chunk <= 0:
+            raise ValueError("data.labeler_chunk must be positive")
         if t.compute_dtype not in ("bfloat16", "float32"):
             raise ValueError(f"unknown compute_dtype {t.compute_dtype!r}")
         return self
@@ -76,6 +101,11 @@ def _model_config(raw: dict[str, Any]) -> ModelConfig:
     return ModelConfig(**kwargs)
 
 
+def _known(cls, raw: dict[str, Any]):
+    """The fields of ``cls`` that ``raw`` sets; its other keys are left unread."""
+    return cls(**{f.name: raw[f.name] for f in dataclasses.fields(cls) if f.name in raw})
+
+
 def load_config(path: str | Path) -> Config:
     """Load a YAML config of the kpvid_tpu schema."""
     import yaml  # only the loader needs it, not the generation path
@@ -85,11 +115,10 @@ def load_config(path: str | Path) -> Config:
     unknown = set(raw) - set(_SECTIONS)
     if unknown:
         raise ValueError(f"unknown config section(s) {sorted(unknown)}")
-    training = raw.get("training") or {}
     cfg = Config(
-        training=TrainingConfig(
-            compute_dtype=training.get("compute_dtype", TrainingConfig.compute_dtype)
-        ),
+        paths=_known(PathsConfig, raw.get("paths") or {}),
+        training=_known(TrainingConfig, raw.get("training") or {}),
         model=_model_config(raw.get("model") or {}),
+        data=_known(DataConfig, raw.get("data") or {}),
     )
     return cfg.validate()

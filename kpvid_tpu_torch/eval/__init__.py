@@ -1,4 +1,27 @@
 from .final import FinalGenerator
-from .server import InferenceEngine, device_quantize, request_z, to_uint8
+from .server import (
+    DEFAULT_BUCKETS,
+    InferenceEngine,
+    MicroBatcher,
+    device_quantize,
+    encode_gif,
+    encode_npz,
+    make_server,
+    preprocess_image,
+    request_z,
+    to_uint8,
+)
 
-__all__ = ["FinalGenerator", "InferenceEngine", "device_quantize", "request_z", "to_uint8"]
+__all__ = [
+    "DEFAULT_BUCKETS",
+    "FinalGenerator",
+    "InferenceEngine",
+    "MicroBatcher",
+    "device_quantize",
+    "encode_gif",
+    "encode_npz",
+    "make_server",
+    "preprocess_image",
+    "request_z",
+    "to_uint8",
+]

@@ -22,13 +22,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..configs import Config
-from ..device import resolve_device
+from ..device import resolve_device, to_device
 from ..models import BatchNorm, Conv, Dense, MotionGenerator, StackedLSTM, Stage1Generator
 from ..ops.keypoint_kernels import gaussian_render
-
-
-def _as_tensor(x, device, dtype=torch.float32) -> torch.Tensor:
-    return torch.as_tensor(np.asarray(x) if not torch.is_tensor(x) else x).to(device, dtype)
 
 
 class FinalGenerator:
@@ -100,9 +96,9 @@ class FinalGenerator:
         Returns im (the input on the device), pred_im_seq [B, T, H, W, 3],
         mask [B, T, H, W, 1], pred_im_crude, current_points [B, K, 2] and
         future_points [B, T, K, 2]."""
-        im = _as_tensor(im, self.device)
-        act = _as_tensor(action_code, self.device)
-        z = _as_tensor(z, self.device)
+        im = to_device(im, self.device, torch.float32)
+        act = to_device(action_code, self.device, torch.float32)
+        z = to_device(z, self.device, torch.float32)
         b = im.shape[0]
         current_mu = self.stage1.detect(im)
         first_pt = current_mu.reshape(b, 2 * self.n_pts)

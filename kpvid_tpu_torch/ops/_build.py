@@ -8,7 +8,10 @@ or ``$KPVID_TORCH_BUILD_DIR``) under a name that carries the hash of the
 source, of every header in ``csrc`` (``*.cuh``, ``*.h``) and of the flags,
 so an edited source or header is rebuilt at its next use.
 Nothing is built when a module is imported: the first kernel launch, or
-:func:`build_all`, builds.
+:func:`build_all`, builds. Both are safe to call from several threads at
+once (the serving daemon launches from its dispatcher thread): one lock
+covers the check and the build, and each compile writes to a temporary
+name that carries the process and the thread.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -30,6 +34,7 @@ NVCC_FLAGS = (
 
 _libs: dict[str, ctypes.CDLL] = {}
 build_log: dict[str, str] = {}
+_lock = threading.Lock()
 
 
 def build_dir() -> Path:
@@ -67,6 +72,11 @@ def build_all(sources=SOURCES) -> float:
     per source, all started together. Returns the seconds it took; the
     compiler's output (register and shared-memory use per kernel) lands
     in :data:`build_log`. Raises if any compile fails."""
+    with _lock:
+        return _build_all(sources)
+
+
+def _build_all(sources) -> float:
     t0 = time.perf_counter()
     build_dir().mkdir(parents=True, exist_ok=True)
     procs = []
@@ -74,7 +84,7 @@ def build_all(sources=SOURCES) -> float:
         target = _target(src)
         if target.exists():
             continue
-        tmp = target.with_suffix(f".{os.getpid()}.tmp")
+        tmp = target.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
         cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / src)]
         procs.append((src, target, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
@@ -93,11 +103,12 @@ def build_all(sources=SOURCES) -> float:
 
 def load(source: str) -> ctypes.CDLL:
     """The library built from ``csrc/<source>``, built first if needed."""
-    lib = _libs.get(source)
-    if lib is None:
-        target = _target(source)
-        if not target.exists():
-            build_all((source,))
-        lib = ctypes.CDLL(str(target))
-        _libs[source] = lib
-    return lib
+    with _lock:
+        lib = _libs.get(source)
+        if lib is None:
+            target = _target(source)
+            if not target.exists():
+                _build_all((source,))
+            lib = ctypes.CDLL(str(target))
+            _libs[source] = lib
+        return lib

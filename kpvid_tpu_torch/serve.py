@@ -1,0 +1,112 @@
+"""Serving daemon: micro-batched image + action -> video generation over HTTP.
+
+    python -m kpvid_tpu_torch.serve --config kpvid_tpu/configs/penn.yaml \
+        --checkpoint_stage1 stage1.npz --checkpoint_stage2 stage2.npz --port 8000
+
+Counterpart of the JAX package's ``serve.py``. The two parameter files are
+the port's ``.npz`` (``tools/export_torch_params.py`` writes them from JAX
+checkpoints); they are merged into the model by name, each of them required
+to match at least one tensor, as the JAX CLI merges its two checkpoints.
+The daemon runs on the card and raises without one (``--device cpu`` runs
+the plain versions on the CPU). Then:
+
+    curl -s localhost:8000/healthz
+    python - <<'EOF'
+    import base64, json, urllib.request
+    body = {"image": base64.b64encode(open("frame.png", "rb").read()).decode(),
+            "action": 2, "seed": 7, "format": "gif"}
+    r = urllib.request.urlopen(urllib.request.Request(
+        "http://localhost:8000/v1/generate", json.dumps(body).encode(),
+        {"Content-Type": "application/json"}))
+    open("pred.gif", "wb").write(r.read())
+    EOF
+
+The JAX CLI's ``--artifact`` and ``--mesh`` come with later slices.
+"""
+
+from __future__ import annotations
+
+import signal
+import threading
+from argparse import ArgumentParser
+
+
+def build_parser() -> ArgumentParser:
+    parser = ArgumentParser(description="kpvid_tpu_torch serving daemon")
+    parser.add_argument("--config", type=str, required=True)
+    parser.add_argument("--checkpoint_stage1", type=str, required=True,
+                        help="the port's stage-1 parameter file (.npz)")
+    parser.add_argument("--checkpoint_stage2", type=str, required=True,
+                        help="the port's stage-2 parameter file (.npz)")
+    parser.add_argument("--host", type=str, default="127.0.0.1")
+    parser.add_argument("--port", type=int, default=8000)
+    parser.add_argument("--buckets", type=int, nargs="+", default=None,
+                        help="micro-batch bucket sizes (default 1 2 4 8 16 32)")
+    parser.add_argument("--max_wait_ms", type=float, default=5.0,
+                        help="linger after the first queued request before "
+                             "dispatching a partial batch")
+    parser.add_argument("--max_queue", type=int, default=256,
+                        help="pending-request bound; beyond it requests get 503")
+    parser.add_argument("--no_warmup", action="store_true",
+                        help="skip building the kernels and running every bucket "
+                             "before binding the port")
+    parser.add_argument("--no_pipeline", action="store_true",
+                        help="wait for each batch's readback before launching the "
+                             "next; outputs are identical either way")
+    parser.add_argument("--verbose", action="store_true",
+                        help="log one line per HTTP request")
+    parser.add_argument("--device", type=str, default="cuda",
+                        help="'cuda' (default) or 'cpu' for the plain versions")
+    return parser
+
+
+def load_engine(args):
+    """The engine of the parsed arguments, with both parameter files merged."""
+    from .checkpoint import load_parameters, merge_parameters
+    from .configs import load_config
+    from .eval import InferenceEngine
+    from .eval.final import FinalGenerator
+    from .utils import logger
+
+    config = load_config(args.config)
+    target = FinalGenerator(config, device="cpu").model.state_dict()
+    params, n1 = merge_parameters(target, load_parameters(args.checkpoint_stage1))
+    params, n2 = merge_parameters(params, load_parameters(args.checkpoint_stage2))
+    logger.info("restored stage1=%d tensors from %s; stage2=%d from %s",
+                n1, args.checkpoint_stage1, n2, args.checkpoint_stage2)
+    return InferenceEngine(config, params, device=args.device)
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
+    from .device import resolve_device
+    from .eval import DEFAULT_BUCKETS, make_server
+    from .utils import logger, setup_console_logging
+
+    setup_console_logging()
+    resolve_device(args.device)  # no card: raise before reading anything
+    engine = load_engine(args)
+    buckets = tuple(args.buckets) if args.buckets else DEFAULT_BUCKETS
+    if not args.no_warmup:
+        logger.info("warming up %d buckets %s ...", len(buckets), list(buckets))
+    server, batcher = make_server(
+        engine, host=args.host, port=args.port, buckets=buckets,
+        max_wait_ms=args.max_wait_ms, max_queue=args.max_queue,
+        warmup=not args.no_warmup, quiet=not args.verbose,
+        pipeline=not args.no_pipeline,
+    )
+    logger.info("serving on http://%s:%d (POST /v1/generate)", *server.server_address[:2])
+
+    stop = threading.Event()
+    for sig in (signal.SIGINT, signal.SIGTERM):
+        signal.signal(sig, lambda *_: stop.set())
+    t = threading.Thread(target=server.serve_forever, daemon=True)
+    t.start()
+    stop.wait()
+    logger.info("shutting down")
+    server.shutdown()
+    batcher.stop()
+
+
+if __name__ == "__main__":
+    main()

@@ -26,8 +26,8 @@ import pytest
 import torch
 
 from kpvid_tpu_torch import ops
-from kpvid_tpu_torch.configs import load_config
-from kpvid_tpu_torch.eval import FinalGenerator, InferenceEngine, request_z
+from kpvid_tpu_torch.configs import Config, load_config
+from kpvid_tpu_torch.eval import FinalGenerator, InferenceEngine, MicroBatcher, request_z
 from kpvid_tpu_torch.ops import (
     conv3x3_affine,
     conv3x3_affine_plain,
@@ -252,3 +252,66 @@ def test_generate_bf16_on_card_matches_plain(dev):
     assert (got["future_points"].float() - fut).abs().max() <= 2.0**-8 * fut.abs().max()
     for key in ("pred_im_seq", "pred_im_crude", "mask"):
         _close(got[key], want[key], torch.bfloat16)
+
+
+def _randomized(gen, seed):
+    params = gen.init_parameters(seed)
+    g = torch.Generator().manual_seed(seed + 1)
+    for key, val in params.items():
+        if key.endswith("running_var"):
+            val.uniform_(0.5, 2.0, generator=g)
+        elif key.endswith(".bn.weight"):
+            val.uniform_(0.5, 1.5, generator=g)
+        elif key.endswith(("running_mean", "bias")):
+            val.normal_(0.0, 0.1, generator=g)
+    return params
+
+
+def test_microbatcher_pipeline_bit_identical_on_card(dev):
+    """The smoke config in bfloat16 behind a MicroBatcher on the card: the
+    depth-1 pipeline (readback on a second stream while the next batch
+    launches) gives the same bits as waiting for each batch."""
+    cfg = load_config("kpvid_tpu_torch/configs/smoke.yaml")
+    cfg.training.compute_dtype = "bfloat16"
+    engine = InferenceEngine(cfg, _randomized(FinalGenerator(cfg, device="cpu"), 2), device="cuda")
+    rng = np.random.default_rng(2)
+    n = 12
+    images = rng.uniform(-1, 1, (n, 32, 32, 3)).astype(np.float32)
+    zs = [request_z(200 + i, cfg.model.vae_dim) for i in range(n)]
+    results = {}
+    for pipelined in (False, True):
+        batcher = MicroBatcher(engine, buckets=(2, 4), max_wait_ms=0.0, pipeline=pipelined)
+        try:
+            batcher.warmup()
+            futs = [batcher.submit(images[i], i % cfg.model.n_action, zs[i]) for i in range(n)]
+            results[pipelined] = [f.result(timeout=120) for f in futs]
+        finally:
+            batcher.stop()
+        assert batcher.stats()["batches_total"] >= 3
+    for a, b in zip(results[False], results[True]):
+        for key in engine.OUTPUT_KEYS:
+            np.testing.assert_array_equal(a[key], b[key])
+
+
+def test_labeling_chunk_matches_plain_soft_argmax(dev, tmp_path):
+    """One 128-frame labeling chunk at Config() widths, bf16, on the card:
+    the labeler's keypoints are the pose_head kernel's on the chunk's raw
+    maps, within 1e-5 of the plain soft-argmax on the same maps."""
+    from kpvid_tpu_torch.checkpoint import save_parameters
+    from kpvid_tpu_torch.device import to_device
+    from kpvid_tpu_torch.make_pseudo_labels import detect_u8, load_pose_encoder
+
+    cfg = Config().validate()
+    save_parameters(tmp_path / "s1.npz", _randomized(FinalGenerator(cfg, device="cpu"), 3))
+    enc, n = load_pose_encoder(cfg, str(tmp_path / "s1.npz"), dev)
+    assert n == len(enc.state_dict())
+    rng = np.random.default_rng(3)
+    slab = to_device(rng.integers(0, 256, (128, 128, 128, 3), dtype=np.uint8), dev)
+    with torch.no_grad():
+        reset_launch_counts()
+        got = detect_u8(enc, slab)
+        assert launch_counts()["pose_head"] == 1
+        raw = enc.raw_maps(slab.float() / 255.0 * 2.0 - 1.0)
+    assert raw.dtype == torch.bfloat16 and raw.shape == (128, 128, 128, 40)
+    assert torch.equal(got, pose_head(raw.contiguous()))
+    assert float((got - heatmaps_to_keypoints(raw)).abs().max()) <= 1e-5

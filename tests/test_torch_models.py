@@ -222,3 +222,29 @@ def test_config_copy_matches_jax():
         TConfig(model=TModelConfig(image_size=64)).validate()
     with pytest.raises(ValueError, match="compute_dtype"):
         TConfig(training=TTrainingConfig("float16")).validate()
+
+
+def test_config_paths_and_data_match_jax(tmp_path):
+    """paths.data_dir and data.{native_ops, labeler_chunk, synthetic}: the JAX
+    defaults, the same values from the same files, the same refusal of a bad
+    native_ops; keys the port does not read are accepted."""
+    from kpvid_tpu.configs.config import Config as JaxConfig
+    from kpvid_tpu_torch.configs import DataConfig, PathsConfig
+
+    for path in ("kpvid_tpu/configs/smoke.yaml", "kpvid_tpu/configs/penn.yaml"):
+        jcfg, cfg = jax_load_config(path), load_config(path)
+        assert cfg.paths.data_dir == jcfg.paths.data_dir
+        for f in DataConfig.__dataclass_fields__:
+            assert getattr(cfg.data, f) == getattr(jcfg.data, f), f
+    assert PathsConfig().data_dir == JaxConfig().paths.data_dir
+    for f in DataConfig.__dataclass_fields__:
+        assert getattr(DataConfig(), f) == getattr(JaxConfig().data, f), f
+    bad = tmp_path / "bad.yaml"
+    bad.write_text("data: {native_ops: maybe, num_workers: 3}\npaths: {log_dir: x}\n")
+    with pytest.raises(ValueError) as jerr:
+        jax_load_config(bad)
+    with pytest.raises(ValueError) as err:
+        load_config(bad)
+    assert str(err.value) == str(jerr.value) == "data.native_ops must be auto|on|off, got 'maybe'"
+    bad.write_text("data: {native_ops: 'on', labeler_chunk: 64, decode_cache_mb: 8}\n")
+    assert load_config(bad).data == DataConfig(native_ops="on", labeler_chunk=64)

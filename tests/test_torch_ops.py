@@ -253,3 +253,64 @@ def test_build_key_covers_headers(monkeypatch, tmp_path):
     assert _build._target("k.cu") not in (first, second)
     monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ("-lineinfo",))
     assert _build._target("k.cu") not in (first, second)
+
+
+def test_build_and_load_are_safe_under_threads(monkeypatch, tmp_path):
+    """Many threads loading both libraries at once, with nvcc stubbed: each
+    source is compiled once, every thread gets the one loaded library, and
+    each compile writes to a temporary name that carries the process and
+    the thread before it is renamed into place."""
+    import os
+    import sys
+    import threading
+    import time
+
+    monkeypatch.setenv("KPVID_TORCH_BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(_build, "nvcc", lambda: "nvcc")
+    monkeypatch.setattr(_build, "_libs", {})
+    compiles = []
+
+    class FakeNvcc:
+        returncode = 0
+
+        def __init__(self, cmd, **kwargs):
+            self.out = cmd[cmd.index("-o") + 1]
+            compiles.append((cmd[-1], self.out, threading.get_ident()))
+
+        def communicate(self):
+            time.sleep(0.01)
+            _build.Path(self.out).write_bytes(b"\x7fELF")
+            return "ptxas info: stub", None
+
+    monkeypatch.setattr(_build.subprocess, "Popen", FakeNvcc)
+    monkeypatch.setattr(_build.ctypes, "CDLL", lambda path: ("lib", path))
+    got, errors = [], []
+
+    def worker(i):
+        try:
+            src = _build.SOURCES[i % 2]
+            assert _build._target(src).parent == tmp_path
+            got.append((src, _build.load(src)))
+        except Exception as e:  # noqa: BLE001 - collected and asserted below
+            errors.append(e)
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=worker, args=(i,)) for i in range(32)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=30)
+    finally:
+        sys.setswitchinterval(old)
+    assert not any(t.is_alive() for t in threads) and not errors
+    assert sorted(src.rsplit("/", 1)[-1] for src, _, _ in compiles) == sorted(_build.SOURCES)
+    for _, tmp, ident in compiles:
+        assert tmp.endswith(f".{os.getpid()}.{ident}.tmp")
+    assert len(got) == 32
+    for src in _build.SOURCES:
+        libs = {lib for s, lib in got if s == src}
+        assert libs == {("lib", str(_build._target(src)))}
+    assert sorted(p.suffix for p in tmp_path.iterdir()) == [".so", ".so"]
+    assert _build.build_all() >= 0.0 and len(compiles) == 2  # cached: nothing to compile
