@@ -60,11 +60,35 @@ imports nothing of JAX or of the JAX package, and:
    in [-1, 1] per video, one ``pose_head`` launch per chunk and nothing
    else, and on the first 128-frame chunk that the kernel agrees with the
    plain soft-argmax on the same raw maps within 1e-5 and that the labels
-   are the kernel's points; it prints frames/s and the host decode's share.
+   are the kernel's points; it prints frames/s and the host decode's share;
+7. train: stage 2 at ``Config()`` in bf16, batch 16, on phase 6's tree and
+   the labels the port's own labeler wrote: ``python -m
+   kpvid_tpu_torch.train``'s ``main`` for 40 steps (a checkpoint at step 20,
+   one test sweep, one summary-image write), then 3 steps each of
+   'fused_dg' and 'two_batch'. It checks that every loss is finite, every
+   parameter moved and no kernel was launched (stage 2 has none); resumes a
+   second run from the step-20 checkpoint to step 40 and checks that it ends
+   with the same bits (parameters and Adam state); runs one fused step in
+   f32 at ``Config()`` width on the card and on the CPU from the same
+   parameters, batch and noise and holds the losses (rtol 1e-4) and every
+   gradient (max |card - CPU| <= 1e-3 of the tensor's max |CPU|) against
+   each other; and prints the step time (host clock, synchronised, median
+   of 10 after warm-up), examples/s, and one step's device time and kernel
+   count from ``torch.profiler``;
+8. evaluate: ``python -m kpvid_tpu_torch.evaluate``'s ``main`` on the tree's
+   8 test videos at eval batch 8, with phase 6's stage-1 parameter file and
+   phase 7's ``ckpt-40`` directory. It checks the PNG tree (2 PNGs and 5
+   directories of 32 PNGs per sample), 8 / 2 / 1 / 4 launches per batch (the
+   render twice more, for the point images at 128^2), the render at those
+   shapes against its plain version (f32 grid into f32 maps, bf16 grid into
+   bf16 and f32 maps) and its times, and that a second run with the same
+   seed writes the same bytes; it prints samples/s with generate and PNG
+   writing timed apart.
 
 It exits non-zero on any failed check, and without a CUDA device. The line
 before the last holds the kernels' JSON record (launches per generate, per
-served batch and per labeled chunk), the last line the device.
+served batch, per labeled chunk and per evaluate batch), the last line the
+device.
 """
 
 from __future__ import annotations
@@ -247,15 +271,15 @@ def check_pose_head(gen, m, b: int) -> tuple[dict, object]:
     return errs, raw
 
 
-def check_render(gen, m, rows: int, gd) -> tuple[dict, object]:
-    """#4 from [rows, K, 2] points on the ``gd`` grid, into f32 and bf16 maps,
-    against the plain render; returns the errors by output dtype and the
-    points."""
+def check_render(gen, m, rows: int, gd, hs: int | None = None) -> tuple[dict, object]:
+    """#4 from [rows, K, 2] points on the ``gd`` grid, into f32 and bf16
+    [rows, hs, hs, K] maps (hs: the heatmap size unless given), against the
+    plain render; returns the errors by output dtype and the points."""
     import torch
 
     from kpvid_tpu_torch import ops
 
-    hs = m.heatmap_size
+    hs = hs or m.heatmap_size
     mu = (torch.rand((rows, m.n_pts, 2), generator=gen, device="cuda") * 2 - 1).to(gd).float()
     errs = {}
     for od in (torch.float32, torch.bfloat16):
@@ -989,8 +1013,10 @@ def serve_phase(cfg, params, card: str) -> dict:
     return report
 
 
-def label_phase(cfg, params, card: str) -> dict:
-    """The labeler on a synthetic tree at 128-frame chunks, bf16."""
+def label_phase(cfg, params, card: str, root: Path) -> dict:
+    """The labeler on a synthetic tree at 128-frame chunks, bf16. Leaves the
+    tree (``root/penn``, its labels) and the stage-1 parameter file
+    (``root/stage1.npz``) for phases 7 and 8."""
     import torch
 
     from kpvid_tpu_torch import make_pseudo_labels, ops
@@ -1005,65 +1031,63 @@ def label_phase(cfg, params, card: str) -> dict:
 
     m = cfg.model
     chunk = 128
-    with tempfile.TemporaryDirectory(prefix="kpvid_label_") as tmp:
-        root = Path(tmp)
-        t0 = time.perf_counter()
-        make_synthetic_penn_tree(root / "penn", n_train=24, n_test=8)
-        tree_s = time.perf_counter() - t0
-        ckpt = save_parameters(root / "stage1.npz",
-                               {k: v for k, v in params.items() if k.startswith("stage1.")})
-        (root / "cfg.yaml").write_text(json.dumps({  # JSON is YAML
-            "paths": {"data_dir": str(root / "penn")},
-            "training": {"compute_dtype": cfg.training.compute_dtype},
-            "model": dataclasses.asdict(m),
-            "data": {"labeler_chunk": chunk},
-        }))
-        ops.reset_launch_counts()
-        stats = make_pseudo_labels.main(["--config", str(root / "cfg.yaml"),
-                                         "--checkpoint", str(ckpt), "--device", "cuda"])
-        counts = ops.launch_counts()
-        n_frames = stats["frames"]
-        check(stats["videos"] == 32 and stats["chunks"] == -(-n_frames // chunk),
-              f"labeled 32 videos, {n_frames} frames, in {stats['chunks']} chunks of {chunk}")
-        check(counts == {"conv3x3_affine": 0, "up2_conv3_affine": 0,
-                         "pose_head": stats["chunks"], "gaussian_render": 0},
-              f"launches {counts}: one pose_head per chunk, nothing else")
-        labels = {}
-        for subset in ("train", "test"):
-            for rel, _ in read_split(str(root / "penn"), subset):
-                vid = int(rel.split("/")[-1])
-                n = len(list((root / "penn" / rel).iterdir()))
-                arr = np.load(root / "penn" / "pseudo_labels" / f"{vid:04d}.npy")
-                if not (arr.shape == (n, m.n_pts, 2) and arr.dtype == np.float32
-                        and np.isfinite(arr).all() and np.abs(arr).max() <= 1.0):
-                    raise CheckFailed(f"labels of video {vid}: {arr.shape} {arr.dtype}")
-                labels[vid] = arr
-        check(len(labels) == 32, "one finite [n, 40, 2] label file in [-1, 1] per video")
+    t0 = time.perf_counter()
+    make_synthetic_penn_tree(root / "penn", n_train=24, n_test=8)
+    tree_s = time.perf_counter() - t0
+    ckpt = save_parameters(root / "stage1.npz",
+                           {k: v for k, v in params.items() if k.startswith("stage1.")})
+    (root / "cfg.yaml").write_text(json.dumps({  # JSON is YAML
+        "paths": {"data_dir": str(root / "penn")},
+        "training": {"compute_dtype": cfg.training.compute_dtype},
+        "model": dataclasses.asdict(m),
+        "data": {"labeler_chunk": chunk},
+    }))
+    ops.reset_launch_counts()
+    stats = make_pseudo_labels.main(["--config", str(root / "cfg.yaml"),
+                                     "--checkpoint", str(ckpt), "--device", "cuda"])
+    counts = ops.launch_counts()
+    n_frames = stats["frames"]
+    check(stats["videos"] == 32 and stats["chunks"] == -(-n_frames // chunk),
+          f"labeled 32 videos, {n_frames} frames, in {stats['chunks']} chunks of {chunk}")
+    check(counts == {"conv3x3_affine": 0, "up2_conv3_affine": 0,
+                     "pose_head": stats["chunks"], "gaussian_render": 0},
+          f"launches {counts}: one pose_head per chunk, nothing else")
+    labels = {}
+    for subset in ("train", "test"):
+        for rel, _ in read_split(str(root / "penn"), subset):
+            vid = int(rel.split("/")[-1])
+            n = len(list((root / "penn" / rel).iterdir()))
+            arr = np.load(root / "penn" / "pseudo_labels" / f"{vid:04d}.npy")
+            if not (arr.shape == (n, m.n_pts, 2) and arr.dtype == np.float32
+                    and np.isfinite(arr).all() and np.abs(arr).max() <= 1.0):
+                raise CheckFailed(f"labels of video {vid}: {arr.shape} {arr.dtype}")
+            labels[vid] = arr
+    check(len(labels) == 32, "one finite [n, 40, 2] label file in [-1, 1] per video")
 
-        # the first chunk again: raw maps, the kernel and the plain soft-argmax
-        enc, _ = make_pseudo_labels.load_pose_encoder(cfg, str(ckpt), torch.device("cuda"))
-        ds = VideoFramesDataset(str(root / "penn"), "train", m.image_size, as_uint8=True)
-        slab, segs = next(pack_chunks(ds.iter_videos(), chunk))
-        with torch.no_grad():
-            x = to_device(slab, torch.device("cuda")).float() / 255.0 * 2.0 - 1.0
-            raw = enc.raw_maps(x).contiguous()
-            got = ops.pose_head(raw)
-            want = ops.heatmaps_to_keypoints(raw)
-        torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        check(err <= 1e-5, f"pose_head on a {tuple(raw.shape)} {raw.dtype} chunk within 1e-5 "
-                           f"of the plain soft-argmax: max abs err {err:.3e}")
-        pts = got.cpu().numpy()
-        label_err = max(float(np.abs(labels[vid][v_off:v_off + c] - pts[s_off:s_off + c]).max())
-                        for vid, _, v_off, s_off, c in segs)
-        check(label_err <= 1e-5, f"the labels of the first chunk are the kernel's points: max "
-                                 f"abs diff {label_err:.3e}")
-        n_bytes = raw.numel() * raw.element_size() + 4.0 * chunk * m.n_pts * 2
-        n_ops = 2.0 * raw.numel() + 6.0 * chunk * m.n_pts * 2 * m.image_size
-        kern = dict(ms=device_ms(lambda: ops.pose_head(raw), reps=20),
-                    host_loop_ms=time_ms(lambda: ops.pose_head(raw)),
-                    plain_ms=time_ms(lambda: ops.heatmaps_to_keypoints(raw)), max_abs_err=err)
-        kern["bound_ms"], kern["bound_by"] = bound_ms(n_bytes, n_ops, "float32")
+    # the first chunk again: raw maps, the kernel and the plain soft-argmax
+    enc, _ = make_pseudo_labels.load_pose_encoder(cfg, str(ckpt), torch.device("cuda"))
+    ds = VideoFramesDataset(str(root / "penn"), "train", m.image_size, as_uint8=True)
+    slab, segs = next(pack_chunks(ds.iter_videos(), chunk))
+    with torch.no_grad():
+        x = to_device(slab, torch.device("cuda")).float() / 255.0 * 2.0 - 1.0
+        raw = enc.raw_maps(x).contiguous()
+        got = ops.pose_head(raw)
+        want = ops.heatmaps_to_keypoints(raw)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    check(err <= 1e-5, f"pose_head on a {tuple(raw.shape)} {raw.dtype} chunk within 1e-5 "
+                       f"of the plain soft-argmax: max abs err {err:.3e}")
+    pts = got.cpu().numpy()
+    label_err = max(float(np.abs(labels[vid][v_off:v_off + c] - pts[s_off:s_off + c]).max())
+                    for vid, _, v_off, s_off, c in segs)
+    check(label_err <= 1e-5, f"the labels of the first chunk are the kernel's points: max "
+                             f"abs diff {label_err:.3e}")
+    n_bytes = raw.numel() * raw.element_size() + 4.0 * chunk * m.n_pts * 2
+    n_ops = 2.0 * raw.numel() + 6.0 * chunk * m.n_pts * 2 * m.image_size
+    kern = dict(ms=device_ms(lambda: ops.pose_head(raw), reps=20),
+                host_loop_ms=time_ms(lambda: ops.pose_head(raw)),
+                plain_ms=time_ms(lambda: ops.heatmaps_to_keypoints(raw)), max_abs_err=err)
+    kern["bound_ms"], kern["bound_by"] = bound_ms(n_bytes, n_ops, "float32")
     fps = n_frames / stats["seconds"]
     print(f"label on {card}: {n_frames} frames of 32 videos in {stats['seconds']:.3f} s, "
           f"{fps:.1f} frames/s; decode thread busy {stats['decode_seconds']:.3f} s "
@@ -1079,6 +1103,241 @@ def label_phase(cfg, params, card: str) -> dict:
                 seconds=stats["seconds"], frames_per_s=fps,
                 decode_seconds=stats["decode_seconds"], wait_seconds=stats["wait_seconds"],
                 launches=counts, pose_head_chunk=kern)
+
+
+TRAIN_BATCH = 16
+TRAIN_STEPS = 40
+TRAIN_CKPT = 20
+# the card's f32 step against the CPU's (TF32 off on both): losses within
+# rtol 1e-4; each gradient tensor within 1e-3 of its own max |CPU| (sums in
+# another order on each side; the encoder's gradients are ill-conditioned
+# where the KL term's 1/sigma is large, see tests/test_torch_gpu.py)
+STEP_LOSS_RTOL = 1e-4
+STEP_GRAD_REL = 1e-3
+EVAL_LAUNCHES = {"conv3x3_affine": 8, "up2_conv3_affine": 2, "pose_head": 1,
+                 "gaussian_render": 4}
+
+
+def train_config(cfg, root: Path, name: str, log: str, **training) -> Path:
+    """A YAML (JSON is YAML) of ``cfg``'s model for the trainer on phase 6's
+    tree, batch 16, a checkpoint every 20 steps, one summary and one test
+    sweep (at step 0)."""
+    path = root / f"{name}.yaml"
+    path.write_text(json.dumps({
+        "paths": {"data_dir": str(root / "penn"), "log_dir": str(root / log)},
+        "training": {"compute_dtype": cfg.training.compute_dtype, "batch_size": TRAIN_BATCH,
+                     "checkpoint_interval": TRAIN_CKPT, "summary_interval": 1000,
+                     "test_interval": 1000, "log_interval": 10, **training},
+        "model": dataclasses.asdict(cfg.model),
+    }))
+    return path
+
+
+def moved_and_finite(run: dict, what: str) -> None:
+    """Every loss of a trainer run's last step is finite and every parameter
+    tensor differs from its initial value."""
+    import torch
+
+    trainer = run["trainer"]
+    init = trainer.init_parameters(trainer.config.training.seed)
+    still = [k for k, v in trainer.model.state_dict().items()
+             if torch.equal(v.detach().cpu(), init[k])]
+    check(all(np.isfinite(v) for v in run["metrics"].values()) and not still,
+          f"{what}: every loss finite ("
+          + ", ".join(f"{k} {v:.4g}" for k, v in run["metrics"].items())
+          + f"), all {len(init)} parameter tensors moved")
+
+
+def train_phase(cfg, card: str, root: Path) -> dict:
+    """Stage 2 at Config() in bf16 on phase 6's tree and labels."""
+    import torch
+    from torch.profiler import DeviceType, ProfilerActivity, profile
+
+    from kpvid_tpu_torch import ops
+    from kpvid_tpu_torch.checkpoint import list_checkpoint_steps, load_checkpoint
+    from kpvid_tpu_torch.data import HostDataPipeline, SequenceDataset
+    from kpvid_tpu_torch.device import to_device
+    from kpvid_tpu_torch.train import Stage2Trainer
+    from kpvid_tpu_torch.train import main as train_main
+    from kpvid_tpu_torch.train.cli import step_noise
+
+    m = cfg.model
+    args = ["--mode", "motion_generator", "--max-steps", str(TRAIN_STEPS)]
+    ops.reset_launch_counts()
+    run = train_main(args + ["--config", str(train_config(cfg, root, "train_a", "log_a"))])
+    counts = ops.launch_counts()
+    ck = root / "log_a" / "motion_generator"
+    check(sum(counts.values()) == 0, f"the trainer launched none of the four kernels: {counts}")
+    check(list_checkpoint_steps(ck) == [TRAIN_CKPT, TRAIN_STEPS],
+          f"checkpoints at steps {TRAIN_CKPT} and {TRAIN_STEPS}")
+    moved_and_finite(run, f"{TRAIN_STEPS} fused steps at Config(), bf16, batch {TRAIN_BATCH}")
+    tests = [json.loads(ln) for ln in (ck / "test_metrics.jsonl").read_text().splitlines()]
+    images = sorted(p.name for p in (ck / "train_images").iterdir())
+    check(len(tests) == 1 and all(np.isfinite(v) for v in tests[0].values()) and len(images) == 8,
+          f"one test sweep (finite: loss_G {tests[0]['loss_G']:.4g}) and one summary write "
+          f"({len(images)} PNGs)")
+
+    # resume from the step-20 checkpoint in a log dir of its own, to step 40
+    shutil.copytree(ck / f"ckpt-{TRAIN_CKPT}", root / "log_b" / "motion_generator"
+                    / f"ckpt-{TRAIN_CKPT}")
+    resumed = train_main(args + ["--config", str(train_config(cfg, root, "train_b", "log_b"))])
+    want = load_checkpoint(ck / f"ckpt-{TRAIN_STEPS}")
+    got = load_checkpoint(root / "log_b" / "motion_generator" / f"ckpt-{TRAIN_STEPS}")
+    differ = [k for k in want if not np.array_equal(want[k], got.get(k))]
+    check(resumed["start_step"] == TRAIN_CKPT + 1 and sorted(got) == sorted(want) and not differ,
+          f"resumed at step {resumed['start_step']}, the run ends with the uninterrupted run's "
+          f"bits in all {len(want)} arrays (parameters and Adam state); differing: {differ[:5]}")
+
+    for mode in ("fused_dg", "two_batch"):
+        other = train_main(["--mode", "motion_generator", "--max-steps", "3", "--no-images",
+                            "--config", str(train_config(cfg, root, f"train_{mode}",
+                                                         f"log_{mode}", gan_step_mode=mode))])
+        moved_and_finite(other, f"3 {mode} steps")
+
+    # one fused step in f32 on the card and on the CPU
+    cfg32 = dataclasses.replace(cfg, training=dataclasses.replace(
+        cfg.training, compute_dtype="float32", batch_size=TRAIN_BATCH))
+    ds = SequenceDataset(str(root / "penn"), "train", m.n_pts, m.n_action, image_size=m.image_size)
+    batch = next(HostDataPipeline(ds, TRAIN_BATCH, shuffle=True, repeat=True, seed=0).batches())
+    noise = step_noise(0, 0, 1, TRAIN_BATCH, m.vae_dim)[0]
+    steps = {}
+    for dev in ("cuda", "cpu"):
+        t = Stage2Trainer(cfg32, device=dev)
+        t.load_parameters(t.init_parameters(1))
+        first_pt, real_seq, act = t._flatten_batch(batch)
+        g_grads, pred, g_m = t.g_grads(first_pt, real_seq, act, noise)
+        d_grads, d_m = t.d_grads(real_seq, pred)
+        names = t._g_names + t._d_names
+        steps[dev] = ({k: float(v) for k, v in {**g_m, **d_m}.items()},
+                      {n: g.detach().cpu() for n, g in zip(names, list(g_grads) + list(d_grads))})
+    (lc, gc), (lp, gp) = steps["cuda"], steps["cpu"]
+    loss_gap = max(abs(lc[k] - lp[k]) / max(abs(lp[k]), 1e-12) for k in lp)
+    grad_gap = {n: float((gc[n] - gp[n]).abs().max()) / max(float(gp[n].abs().max()), 1e-30)
+                for n in gp}
+    worst = max(grad_gap, key=grad_gap.get)
+    print(f"f32 fused step at Config(), batch {TRAIN_BATCH}, card vs CPU: losses "
+          + ", ".join(f"{k} {lc[k]:.6g} / {lp[k]:.6g}" for k in lp)
+          + f"; worst relative gap: losses {loss_gap:.3e}, gradients {grad_gap[worst]:.3e} "
+          f"({worst})", flush=True)
+    check(loss_gap <= STEP_LOSS_RTOL and grad_gap[worst] <= STEP_GRAD_REL,
+          f"the card's f32 step agrees with the CPU's: losses within {STEP_LOSS_RTOL}, every "
+          f"gradient within {STEP_GRAD_REL} of its max")
+
+    # the bf16 step's time: host clock, synchronised, median of 10 after warm-up
+    trainer = run["trainer"]
+    dev_batch = {k: to_device(v, trainer.device) for k, v in batch.items()}
+    dev_noise = to_device(noise, trainer.device)
+    for _ in range(3):
+        trainer.train_step(dev_batch, dev_noise)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        trainer.train_step(dev_batch, dev_noise)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    step_ms = float(np.median(times))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        trainer.train_step(dev_batch, dev_noise)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    device_step_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    n_kernels = sum(e.count for e in kernels)
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]
+    rep = {"step_ms": step_ms, "step_ms_all": times, "examples_per_s": TRAIN_BATCH / step_ms * 1e3,
+           "device_step_ms": device_step_ms if n_kernels else None, "kernels_per_step": n_kernels,
+           "seconds_40_steps": run["seconds"], "f32_loss_gap": loss_gap,
+           "f32_grad_gap": grad_gap[worst], "f32_grad_gap_tensor": worst,
+           "launches_per_step": {k: v / TRAIN_STEPS for k, v in counts.items()}}
+    print(f"train on {card}: bf16 step at batch {TRAIN_BATCH}: {step_ms:.2f} ms (median of 10, "
+          f"host clock, synchronised; all {', '.join(f'{x:.1f}' for x in times)}), "
+          f"{rep['examples_per_s']:.1f} examples/s; the 40-step run took {run['seconds']:.2f} s",
+          flush=True)
+    if n_kernels:
+        print(f"train step device time (torch.profiler, sum of its {n_kernels} kernels): "
+              f"{device_step_ms:.3f} ms, {100 * device_step_ms / step_ms:.1f}% of the step; top: "
+              + "; ".join(f"{e.key[:50]} x{e.count} {e.self_device_time_total / 1e3:.3f} ms"
+                          for e in top),
+              flush=True)
+    else:
+        print("train step device time: not measured, torch.profiler (CUPTI) recorded no "
+              "kernel on the card", flush=True)
+    return rep
+
+
+def evaluate_phase(cfg, card: str, root: Path) -> dict:
+    """evaluate on phase 6's 8 test videos with phase 7's checkpoint."""
+    import torch
+
+    from kpvid_tpu_torch import evaluate, ops
+
+    m = cfg.model
+    conf = train_config(cfg, root, "eval", "log_eval")
+    ckpt = root / "log_a" / "motion_generator" / f"ckpt-{TRAIN_STEPS}"
+    runs, trees, per_batch = [], [], {}
+    for name in ("eval_a", "eval_b"):
+        ops.reset_launch_counts()
+        stats = evaluate.main(["--config", str(conf), "--checkpoint_stage1",
+                               str(root / "stage1.npz"), "--checkpoint_stage2", str(ckpt),
+                               "--save_dir", str(root / name)])
+        counts = ops.launch_counts()
+        check(stats["samples"] == 8 and stats["batches"] == 1
+              and counts == {k: v * stats["batches"] for k, v in EVAL_LAUNCHES.items()},
+              f"evaluate wrote 8 samples in {stats['batches']} batch; launches {counts} are "
+              "8 / 2 / 1 / 4 per batch")
+        per_batch = {k: v / stats["batches"] for k, v in counts.items()}
+        files = {p.relative_to(root / name).as_posix(): p.read_bytes()
+                 for p in sorted((root / name).rglob("*.png"))}
+        for i in range(8):
+            d = root / name / f"{i:04d}"
+            ok = ((d / "input_im.png").is_file() and (d / "current_points.png").is_file()
+                  and all(len(list((d / sub).glob("*.png"))) == m.n_future_frames
+                          for sub in ("real_seq", "pred_seq", "mask", "crude", "pred_points")))
+            if not ok:
+                raise CheckFailed(f"sample {i}: incomplete PNG tree")
+        check(len(files) == 8 * (2 + 5 * m.n_future_frames),
+              f"{name}: each sample has 2 PNGs and 5 directories of {m.n_future_frames} PNGs")
+        runs.append(stats)
+        trees.append(files)
+        print(f"evaluate ({name}) on {card}: 8 samples in {stats['seconds']:.3f} s "
+              f"({8 / stats['seconds']:.2f} samples/s); waiting for the batch (JPEG decode) "
+              f"{stats['data_seconds']:.3f} s, generate and point images "
+              f"{stats['generate_seconds']:.3f} s, PNG writers {stats['write_seconds']:.3f} s "
+              f"summed over {stats['png_workers']} threads", flush=True)
+    check(trees[0] == trees[1], "a second run with the same seed writes the same bytes")
+
+    # #4 at the point images' shapes: current [8, K, 2] on the f32 grid, future
+    # [8 * 32, K, 2] on the bf16 grid; JAX writes each map in its points' dtype
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    s, k = m.image_size, m.n_pts
+    rec = {"ms": 0.0, "host_loop_ms": 0.0, "plain_ms": 0.0, "max_abs_err": 0.0,
+           "max_abs_err_f32": 0.0}
+    tot_bytes = tot_ops = 0.0
+    for rows, gd in ((8, torch.float32), (8 * m.n_future_frames, torch.bfloat16)):
+        errs, mu = check_render(gen, m, rows, gd, s)
+        rec["max_abs_err_f32"] = max(rec["max_abs_err_f32"], errs[torch.float32])
+        rec["max_abs_err"] = max(rec["max_abs_err"], errs[torch.bfloat16])
+        args = (mu, s, s, m.heatmap_inv_std, gd, gd)
+        t_dev = device_ms(lambda: ops.gaussian_render(*args), reps=10)
+        t_host = time_ms(lambda: ops.gaussian_render(*args))
+        t_plain = time_ms(lambda: ops.render_gaussian_maps(*args))
+        n_bytes = 4.0 * rows * k * 2 + (4.0 if gd == torch.float32 else 2.0) * rows * s * s * k
+        n_ops = rows * (s * s * k + 8.0 * k * 2 * s)
+        b_ms, b_by = bound_ms(n_bytes, n_ops, "float32")
+        print(f"gaussian_render {tuple(mu.shape)} -> [{rows}, {s}, {s}, {k}] {gd}: device "
+              f"{t_dev:.4f} ms ({100 * b_ms / t_dev:.1f}% of the bound {b_ms:.4f} ms, {b_by}), "
+              f"host loop {t_host:.4f} ms, plain {t_plain:.4f} ms", flush=True)
+        rec["ms"] += t_dev
+        rec["host_loop_ms"] += t_host
+        rec["plain_ms"] += t_plain
+        tot_bytes += n_bytes
+        tot_ops += n_ops
+    rec["bound_ms"], rec["bound_by"] = bound_ms(tot_bytes, tot_ops, "float32")
+    print(f"gaussian_render per evaluate batch (point images, 128^2): device {rec['ms']:.4f} ms "
+          f"({100 * rec['bound_ms'] / rec['ms']:.1f}% of the bound {rec['bound_ms']:.4f} ms), "
+          f"host loop {rec['host_loop_ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms", flush=True)
+    return {"runs": runs, "launches_per_batch": per_batch, "render_128": rec,
+            "samples_per_s": [8 / r["seconds"] for r in runs]}
 
 
 KERNEL_META = {
@@ -1122,7 +1381,11 @@ def main() -> int:
     f32_path_phase(cfg, params)
     fps = throughput_phase(cfg, params, card)
     serve = serve_phase(cfg, params, card)
-    label = label_phase(cfg, params, card)
+    with tempfile.TemporaryDirectory(prefix="kpvid_smoke_") as tmp:
+        root = Path(tmp)
+        label = label_phase(cfg, params, card, root)
+        train = train_phase(cfg, card, root)
+        evaluation = evaluate_phase(cfg, card, root)
 
     kernels = []
     for name, (route, source, replaces) in KERNEL_META.items():
@@ -1137,6 +1400,8 @@ def main() -> int:
                 "generate": counts[name],
                 "serve_per_batch": serve["pipeline"]["launches_per_batch"][name],
                 "label_per_chunk": label["launches"][name] / label["chunks"],
+                "evaluate_per_batch": evaluation["launches_per_batch"][name],
+                "train_per_step": train["launches_per_step"][name],
             },
         })
         kernels[-1]["max_abs_err_per_bucket"] = {b: e[name] for b, e in per_bucket.items()}
@@ -1144,9 +1409,13 @@ def main() -> int:
             kernels[-1]["batch32"] = r["b32"]
         if name == "pose_head":
             kernels[-1]["label_chunk"] = label["pose_head_chunk"]
+        if name == "gaussian_render":
+            kernels[-1]["evaluate_point_images_128"] = evaluation["render_128"]
     print(json.dumps({"kernels": kernels, "batch": BATCH, "frames_per_s_b32_bf16": fps,
                       "serve": serve, "label": {k: v for k, v in label.items()
                                                 if k != "pose_head_chunk"},
+                      "train": train, "evaluate": {k: v for k, v in evaluation.items()
+                                                   if k != "render_128"},
                       "card": card}))
     print(gpu_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -11,7 +11,11 @@ anything ``np.asarray`` takes), become a flat dict keyed like
   bare convs (``heat``, ``crude``, ``mask``) -> ``{name}.{weight,bias}``;
 - stage-2 ``params`` that ``decode`` reads: ``dec_in``, ``dec_lstm`` and
   ``to_coord``; ``Dense_0/{kernel,bias}`` -> ``{weight,bias}``, the LSTM's
-  ``lstm_{i}_kernel`` [D+H, 4H] and ``lstm_{i}_bias`` kept as they are.
+  ``lstm_{i}_kernel`` [D+H, 4H] and ``lstm_{i}_bias`` kept as they are;
+- for the stage-2 trainer (:func:`stage2_trainer_from_jax`), the whole
+  MotionGenerator tree (``enc_lstm`` and ``enc_head`` too) keyed
+  ``stage2.*``, and the SeqDiscriminator tree keyed ``discriminator.*``:
+  ``StackedLSTM_0`` -> ``lstm``, ``Dense_0/Dense_0`` -> ``head``.
 
 Conv kernels go from HWIO to OIHW; every other array keeps its layout.
 """
@@ -25,6 +29,8 @@ import torch
 
 STAGE1_MODULES = ("image_encoder", "pose_encoder", "translator")
 STAGE2_DECODE_MODULES = ("dec_in", "dec_lstm", "to_coord")
+STAGE2_MODULES = ("enc_lstm", "enc_head") + STAGE2_DECODE_MODULES
+_DISCRIMINATOR = {"StackedLSTM_0": "lstm", "Dense_0": "head"}
 _LEAF = {"kernel": "weight", "scale": "weight", "mean": "running_mean", "var": "running_var"}
 
 
@@ -82,4 +88,18 @@ def from_jax(stage1_vars: Mapping | None = None,
     for path, arr in _flatten(stage2_params or {}):
         if path[0] in STAGE2_DECODE_MODULES:
             out["stage2." + torch_name(path)] = _convert(arr)
+    return out
+
+
+def stage2_trainer_from_jax(g_params: Mapping, d_params: Mapping) -> dict[str, torch.Tensor]:
+    """The ``g_params`` (MotionGenerator) and ``d_params`` (SeqDiscriminator)
+    collections of a JAX stage-2 train state, keyed like
+    ``Stage2Trainer.load_parameters`` takes them."""
+    out = {}
+    for path, arr in _flatten(g_params):
+        if path[0] not in STAGE2_MODULES:
+            raise ValueError(f"unknown stage-2 generator parameter {'/'.join(path)}")
+        out["stage2." + torch_name(path)] = _convert(arr)
+    for path, arr in _flatten(d_params):
+        out[f"discriminator.{_DISCRIMINATOR[path[0]]}." + torch_name(path[1:])] = _convert(arr)
     return out

@@ -1,3 +1,13 @@
-from .config import Config, DataConfig, ModelConfig, PathsConfig, TrainingConfig, load_config
+from .config import (
+    Config,
+    DataConfig,
+    LRConfig,
+    ModelConfig,
+    ParallelConfig,
+    PathsConfig,
+    TrainingConfig,
+    load_config,
+)
 
-__all__ = ["Config", "DataConfig", "ModelConfig", "PathsConfig", "TrainingConfig", "load_config"]
+__all__ = ["Config", "DataConfig", "LRConfig", "ModelConfig", "ParallelConfig", "PathsConfig",
+           "TrainingConfig", "load_config"]

@@ -1,11 +1,14 @@
 """The configuration fields the port reads, loadable from the same YAML files.
 
-Counterpart of kpvid_tpu/configs/config.py (ModelConfig, the
-``training.compute_dtype`` field, ``paths.data_dir``, the ``data`` fields
-of serving and labeling, and ``validate``'s checks of them). The YAML
-schema is the JAX package's: ``model`` keys are checked strictly, the
-sections and the ``paths``, ``training`` and ``data`` keys that the port
-does not read yet are accepted and left unread.
+Counterpart of kpvid_tpu/configs/config.py: ModelConfig, ``paths.data_dir``
+and ``paths.log_dir``, the ``training`` fields of the stage-2 trainer (with
+``LRConfig``), the ``data`` fields of the pipelines, and ``validate``'s
+checks of them. The YAML schema is the JAX package's: ``model`` and
+``training.lr`` keys are checked strictly; the sections and the ``paths``,
+``training``, ``data`` and ``parallel`` keys that the port does not read
+yet are accepted and left unread. ``validate`` refuses the knobs of later
+slices (``grad_accum > 1``, ``dp_grad_dtype='bfloat16'``, a mesh) rather
+than ignore them.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ _SECTIONS = ("paths", "training", "model", "data", "parallel")
 @dataclasses.dataclass
 class PathsConfig:
     data_dir: str = "./data/penn"
+    log_dir: str = "results/"
 
 
 @dataclasses.dataclass
@@ -33,11 +37,43 @@ class DataConfig:
     # frames per chunk streamed through the pose encoder by the labeler
     labeler_chunk: int = 128
     synthetic: bool = False
+    # HostDataPipeline worker threads; None -> min(12, 4 * cpu_count)
+    num_workers: int | None = None
+    prefetch: int = 2
+    sequence_len: int = 33
+    eval_batch_size: int = 8
+
+
+@dataclasses.dataclass
+class LRConfig:
+    # Adam 1e-4, exponential decay x0.95 every 20k steps, not staircase
+    start_val: float = 1e-4
+    step: int = 20_000
+    decay: float = 0.95
+    scale: float = 1.0
+    warmup_steps: int = 0
 
 
 @dataclasses.dataclass
 class TrainingConfig:
     compute_dtype: str = "bfloat16"  # 'bfloat16' or 'float32'
+    n_steps: int = 30_000_000
+    summary_interval: int = 500
+    test_interval: int = 500
+    checkpoint_interval: int = 20_000
+    log_interval: int = 250
+    batch_size: int = 16
+    lr: LRConfig = dataclasses.field(default_factory=LRConfig)
+    seed: int = 0
+    # 'fused' | 'fused_dg' | 'two_batch' (train/stage2.py)
+    gan_step_mode: str = "fused"
+    keep_checkpoints: int | None = None
+    resume: bool = True
+    # discriminator pair layout (ops/batching.py): 'auto' | 'concat' | 'interleave'
+    pair_batching: str = "auto"
+    # knobs of later slices; validate() refuses any other value
+    grad_accum: int = 1
+    dp_grad_dtype: str = "float32"
 
 
 @dataclasses.dataclass
@@ -59,11 +95,18 @@ class ModelConfig:
 
 
 @dataclasses.dataclass
+class ParallelConfig:
+    mesh_data: int | None = None
+    mesh_model: int = 1
+
+
+@dataclasses.dataclass
 class Config:
     paths: PathsConfig = dataclasses.field(default_factory=PathsConfig)
     training: TrainingConfig = dataclasses.field(default_factory=TrainingConfig)
     model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
     data: DataConfig = dataclasses.field(default_factory=DataConfig)
+    parallel: ParallelConfig = dataclasses.field(default_factory=ParallelConfig)
 
     def validate(self) -> "Config":
         m, t = self.model, self.training
@@ -87,6 +130,32 @@ class Config:
             raise ValueError("data.labeler_chunk must be positive")
         if t.compute_dtype not in ("bfloat16", "float32"):
             raise ValueError(f"unknown compute_dtype {t.compute_dtype!r}")
+        if t.gan_step_mode not in ("fused", "fused_dg", "two_batch"):
+            raise ValueError(f"unknown gan_step_mode {t.gan_step_mode!r}")
+        if t.pair_batching not in ("auto", "interleave", "concat"):
+            raise ValueError(f"unknown pair_batching {t.pair_batching!r}")
+        if t.lr.scale <= 0:
+            raise ValueError("training.lr.scale must be positive")
+        if t.lr.warmup_steps < 0:
+            raise ValueError("training.lr.warmup_steps must be >= 0")
+        if t.batch_size <= 0:
+            raise ValueError("batch_size must be positive")
+        if t.grad_accum != 1:
+            raise ValueError(
+                f"training.grad_accum={t.grad_accum}: gradient accumulation is not "
+                "ported yet (ROADMAP section 1, item 8); set it to 1"
+            )
+        if t.dp_grad_dtype != "float32":
+            raise ValueError(
+                f"training.dp_grad_dtype={t.dp_grad_dtype!r}: the compressed "
+                "gradient all-reduce is not ported yet (ROADMAP section 1, item 9)"
+            )
+        p = self.parallel
+        if p.mesh_model != 1 or p.mesh_data not in (None, 1):
+            raise ValueError(
+                "parallel.mesh_data/mesh_model: the port runs one card; the mesh "
+                "is not ported yet (ROADMAP section 1, item 9)"
+            )
         return self
 
 
@@ -106,6 +175,15 @@ def _known(cls, raw: dict[str, Any]):
     return cls(**{f.name: raw[f.name] for f in dataclasses.fields(cls) if f.name in raw})
 
 
+def _training_config(raw: dict[str, Any]) -> TrainingConfig:
+    raw = dict(raw)
+    lr = raw.pop("lr", None) or {}
+    unknown = set(lr) - {f.name for f in dataclasses.fields(LRConfig)}
+    if unknown:
+        raise ValueError(f"unknown config key(s) {sorted(unknown)} for LRConfig")
+    return dataclasses.replace(_known(TrainingConfig, raw), lr=LRConfig(**lr))
+
+
 def load_config(path: str | Path) -> Config:
     """Load a YAML config of the kpvid_tpu schema."""
     import yaml  # only the loader needs it, not the generation path
@@ -117,8 +195,9 @@ def load_config(path: str | Path) -> Config:
         raise ValueError(f"unknown config section(s) {sorted(unknown)}")
     cfg = Config(
         paths=_known(PathsConfig, raw.get("paths") or {}),
-        training=_known(TrainingConfig, raw.get("training") or {}),
+        training=_training_config(raw.get("training") or {}),
         model=_model_config(raw.get("model") or {}),
         data=_known(DataConfig, raw.get("data") or {}),
+        parallel=_known(ParallelConfig, raw.get("parallel") or {}),
     )
     return cfg.validate()

@@ -1,10 +1,11 @@
-"""The host-side frame geometry of serving and labeling.
+"""The host-side frame geometry of serving, labeling and the sequence data.
 
-Copies the parts of kpvid_tpu/data/augment.py that those two paths use: the
-reference center-crop box, ``to_unit_float`` and ``FrameOps`` with its two
+Copies the parts of kpvid_tpu/data/augment.py that those paths use: the
+reference center-crop box, ``to_unit_float``, the keypoint rotation and
+one-hot of the stage-2 augmentations, and ``FrameOps`` with its two
 byte-identical backends, PIL ('pil') and the C++ kernels of
-kpvid_tpu_torch/native ('native', frames as uint8 HWC arrays). The training
-augmentations come with the training slices.
+kpvid_tpu_torch/native ('native', frames as uint8 HWC arrays). The stage-1
+photometric augmentations come with the stage-1 slice.
 """
 
 from __future__ import annotations
@@ -27,6 +28,22 @@ def center_crop_box(size_wh: tuple[int, int], target: int) -> tuple[tuple, float
         oy = int(h / ratio) / 2.0
         box = (0, oy - half, target, oy + half)
     return box, ratio
+
+
+def rotate_keypoints(keypoints: np.ndarray, degrees: float) -> np.ndarray:
+    """Rotate [-1, 1] keypoints about the origin (the image center) to follow
+    PIL's counterclockwise ``rotate(degrees)`` of the frame: a rotation by
+    -degrees in math coordinates, which is PIL's in its y-down raster."""
+    rad = np.radians(-degrees)
+    c, s = np.cos(rad), np.sin(rad)
+    x, y = keypoints[..., 0], keypoints[..., 1]
+    return np.stack([c * x - s * y, s * x + c * y], axis=-1)
+
+
+def one_hot(n_classes: int, idx: int) -> np.ndarray:
+    label = np.zeros((n_classes,), np.float32)
+    label[int(idx)] = 1.0
+    return label
 
 
 def to_unit_float(image: Image.Image) -> np.ndarray:
@@ -70,6 +87,11 @@ class FrameOps:
             return frame.shape[1], frame.shape[0]
         return frame.size
 
+    def rotate(self, frame, angle: float):
+        if self.native:
+            return self._n.rotate_nearest(frame, angle)
+        return frame.rotate(angle)
+
     def resize(self, frame, size_wh: tuple[int, int]):
         if self.native:
             return self._n.resize_bicubic(frame, size_wh)
@@ -91,6 +113,11 @@ class FrameOps:
         if sy1 > sy0 and sx1 > sx0:
             out[sy0 - y0 : sy1 - y0, sx0 - x0 : sx1 - x0] = frame[sy0:sy1, sx0:sx1]
         return out
+
+    def hflip(self, frame):
+        if self.native:
+            return np.ascontiguousarray(frame[:, ::-1])
+        return frame.transpose(Image.FLIP_LEFT_RIGHT)
 
     def to_pm1(self, frame) -> np.ndarray:
         """float32 in [-1, 1]: to_unit_float(frame) * 2 - 1."""

@@ -9,6 +9,8 @@ packages write the same JPEG bytes from the same seed:
 Each video is a moving figure (a torso, a head and four limbs swinging with
 an action-dependent frequency and amplitude); frame sizes alternate
 landscape (200x150) and portrait (150x200) so both crop branches run.
+``make_synthetic_pseudo_labels`` (a copy too) writes smooth random-walk
+label files for stage-2 runs that skip the labeler.
 """
 
 from __future__ import annotations
@@ -74,3 +76,18 @@ def make_synthetic_penn_tree(root: str | Path, n_train: int = 4, n_test: int = 2
         (root / f"{subset}_set.txt").write_text("\n".join(lines) + "\n")
     marker.write_text("ok")
     return root
+
+
+def make_synthetic_pseudo_labels(root: str | Path, n_pts: int = 40, seed: int = 0) -> None:
+    """Write ``pseudo_labels/{id}.npy`` [n_frames, K, 2] f32 for every video
+    of the tree: smooth random walks in [-1, 1]."""
+    root = Path(root)
+    out = root / "pseudo_labels"
+    out.mkdir(exist_ok=True)
+    rng = np.random.default_rng(seed)
+    for vdir in sorted((root / "frames").iterdir()):
+        n = len(list(vdir.iterdir()))
+        base = rng.uniform(-0.5, 0.5, (1, n_pts, 2))
+        drift = rng.normal(0, 0.01, (n, n_pts, 2)).cumsum(axis=0)
+        traj = np.clip(base + drift, -1, 1).astype(np.float32)
+        np.save(out / f"{vdir.name}.npy", traj)

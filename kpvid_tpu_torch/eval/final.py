@@ -8,13 +8,14 @@ Counterpart of kpvid_tpu/eval/final.py::FinalGenerator:
   split so its frame-invariant channels are convolved once per sample;
   the translator decode (conv kernels, ops/chain.py); blend and clip.
 
+``render_point_images`` draws evaluate's colorized keypoint images at full
+resolution (gaussian_render again, at 128^2).
+
 The entry point runs on the card by default and raises where there is none;
 pass ``device="cpu"`` to run the plain versions on the CPU.
 """
 
 from __future__ import annotations
-
-import math
 
 import numpy as np
 import torch
@@ -23,7 +24,8 @@ from torch import nn
 
 from ..configs import Config
 from ..device import resolve_device, to_device
-from ..models import BatchNorm, Conv, Dense, MotionGenerator, StackedLSTM, Stage1Generator
+from ..models import MotionGenerator, Stage1Generator, init_like_jax
+from ..ops.coords import colorize_point_maps
 from ..ops.keypoint_kernels import gaussian_render
 
 
@@ -53,31 +55,7 @@ class FinalGenerator:
         Xavier-uniform kernels, zero biases, normal(0.02) for ``to_coord``,
         BN scale 1 / bias 0 / mean 0 / var 1. Keyed like
         :meth:`load_parameters` takes them."""
-        gen = torch.Generator().manual_seed(seed)
-        params = {k: torch.zeros_like(v, device="cpu") for k, v in self.model.state_dict().items()}
-
-        def xavier(key, fan_in, fan_out):
-            a = math.sqrt(6.0 / (fan_in + fan_out))
-            params[key].uniform_(-a, a, generator=gen)
-
-        for name, mod in self.model.named_modules():
-            p = f"{name}."
-            if isinstance(mod, Conv):
-                o, i, kh, kw = mod.weight.shape
-                xavier(p + "weight", i * kh * kw, o * kh * kw)
-            elif isinstance(mod, BatchNorm):
-                params[p + "weight"].fill_(1.0)
-                params[p + "running_var"].fill_(1.0)
-            elif isinstance(mod, StackedLSTM):
-                for li in range(len(mod.features)):
-                    key = f"{p}lstm_{li}_kernel"
-                    xavier(key, *params[key].shape)
-            elif isinstance(mod, Dense):
-                if mod.tanh:
-                    params[p + "weight"].normal_(0.0, 0.02, generator=gen)
-                else:
-                    xavier(p + "weight", *params[p + "weight"].shape)
-        return params
+        return init_like_jax(self.model, seed)
 
     def load_parameters(self, params: dict) -> None:
         """Load a dict from :meth:`init_parameters` or ``bridge.from_jax``."""
@@ -148,3 +126,15 @@ class FinalGenerator:
         y_dyn = conv3(fut_map, weight[:, n_static:])  # [B*T, h, w, F]
         y = y_dyn.reshape(b, t, *y_dyn.shape[1:]) + y_static[:, None]
         return y.reshape(b * t, *y_dyn.shape[1:])
+
+    @torch.no_grad()
+    def render_point_images(self, mu: torch.Tensor, colors, size: int | None = None) -> torch.Tensor:
+        """Colorized keypoint images [N, S, S, 3] of points [N, K, 2] at full
+        resolution. As in JAX, the maps are rendered on the grid of the
+        points' dtype and tinted in it: f32 for the detected points, the
+        compute dtype for the decoded ones."""
+        size = size or self.config.model.image_size
+        maps = gaussian_render(mu.float().contiguous(), size, size,
+                               self.config.model.heatmap_inv_std, grid_dtype=mu.dtype,
+                               out_dtype=mu.dtype)
+        return colorize_point_maps(maps, colors)

@@ -1,0 +1,195 @@
+"""End-to-end generation over the test split, written as a tree of PNGs.
+
+    python -m kpvid_tpu_torch.evaluate --config kpvid_tpu/configs/penn.yaml \
+        --checkpoint_stage1 stage1.npz --checkpoint_stage2 results/motion_generator \
+        --save_dir results/eval
+
+Counterpart of the JAX package's ``evaluate.py``. Each checkpoint is a
+``.npz`` parameter file, a trainer ``ckpt-N`` directory, or the directory
+above one (its newest ``ckpt-N``); they are merged into ``FinalGenerator``
+by name. Every test video's first frame and action go through ``generate``
+(all four kernels) at ``data.eval_batch_size``, and the keypoints are drawn
+as colorized images at full resolution (``gaussian_render`` at 128^2). Per
+sample, under ``<save_dir>/<index:04d>/``, the same files as JAX's:
+``input_im.png``, ``current_points.png`` and 32 PNGs each in ``real_seq/``,
+``pred_seq/``, ``mask/``, ``crude/`` and ``pred_points/`` (and ``pred.gif``,
+``real.gif`` with ``--gif``), encoded by a pool of threads (PIL's encoder
+releases the GIL), byte for byte the files JAX's writer makes of the same
+arrays.
+
+The latents of global batch ``b`` are ``np.random.default_rng([seed, b])``
+standard normals [B, vae_dim] (f32), drawn on the host: JAX's
+``fold_in(seed, b)`` stream cannot be drawn without JAX. It runs on the card
+and raises without one (``--device cpu`` runs the plain versions on the
+CPU). The JAX CLI's ``--mesh`` and its multi-host sharding wait for the
+multi-GPU slice.
+"""
+
+from __future__ import annotations
+
+import itertools
+import os
+import time
+from argparse import ArgumentParser
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+import numpy as np
+
+
+def build_parser() -> ArgumentParser:
+    parser = ArgumentParser(description="kpvid_tpu_torch evaluate: the test split as PNGs")
+    parser.add_argument("--config", type=str, required=True)
+    parser.add_argument("--checkpoint_stage1", type=str, required=True)
+    parser.add_argument("--checkpoint_stage2", type=str, required=True)
+    parser.add_argument("--save_dir", type=str, default="results/eval")
+    parser.add_argument("--synthetic", action="store_true",
+                        help="write a synthetic tree and labels into data_dir first")
+    parser.add_argument("--batch_size", type=int, default=None)
+    parser.add_argument("--seed", type=int, default=0,
+                        help="latent seed: batch b draws default_rng([seed, b])")
+    parser.add_argument("--gif", action="store_true",
+                        help="also write pred.gif and real.gif per sample")
+    parser.add_argument("--png-workers", type=int, default=None,
+                        help="PNG encoding threads (default: min(8, 2 x cores))")
+    parser.add_argument("--device", type=str, default="cuda",
+                        help="'cuda' (default) or 'cpu' for the plain versions")
+    return parser
+
+
+def batch_z(seed: int, b: int, rows: int, vae_dim: int) -> np.ndarray:
+    """The latents of global batch ``b``: [rows, vae_dim] f32."""
+    return np.random.default_rng([seed, b]).standard_normal((rows, vae_dim), dtype=np.float32)
+
+
+def main(argv=None) -> dict:
+    """Write the PNG tree; returns the run's counts and seconds."""
+    args = build_parser().parse_args(argv)
+    from .configs import load_config
+    from .data import HostDataPipeline, SequenceDataset
+    from .device import resolve_device
+    from .eval import FinalGenerator
+    from .serve import load_generator_parameters
+    from .utils import get_n_colors, logger, setup_console_logging, touch_dir
+
+    setup_console_logging()
+    device = resolve_device(args.device)
+    config = load_config(args.config)
+    m = config.model
+    data_dir = config.paths.data_dir
+    batch_size = args.batch_size or config.data.eval_batch_size
+    if args.synthetic:
+        from .data import make_synthetic_penn_tree, make_synthetic_pseudo_labels
+
+        make_synthetic_penn_tree(data_dir)
+        make_synthetic_pseudo_labels(data_dir, n_pts=m.n_pts)
+
+    final = FinalGenerator(config, device=device)
+    final.load_parameters(load_generator_parameters(
+        final.model.state_dict(), args.checkpoint_stage1, args.checkpoint_stage2))
+    colors = get_n_colors(m.n_pts)
+    test_ds = SequenceDataset(data_dir, "test", n_pts=m.n_pts, n_action=m.n_action,
+                              sequence_len=config.data.sequence_len, image_size=m.image_size,
+                              with_image_seq=True, native_ops=config.data.native_ops)
+    pipe = HostDataPipeline(test_ds, batch_size, num_workers=config.data.num_workers, seed=0,
+                            drop_remainder=False)
+
+    n_workers = args.png_workers or min(8, 2 * (os.cpu_count() or 1))
+    pool = ThreadPoolExecutor(max_workers=n_workers)
+    pending: list = []
+    write_s = 0.0  # seconds inside the writers, summed over threads
+
+    def submit(fn, *fn_args):
+        nonlocal write_s
+        pending.append(pool.submit(_timed, fn, *fn_args))
+        if len(pending) > 4 * n_workers:  # bound the batches held in memory
+            write_s += pending.pop(0).result()
+
+    n_written = n_batches = 0
+    data_s = generate_s = 0.0  # waiting for the next batch; generate and readback
+    t_start = time.perf_counter()
+    batches = pipe.batches()
+    try:
+        for b in itertools.count():
+            t0 = time.perf_counter()
+            batch = next(batches, None)
+            data_s += time.perf_counter() - t0
+            if batch is None:
+                break
+            bs = batch["image"].shape[0]
+            t0 = time.perf_counter()
+            out = final.generate(batch["image"], batch["action_code"],
+                                 batch_z(args.seed, b, bs, m.vae_dim))
+            cur = final.render_point_images(out["current_points"], colors)
+            fut = final.render_point_images(out["future_points"].reshape(-1, m.n_pts, 2), colors)
+            out = {k: v.float().cpu().numpy() for k, v in out.items()}
+            cur = cur.float().cpu().numpy()
+            fut = fut.float().cpu().numpy().reshape(bs, m.n_future_frames, m.image_size,
+                                                    m.image_size, 3)
+            generate_s += time.perf_counter() - t0
+            n_batches += 1
+            for i in range(bs):
+                d = touch_dir(Path(args.save_dir) / f"{b * batch_size + i:04d}")
+                submit(_save_img, d / "input_im.png", out["im"][i], True)
+                submit(_save_img, d / "current_points.png", cur[i], False)
+                submit(_save_seq, d / "real_seq", batch["real_im_seq"][i], True)
+                submit(_save_seq, d / "pred_seq", out["pred_im_seq"][i], True)
+                submit(_save_seq, d / "mask", out["mask"][i], False)
+                submit(_save_seq, d / "crude", out["pred_im_crude"][i], True)
+                submit(_save_seq, d / "pred_points", fut[i], False)
+                if args.gif:
+                    submit(_save_gif, d / "pred.gif", out["pred_im_seq"][i], True)
+                    submit(_save_gif, d / "real.gif", batch["real_im_seq"][i], True)
+                n_written += 1
+        for f in pending:  # raise any writer's error; every file is on disk after
+            write_s += f.result()
+    finally:
+        batches.close()
+        pool.shutdown(wait=True, cancel_futures=True)
+    seconds = time.perf_counter() - t_start
+    logger.info("wrote %d samples in %d batches to %s in %.2fs (%.2f samples/s); waiting for "
+                "data %.2fs, generate %.2fs, PNG writers %.2fs over %d threads", n_written,
+                n_batches, args.save_dir, seconds, n_written / max(seconds, 1e-9), data_s,
+                generate_s, write_s, n_workers)
+    return {"samples": n_written, "batches": n_batches, "seconds": seconds,
+            "data_seconds": data_s, "generate_seconds": generate_s, "write_seconds": write_s,
+            "png_workers": n_workers, "save_dir": str(args.save_dir)}
+
+
+def _timed(fn, *args) -> float:
+    t0 = time.perf_counter()
+    fn(*args)
+    return time.perf_counter() - t0
+
+
+def _save_gif(file_path, seq: np.ndarray, rescale: bool, fps: int = 8):
+    """Animated GIF of a [T, H, W, 3] sequence."""
+    from PIL import Image
+
+    if rescale:
+        seq = 0.5 * (seq + 1.0)
+    frames = [Image.fromarray((np.clip(f, 0.0, 1.0) * 255).astype(np.uint8)) for f in seq]
+    frames[0].save(file_path, save_all=True, append_images=frames[1:],
+                   duration=int(1000 / fps), loop=0)
+
+
+def _save_img(file_path, img: np.ndarray, rescale: bool):
+    from PIL import Image
+
+    mode = None
+    if img.shape[-1] <= 2:
+        img, mode = img[..., 0], "L"
+    if rescale:
+        img = 0.5 * (img + 1.0)
+    img = (np.clip(img, 0.0, 1.0) * 255).astype(np.uint8)
+    Image.fromarray(img, mode=mode).save(file_path)
+
+
+def _save_seq(out_dir, seq: np.ndarray, rescale: bool):
+    Path(out_dir).mkdir(parents=True, exist_ok=True)
+    for i in range(seq.shape[0]):
+        _save_img(Path(out_dir) / f"{i:06d}.png", seq[i], rescale)
+
+
+if __name__ == "__main__":
+    main()

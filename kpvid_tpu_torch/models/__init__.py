@@ -1,9 +1,10 @@
-from .layers import BatchNorm, Conv, ConvBNReLU, Dense, StackedLSTM
+from .layers import BatchNorm, Conv, ConvBNReLU, Dense, StackedLSTM, init_like_jax
 from .networks import (
     ConvEncoder,
     ImageEncoder,
     MotionGenerator,
     PoseEncoder,
+    SeqDiscriminator,
     Stage1Generator,
     Translator,
 )
@@ -17,7 +18,9 @@ __all__ = [
     "ImageEncoder",
     "MotionGenerator",
     "PoseEncoder",
+    "SeqDiscriminator",
     "StackedLSTM",
     "Stage1Generator",
     "Translator",
+    "init_like_jax",
 ]

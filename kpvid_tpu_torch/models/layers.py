@@ -1,7 +1,8 @@
-"""Primitive inference layers, NHWC at every boundary.
+"""Primitive layers, NHWC at every boundary.
 
-Counterpart of kpvid_tpu/models/layers.py. Parameters keep the JAX
-package's values and, where the layout differs, the bridge converts them:
+Counterpart of kpvid_tpu/models/layers.py. Parameters are f32 and keep the
+JAX package's values; the compute runs in ``dtype``. Where the layout
+differs, the bridge converts them:
 conv weights are OIHW here (HWIO in Flax); the LSTM kernels
 ``lstm_{i}_kernel`` [D+H, 4H] and the Dense kernels [in, out] are kept as
 they are. Parity points:
@@ -10,7 +11,16 @@ they are. Parity points:
   (0 before, 1 after), which torch's ``padding=1`` is not;
 - BatchNorm (eval) uses the moving statistics with eps 1e-5;
 - the LSTM gate order is i, j, f, o with ``sigmoid(f + 1.0)`` and an f32
-  cell state: not ``nn.LSTM``'s layout;
+  cell state: not ``nn.LSTM``'s layout. Its gates are computed as JAX's
+  ``jnp.dot(..., preferred_element_type=float32)`` computes them: the
+  step's input and the kernel are rounded to ``dtype``, the products and
+  their sums are f32, and nothing is rounded before the f32 bias is added.
+  The route is the same on the CPU and the card: the rounded operands are
+  widened to f32 and multiplied in f32 (with TF32 off, PyTorch's default),
+  which is exact, since a product of two bf16 values fits in f32.
+  ``torch.mm(..., out_dtype=float32)`` is not taken: it has no CPU kernel,
+  and in torch 2.11 on the card it has no derivative, so the trainer could
+  not use it;
 - ``Dense(relu=True)`` keeps the reference's default-ReLU quirk, and
   ``Dense(tanh=True)`` is the ``to_coord`` head.
 """
@@ -92,8 +102,9 @@ class ConvBNReLU(nn.Module):
 class StackedLSTM(nn.Module):
     """Multi-layer LSTM over a whole sequence: [B, T, D] -> [B, T, H] f32.
 
-    Per step and layer one [B, D+H] @ [D+H, 4H] product in ``dtype``, the
-    gates and the cell state in f32."""
+    Per step and layer one [B, D+H] @ [D+H, 4H] product of operands rounded
+    to ``dtype``, computed and summed in f32; the gates and the cell state
+    are f32."""
 
     def __init__(self, in_dim: int, features, dtype: torch.dtype = torch.float32):
         super().__init__()
@@ -106,7 +117,10 @@ class StackedLSTM(nn.Module):
 
     def forward(self, xs: torch.Tensor) -> torch.Tensor:
         b, t = xs.shape[:2]
-        kernels = [getattr(self, f"lstm_{i}_kernel").to(self.dtype) for i in range(len(self.features))]
+        # rounded to the compute dtype once, then widened: the f32 products
+        # of the rounded values (see the module docstring)
+        kernels = [getattr(self, f"lstm_{i}_kernel").to(self.dtype).float()
+                   for i in range(len(self.features))]
         biases = [getattr(self, f"lstm_{i}_bias") for i in range(len(self.features))]
         state = [
             (xs.new_zeros((b, h), dtype=torch.float32), xs.new_zeros((b, h), dtype=torch.float32))
@@ -117,7 +131,7 @@ class StackedLSTM(nn.Module):
             inp = xs[:, step]
             for li, (c, h) in enumerate(state):
                 z = torch.cat([inp.to(self.dtype), h.to(self.dtype)], dim=-1)
-                gates = torch.matmul(z, kernels[li]).float() + biases[li]
+                gates = torch.matmul(z.float(), kernels[li]) + biases[li]
                 i, j, f, o = torch.chunk(gates, 4, dim=-1)
                 c = torch.sigmoid(f + 1.0) * c + torch.sigmoid(i) * torch.tanh(j)
                 h = torch.sigmoid(o) * torch.tanh(c)
@@ -147,3 +161,38 @@ class Dense(nn.Module):
         if self.relu:
             return torch.relu(y)
         return y
+
+
+def init_like_jax(model: nn.Module, seed: int) -> dict[str, torch.Tensor]:
+    """Parameters of ``model`` with the JAX package's init laws, drawn on the
+    CPU from ``seed`` in the order of ``named_modules``: Xavier-uniform conv,
+    LSTM and Dense kernels, normal(0.02) for a tanh ``to_coord`` head, zero
+    biases, BN scale 1 / bias 0 / mean 0 / var 1. Keyed like the model's
+    ``state_dict``."""
+    import math
+
+    gen = torch.Generator().manual_seed(seed)
+    params = {k: torch.zeros_like(v, device="cpu") for k, v in model.state_dict().items()}
+
+    def xavier(key, fan_in, fan_out):
+        a = math.sqrt(6.0 / (fan_in + fan_out))
+        params[key].uniform_(-a, a, generator=gen)
+
+    for name, mod in model.named_modules():
+        p = f"{name}." if name else ""
+        if isinstance(mod, Conv):
+            o, i, kh, kw = mod.weight.shape
+            xavier(p + "weight", i * kh * kw, o * kh * kw)
+        elif isinstance(mod, BatchNorm):
+            params[p + "weight"].fill_(1.0)
+            params[p + "running_var"].fill_(1.0)
+        elif isinstance(mod, StackedLSTM):
+            for li in range(len(mod.features)):
+                key = f"{p}lstm_{li}_kernel"
+                xavier(key, *params[key].shape)
+        elif isinstance(mod, Dense):
+            if mod.tanh:
+                params[p + "weight"].normal_(0.0, 0.02, generator=gen)
+            else:
+                xavier(p + "weight", *params[p + "weight"].shape)
+    return params

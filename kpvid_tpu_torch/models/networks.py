@@ -1,8 +1,10 @@
-"""Inference-mode networks of the generation path, NHWC at every boundary.
+"""Networks of the generation path and of stage-2 training, NHWC at every boundary.
 
 Counterpart of kpvid_tpu/models/networks.py: ConvEncoder, ImageEncoder,
 PoseEncoder, Translator (the serving decode), Stage1Generator's
-detect/embed/generate and MotionGenerator.decode. Module and parameter
+detect/embed/generate (inference mode), and the trainable stage-2 pair:
+MotionGenerator (decode; with ``encoder=True`` also encode and the training
+forward) and SeqDiscriminator. Module and parameter
 names follow the Flax tree (``in0_conv/Conv_0/kernel`` is ``in0.conv.weight``
 here), so the bridge maps one onto the other by name.
 
@@ -195,18 +197,37 @@ class Stage1Generator(nn.Module):
 
 
 class MotionGenerator(nn.Module):
-    """Stage-2 decoder: relu FC([z, first_pt, action]) -> the step-0 input of
-    a stacked LSTM (zero input afterwards), tanh ``to_coord`` head on every
-    step -> [B, T, 2K]."""
+    """Stage-2 class-conditional VAE over keypoint sequences [B, T, 2K].
+
+    decode: relu FC([z, first_pt, action]) -> the step-0 input of a stacked
+    LSTM (zero input afterwards), tanh ``to_coord`` head on every step.
+    With ``encoder=True`` (the trainer's model; generation builds the
+    decoder alone) also encode: an LSTM over the real sequence, then relu
+    FC([last output, first_pt, action]) -> (mu, stddev), both >= 0 by the
+    reference's relu quirk; and the training forward, which
+    reparameterizes z = mu + stddev * noise and decodes."""
 
     def __init__(self, n_pts: int, n_action: int, n_future: int = 32,
-                 cell_info=(1024, 1024), vae_dim: int = 64, dtype=torch.float32):
+                 cell_info=(1024, 1024), vae_dim: int = 64, dtype=torch.float32,
+                 encoder: bool = False):
         super().__init__()
         self.n_pts = n_pts
         self.n_future = n_future
-        self.dec_in = Dense(vae_dim + 2 * n_pts + n_action, 32, relu=True, dtype=dtype)
+        self.vae_dim = vae_dim
+        cond = 2 * n_pts + n_action
+        if encoder:
+            self.enc_lstm = StackedLSTM(2 * n_pts, cell_info, dtype=dtype)
+            self.enc_head = Dense(int(cell_info[-1]) + cond, 2 * vae_dim, relu=True, dtype=dtype)
+        self.dec_in = Dense(vae_dim + cond, 32, relu=True, dtype=dtype)
         self.dec_lstm = StackedLSTM(32, cell_info, dtype=dtype)
         self.to_coord = Dense(int(cell_info[-1]), 2 * n_pts, tanh=True, dtype=dtype)
+
+    def encode(self, real_seq: torch.Tensor, first_pt: torch.Tensor,
+               act: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """real_seq [B, T, 2K], first_pt [B, 2K], act [B, A] -> (mu, stddev)."""
+        outs = self.enc_lstm(real_seq)
+        logit = self.enc_head(torch.cat([outs[:, -1], first_pt, act], dim=-1))
+        return logit[:, : self.vae_dim], logit[:, self.vae_dim:]
 
     def decode(self, z: torch.Tensor, first_pt: torch.Tensor, act: torch.Tensor) -> torch.Tensor:
         b = z.shape[0]
@@ -215,3 +236,23 @@ class MotionGenerator(nn.Module):
         outs = self.dec_lstm(xs)  # [B, T, H]
         coords = self.to_coord(outs.reshape(b * self.n_future, -1))
         return coords.reshape(b, self.n_future, 2 * self.n_pts)
+
+    def forward(self, real_seq, first_pt, act, noise):
+        """Training forward -> (pred_seq [B, T, 2K], mu, stddev); z is f32
+        (the compute-dtype mu and stddev times the f32 noise, as in JAX)."""
+        mu, stddev = self.encode(real_seq, first_pt, act)
+        pred_seq = self.decode(mu + stddev * noise, first_pt, act)
+        return pred_seq, mu, stddev
+
+
+class SeqDiscriminator(nn.Module):
+    """LSTM over a keypoint sequence [B, T, 2K], then relu FC -> 1 on the last
+    step's output (the reference's relu'd logit quirk) -> [B, 1]."""
+
+    def __init__(self, in_dim: int, cell_info=(1024, 1024), dtype=torch.float32):
+        super().__init__()
+        self.lstm = StackedLSTM(in_dim, cell_info, dtype=dtype)
+        self.head = Dense(int(cell_info[-1]), 1, relu=True, dtype=dtype)
+
+    def forward(self, seq: torch.Tensor) -> torch.Tensor:
+        return self.head(self.lstm(seq)[:, -1])

@@ -1,9 +1,10 @@
-"""Host C++ image kernels of the input pipeline: bicubic resize and u8 -> f32.
+"""Host C++ image kernels of the input pipeline: bicubic resize, nearest
+rotate and u8 -> f32.
 
 A copy of kpvid_tpu/native (``fastimage.cpp`` is the same file, byte for
 byte). These run on the host, not the card: they replace PIL's per-frame
-resize and the to-float conversion of the serving and labeling pipelines,
-BYTE-IDENTICAL to PIL. The source is compiled with ``g++`` at first use into
+resize and rotate and the to-float conversion of the serving, labeling and
+sequence pipelines, BYTE-IDENTICAL to PIL. The source is compiled with ``g++`` at first use into
 the port's build directory (``ops/_build.build_dir()``), bound with ctypes
 (which releases the GIL for each call, so the daemon's handler threads and
 the labeler's decode thread run them in parallel), and checked against PIL
@@ -16,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import logging
+import math
 import os
 import subprocess
 import tempfile
@@ -63,6 +65,8 @@ def _bind(path: Path) -> ctypes.CDLL:
     ci = ctypes.c_int
     lib.ki_resize_bicubic_u8.argtypes = [u8p, ci, ci, u8p, ci, ci, ci]
     lib.ki_resize_bicubic_u8.restype = ci
+    lib.ki_affine_nearest_u8.argtypes = [u8p, ci, ci, u8p, ctypes.POINTER(ctypes.c_double), ci]
+    lib.ki_affine_nearest_u8.restype = ci
     lib.ki_u8_to_f32.argtypes = [u8p, f32p, ci, ci, ci, ci, ci]
     lib.ki_u8_to_f32.restype = ci
     return lib
@@ -81,6 +85,34 @@ def resize_bicubic(src: np.ndarray, size_wh: tuple[int, int]) -> np.ndarray:
     rc = _lib.ki_resize_bicubic_u8(_u8ptr(src), sw, sh, _u8ptr(dst), dw, dh, ch)
     if rc != 0:
         raise ValueError(f"ki_resize_bicubic_u8 failed ({rc})")
+    return dst
+
+
+def rotate_matrix(w: int, h: int, angle_degrees: float) -> np.ndarray:
+    """The output -> input affine matrix PIL's Image.rotate builds (its
+    round(.., 15) of the trigonometric terms included), so the C kernel and
+    PIL truncate the same double coordinates."""
+    angle = -math.radians(angle_degrees % 360.0)
+    a = round(math.cos(angle), 15)
+    b = round(math.sin(angle), 15)
+    cx, cy = w / 2.0, h / 2.0
+    c = a * -cx + b * -cy + cx
+    f = -b * -cx + a * -cy + cy
+    return np.array([a, b, c, -b, a, f], np.float64)
+
+
+def rotate_nearest(src: np.ndarray, angle_degrees: float) -> np.ndarray:
+    """PIL im.rotate(angle) (NEAREST, expand=False, zero fill) on a u8 HWC array."""
+    src = np.ascontiguousarray(src, np.uint8)
+    h, w, ch = src.shape
+    if angle_degrees % 360.0 == 0.0:
+        return src.copy()
+    m = rotate_matrix(w, h, angle_degrees)
+    dst = np.empty_like(src)
+    rc = _lib.ki_affine_nearest_u8(_u8ptr(src), w, h, _u8ptr(dst),
+                                   m.ctypes.data_as(ctypes.POINTER(ctypes.c_double)), ch)
+    if rc != 0:
+        raise ValueError(f"ki_affine_nearest_u8 failed ({rc})")
     return dst
 
 
@@ -106,6 +138,8 @@ def _self_check() -> bool:
     src = rng.integers(0, 256, (37, 53, 3), np.uint8)
     if not np.array_equal(np.asarray(Image.fromarray(src).resize((21, 29))),
                           resize_bicubic(src, (21, 29))):
+        return False
+    if not np.array_equal(np.asarray(Image.fromarray(src).rotate(7)), rotate_nearest(src, 7)):
         return False
     unit = np.asarray(src, np.float32) / 255.0
     return np.array_equal(unit, to_f32(src, pm1=False)) and np.array_equal(

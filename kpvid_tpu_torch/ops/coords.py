@@ -3,7 +3,8 @@
 Counterpart of kpvid_tpu/ops/coords.py, in plain PyTorch. Keypoints live
 in [-1, 1]^2 on ``linspace(-1, 1, size)`` grids that include both ends,
 stored as (x, y). The fused kernels of the same functions are in
-``keypoint_kernels.py``.
+``keypoint_kernels.py``; ``colorize_point_maps`` (a max-reduce in JAX, no
+kernel there) stays plain.
 """
 
 from __future__ import annotations
@@ -81,3 +82,12 @@ def render_gaussian_maps(
 def blend(background: torch.Tensor, crude: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """mask keeps the background, (1 - mask) takes the crude prediction."""
     return background * mask + crude * (1.0 - mask)
+
+
+def colorize_point_maps(maps: torch.Tensor, colors) -> torch.Tensor:
+    """Tint each keypoint map with its color and take the max over the
+    keypoints: maps [..., H, W, K], colors [K, 3] -> [..., H, W, 3], in the
+    maps' dtype (the colors rounded to it, as JAX does). One channel at a
+    time, so no [..., H, W, K, 3] product is held."""
+    colors = torch.as_tensor(colors).to(device=maps.device, dtype=maps.dtype)
+    return torch.stack([(maps * colors[:, c]).amax(dim=-1) for c in range(3)], dim=-1)

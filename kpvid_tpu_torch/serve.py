@@ -3,10 +3,13 @@
     python -m kpvid_tpu_torch.serve --config kpvid_tpu/configs/penn.yaml \
         --checkpoint_stage1 stage1.npz --checkpoint_stage2 stage2.npz --port 8000
 
-Counterpart of the JAX package's ``serve.py``. The two parameter files are
-the port's ``.npz`` (``tools/export_torch_params.py`` writes them from JAX
-checkpoints); they are merged into the model by name, each of them required
-to match at least one tensor, as the JAX CLI merges its two checkpoints.
+Counterpart of the JAX package's ``serve.py``. Each checkpoint is the
+port's ``.npz`` parameter file (``tools/export_torch_params.py`` writes them
+from JAX checkpoints), a trainer ``ckpt-N`` directory
+(``python -m kpvid_tpu_torch.train`` writes them), or the directory above
+one (its newest ``ckpt-N``). They are merged into the model by name, each of
+them required to match at least one tensor, as the JAX CLI merges its two
+checkpoints.
 The daemon runs on the card and raises without one (``--device cpu`` runs
 the plain versions on the CPU). Then:
 
@@ -37,7 +40,8 @@ def build_parser() -> ArgumentParser:
     parser.add_argument("--checkpoint_stage1", type=str, required=True,
                         help="the port's stage-1 parameter file (.npz)")
     parser.add_argument("--checkpoint_stage2", type=str, required=True,
-                        help="the port's stage-2 parameter file (.npz)")
+                        help="the port's stage-2 parameter file (.npz), a trainer "
+                             "ckpt-N directory, or the directory of its ckpt-N")
     parser.add_argument("--host", type=str, default="127.0.0.1")
     parser.add_argument("--port", type=int, default=8000)
     parser.add_argument("--buckets", type=int, nargs="+", default=None,
@@ -62,19 +66,28 @@ def build_parser() -> ArgumentParser:
 
 def load_engine(args):
     """The engine of the parsed arguments, with both parameter files merged."""
-    from .checkpoint import load_parameters, merge_parameters
     from .configs import load_config
     from .eval import InferenceEngine
     from .eval.final import FinalGenerator
-    from .utils import logger
 
     config = load_config(args.config)
     target = FinalGenerator(config, device="cpu").model.state_dict()
-    params, n1 = merge_parameters(target, load_parameters(args.checkpoint_stage1))
-    params, n2 = merge_parameters(params, load_parameters(args.checkpoint_stage2))
-    logger.info("restored stage1=%d tensors from %s; stage2=%d from %s",
-                n1, args.checkpoint_stage1, n2, args.checkpoint_stage2)
+    params = load_generator_parameters(target, args.checkpoint_stage1, args.checkpoint_stage2)
     return InferenceEngine(config, params, device=args.device)
+
+
+def load_generator_parameters(target: dict, stage1: str, stage2: str) -> dict:
+    """``target`` with the tensors of both checkpoints merged in by name
+    (each a .npz, a ckpt-N directory or the directory above one)."""
+    from .checkpoint import load_parameters, merge_parameters, resolve_parameter_file
+    from .utils import logger
+
+    ck1 = resolve_parameter_file(stage1, "--checkpoint_stage1")
+    ck2 = resolve_parameter_file(stage2, "--checkpoint_stage2")
+    params, n1 = merge_parameters(target, load_parameters(ck1))
+    params, n2 = merge_parameters(params, load_parameters(ck2))
+    logger.info("restored stage1=%d tensors from %s; stage2=%d from %s", n1, ck1, n2, ck2)
+    return params
 
 
 def main(argv=None):

@@ -1,0 +1,109 @@
+"""The CLIs' console logger and the trainer's metric logger.
+
+Copies of kpvid_tpu/utils/logging.py: one JSONL file of scalar metrics per
+split (``{log_dir}/{name}/{split}_metrics.jsonl``), image summaries as PNGs
+under ``{log_dir}/{name}/{split}_images/``, and the console line
+``step N, loss_D = x, loss_G = y (E examples/sec) S sec/batch``. The JAX
+package's optional TensorBoard writer is not copied.
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import time
+from datetime import datetime
+from pathlib import Path
+
+import numpy as np
+
+logger = logging.getLogger("kpvid_tpu_torch")
+
+
+def setup_console_logging() -> None:
+    """One plain console line per record; for the CLIs, not for importers."""
+    if not logger.handlers:
+        handler = logging.StreamHandler()
+        handler.setFormatter(logging.Formatter("%(message)s"))
+        logger.addHandler(handler)
+        logger.setLevel(logging.INFO)
+        logger.propagate = False
+
+
+def _to_scalar(v):
+    try:
+        return float(v)
+    except (TypeError, ValueError):
+        return None
+
+
+class MetricLogger:
+    def __init__(self, log_dir: str | Path, name: str):
+        self.root = Path(log_dir) / name
+        self.root.mkdir(parents=True, exist_ok=True)
+        self._files = {}
+
+    def _jsonl(self, split: str):
+        if split not in self._files:
+            self._files[split] = open(self.root / f"{split}_metrics.jsonl", "a")
+        return self._files[split]
+
+    def log_metrics(self, split: str, step: int, metrics: dict) -> None:
+        scalars = {k: _to_scalar(v) for k, v in metrics.items()}
+        scalars = {k: v for k, v in scalars.items() if v is not None}
+        f = self._jsonl(split)
+        f.write(json.dumps({"step": int(step), "time": time.time(), **scalars}) + "\n")
+        f.flush()
+
+    def log_console(self, step: int, loss_d: float, loss_g: float, examples_per_sec: float,
+                    sec_per_batch: float, prefix: str = "") -> None:
+        logger.info(
+            "%s%s: step %d, loss_D = %.4f, loss_G = %.4f (%.1f examples/sec) %.3f sec/batch",
+            prefix, datetime.now(), step, loss_d, loss_g, examples_per_sec, sec_per_batch,
+        )
+
+    def log_images(self, split: str, step: int, images: dict[str, np.ndarray],
+                   max_outputs: int = 2) -> None:
+        """images: name -> [B, H, W, C] float arrays in [-1, 1], [0, 1] or
+        [0, 255], saved as PNGs."""
+        from PIL import Image
+
+        out_dir = self.root / f"{split}_images"
+        out_dir.mkdir(exist_ok=True)
+        for name, arr in images.items():
+            arr = np.asarray(arr)[:max_outputs]
+            for b in range(arr.shape[0]):
+                img = arr[b]
+                if img.min() < -0.01:  # [-1, 1] -> [0, 1]
+                    img = (img + 1.0) / 2.0
+                if img.max() <= 1.001:
+                    img = img * 255.0
+                img = np.clip(img, 0, 255).astype(np.uint8)
+                if img.shape[-1] == 1:
+                    img = img[..., 0]
+                Image.fromarray(img).save(out_dir / f"{name}_{step:08d}_{b}.png")
+
+    def close(self) -> None:
+        for f in self._files.values():
+            f.close()
+        self._files = {}
+
+
+class Throughput:
+    """examples/s and s/batch since the last reset."""
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self):
+        self._t0 = time.perf_counter()
+        self._examples = 0
+        self._batches = 0
+
+    def update(self, batch_size: int):
+        self._examples += batch_size
+        self._batches += 1
+
+    def rates(self) -> tuple[float, float]:
+        dt = max(time.perf_counter() - self._t0, 1e-9)
+        return self._examples / dt, dt / max(self._batches, 1)

@@ -315,3 +315,70 @@ def test_labeling_chunk_matches_plain_soft_argmax(dev, tmp_path):
     assert raw.dtype == torch.bfloat16 and raw.shape == (128, 128, 128, 40)
     assert torch.equal(got, pose_head(raw.contiguous()))
     assert float((got - heatmaps_to_keypoints(raw)).abs().max()) <= 1e-5
+
+
+def test_render_point_images_on_card_match_plain(dev):
+    """evaluate's point images at 128^2 (#4 then the plain tint): the current
+    points on the f32 grid into f32 maps, the future points on the bf16 grid
+    into bf16 maps, against the plain render of the same points (bf16 images
+    within one bf16 step of the larger magnitude)."""
+    from kpvid_tpu_torch.ops import colorize_point_maps
+    from kpvid_tpu_torch.utils import get_n_colors
+
+    cfg = Config()
+    gen = FinalGenerator(cfg, device=dev)
+    colors = get_n_colors(cfg.model.n_pts)
+    g = torch.Generator(device=dev).manual_seed(0)
+    for rows, dtype in ((8, torch.float32), (256, torch.bfloat16)):
+        mu = (torch.rand((rows, cfg.model.n_pts, 2), generator=g, device=dev) * 2 - 1).to(dtype)
+        reset_launch_counts()
+        got = gen.render_point_images(mu, colors)
+        assert launch_counts()["gaussian_render"] == 1
+        want = colorize_point_maps(render_gaussian_maps(mu.float(), 128, 128,
+                                                        cfg.model.heatmap_inv_std, dtype, dtype),
+                                   colors)
+        assert got.dtype == dtype and got.shape == (rows, 128, 128, 3)
+        if dtype == torch.float32:
+            torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+        else:
+            err = (got.float() - want.float()).abs()
+            assert bool((err <= 2.0**-7 * torch.maximum(got.float().abs(), want.float().abs())
+                         + 2.0**-126).all())
+
+
+def test_stage2_grads_on_card_match_cpu(dev):
+    """One fused step's losses and gradients at small widths, f32 with TF32
+    off, on the card and on the CPU from the same parameters, batch and
+    noise: losses rtol 1e-5, gradients within 2e-3 of each tensor's max.
+    The encoder's gradients are ill-conditioned: the KL term's
+    d/dsigma = sigma - 1/sigma is large where the relu'd sigma is small and
+    carries the rounding of sigma itself, so the encoder's f32 gradients
+    depend on the order of every sum before it, on either side."""
+    import dataclasses
+
+    from kpvid_tpu_torch.configs import ModelConfig, TrainingConfig
+    from kpvid_tpu_torch.train import Stage2Trainer
+
+    cfg = dataclasses.replace(
+        Config(), model=ModelConfig(n_pts=8, cell_info=(64, 64), vae_dim=16, n_future_frames=8,
+                                    image_size=32, heatmap_size=8),
+        training=TrainingConfig(compute_dtype="float32", batch_size=4)).validate()
+    rng = np.random.default_rng(0)
+    batch = {"keypoints": rng.uniform(-1, 1, (4, 8, 2)).astype(np.float32),
+             "real_seq": rng.uniform(-1, 1, (4, 8, 8, 2)).astype(np.float32),
+             "action_code": np.eye(9, dtype=np.float32)[[0, 3, 5, 8]]}
+    noise = rng.standard_normal((4, 16)).astype(np.float32)
+    out = {}
+    for device in (dev, "cpu"):
+        t = Stage2Trainer(cfg, device=device)
+        t.load_parameters(t.init_parameters(3))
+        first_pt, real_seq, act = t._flatten_batch(batch)
+        g_grads, pred, g_m = t.g_grads(first_pt, real_seq, act, noise)
+        d_grads, d_m = t.d_grads(real_seq, pred)
+        out[str(device)] = ({k: float(v) for k, v in {**g_m, **d_m}.items()},
+                            [g.cpu() for g in list(g_grads) + list(d_grads)])
+    (lc, gc), (lp, gp) = out[str(dev)], out["cpu"]
+    for k in lp:
+        assert lc[k] == pytest.approx(lp[k], rel=1e-5), k
+    for a, b in zip(gc, gp):
+        assert float((a - b).abs().max()) <= 2e-3 * max(float(b.abs().max()), 1e-30)

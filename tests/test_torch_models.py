@@ -248,3 +248,34 @@ def test_config_paths_and_data_match_jax(tmp_path):
     assert str(err.value) == str(jerr.value) == "data.native_ops must be auto|on|off, got 'maybe'"
     bad.write_text("data: {native_ops: 'on', labeler_chunk: 64, decode_cache_mb: 8}\n")
     assert load_config(bad).data == DataConfig(native_ops="on", labeler_chunk=64)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_stacked_lstm_matches_flax(dtype):
+    """StackedLSTM at features (256, 256), B = 8, T = 32, D = 32, Xavier
+    kernels, random biases. bf16: the gates are f32 products of the
+    bf16-rounded input and kernel, as JAX's preferred_element_type=f32 dot;
+    rounding the gates to bf16 (the fault) gave max 5.9e-4, mean 7.0e-5. The
+    bound holds the mean 10x under that: max 2e-4, mean 7e-6. f32: 1e-6."""
+    from kpvid_tpu.models.layers import StackedLSTM as JaxStackedLSTM
+    from kpvid_tpu_torch.models import StackedLSTM
+
+    rng = np.random.default_rng(0)
+    xs = rng.normal(size=(8, 32, 32)).astype(np.float32)
+    mod = JaxStackedLSTM((256, 256), dtype=getattr(jnp, dtype))
+    params = jax.tree.map(np.asarray, jax.jit(lambda r: mod.init(r, xs))(jax.random.PRNGKey(0))
+                          ["params"])
+    for key in params:
+        if "bias" in key:
+            params[key] = rng.normal(0, 0.1, params[key].shape).astype(np.float32)
+    want = np.asarray(jax.jit(lambda p, x: mod.apply({"params": p}, x))(params, xs))
+    lstm = StackedLSTM(32, (256, 256), getattr(torch, dtype))
+    lstm.load_state_dict({k: torch.tensor(v) for k, v in params.items()}, strict=True)
+    with torch.no_grad():
+        got = lstm(torch.from_numpy(xs))
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    err = np.abs(got.numpy() - want)
+    if dtype == "float32":
+        assert err.max() <= 1e-6
+    else:
+        assert err.max() <= 2e-4 and err.mean() <= 7e-6, (err.max(), err.mean())
