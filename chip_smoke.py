@@ -61,8 +61,33 @@ imports nothing of JAX or of the JAX package, and:
    else, and on the first 128-frame chunk that the kernel agrees with the
    plain soft-argmax on the same raw maps within 1e-5 and that the labels
    are the kernel's points; it prints frames/s and the host decode's share;
-7. train: stage 2 at ``Config()`` in bf16, batch 16, on phase 6's tree and
-   the labels the port's own labeler wrote: ``python -m
+7. stage 1: the backward kernels of #3 (raw maps [32, 128^2, 40]) and #4
+   (points [16, 40, 2] from [16, 32^2, 40] maps) against the plain versions'
+   torch autograd, f32 and bf16 (f32 within 1e-5 of each tensor's max; bf16
+   maps' gradients within one bf16 step or that bound; the points' gradient
+   from bf16 cotangents within 1e-4 of its max), the same bits twice, and
+   their times both ways with bound and plain; then ``python -m
+   kpvid_tpu_torch.train --mode detector_translator``'s ``main`` at
+   ``Config()`` in bf16, batch 16, on phase 6's tree with synthesized VGG19
+   weights for 40 fused steps (a checkpoint at step 20, one test sweep, one
+   summary write). It checks the launches (1 / 2 forward and 1 / 2 backward
+   #3 / #4 a fused step, no #1 / #2; 'fused_dg' and 'two_batch' add one #3
+   and two #4 forwards), that every loss is finite and every parameter
+   moved, the pose encoder's included (the image encoder's last octave,
+   which stage 1 does not read, stays), that a second run resumed from
+   ``ckpt-20`` ends with the same bits in every array (with what cuDNN's
+   free and deterministic algorithms do to two gradient passes from one
+   state), 3 steps each of 'fused_dg' and 'two_batch', and one f32 step at
+   ``Config()`` widths, batch 2, on the card and on the CPU (losses rtol
+   1e-4, each gradient tensor within 5% in relative L2; it prints each
+   tensor's worst element against its max, and the card against itself with
+   the source frame one ulp off, since the step's gradient is not continuous
+   in its inputs); it prints the step time
+   (median of 10), examples/s, peak memory and one step's device time and
+   kernel count (``torch.profiler``). Then the labeler runs again with the
+   stage-1 trainer's newest checkpoint and rewrites every label file;
+8. train: stage 2 at ``Config()`` in bf16, batch 16, on phase 6's tree and
+   the labels the port's own stage-1 checkpoint wrote: ``python -m
    kpvid_tpu_torch.train``'s ``main`` for 40 steps (a checkpoint at step 20,
    one test sweep, one summary-image write), then 3 steps each of
    'fused_dg' and 'two_batch'. It checks that every loss is finite, every
@@ -75,10 +100,11 @@ imports nothing of JAX or of the JAX package, and:
    each other; and prints the step time (host clock, synchronised, median
    of 10 after warm-up), examples/s, and one step's device time and kernel
    count from ``torch.profiler``;
-8. evaluate: ``python -m kpvid_tpu_torch.evaluate``'s ``main`` on the tree's
-   8 test videos at eval batch 8, with phase 6's stage-1 parameter file and
-   phase 7's ``ckpt-40`` directory. It checks the PNG tree (2 PNGs and 5
-   directories of 32 PNGs per sample), 8 / 2 / 1 / 4 launches per batch (the
+9. evaluate: ``python -m kpvid_tpu_torch.evaluate``'s ``main`` on the tree's
+   8 test videos at eval batch 8, with phase 7's stage-1 checkpoint directory
+   (its newest ``ckpt-N``) and phase 8's ``ckpt-40`` directory. It checks
+   the PNG tree (2 PNGs and 5 directories of 32 PNGs per sample), 8 / 2 / 1
+   / 4 launches per batch (the
    render twice more, for the point images at 128^2), the render at those
    shapes against its plain version (f32 grid into f32 maps, bf16 grid into
    bf16 and f32 maps) and its times, and that a second run with the same
@@ -87,8 +113,9 @@ imports nothing of JAX or of the JAX package, and:
 
 It exits non-zero on any failed check, and without a CUDA device. The line
 before the last holds the kernels' JSON record (launches per generate, per
-served batch, per labeled chunk and per evaluate batch), the last line the
-device.
+served batch, per labeled chunk, per stage-1 and stage-2 train step and per
+evaluate batch; the backward kernels' ``launches`` are per stage-1 step),
+the last line the device.
 """
 
 from __future__ import annotations
@@ -504,7 +531,11 @@ def randomized_params(cfg, seed: int) -> dict:
 
 
 EXPECTED_LAUNCHES = {"conv3x3_affine": 8, "up2_conv3_affine": 2, "pose_head": 1,
-                     "gaussian_render": 2}
+                     "gaussian_render": 2, "pose_head_backward": 0,
+                     "gaussian_render_backward": 0}
+
+
+NO_LAUNCHES = {name: 0 for name in EXPECTED_LAUNCHES}
 
 
 def slice_phase(cfg, params) -> dict:
@@ -1016,7 +1047,7 @@ def serve_phase(cfg, params, card: str) -> dict:
 def label_phase(cfg, params, card: str, root: Path) -> dict:
     """The labeler on a synthetic tree at 128-frame chunks, bf16. Leaves the
     tree (``root/penn``, its labels) and the stage-1 parameter file
-    (``root/stage1.npz``) for phases 7 and 8."""
+    (``root/stage1.npz``) for the later phases."""
     import torch
 
     from kpvid_tpu_torch import make_pseudo_labels, ops
@@ -1049,8 +1080,7 @@ def label_phase(cfg, params, card: str, root: Path) -> dict:
     n_frames = stats["frames"]
     check(stats["videos"] == 32 and stats["chunks"] == -(-n_frames // chunk),
           f"labeled 32 videos, {n_frames} frames, in {stats['chunks']} chunks of {chunk}")
-    check(counts == {"conv3x3_affine": 0, "up2_conv3_affine": 0,
-                     "pose_head": stats["chunks"], "gaussian_render": 0},
+    check(counts == dict(NO_LAUNCHES, pose_head=stats["chunks"]),
           f"launches {counts}: one pose_head per chunk, nothing else")
     labels = {}
     for subset in ("train", "test"):
@@ -1115,16 +1145,17 @@ TRAIN_CKPT = 20
 STEP_LOSS_RTOL = 1e-4
 STEP_GRAD_REL = 1e-3
 EVAL_LAUNCHES = {"conv3x3_affine": 8, "up2_conv3_affine": 2, "pose_head": 1,
-                 "gaussian_render": 4}
+                 "gaussian_render": 4, "pose_head_backward": 0, "gaussian_render_backward": 0}
 
 
 def train_config(cfg, root: Path, name: str, log: str, **training) -> Path:
-    """A YAML (JSON is YAML) of ``cfg``'s model for the trainer on phase 6's
+    """A YAML (JSON is YAML) of ``cfg``'s model for the trainers on phase 6's
     tree, batch 16, a checkpoint every 20 steps, one summary and one test
-    sweep (at step 0)."""
+    sweep (at step 0), and no vgg19.npy (stage 1 synthesizes its weights)."""
     path = root / f"{name}.yaml"
     path.write_text(json.dumps({
-        "paths": {"data_dir": str(root / "penn"), "log_dir": str(root / log)},
+        "paths": {"data_dir": str(root / "penn"), "log_dir": str(root / log),
+                  "vggnet": str(root / "no_vgg19.npy")},
         "training": {"compute_dtype": cfg.training.compute_dtype, "batch_size": TRAIN_BATCH,
                      "checkpoint_interval": TRAIN_CKPT, "summary_interval": 1000,
                      "test_interval": 1000, "log_interval": 10, **training},
@@ -1148,8 +1179,361 @@ def moved_and_finite(run: dict, what: str) -> None:
           + f"), all {len(init)} parameter tensors moved")
 
 
+S1_STEPS = 40
+S1_CKPT = 20
+S1_BATCH = TRAIN_BATCH
+BWD_F32_REL = 1e-5  # f32 gradients: within 1e-5 of the tensor's max |plain|
+# the f32 stage-1 step, card against CPU: each gradient tensor within 5% in
+# relative L2. Element by element the two differ by a few % of a tensor's
+# max: the step's gradient is not continuous in its inputs (ReLU and leaky
+# ReLU kinks, the max-pools, the perceptual loss's L1 signs), so a forward
+# that moves by an ulp turns some of those terms over; the phase measures
+# the card against itself with the source frame one ulp off to show it
+S1_GRAD_L2 = 5e-2
+BWD_POINTS_BF16_REL = 1e-4  # the points' f32 gradient from bf16 cotangents
+# biases whose gradient is zero in exact arithmetic (a conv's before a
+# train-mode BN, which takes the batch mean off; the heat map's, which the
+# soft-argmax does not see): each side's value is its own rounding
+ZERO_GRAD = (".conv.bias", ".heat.bias")
+# the image encoder's last octave feeds nothing of stage 1 (the translator
+# takes the 1/4-resolution features): its parameters get zero gradients
+S1_UNUSED = ("stage1.image_encoder.trunk.down2.", "stage1.image_encoder.trunk.keep2.")
+S1_PER_STEP = dict(NO_LAUNCHES, pose_head=1, gaussian_render=2, pose_head_backward=1,
+                   gaussian_render_backward=2)
+
+
+def rel_gap(got, want) -> float:
+    got, want = got.float(), want.float()
+    return float((got - want).abs().max()) / max(float(want.abs().max()), 1e-30)
+
+
+def backward_kernel_phase(m) -> dict:
+    """#3's and #4's backwards against the plain versions' torch autograd at
+    stage 1's training shapes, f32 and bf16, and their times."""
+    import torch
+
+    from kpvid_tpu_torch import ops
+    from kpvid_tpu_torch.ops.keypoint_kernels import _pose_head_launch
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    b, s, k = 2 * S1_BATCH, m.image_size, m.n_pts
+    rec = dict(library_ms=None, max_abs_err=0.0, max_abs_err_f32=0.0)
+    for dtype in (torch.float32, torch.bfloat16):
+        raw = (3 * torch.randn((b, s, s, k), generator=gen, device="cuda")).to(dtype)
+        ct = torch.randn((b, k, 2), generator=gen, device="cuda")
+        pts, p, q = _pose_head_launch(raw, marginals=True)
+        got = ops.pose_head_backward(ct, pts, p, q, dtype)
+        again = ops.pose_head_backward(ct, pts, p, q, dtype)
+        torch.cuda.synchronize()
+        raw_req = raw.clone().requires_grad_()
+        plain_pts = ops.heatmaps_to_keypoints(raw_req)
+        (want,) = torch.autograd.grad(plain_pts, raw_req, ct, retain_graph=True)
+        err = float((got.float() - want.float()).abs().max())
+        scale = float(want.float().abs().max())
+        if dtype == torch.float32:
+            ok = err <= BWD_F32_REL * scale
+            rec["max_abs_err_f32"] = err
+        else:  # one bf16 step of each element, or the f32 bound where terms cancel
+            g32, w32 = got.float(), want.float()
+            step = 2.0**-7 * torch.maximum(g32.abs(), w32.abs())
+            ok = bool(((g32 - w32).abs() <= torch.clamp(step, min=BWD_F32_REL * scale)).all())
+            rec["max_abs_err"] = err
+        check(ok and torch.equal(got, again) and torch.equal(pts, ops.pose_head(raw)),
+              f"pose_head_backward {tuple(raw.shape)} {dtype}: max abs err {err:.3e} of max "
+              f"{scale:.3e} against plain autograd; the same bits twice; the training form's "
+              "points are the inference form's")
+        if dtype == torch.bfloat16:  # the path's dtype
+            rec["ms"] = device_ms(lambda: ops.pose_head_backward(ct, pts, p, q, dtype), reps=20)
+            rec["host_loop_ms"] = time_ms(lambda: ops.pose_head_backward(ct, pts, p, q, dtype))
+            rec["plain_ms"] = time_ms(
+                lambda: torch.autograd.grad(plain_pts, raw_req, ct, retain_graph=True))
+            n_bytes = got.numel() * 2 + 4.0 * b * k * (2 * s) + 4.0 * 2 * b * k * 2
+            rec["bound_ms"], rec["bound_by"] = bound_ms(n_bytes, 3.0 * got.numel(), "float32")
+            fwd_train = device_ms(lambda: _pose_head_launch(raw, marginals=True), reps=20)
+            fwd_inf = device_ms(lambda: ops.pose_head(raw), reps=20)
+    print(f"pose_head_backward bf16 [{b}, {s}, {s}, {k}] per stage-1 step: device "
+          f"{rec['ms']:.4f} ms ({100 * rec['bound_ms'] / rec['ms']:.1f}% of the bound "
+          f"{rec['bound_ms']:.4f} ms, {rec['bound_by']}), host loop {rec['host_loop_ms']:.4f} ms, "
+          f"plain autograd {rec['plain_ms']:.4f} ms; the forward's training form {fwd_train:.4f} ms "
+          f"against its inference form {fwd_inf:.4f} ms", flush=True)
+    records = {"pose_head_backward": dict(rec, forward_train_ms=fwd_train,
+                                          forward_inference_ms=fwd_inf)}
+
+    hs, n = m.heatmap_size, S1_BATCH
+    rec = dict(library_ms=None, max_abs_err=0.0, max_abs_err_f32=0.0)
+    for od in (torch.float32, torch.bfloat16):
+        mu = torch.rand((n, k, 2), generator=gen, device="cuda") * 2 - 1
+        ct = torch.randn((n, hs, hs, k), generator=gen, device="cuda").to(od)
+        got = ops.gaussian_render_backward(ct, mu, m.heatmap_inv_std)
+        again = ops.gaussian_render_backward(ct, mu, m.heatmap_inv_std)
+        torch.cuda.synchronize()
+        mu_req = mu.clone().requires_grad_()
+        maps = ops.render_gaussian_maps(mu_req, hs, hs, m.heatmap_inv_std, out_dtype=od)
+        (want,) = torch.autograd.grad(maps, mu_req, ct, retain_graph=True)
+        gap = rel_gap(got, want)
+        err = float((got - want).abs().max())
+        bound = BWD_F32_REL if od == torch.float32 else BWD_POINTS_BF16_REL
+        rec["max_abs_err_f32" if od == torch.float32 else "max_abs_err"] = err
+        check(gap <= bound and torch.equal(got, again),
+              f"gaussian_render_backward {tuple(ct.shape)} {od} -> {tuple(mu.shape)}: max abs err "
+              f"{err:.3e}, {gap:.2e} of the max (bound {bound}); the same bits twice")
+        if od == torch.bfloat16:  # two launches a step, each at this shape
+            args = (ct, mu, m.heatmap_inv_std)
+            rec["ms"] = 2 * device_ms(lambda: ops.gaussian_render_backward(*args), reps=50)
+            rec["host_loop_ms"] = 2 * time_ms(lambda: ops.gaussian_render_backward(*args))
+            rec["plain_ms"] = 2 * time_ms(
+                lambda: torch.autograd.grad(maps, mu_req, ct, retain_graph=True))
+            n_bytes = 2 * (ct.numel() * 2 + 4.0 * n * k * 2 * 2)
+            rec["bound_ms"], rec["bound_by"] = bound_ms(n_bytes, 2 * 8.0 * ct.numel(), "float32")
+    print(f"gaussian_render_backward bf16 2 x [{n}, {hs}, {hs}, {k}] per stage-1 step: device "
+          f"{rec['ms']:.4f} ms ({100 * rec['bound_ms'] / rec['ms']:.1f}% of the bound "
+          f"{rec['bound_ms']:.4f} ms, {rec['bound_by']}), host loop {rec['host_loop_ms']:.4f} ms, "
+          f"plain autograd {rec['plain_ms']:.4f} ms", flush=True)
+    records["gaussian_render_backward"] = rec
+    return records
+
+
+def stage1_moved_and_finite(run: dict, what: str) -> None:
+    """Every loss of the run's last step finite; every parameter and BN
+    statistic moved from its init, the pose encoder's included, except the
+    image encoder's last octave, which the stage-1 graph does not read (and a
+    bias whose gradient is zero in exact arithmetic may stay, if its rounding
+    gave exact zeros every step)."""
+    import torch
+
+    trainer = run["trainer"]
+    init = trainer.init_parameters(trainer.config.training.seed)
+    still = {k for k, v in trainer.model.state_dict().items()
+             if torch.equal(v.detach().cpu(), init[k])}
+    unused = {k for k in init if k.startswith(S1_UNUSED) and "running_" not in k}
+    zero = {k for k in still if k.endswith(ZERO_GRAD)} - unused
+    pose = [k for k in init if k.startswith("stage1.pose_encoder.")]
+    check(all(np.isfinite(v) for v in run["metrics"].values()) and still == unused | zero
+          and unused <= still and not set(pose) & (still - zero),
+          f"{what}: every loss finite ("
+          + ", ".join(f"{k} {v:.4g}" for k, v in run["metrics"].items())
+          + f"); {len(init) - len(still)} of {len(init)} tensors moved, the {len(pose)} of the "
+          f"pose encoder among them; unmoved: the image encoder's {len(unused)} unread tensors "
+          f"and {len(zero)} zero-gradient biases {sorted(zero)}")
+
+
+def stage1_phase(cfg, card: str, root: Path) -> dict:
+    """Stage 1 at Config() in bf16 on phase 6's tree, with synthesized VGG19
+    weights."""
+    import torch
+    from torch.profiler import DeviceType, ProfilerActivity, profile
+
+    from kpvid_tpu_torch import ops
+    from kpvid_tpu_torch.checkpoint import list_checkpoint_steps, load_checkpoint
+    from kpvid_tpu_torch.data import HostDataPipeline, ImagePairDataset
+    from kpvid_tpu_torch.device import to_device
+    from kpvid_tpu_torch.losses import synthesize_vgg19_params
+    from kpvid_tpu_torch.train import Stage1Trainer
+    from kpvid_tpu_torch.train import main as train_main
+
+    m = cfg.model
+    kernels = backward_kernel_phase(m)
+    args = ["--mode", "detector_translator", "--max-steps", str(S1_STEPS)]
+    ops.reset_launch_counts()
+    run = train_main(args + ["--config", str(train_config(cfg, root, "s1_a", "log_s1"))])
+    counts = ops.launch_counts()
+    ck = root / "log_s1" / "detector_translator"
+    # the 40 steps, plus one forward each for the test sweep (8 videos: one
+    # batch) and for the summary images at step 0
+    want = {name: c * S1_STEPS for name, c in S1_PER_STEP.items()}
+    for name in ("pose_head", "gaussian_render"):
+        want[name] += 2 * S1_PER_STEP[name]
+    check(counts == want, f"the stage-1 run launched {counts}: 1 / 2 forward and 1 / 2 backward "
+                          "#3 / #4 a step (+ the test sweep's and the summary's forwards), no "
+                          "#1 / #2")
+    check(list_checkpoint_steps(ck) == [S1_CKPT, S1_STEPS],
+          f"checkpoints at steps {S1_CKPT} and {S1_STEPS}")
+    stage1_moved_and_finite(run, f"{S1_STEPS} fused stage-1 steps at Config(), bf16, batch "
+                                 f"{S1_BATCH}")
+    tests = [json.loads(ln) for ln in (ck / "test_metrics.jsonl").read_text().splitlines()]
+    images = sorted(p.name for p in (ck / "train_images").iterdir())
+    check(len(tests) == 1 and all(np.isfinite(v) for v in tests[0].values()) and len(images) == 14,
+          f"one test sweep (finite: loss_G {tests[0]['loss_G']:.4g}, psnr {tests[0]['psnr']:.3f}) "
+          f"and one summary write ({len(images)} PNGs)")
+
+    # one step of each mode, counted alone
+    trainer = run["trainer"]
+    ds = ImagePairDataset(str(root / "penn"), "train", image_size=m.image_size)
+    pipe = HostDataPipeline(ds, S1_BATCH, shuffle=True, repeat=True, seed=5)
+    batches = pipe.batches()
+    host = [next(batches), next(batches)]
+    batches.close()
+    dev = [{k: to_device(v, trainer.device) for k, v in b.items()} for b in host]
+    per_mode = {}
+    for mode, step in (("fused", lambda: trainer.train_step(dev[0])),
+                       ("fused_dg", lambda: trainer.train_step_dg(dev[0])),
+                       ("two_batch", lambda: trainer.train_step_two_batch(dev[0], dev[1]))):
+        ops.reset_launch_counts()
+        step()
+        per_mode[mode] = ops.launch_counts()
+    extra = dict(S1_PER_STEP, pose_head=2, gaussian_render=4)
+    check(per_mode["fused"] == S1_PER_STEP and per_mode["fused_dg"] == extra
+          and per_mode["two_batch"] == extra,
+          f"launches per step: fused {per_mode['fused']}; fused_dg and two_batch add one #3 and "
+          "two #4 forwards (the discriminator's no-grad generator forward)")
+
+    # cuDNN's determinism: the CLI asks for deterministic algorithms; two
+    # gradient passes from one state, with and without
+    def grads_twice():
+        outs = []
+        for _ in range(2):
+            saved = {k: v.clone() for k, v in trainer.generator.state_dict().items()}
+            g, _, _ = trainer.g_grads(*trainer._pair_of(dev[0]))
+            trainer.generator.load_state_dict(saved)
+            outs.append([x.clone() for x in g])
+        return sum(not torch.equal(a, b) for a, b in zip(*outs))
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = False
+    differ_free = grads_twice()
+    torch.backends.cudnn.deterministic = True
+    differ_det = grads_twice()
+    torch.backends.cudnn.deterministic = deterministic
+    print(f"two gradient passes from one state: {differ_free} of {len(trainer._g_params)} "
+          f"gradient tensors differ with cuDNN free to choose, {differ_det} with "
+          f"cudnn.deterministic (the CLI sets it: {deterministic})", flush=True)
+
+    # resume from the step-20 checkpoint in a log dir of its own, to step 40
+    shutil.copytree(ck / f"ckpt-{S1_CKPT}", root / "log_s1b" / "detector_translator"
+                    / f"ckpt-{S1_CKPT}")
+    resumed = train_main(args + ["--config", str(train_config(cfg, root, "s1_b", "log_s1b"))])
+    want_a = load_checkpoint(ck / f"ckpt-{S1_STEPS}")
+    got_a = load_checkpoint(root / "log_s1b" / "detector_translator" / f"ckpt-{S1_STEPS}")
+    differ = [k for k in want_a if not np.array_equal(want_a[k], got_a.get(k))]
+    check(resumed["start_step"] == S1_CKPT + 1 and sorted(got_a) == sorted(want_a) and not differ,
+          f"resumed at step {resumed['start_step']}, the stage-1 run ends with the uninterrupted "
+          f"run's bits in all {len(want_a)} arrays (both networks, BN statistics, both Adam "
+          f"states); differing: {len(differ)} {differ[:5]}")
+
+    for mode in ("fused_dg", "two_batch"):
+        other = train_main(["--mode", "detector_translator", "--max-steps", "3", "--no-images",
+                            "--config", str(train_config(cfg, root, f"s1_{mode}",
+                                                         f"log_s1_{mode}", gan_step_mode=mode))])
+        check(all(np.isfinite(v) for v in other["metrics"].values()),
+              f"3 {mode} stage-1 steps: every loss finite ("
+              + ", ".join(f"{k} {v:.4g}" for k, v in other["metrics"].items()) + ")")
+
+    # one f32 step at Config() widths, batch 2, on the card and on the CPU,
+    # and on the card again with the source frame moved by one f32 ulp: the
+    # step's own sensitivity to its inputs' last bit
+    cfg32 = dataclasses.replace(cfg, training=dataclasses.replace(
+        cfg.training, compute_dtype="float32", batch_size=2))
+    vgg = synthesize_vgg19_params()
+    small = {k: v[:2] for k, v in host[0].items()}
+    nudged = dict(small, image=np.nextafter(small["image"], np.float32(2)))
+    steps = {}
+    for key, dev_name, batch in (("cuda", "cuda", small), ("cpu", "cpu", small),
+                                 ("cuda_ulp", "cuda", nudged)):
+        t = Stage1Trainer(cfg32, vgg, device=dev_name)
+        t.load_parameters(t.init_parameters(1))
+        im, fim = t._pair_of(batch)
+        g_grads, fake, g_m = t.g_grads(im, fim)
+        d_grads, d_m = t.d_grads(fim, fake)
+        names = ["stage1." + n for n in t._g_names] + ["image_discriminator." + n
+                                                       for n in t._d_names]
+        steps[key] = ({k: float(v) for k, v in {**g_m, **d_m}.items()},
+                      {n: g.detach().cpu() for n, g in zip(names, list(g_grads) + list(d_grads))})
+    (lc, gc), (lp, gp), (_, gu) = steps["cuda"], steps["cpu"], steps["cuda_ulp"]
+    loss_gap = max(abs(lc[k] - lp[k]) / max(abs(lp[k]), 1e-12) for k in lp)
+    kept = [n for n in gp if not n.endswith(ZERO_GRAD) and not n.startswith(S1_UNUSED)]
+    max_gap = {n: rel_gap(gc[n], gp[n]) for n in kept}
+    l2_gap = {n: float((gc[n] - gp[n]).norm()) / max(float(gp[n].norm()), 1e-30) for n in kept}
+    ulp_gap = {n: rel_gap(gc[n], gu[n]) for n in kept}
+    ulp_l2 = {n: float((gc[n] - gu[n]).norm()) / max(float(gu[n].norm()), 1e-30) for n in kept}
+    worst = max(max_gap, key=max_gap.get)
+    worst_l2 = max(l2_gap, key=l2_gap.get)
+    worst_ulp = max(ulp_gap, key=ulp_gap.get)
+    within = sum(v <= STEP_GRAD_REL for v in max_gap.values())
+    print(f"f32 stage-1 step at Config(), batch 2, card vs CPU: losses "
+          + ", ".join(f"{k} {lc[k]:.6g} / {lp[k]:.6g}" for k in lp)
+          + f"; worst loss gap {loss_gap:.3e}; gradients: {within} of {len(kept)} tensors within "
+          f"{STEP_GRAD_REL} of their max, worst {max_gap[worst]:.3e} ({worst}), worst relative "
+          f"L2 gap {l2_gap[worst_l2]:.3e} ({worst_l2}); the card against itself with the source "
+          f"frame one ulp off: worst {ulp_gap[worst_ulp]:.3e} ({worst_ulp}), worst relative L2 "
+          f"{max(ulp_l2.values()):.3e}", flush=True)
+    check(loss_gap <= STEP_LOSS_RTOL and l2_gap[worst_l2] <= S1_GRAD_L2,
+          f"the card's f32 stage-1 step agrees with the CPU's: losses within {STEP_LOSS_RTOL}, "
+          f"every gradient tensor within {S1_GRAD_L2} in relative L2 ({len(kept)} tensors; not "
+          "the biases whose gradient is zero in exact arithmetic, nor the unread octave)")
+
+    # the bf16 step's time: host clock, synchronised, median of 10 after warm-up
+    for _ in range(3):
+        trainer.train_step(dev[0])
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        trainer.train_step(dev[0])
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    step_ms = float(np.median(times))
+    torch.cuda.reset_peak_memory_stats()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        trainer.train_step(dev[0])
+        torch.cuda.synchronize()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    kerns = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    device_step_ms = sum(e.self_device_time_total for e in kerns) / 1e3
+    n_kernels = sum(e.count for e in kerns)
+    top = sorted(kerns, key=lambda e: -e.self_device_time_total)[:6]
+    ours = {e.key: e.self_device_time_total / 1e3 for e in kerns if "keypoint" in e.key
+            or "render" in e.key or "pose_head" in e.key}
+    rep = {"step_ms": step_ms, "step_ms_all": times, "examples_per_s": S1_BATCH / step_ms * 1e3,
+           "device_step_ms": device_step_ms if n_kernels else None, "kernels_per_step": n_kernels,
+           "peak_gib": peak_gib, "seconds_40_steps": run["seconds"], "f32_loss_gap": loss_gap,
+           "f32_grad_max_gap": max_gap[worst], "f32_grad_max_gap_tensor": worst,
+           "f32_grad_l2_gap": l2_gap[worst_l2], "f32_grad_l2_gap_tensor": worst_l2,
+           "f32_grad_tensors_within_1e-3": within, "f32_grad_tensors": len(kept),
+           "f32_one_ulp_max_gap": ulp_gap[worst_ulp], "f32_one_ulp_l2_gap": max(ulp_l2.values()),
+           "grads_differ_cudnn_free": differ_free, "grads_differ_cudnn_deterministic": differ_det,
+           "launches_per_step": S1_PER_STEP, "launches_per_step_modes": per_mode,
+           "keypoint_kernels_in_profile_ms": ours, "kernels": kernels}
+    print(f"stage 1 on {card}: bf16 step at batch {S1_BATCH}: {step_ms:.2f} ms (median of 10, "
+          f"host clock, synchronised; all {', '.join(f'{x:.1f}' for x in times)}), "
+          f"{rep['examples_per_s']:.1f} examples/s, peak memory {peak_gib:.2f} GiB; the 40-step "
+          f"run took {run['seconds']:.2f} s", flush=True)
+    if n_kernels:
+        print(f"stage-1 step device time (torch.profiler, sum of its {n_kernels} kernels): "
+              f"{device_step_ms:.3f} ms, {100 * device_step_ms / step_ms:.1f}% of the step; "
+              f"keypoint kernels {ours}; top: "
+              + "; ".join(f"{e.key[:50]} x{e.count} {e.self_device_time_total / 1e3:.3f} ms"
+                          for e in top), flush=True)
+    else:
+        print("stage-1 step device time: not measured, torch.profiler (CUPTI) recorded no "
+              "kernel on the card", flush=True)
+    return rep
+
+
+def relabel_phase(cfg, root: Path) -> dict:
+    """The labeler again, now with the stage-1 trainer's newest checkpoint:
+    the labels stage 2 trains on come from the port's own detector."""
+    from kpvid_tpu_torch import make_pseudo_labels, ops
+
+    before = {p.name: np.load(p) for p in (root / "penn" / "pseudo_labels").glob("*.npy")}
+    ops.reset_launch_counts()
+    stats = make_pseudo_labels.main(["--config", str(root / "cfg.yaml"), "--checkpoint",
+                                     str(root / "log_s1" / "detector_translator"),
+                                     "--device", "cuda"])
+    counts = ops.launch_counts()
+    after = {p.name: np.load(p) for p in (root / "penn" / "pseudo_labels").glob("*.npy")}
+    moved = sum(not np.array_equal(before[k], after[k]) for k in before)
+    check(stats["videos"] == 32 and counts == dict(NO_LAUNCHES, pose_head=stats["chunks"])
+          and sorted(after) == sorted(before) and moved == len(before)
+          and all(np.isfinite(a).all() and np.abs(a).max() <= 1.0 for a in after.values()),
+          f"relabeled 32 videos from the stage-1 ckpt-{S1_STEPS} ({stats['frames']} frames, "
+          f"{stats['chunks']} chunks, one pose_head each), every label file rewritten, finite, "
+          "in [-1, 1]")
+    return {"frames_per_s": stats["frames"] / stats["seconds"], "chunks": stats["chunks"]}
+
+
 def train_phase(cfg, card: str, root: Path) -> dict:
-    """Stage 2 at Config() in bf16 on phase 6's tree and labels."""
+    """Stage 2 at Config() in bf16 on phase 6's tree and the labels of the
+    stage-1 checkpoint."""
     import torch
     from torch.profiler import DeviceType, ProfilerActivity, profile
 
@@ -1266,7 +1650,8 @@ def train_phase(cfg, card: str, root: Path) -> dict:
 
 
 def evaluate_phase(cfg, card: str, root: Path) -> dict:
-    """evaluate on phase 6's 8 test videos with phase 7's checkpoint."""
+    """evaluate on phase 6's 8 test videos with the stage-1 trainer's newest
+    checkpoint and the stage-2 trainer's ckpt-40."""
     import torch
 
     from kpvid_tpu_torch import evaluate, ops
@@ -1278,7 +1663,8 @@ def evaluate_phase(cfg, card: str, root: Path) -> dict:
     for name in ("eval_a", "eval_b"):
         ops.reset_launch_counts()
         stats = evaluate.main(["--config", str(conf), "--checkpoint_stage1",
-                               str(root / "stage1.npz"), "--checkpoint_stage2", str(ckpt),
+                               str(root / "log_s1" / "detector_translator"),
+                               "--checkpoint_stage2", str(ckpt),
                                "--save_dir", str(root / name)])
         counts = ops.launch_counts()
         check(stats["samples"] == 8 and stats["batches"] == 1
@@ -1350,6 +1736,12 @@ KERNEL_META = {
                   "kpvid_tpu/ops/pallas_kernels.py:92"),
     "gaussian_render": ("cuda", "kpvid_tpu_torch/csrc/keypoint.cu",
                         "kpvid_tpu/ops/pallas_kernels.py:146"),
+    # the backwards of #3 and #4: JAX differentiates their jnp forms
+    # (kpvid_tpu/ops/coords.py:50-92) by autodiff; the TPU kernels have no VJP
+    "pose_head_backward": ("cuda", "kpvid_tpu_torch/csrc/keypoint.cu",
+                           "kpvid_tpu/ops/pallas_kernels.py:92"),
+    "gaussian_render_backward": ("cuda", "kpvid_tpu_torch/csrc/keypoint.cu",
+                                 "kpvid_tpu/ops/pallas_kernels.py:146"),
 }
 
 
@@ -1384,15 +1776,22 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="kpvid_smoke_") as tmp:
         root = Path(tmp)
         label = label_phase(cfg, params, card, root)
+        stage1 = stage1_phase(cfg, card, root)
+        relabel = relabel_phase(cfg, root)
         train = train_phase(cfg, card, root)
         evaluation = evaluate_phase(cfg, card, root)
 
     kernels = []
+    records.update(stage1.pop("kernels"))
     for name, (route, source, replaces) in KERNEL_META.items():
         r = records[name]
+        s1 = stage1["launches_per_step"][name]
         kernels.append({
             "name": name, "route": route, "source": source, "replaces": replaces,
-            "launches": counts[name], "max_abs_err": r["max_abs_err"],
+            # per generate; the backwards, which only stage-1 training runs,
+            # per stage-1 train step
+            "launches": counts[name] or s1,
+            "max_abs_err": r["max_abs_err"],
             "max_abs_err_f32": r["max_abs_err_f32"], "ms": r["ms"],
             "host_loop_ms": r["host_loop_ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
@@ -1400,11 +1799,15 @@ def main() -> int:
                 "generate": counts[name],
                 "serve_per_batch": serve["pipeline"]["launches_per_batch"][name],
                 "label_per_chunk": label["launches"][name] / label["chunks"],
+                "train_stage1_per_step": s1,
                 "evaluate_per_batch": evaluation["launches_per_batch"][name],
                 "train_per_step": train["launches_per_step"][name],
             },
         })
-        kernels[-1]["max_abs_err_per_bucket"] = {b: e[name] for b, e in per_bucket.items()}
+        if counts[name]:
+            kernels[-1]["max_abs_err_per_bucket"] = {b: e[name] for b, e in per_bucket.items()}
+        else:
+            kernels[-1]["forward_train_ms"] = r.get("forward_train_ms")
         if "b32" in r:
             kernels[-1]["batch32"] = r["b32"]
         if name == "pose_head":
@@ -1414,6 +1817,7 @@ def main() -> int:
     print(json.dumps({"kernels": kernels, "batch": BATCH, "frames_per_s_b32_bf16": fps,
                       "serve": serve, "label": {k: v for k, v in label.items()
                                                 if k != "pose_head_chunk"},
+                      "stage1": stage1, "relabel": relabel,
                       "train": train, "evaluate": {k: v for k, v in evaluation.items()
                                                    if k != "render_128"},
                       "card": card}))

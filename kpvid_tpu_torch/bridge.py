@@ -15,7 +15,12 @@ anything ``np.asarray`` takes), become a flat dict keyed like
 - for the stage-2 trainer (:func:`stage2_trainer_from_jax`), the whole
   MotionGenerator tree (``enc_lstm`` and ``enc_head`` too) keyed
   ``stage2.*``, and the SeqDiscriminator tree keyed ``discriminator.*``:
-  ``StackedLSTM_0`` -> ``lstm``, ``Dense_0/Dense_0`` -> ``head``.
+  ``StackedLSTM_0`` -> ``lstm``, ``Dense_0/Dense_0`` -> ``head``;
+- for the stage-1 trainer (:func:`stage1_trainer_from_jax`), the generator's
+  ``params`` and ``batch_stats`` keyed ``stage1.*`` as above, and the
+  ImageDiscriminator tree keyed ``image_discriminator.*``:
+  ``conv{i}/Conv_0/{kernel,bias}`` -> ``conv{i}.{weight,bias}``,
+  ``logit/Conv_0/kernel`` -> ``logit.weight``.
 
 Conv kernels go from HWIO to OIHW; every other array keeps its layout.
 """
@@ -102,4 +107,20 @@ def stage2_trainer_from_jax(g_params: Mapping, d_params: Mapping) -> dict[str, t
         out["stage2." + torch_name(path)] = _convert(arr)
     for path, arr in _flatten(d_params):
         out[f"discriminator.{_DISCRIMINATOR[path[0]]}." + torch_name(path[1:])] = _convert(arr)
+    return out
+
+
+def stage1_trainer_from_jax(g_params: Mapping, d_params: Mapping,
+                            batch_stats: Mapping) -> dict[str, torch.Tensor]:
+    """The ``g_params`` and ``batch_stats`` (Stage1Generator) and ``d_params``
+    (ImageDiscriminator) collections of a JAX stage-1 train state, keyed like
+    ``Stage1Trainer.load_parameters`` takes them."""
+    out = {}
+    for col in (g_params, batch_stats):
+        for path, arr in _flatten(col):
+            if path[0] not in STAGE1_MODULES:
+                raise ValueError(f"unknown stage-1 generator variable {'/'.join(path)}")
+            out["stage1." + torch_name(path)] = _convert(arr)
+    for path, arr in _flatten(d_params):
+        out["image_discriminator." + torch_name(path)] = _convert(arr)
     return out

@@ -19,7 +19,8 @@ holding one ``state.npz``: the step, both parameter sets and both Adam
 states, each array in its own dtype. The file is written under a temporary
 name and renamed, from a background thread, and ``keep`` keeps the newest
 checkpoints only. The generator's arrays carry ``FinalGenerator``'s
-``stage2.`` prefix, so a trainer checkpoint is also a parameter file:
+``stage1.`` or ``stage2.`` prefix, so a trainer checkpoint is also a
+parameter file:
 :func:`resolve_parameter_file` lets the CLIs take a ``.npz``, a ``ckpt-N``
 directory, or the directory above them (its newest ``ckpt-N``).
 """

@@ -1,9 +1,9 @@
 """The configuration fields the port reads, loadable from the same YAML files.
 
-Counterpart of kpvid_tpu/configs/config.py: ModelConfig, ``paths.data_dir``
-and ``paths.log_dir``, the ``training`` fields of the stage-2 trainer (with
-``LRConfig``), the ``data`` fields of the pipelines, and ``validate``'s
-checks of them. The YAML schema is the JAX package's: ``model`` and
+Counterpart of kpvid_tpu/configs/config.py: ModelConfig, ``paths.data_dir``,
+``paths.vggnet`` and ``paths.log_dir``, the ``training`` fields of both
+trainers (with ``LRConfig``), the ``data`` fields of the pipelines, and
+``validate``'s checks of them. The YAML schema is the JAX package's: ``model`` and
 ``training.lr`` keys are checked strictly; the sections and the ``paths``,
 ``training``, ``data`` and ``parallel`` keys that the port does not read
 yet are accepted and left unread. ``validate`` refuses the knobs of later
@@ -25,6 +25,9 @@ _SECTIONS = ("paths", "training", "model", "data", "parallel")
 @dataclasses.dataclass
 class PathsConfig:
     data_dir: str = "./data/penn"
+    # the reference's VGG19 weights; stage 1 synthesizes frozen stand-ins
+    # when the file is absent
+    vggnet: str = "./data/vgg19.npy"
     log_dir: str = "results/"
 
 
@@ -71,6 +74,13 @@ class TrainingConfig:
     resume: bool = True
     # discriminator pair layout (ops/batching.py): 'auto' | 'concat' | 'interleave'
     pair_batching: str = "auto"
+    # stage 1: recompute the frozen VGG tower in the backward
+    # (torch.utils.checkpoint) instead of keeping its activations
+    remat_vgg: bool = False
+    # stage 1's BN in the test sweeps and in the summary images: 'inference'
+    # (moving averages) or 'train' (the batch's statistics, never kept)
+    bn_eval_mode: str = "inference"
+    summary_bn_mode: str = "inference"
     # knobs of later slices; validate() refuses any other value
     grad_accum: int = 1
     dp_grad_dtype: str = "float32"
@@ -134,6 +144,14 @@ class Config:
             raise ValueError(f"unknown gan_step_mode {t.gan_step_mode!r}")
         if t.pair_batching not in ("auto", "interleave", "concat"):
             raise ValueError(f"unknown pair_batching {t.pair_batching!r}")
+        if t.bn_eval_mode not in ("inference", "train"):
+            raise ValueError(f"unknown bn_eval_mode {t.bn_eval_mode!r}")
+        if t.summary_bn_mode not in ("inference", "train"):
+            raise ValueError(f"unknown summary_bn_mode {t.summary_bn_mode!r}")
+        if m.upsample_mode not in ("tf1", "matmul", "fused"):
+            raise ValueError(f"unknown model.upsample_mode {m.upsample_mode!r}")
+        if m.lstm_unroll < 1:
+            raise ValueError("model.lstm_unroll must be >= 1")
         if t.lr.scale <= 0:
             raise ValueError("training.lr.scale must be positive")
         if t.lr.warmup_steps < 0:
@@ -143,18 +161,18 @@ class Config:
         if t.grad_accum != 1:
             raise ValueError(
                 f"training.grad_accum={t.grad_accum}: gradient accumulation is not "
-                "ported yet (ROADMAP section 1, item 8); set it to 1"
+                "ported yet (ROADMAP section 1, 'Training knobs'); set it to 1"
             )
         if t.dp_grad_dtype != "float32":
             raise ValueError(
                 f"training.dp_grad_dtype={t.dp_grad_dtype!r}: the compressed "
-                "gradient all-reduce is not ported yet (ROADMAP section 1, item 9)"
+                "gradient all-reduce is not ported yet (ROADMAP section 1, 'Multi-GPU')"
             )
         p = self.parallel
         if p.mesh_model != 1 or p.mesh_data not in (None, 1):
             raise ValueError(
                 "parallel.mesh_data/mesh_model: the port runs one card; the mesh "
-                "is not ported yet (ROADMAP section 1, item 9)"
+                "is not ported yet (ROADMAP section 1, 'Multi-GPU')"
             )
         return self
 

@@ -46,6 +46,28 @@
 // (4 f32 or 8 bf16 channels); K not a multiple of the vector takes scalar
 // stores. The grid values and c2 come from the caller (ops/coords.py::grid
 // and inv_std_squared), so a bf16 grid keeps JAX's values.
+//
+// The backwards. The TPU kernels have no VJP (JAX trains through the jnp
+// forms by autodiff); these two are the port's counterparts of that autodiff,
+// for stage-1 training.
+//
+// pose_head_backward: with p_w = softmax_w(mean_h raw), q_h = softmax_h(mean_w
+// raw) and (x, y) the forward's points, d raw[b, h, w, k] = g_x p_w (gx_w - x)
+// / H + g_y q_h (gy_h - y) / W, in f32, rounded once to the maps' dtype (what
+// the VJP of JAX's raw.astype(f32) does). The forward's training form writes
+// p [B, K, W] and q [B, K, H] in f32 (1.3 MB at batch 32), so the backward
+// reads no map: it is the render's separable write with a sum in place of the
+// product. Bound: the gradient's bytes, written once (41.9 MB in bf16 at
+// [32, 128, 128, 40], 12.5 us at 3.35 TB/s). Same bands of rows per block.
+//
+// gaussian_render_backward: d mu_x[n, k] = 2 c2 sum_{h,w} G ey_h ex_w (gx_w -
+// mu_x), d mu_y likewise with (gy_h - mu_y), from the maps' cotangent G in
+// the maps' dtype, widened to f32. One block takes one frame: it recomputes ey
+// and ex into shared memory, each thread owns one 16-byte channel group (4 f32
+// or 8 bf16 channels) and a fixed stride of pixels, and the threads' partial
+// sums are added in a fixed order, with no atomics, so a rerun gives the same
+// bits. Bound: one read of G (1.3 MB in bf16 at [16, 32, 32, 40]); with one
+// block a frame it is latency-bound at the training shape.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -66,6 +88,7 @@ constexpr int NSTAGE = 2;            // staging buffers: NSTAGE - 1 copies in fl
 constexpr size_t MAX_SMEM = 232448;  // a block's shared memory on an H100
 constexpr int GR_THREADS = 256;
 constexpr int GR_BLOCKS_PER_SM = 4;
+constexpr int RB_THREADS = 512;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -248,10 +271,13 @@ __device__ __forceinline__ void chunk_sums_scalar(const T* x, int nr, int W, int
   }
 }
 
+// p_out and q_out: the training form also writes both softmaxes, [B, K, W] and
+// [B, K, H] (null in the inference form)
 template <typename T, bool VEC>
 __global__ void __launch_bounds__(PH_THREADS, 3)
 pose_head_kernel(const T* __restrict__ raw, const float* __restrict__ gx,
-                 const float* __restrict__ gy, float* __restrict__ out, int H, int W, int K) {
+                 const float* __restrict__ gy, float* __restrict__ out,
+                 float* __restrict__ p_out, float* __restrict__ q_out, int H, int W, int K) {
   extern __shared__ __align__(16) unsigned char smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const PoseLayout L = pose_layout(H, W, K, (int)sizeof(T), VEC);
@@ -365,12 +391,17 @@ pose_head_kernel(const T* __restrict__ raw, const float* __restrict__ gx,
     se = warp_sum(se);
     sg = warp_sum(sg);
     if (lane == 0) out[((size_t)b * K + k) * 2 + axis] = sg / se;
+    if (p_out != nullptr) {
+      float* dst = (axis == 0 ? p_out : q_out) + ((size_t)b * K + k) * n;
+      for (int i = lane; i < n; i += 32) dst[i] = expf(m[i] - mx) / se;
+    }
   }
 }
 
 template <typename T, bool VEC>
 cudaError_t launch_pose_head(const void* raw, const float* gx, const float* gy, float* out,
-                             int B, int H, int W, int K, cudaStream_t stream) {
+                             float* p, float* q, int B, int H, int W, int K,
+                             cudaStream_t stream) {
   auto kern = pose_head_kernel<T, VEC>;
   const PoseLayout L = pose_layout(H, W, K, (int)sizeof(T), VEC);
   if (L.total > MAX_SMEM) return cudaErrorInvalidValue;
@@ -399,7 +430,7 @@ cudaError_t launch_pose_head(const void* raw, const float* gx, const float* gy, 
     if (clusters < 1) return cudaErrorLaunchOutOfResources;
     checked = L.total;
   }
-  cudaLaunchKernelEx(&cfg, kern, static_cast<const T*>(raw), gx, gy, out, H, W, K);
+  cudaLaunchKernelEx(&cfg, kern, static_cast<const T*>(raw), gx, gy, out, p, q, H, W, K);
   return cudaGetLastError();
 }
 
@@ -419,6 +450,48 @@ __device__ __forceinline__ void store_vec(__nv_bfloat16* o, const float* v) {
 }
 __device__ __forceinline__ void store_one(float* o, float v) { *o = v; }
 __device__ __forceinline__ void store_one(__nv_bfloat16* o, float v) { *o = __float2bfloat16_rn(v); }
+
+// rows [nr, W, K] of a separable function of (row, column): out = a[r, k] *
+// c[w, k] (the render) or a[r, k] + c[w, k] (the soft-argmax's gradient), f32
+// arithmetic rounded once to T, along the contiguous NHWC rows in 16-byte
+// vectors (VEC) or one element at a time
+template <typename T, bool VEC, bool SUM>
+__device__ __forceinline__ void write_separable(T* o, const float* a_rows, const float* c_cols,
+                                                int nr, int W, int K) {
+  const int tid = threadIdx.x;
+  if (VEC) {
+    constexpr int V = 16 / sizeof(T);
+    const int kv = K / V;
+    const int nvec = nr * W * kv;
+    for (int i = tid; i < nvec; i += GR_THREADS) {
+      const int p = i / kv;
+      const int k0 = (i - p * kv) * V;
+      const int r = p / W;
+      const float* a = a_rows + r * K + k0;
+      const float* c = c_cols + (p - r * W) * K + k0;
+      float v[V];
+#pragma unroll
+      for (int j = 0; j < V; j += 4) {
+        const float4 qa = *reinterpret_cast<const float4*>(a + j);
+        const float4 qc = *reinterpret_cast<const float4*>(c + j);
+        v[j] = SUM ? qa.x + qc.x : qa.x * qc.x;
+        v[j + 1] = SUM ? qa.y + qc.y : qa.y * qc.y;
+        v[j + 2] = SUM ? qa.z + qc.z : qa.z * qc.z;
+        v[j + 3] = SUM ? qa.w + qc.w : qa.w * qc.w;
+      }
+      store_vec(o + (size_t)p * K + k0, v);
+    }
+  } else {
+    for (int i = tid; i < nr * W * K; i += GR_THREADS) {
+      const int p = i / K;
+      const int k = i - p * K;
+      const int r = p / W;
+      const float a = a_rows[r * K + k];
+      const float c = c_cols[(p - r * W) * K + k];
+      store_one(o + i, SUM ? a + c : a * c);
+    }
+  }
+}
 
 template <typename T, bool VEC>
 __global__ void __launch_bounds__(GR_THREADS)
@@ -442,43 +515,114 @@ gaussian_render_kernel(const float* __restrict__ mu, const float* __restrict__ g
     ex[i] = expf(-(d * d) * c2);
   }
   __syncthreads();
-  T* o = out + ((size_t)n * H + h0) * W * K;
-  if (VEC) {
-    constexpr int V = 16 / sizeof(T);
-    const int kv = K / V;
-    const int nvec = nr * W * kv;
-    for (int i = tid; i < nvec; i += GR_THREADS) {
-      const int p = i / kv;
-      const int k0 = (i - p * kv) * V;
-      const int r = p / W;
-      const float* a = ey + r * K + k0;
-      const float* c = ex + (p - r * W) * K + k0;
-      float v[V];
+  write_separable<T, VEC, false>(out + ((size_t)n * H + h0) * W * K, ey, ex, nr, W, K);
+}
+
+// g [B, K, 2] the points' cotangent, pts [B, K, 2] the forward's points, p
+// [B, K, W] and q [B, K, H] its softmaxes -> the maps' gradient, a band of rb
+// rows of one image per block
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(GR_THREADS)
+pose_head_backward_kernel(const float* __restrict__ g, const float* __restrict__ pts,
+                          const float* __restrict__ p, const float* __restrict__ q,
+                          const float* __restrict__ gy, const float* __restrict__ gx,
+                          T* __restrict__ out, int H, int W, int K, int rb, int bands) {
+  extern __shared__ __align__(16) float gsm[];
+  const int b = blockIdx.x / bands;
+  const int h0 = (blockIdx.x - b * bands) * rb;
+  const int nr = min(rb, H - h0);
+  const int tid = threadIdx.x;
+  float* cy = gsm;           // [rb, K]: the H-marginal's term of each row
+  float* cx = gsm + rb * K;  // [W, K]: the W-marginal's term of each column
+  const float* gb = g + (size_t)b * K * 2;
+  const float* pb = pts + (size_t)b * K * 2;
+  for (int i = tid; i < nr * K; i += GR_THREADS) {
+    const int r = i / K;
+    const int k = i - r * K;
+    const int h = h0 + r;
+    cy[i] = gb[2 * k + 1] * q[((size_t)b * K + k) * H + h] * (gy[h] - pb[2 * k + 1]) / (float)W;
+  }
+  for (int i = tid; i < W * K; i += GR_THREADS) {
+    const int w = i / K;
+    const int k = i - w * K;
+    cx[i] = gb[2 * k] * p[((size_t)b * K + k) * W + w] * (gx[w] - pb[2 * k]) / (float)H;
+  }
+  __syncthreads();
+  write_separable<T, VEC, true>(out + ((size_t)b * H + h0) * W * K, cy, cx, nr, W, K);
+}
+
+// one block a frame: dmaps [N, H, W, K] -> dmu [N, K, 2]
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(RB_THREADS)
+render_backward_kernel(const T* __restrict__ dmaps, const float* __restrict__ mu,
+                       const float* __restrict__ gy, const float* __restrict__ gx,
+                       float* __restrict__ dmu, int H, int W, int K, float c2) {
+  constexpr int V = VEC ? 16 / sizeof(T) : 1;
+  extern __shared__ __align__(16) float rsm[];
+  const int n = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int kv = K / V;            // channel groups of a pixel
+  const int ng = RB_THREADS / kv;  // threads that share a channel group
+  float* ey = rsm;                 // [H, K]
+  float* ex = ey + H * K;          // [W, K]
+  float* part = ex + W * K;        // [ng, K, 2]: each thread's sums
+  const float* m = mu + (size_t)n * K * 2;
+  for (int i = tid; i < H * K; i += RB_THREADS) {
+    const float d = gy[i / K] - m[2 * (i % K) + 1];
+    ey[i] = expf(-(d * d) * c2);
+  }
+  for (int i = tid; i < W * K; i += RB_THREADS) {
+    const float d = gx[i / K] - m[2 * (i % K)];
+    ex[i] = expf(-(d * d) * c2);
+  }
+  __syncthreads();
+  if (tid < ng * kv) {
+    const int k0 = (tid % kv) * V;
+    const int g0 = tid / kv;
+    float mx[V], my[V], ax[V], ay[V];
 #pragma unroll
-      for (int j = 0; j < V; j += 4) {
-        const float4 qa = *reinterpret_cast<const float4*>(a + j);
-        const float4 qc = *reinterpret_cast<const float4*>(c + j);
-        v[j] = qa.x * qc.x;
-        v[j + 1] = qa.y * qc.y;
-        v[j + 2] = qa.z * qc.z;
-        v[j + 3] = qa.w * qc.w;
+    for (int j = 0; j < V; ++j) {
+      mx[j] = m[2 * (k0 + j)];
+      my[j] = m[2 * (k0 + j) + 1];
+      ax[j] = 0.f;
+      ay[j] = 0.f;
+    }
+    const T* src = dmaps + (size_t)n * H * W * K + k0;
+    for (int pix = g0; pix < H * W; pix += ng) {
+      const int h = pix / W;
+      const int w = pix - h * W;
+      float v[V];
+      if constexpr (VEC)
+        load_vec(src + (size_t)pix * K, v);
+      else
+        v[0] = to_f32(src[(size_t)pix * K]);
+      const float* a = ey + h * K + k0;
+      const float* c = ex + w * K + k0;
+      const float dy = gy[h];
+      const float dx = gx[w];
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        const float t = v[j] * a[j] * c[j];
+        ax[j] += t * (dx - mx[j]);
+        ay[j] += t * (dy - my[j]);
       }
-      store_vec(o + (size_t)p * K + k0, v);
     }
-  } else {
-    for (int i = tid; i < nr * W * K; i += GR_THREADS) {
-      const int p = i / K;
-      const int k = i - p * K;
-      const int r = p / W;
-      store_one(o + i, ey[r * K + k] * ex[(p - r * W) * K + k]);
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      part[(g0 * K + k0 + j) * 2] = ax[j];
+      part[(g0 * K + k0 + j) * 2 + 1] = ay[j];
     }
+  }
+  __syncthreads();
+  for (int i = tid; i < 2 * K; i += RB_THREADS) {
+    float s = 0.f;
+    for (int j = 0; j < ng; ++j) s += part[j * 2 * K + i];
+    dmu[(size_t)n * 2 * K + i] = 2.f * c2 * s;
   }
 }
 
-template <typename T, bool VEC>
-cudaError_t launch_render(const float* mu, const float* gy, const float* gx, void* out, int N,
-                          int H, int W, int K, float c2, cudaStream_t stream) {
-  auto kern = gaussian_render_kernel<T, VEC>;
+// rows a block of the band kernels takes: about GR_BLOCKS_PER_SM blocks a SM
+cudaError_t band_rows(long frames, int H, int* rb, int* bands) {
   static int sms = 0;
   if (sms == 0) {
     int dev = 0;
@@ -486,22 +630,78 @@ cudaError_t launch_render(const float* mu, const float* gy, const float* gx, voi
     if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (e != cudaSuccess) return e;
   }
-  const long rows = (long)N * H;
+  const long rows = frames * H;
   const long target = (long)GR_BLOCKS_PER_SM * sms;
-  int rb = (int)((rows + target - 1) / target);
-  rb = rb < 1 ? 1 : (rb > H ? H : rb);
-  const int bands = (H + rb - 1) / rb;
-  const size_t smem = (size_t)(rb + W) * K * sizeof(float);
+  int r = (int)((rows + target - 1) / target);
+  r = r < 1 ? 1 : (r > H ? H : r);
+  *rb = r;
+  *bands = (H + r - 1) / r;
+  return cudaSuccess;
+}
+
+// raise a kernel's dynamic shared memory limit to `smem` once it needs more
+// than the default 48 KB; `attr_bytes` is that kernel's current limit
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kern, size_t smem, size_t& attr_bytes) {
   if (smem > MAX_SMEM) return cudaErrorInvalidValue;
-  static size_t attr_bytes = 48 * 1024;
   if (smem > attr_bytes) {
     cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
     if (e != cudaSuccess) return e;
     attr_bytes = smem;
   }
+  return cudaSuccess;
+}
+
+template <typename T, bool VEC>
+cudaError_t launch_render(const float* mu, const float* gy, const float* gx, void* out, int N,
+                          int H, int W, int K, float c2, cudaStream_t stream) {
+  auto kern = gaussian_render_kernel<T, VEC>;
+  int rb = 0, bands = 0;
+  cudaError_t e = band_rows(N, H, &rb, &bands);
+  if (e != cudaSuccess) return e;
+  const size_t smem = (size_t)(rb + W) * K * sizeof(float);
+  static size_t attr_bytes = 48 * 1024;
+  e = allow_smem(kern, smem, attr_bytes);
+  if (e != cudaSuccess) return e;
   kern<<<(unsigned)((long)N * bands), GR_THREADS, smem, stream>>>(
       mu, gy, gx, static_cast<T*>(out), H, W, K, rb, bands, c2);
+  return cudaGetLastError();
+}
+
+template <typename T, bool VEC>
+cudaError_t launch_pose_head_backward(const float* g, const float* pts, const float* p,
+                                      const float* q, const float* gy, const float* gx,
+                                      void* out, int B, int H, int W, int K,
+                                      cudaStream_t stream) {
+  auto kern = pose_head_backward_kernel<T, VEC>;
+  int rb = 0, bands = 0;
+  cudaError_t e = band_rows(B, H, &rb, &bands);
+  if (e != cudaSuccess) return e;
+  const size_t smem = (size_t)(rb + W) * K * sizeof(float);
+  static size_t attr_bytes = 48 * 1024;
+  e = allow_smem(kern, smem, attr_bytes);
+  if (e != cudaSuccess) return e;
+  kern<<<(unsigned)((long)B * bands), GR_THREADS, smem, stream>>>(
+      g, pts, p, q, gy, gx, static_cast<T*>(out), H, W, K, rb, bands);
+  return cudaGetLastError();
+}
+
+template <typename T, bool VEC>
+cudaError_t launch_render_backward(const void* dmaps, const float* mu, const float* gy,
+                                   const float* gx, float* dmu, int N, int H, int W, int K,
+                                   float c2, cudaStream_t stream) {
+  auto kern = render_backward_kernel<T, VEC>;
+  constexpr int V = VEC ? 16 / sizeof(T) : 1;
+  const int kv = K / V;
+  if (kv < 1 || kv > RB_THREADS) return cudaErrorInvalidValue;
+  const int ng = RB_THREADS / kv;
+  const size_t smem = ((size_t)(H + W) * K + (size_t)ng * K * 2) * sizeof(float);
+  static size_t attr_bytes = 48 * 1024;
+  cudaError_t e = allow_smem(kern, smem, attr_bytes);
+  if (e != cudaSuccess) return e;
+  kern<<<(unsigned)N, RB_THREADS, smem, stream>>>(static_cast<const T*>(dmaps), mu, gy, gx, dmu,
+                                                 H, W, K, c2);
   return cudaGetLastError();
 }
 
@@ -509,24 +709,26 @@ cudaError_t launch_render(const float* mu, const float* gy, const float* gx, voi
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16 raw maps. Returns the cudaError_t of the
-// launch (0 on success).
+// dtype: 0 = float32, 1 = bfloat16 raw maps. p [B, K, W] and q [B, K, H]
+// (f32): both null for the inference form, both set for the training form,
+// which also writes the softmaxes for the backward. Returns the cudaError_t
+// of the launch (0 on success).
 int kpvid_pose_head(int dtype, const void* raw, const float* gx, const float* gy, float* out,
-                    int B, int H, int W, int K, void* stream) {
+                    float* p, float* q, int B, int H, int W, int K, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B == 0) return cudaSuccess;
-  if (H < 1 || W < 1 || K < 1) return cudaErrorInvalidValue;
+  if (H < 1 || W < 1 || K < 1 || (p == nullptr) != (q == nullptr)) return cudaErrorInvalidValue;
   // the 16-byte path reads 16-byte channel groups: K a multiple of 4 f32 or 8 bf16
   const bool aligned = reinterpret_cast<uintptr_t>(raw) % 16 == 0;
   if (dtype == 0) {
     const bool vec = aligned && K % 4 == 0;
-    return vec ? launch_pose_head<float, true>(raw, gx, gy, out, B, H, W, K, s)
-               : launch_pose_head<float, false>(raw, gx, gy, out, B, H, W, K, s);
+    return vec ? launch_pose_head<float, true>(raw, gx, gy, out, p, q, B, H, W, K, s)
+               : launch_pose_head<float, false>(raw, gx, gy, out, p, q, B, H, W, K, s);
   }
   if (dtype == 1) {
     const bool vec = aligned && K % 8 == 0;
-    return vec ? launch_pose_head<__nv_bfloat16, true>(raw, gx, gy, out, B, H, W, K, s)
-               : launch_pose_head<__nv_bfloat16, false>(raw, gx, gy, out, B, H, W, K, s);
+    return vec ? launch_pose_head<__nv_bfloat16, true>(raw, gx, gy, out, p, q, B, H, W, K, s)
+               : launch_pose_head<__nv_bfloat16, false>(raw, gx, gy, out, p, q, B, H, W, K, s);
   }
   return cudaErrorInvalidValue;
 }
@@ -548,6 +750,57 @@ int kpvid_gaussian_render(int dtype, const float* mu, const float* gy, const flo
     return aligned && K % 8 == 0
                ? launch_render<__nv_bfloat16, true>(mu, gy, gx, out, N, H, W, K, c2, s)
                : launch_render<__nv_bfloat16, false>(mu, gy, gx, out, N, H, W, K, c2, s);
+  }
+  return cudaErrorInvalidValue;
+}
+
+// The soft-argmax's backward: dtype of the maps' gradient `out` [B, H, W, K]
+// (0 = float32, 1 = bfloat16); g and pts [B, K, 2], p [B, K, W], q [B, K, H],
+// gy [H], gx [W], all f32.
+int kpvid_pose_head_backward(int dtype, const float* g, const float* pts, const float* p,
+                             const float* q, const float* gy, const float* gx, void* out, int B,
+                             int H, int W, int K, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (B == 0) return cudaSuccess;
+  if (H < 1 || W < 1 || K < 1) return cudaErrorInvalidValue;
+  const bool aligned = reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  if (dtype == 0) {
+    return aligned && K % 4 == 0
+               ? launch_pose_head_backward<float, true>(g, pts, p, q, gy, gx, out, B, H, W, K, s)
+               : launch_pose_head_backward<float, false>(g, pts, p, q, gy, gx, out, B, H, W, K,
+                                                         s);
+  }
+  if (dtype == 1) {
+    return aligned && K % 8 == 0
+               ? launch_pose_head_backward<__nv_bfloat16, true>(g, pts, p, q, gy, gx, out, B, H,
+                                                                W, K, s)
+               : launch_pose_head_backward<__nv_bfloat16, false>(g, pts, p, q, gy, gx, out, B,
+                                                                 H, W, K, s);
+  }
+  return cudaErrorInvalidValue;
+}
+
+// The render's backward: dtype of the maps' cotangent dmaps [N, H, W, K]
+// (0 = float32, 1 = bfloat16) -> dmu [N, K, 2] f32, on the grid values gy
+// [H], gx [W] and the c2 of the forward.
+int kpvid_gaussian_render_backward(int dtype, const void* dmaps, const float* mu,
+                                   const float* gy, const float* gx, float* dmu, int N, int H,
+                                   int W, int K, float c2, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (N == 0) return cudaSuccess;
+  if (H < 1 || W < 1 || K < 1) return cudaErrorInvalidValue;
+  const bool aligned = reinterpret_cast<uintptr_t>(dmaps) % 16 == 0;
+  if (dtype == 0) {
+    return aligned && K % 4 == 0
+               ? launch_render_backward<float, true>(dmaps, mu, gy, gx, dmu, N, H, W, K, c2, s)
+               : launch_render_backward<float, false>(dmaps, mu, gy, gx, dmu, N, H, W, K, c2, s);
+  }
+  if (dtype == 1) {
+    return aligned && K % 8 == 0
+               ? launch_render_backward<__nv_bfloat16, true>(dmaps, mu, gy, gx, dmu, N, H, W, K,
+                                                             c2, s)
+               : launch_render_backward<__nv_bfloat16, false>(dmaps, mu, gy, gx, dmu, N, H, W,
+                                                              K, c2, s);
   }
   return cudaErrorInvalidValue;
 }

@@ -1,17 +1,26 @@
-"""The host-side frame geometry of serving, labeling and the sequence data.
+"""The host-side frame geometry and augmentations of every data path.
 
-Copies the parts of kpvid_tpu/data/augment.py that those paths use: the
-reference center-crop box, ``to_unit_float``, the keypoint rotation and
-one-hot of the stage-2 augmentations, and ``FrameOps`` with its two
-byte-identical backends, PIL ('pil') and the C++ kernels of
-kpvid_tpu_torch/native ('native', frames as uint8 HWC arrays). The stage-1
-photometric augmentations come with the stage-1 slice.
+Copy of kpvid_tpu/data/augment.py: the reference center-crop box, the image
+pair loader's quirk-Q8 test box (x centered, y always 0..target), the
+short-side resize, the ten PIL filter/enhance branches of the stage-1 train
+augmentation, ``to_unit_float``, the keypoint rotation and one-hot of the
+stage-2 augmentations, and ``FrameOps`` with its two byte-identical
+backends, PIL ('pil') and the C++ kernels of kpvid_tpu_torch/native
+('native', frames as uint8 HWC arrays).
 """
 
 from __future__ import annotations
 
 import numpy as np
-from PIL import Image
+from PIL import Image, ImageEnhance, ImageFilter
+
+
+def resize_short_side(image: Image.Image, target: int) -> tuple[Image.Image, float]:
+    """Resize so the short side is ``target`` px, keeping the aspect, with
+    the reference's int() dims; returns (resized, ratio)."""
+    w, h = image.size
+    ratio = (h if w > h else w) / float(target)
+    return image.resize((int(w / ratio), int(h / ratio))), ratio
 
 
 def center_crop_box(size_wh: tuple[int, int], target: int) -> tuple[tuple, float]:
@@ -28,6 +37,43 @@ def center_crop_box(size_wh: tuple[int, int], target: int) -> tuple[tuple, float
         oy = int(h / ratio) / 2.0
         box = (0, oy - half, target, oy + half)
     return box, ratio
+
+
+def pair_test_crop_box(size_wh: tuple[int, int], target: int) -> tuple[tuple, float]:
+    """The image pair loader's test box (quirk Q8): x centered, y always
+    0..target, so portrait frames are cropped from the top."""
+    w, h = size_wh
+    half = target // 2
+    ratio = (h if w > h else w) / float(target)
+    ox = int(w / ratio) / 2.0
+    return (ox - half, 0, ox + half, target), ratio
+
+
+def apply_random_filter(images: list[Image.Image], rng: np.random.Generator) -> list[Image.Image]:
+    """One of the reference's ten PIL filter/enhance branches, the same for
+    every image of the list, with JAX's draws from ``rng``."""
+    r = int(rng.integers(0, 10))
+    if r < 6:
+        filt = [
+            ImageFilter.DETAIL,
+            ImageFilter.EDGE_ENHANCE,
+            ImageFilter.SMOOTH,
+            ImageFilter.SMOOTH_MORE,
+            ImageFilter.EDGE_ENHANCE_MORE,
+            ImageFilter.BLUR,
+        ][r]
+        return [im.filter(filt) for im in images]
+    if r == 6:
+        v = int(rng.integers(0, 51)) * 0.1
+        return [ImageEnhance.Sharpness(im).enhance(v) for im in images]
+    if r == 7:
+        v = int(rng.integers(7, 21)) * 0.1
+        return [ImageEnhance.Brightness(im).enhance(v) for im in images]
+    if r == 8:
+        v = int(rng.integers(0, 51)) * 0.1
+        return [ImageEnhance.Color(im).enhance(v) for im in images]
+    v = int(rng.integers(7, 31)) * 0.1
+    return [ImageEnhance.Contrast(im).enhance(v) for im in images]
 
 
 def rotate_keypoints(keypoints: np.ndarray, degrees: float) -> np.ndarray:
@@ -97,6 +143,12 @@ class FrameOps:
             return self._n.resize_bicubic(frame, size_wh)
         return frame.resize(size_wh)
 
+    def resize_short_side(self, frame, target: int):
+        """resize_short_side() over either backend (the same int() dims)."""
+        w, h = self.size(frame)
+        ratio = (h if w > h else w) / float(target)
+        return self.resize(frame, (int(w / ratio), int(h / ratio))), ratio
+
     def crop(self, frame, box):
         if not self.native:
             return frame.crop(box)
@@ -118,6 +170,14 @@ class FrameOps:
         if self.native:
             return np.ascontiguousarray(frame[:, ::-1])
         return frame.transpose(Image.FLIP_LEFT_RIGHT)
+
+    def random_filter(self, frames: list, rng: np.random.Generator) -> list:
+        """apply_random_filter() over either backend: native frames go
+        through PIL at their cropped size and back."""
+        if not self.native:
+            return apply_random_filter(frames, rng)
+        ims = [Image.fromarray(np.ascontiguousarray(f)) for f in frames]
+        return [np.asarray(im, np.uint8) for im in apply_random_filter(ims, rng)]
 
     def to_pm1(self, frame) -> np.ndarray:
         """float32 in [-1, 1]: to_unit_float(frame) * 2 - 1."""

@@ -1,6 +1,7 @@
-"""Stage-2 losses, in f32 whatever the compute dtype.
+"""The trainers' losses, in f32 whatever the compute dtype.
 
-Copies of kpvid_tpu/losses/vae.py and gan.py:
+Copies of kpvid_tpu/losses/vae.py and gan.py, and (perceptual.py) of
+perceptual.py, stage 1's frozen-VGG19 loss:
 
 - ``seq_recon_loss``: mean(1000 * |pred - real|);
 - ``kl_raw_sigma``: mean over the batch of
@@ -15,6 +16,14 @@ Copies of kpvid_tpu/losses/vae.py and gan.py:
 from __future__ import annotations
 
 import torch
+
+from .perceptual import (
+    load_vgg19_params,
+    perceptual_loss,
+    prepare_vgg19,
+    synthesize_vgg19_params,
+    vgg19_features,
+)
 
 
 def seq_recon_loss(pred_seq: torch.Tensor, real_seq: torch.Tensor) -> torch.Tensor:
@@ -44,4 +53,5 @@ def generator_adv_loss(fake_logits: torch.Tensor) -> torch.Tensor:
 
 
 __all__ = ["bce_logits", "discriminator_loss", "generator_adv_loss", "kl_raw_sigma",
-           "seq_recon_loss"]
+           "load_vgg19_params", "perceptual_loss", "prepare_vgg19", "seq_recon_loss",
+           "synthesize_vgg19_params", "vgg19_features"]

@@ -7,8 +7,10 @@ Counterpart of the JAX package's ``make_pseudo_labels.py``, in one process.
 Writes ``<data_dir>/pseudo_labels/{video_id:04d}.npy`` of shape
 [n_frames, K, 2] (f32, x and y in [-1, 1]) for every train and test video.
 ``--checkpoint`` is the port's stage-1 parameter file
-(``tools/export_torch_params.py``); only its ``stage1.pose_encoder.*``
-tensors are read. It runs on the card and raises without one
+(``tools/export_torch_params.py``), a stage-1 trainer checkpoint
+``ckpt-N`` (``python -m kpvid_tpu_torch.train --mode detector_translator``),
+or the directory above its checkpoints (the newest); only its
+``stage1.pose_encoder.*`` tensors are read. It runs on the card and raises without one
 (``--device cpu`` runs the plain versions on the CPU).
 
 The whole job is one frame stream: a background thread decodes the next
@@ -36,7 +38,7 @@ def build_parser() -> ArgumentParser:
     parser = ArgumentParser(description="kpvid_tpu_torch pseudo-labeler")
     parser.add_argument("--config", type=str, required=True)
     parser.add_argument("--checkpoint", type=str, required=True,
-                        help="the port's stage-1 parameter file (.npz)")
+                        help="the port's stage-1 parameter file (.npz) or trainer ckpt-N")
     parser.add_argument("--synthetic", action="store_true",
                         help="write a synthetic Penn-Action tree into data_dir first")
     parser.add_argument("--chunk", type=int, default=None,
@@ -47,9 +49,10 @@ def build_parser() -> ArgumentParser:
 
 
 def load_pose_encoder(config, checkpoint: str, device: torch.device):
-    """The stage-1 pose encoder with the file's ``stage1.pose_encoder.*``
-    tensors merged in by name; returns (encoder, tensors matched)."""
-    from .checkpoint import load_parameters, merge_parameters
+    """The stage-1 pose encoder with the ``stage1.pose_encoder.*`` tensors of
+    a parameter file or trainer checkpoint merged in by name; returns
+    (encoder, tensors matched)."""
+    from .checkpoint import load_parameters, merge_parameters, resolve_parameter_file
     from .models import PoseEncoder
 
     m = config.model
@@ -57,7 +60,8 @@ def load_pose_encoder(config, checkpoint: str, device: torch.device):
     enc = PoseEncoder(m.n_pts, m.image_size, m.pose_decoder_filters, m.encoder_filters, dtype)
     prefix = "stage1.pose_encoder."
     target = {prefix + k: v for k, v in enc.state_dict().items()}
-    merged, n = merge_parameters(target, load_parameters(checkpoint))
+    merged, n = merge_parameters(
+        target, load_parameters(resolve_parameter_file(checkpoint, "--checkpoint")))
     enc.load_state_dict({k[len(prefix):]: v for k, v in merged.items()}, strict=True)
     return enc.to(device).eval(), n
 

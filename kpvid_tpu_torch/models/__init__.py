@@ -1,6 +1,15 @@
-from .layers import BatchNorm, Conv, ConvBNReLU, Dense, StackedLSTM, init_like_jax
+from .layers import (
+    BatchNorm,
+    Conv,
+    ConvBNReLU,
+    Dense,
+    StackedLSTM,
+    init_like_jax,
+    updating_batch_stats,
+)
 from .networks import (
     ConvEncoder,
+    ImageDiscriminator,
     ImageEncoder,
     MotionGenerator,
     PoseEncoder,
@@ -15,6 +24,7 @@ __all__ = [
     "ConvBNReLU",
     "ConvEncoder",
     "Dense",
+    "ImageDiscriminator",
     "ImageEncoder",
     "MotionGenerator",
     "PoseEncoder",
@@ -23,4 +33,5 @@ __all__ = [
     "Stage1Generator",
     "Translator",
     "init_like_jax",
+    "updating_batch_stats",
 ]

@@ -8,8 +8,15 @@ conv weights are OIHW here (HWIO in Flax); the LSTM kernels
 they are. Parity points:
 
 - TF ``SAME`` padding is asymmetric for even inputs at stride 2
-  (0 before, 1 after), which torch's ``padding=1`` is not;
-- BatchNorm (eval) uses the moving statistics with eps 1e-5;
+  (0 before, 1 after), which torch's ``padding=1`` is not; ``Conv(pad=p)``
+  zero-pads first and then applies ``SAME`` to the padded size (the
+  PatchGAN's idiom: (1, 1) for 128 -> 65, then (1, 2) from 65 on);
+- BatchNorm (eval) uses the moving statistics with eps 1e-5. In train mode
+  it normalizes with the batch's f32 statistics over N, H and W, Flax's
+  fast variance ``max(0, E[x^2] - E[x]^2)``, and, inside
+  :func:`updating_batch_stats` only, moves the running statistics to
+  ``0.999 old + 0.001 batch`` with that same biased variance (torch's
+  ``F.batch_norm`` would update with the unbiased one);
 - the LSTM gate order is i, j, f, o with ``sigmoid(f + 1.0)`` and an f32
   cell state: not ``nn.LSTM``'s layout. Its gates are computed as JAX's
   ``jnp.dot(..., preferred_element_type=float32)`` computes them: the
@@ -27,6 +34,8 @@ they are. Parity points:
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -41,18 +50,22 @@ def _same_pads(size: int, kernel: int, stride: int) -> tuple[int, int]:
 
 
 class Conv(nn.Module):
-    """2D conv with TF SAME padding; NHWC in and out, computed in ``dtype``."""
+    """2D conv with TF SAME padding after an optional zero pre-pad of ``pad``
+    on each side; NHWC in and out, computed in ``dtype``."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel: int, stride: int = 1,
-                 use_bias: bool = True, dtype: torch.dtype = torch.float32):
+                 use_bias: bool = True, dtype: torch.dtype = torch.float32, pad: int = 0):
         super().__init__()
         self.stride = stride
         self.dtype = dtype
+        self.pad = pad
         self.weight = nn.Parameter(torch.zeros(out_ch, in_ch, kernel, kernel))
         self.bias = nn.Parameter(torch.zeros(out_ch)) if use_bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.to(self.dtype).permute(0, 3, 1, 2)
+        if self.pad:
+            x = F.pad(x, (self.pad,) * 4)
         k = self.weight.shape[-1]
         (t, b), (l, r) = (_same_pads(s, k, self.stride) for s in x.shape[2:])
         if t == b and l == r:
@@ -64,20 +77,51 @@ class Conv(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """Inference-mode BN over the last (channel) axis, eps 1e-5, in f32."""
+    """BN over the last (channel) axis, eps 1e-5, in f32, Flax's
+    ``nn.BatchNorm(momentum=0.999)``: the moving statistics (``train``
+    False) or the batch's (``train`` True; see the module docstring)."""
+
+    MOMENTUM = 0.999
 
     def __init__(self, features: int, eps: float = 1e-5):
         super().__init__()
         self.eps = eps
+        self.update_stats = False  # set by updating_batch_stats
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        mul = self.weight * torch.rsqrt(self.running_var + self.eps)
-        y = (x.float() - self.running_mean) * mul + self.bias
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        if train:
+            xf = x.float()
+            mean = xf.mean(dim=(0, 1, 2))
+            var = torch.clamp(torch.square(xf).mean(dim=(0, 1, 2)) - torch.square(mean), min=0.0)
+            if self.update_stats:
+                with torch.no_grad():
+                    m = self.MOMENTUM
+                    self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+                    self.running_var.copy_(m * self.running_var + (1 - m) * var)
+        else:
+            xf, mean, var = x.float(), self.running_mean, self.running_var
+        mul = self.weight * torch.rsqrt(var + self.eps)
+        y = (xf - mean) * mul + self.bias
         return y.to(x.dtype)
+
+
+@contextlib.contextmanager
+def updating_batch_stats(model: nn.Module):
+    """Within the block, every train-mode BatchNorm of ``model`` moves its
+    running statistics toward its batch's (JAX's ``mutable=['batch_stats']``
+    pass, whose result the trainer keeps); outside it they stay as they are."""
+    bns = [m for m in model.modules() if isinstance(m, BatchNorm)]
+    for bn in bns:
+        bn.update_stats = True
+    try:
+        yield
+    finally:
+        for bn in bns:
+            bn.update_stats = False
 
 
 class ConvBNReLU(nn.Module):
@@ -91,12 +135,12 @@ class ConvBNReLU(nn.Module):
         self.bn = BatchNorm(out_ch)
 
     def forward(self, x: torch.Tensor, up2: bool = False,
-                skip: torch.Tensor | None = None) -> torch.Tensor:
+                skip: torch.Tensor | None = None, train: bool = False) -> torch.Tensor:
         if up2:
             x = upsample2x(x)
         if skip is not None:
             x = torch.cat([x.to(self.conv.dtype), skip.to(self.conv.dtype)], dim=-1)
-        return torch.relu(self.bn(self.conv(x)))
+        return torch.relu(self.bn(self.conv(x), train))
 
 
 class StackedLSTM(nn.Module):

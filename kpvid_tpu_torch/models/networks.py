@@ -1,29 +1,36 @@
-"""Networks of the generation path and of stage-2 training, NHWC at every boundary.
+"""Networks of generation and of both training stages, NHWC at every boundary.
 
 Counterpart of kpvid_tpu/models/networks.py: ConvEncoder, ImageEncoder,
-PoseEncoder, Translator (the serving decode), Stage1Generator's
-detect/embed/generate (inference mode), and the trainable stage-2 pair:
-MotionGenerator (decode; with ``encoder=True`` also encode and the training
-forward) and SeqDiscriminator. Module and parameter
-names follow the Flax tree (``in0_conv/Conv_0/kernel`` is ``in0.conv.weight``
-here), so the bridge maps one onto the other by name.
+PoseEncoder, Translator, Stage1Generator (the training forward, and
+detect/embed/generate for inference), ImageDiscriminator (the PatchGAN of
+stage 1), and the trainable stage-2 pair: MotionGenerator (decode; with
+``encoder=True`` also encode and the training forward) and
+SeqDiscriminator. Module and parameter names follow the Flax tree
+(``in0_conv/Conv_0/kernel`` is ``in0.conv.weight`` here), so the bridge maps
+one onto the other by name.
 
 The encoders and the pose decoder run torch convolutions, as the JAX
 package leaves them to XLA; the pose decoder upsamples and concatenates its
 skip input before each octave's first conv, which is the same function as
 the JAX fused form. The soft-argmax runs the fused ``pose_head`` kernel and
-the translator the conv kernels of ops/chain.py (their plain versions on a
-CPU tensor).
+the stage-1 forward's maps the ``gaussian_render`` kernel, both
+differentiable through their backward kernels. The translator's serving
+decode runs the conv kernels of ops/chain.py; its training form runs torch
+convolutions, as JAX training takes the XLA path. On a CPU tensor every
+kernel wrapper takes its plain version. ``train`` selects batch-statistics
+BN, as in Flax.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
+from ..ops.batching import pair_fns
 from ..ops.chain import translator_chain
 from ..ops.coords import blend
-from ..ops.keypoint_kernels import pose_head
+from ..ops.keypoint_kernels import gaussian_render, pose_head
 from .layers import Conv, ConvBNReLU, Dense, StackedLSTM
 
 
@@ -41,11 +48,12 @@ class ConvEncoder(nn.Module):
             setattr(self, f"keep{i}", ConvBNReLU(2 * f, 2 * f, 3, 1, dtype))
             f *= 2
 
-    def forward(self, x: torch.Tensor) -> list[torch.Tensor]:
-        x = self.in1(self.in0(x))
+    def forward(self, x: torch.Tensor, train: bool = False) -> list[torch.Tensor]:
+        x = self.in1(self.in0(x, train=train), train=train)
         feats = [x]
         for i in range(3):
-            x = getattr(self, f"keep{i}")(getattr(self, f"down{i}")(x))
+            x = getattr(self, f"down{i}")(x, train=train)
+            x = getattr(self, f"keep{i}")(x, train=train)
             feats.append(x)
         return feats
 
@@ -57,8 +65,8 @@ class ImageEncoder(nn.Module):
         super().__init__()
         self.trunk = ConvEncoder(3, filters, dtype)
 
-    def forward(self, x: torch.Tensor) -> list[torch.Tensor]:
-        return [x] + self.trunk(x)
+    def forward(self, x: torch.Tensor, train: bool = False) -> list[torch.Tensor]:
+        return [x] + self.trunk(x, train)
 
 
 class PoseEncoder(nn.Module):
@@ -84,23 +92,24 @@ class PoseEncoder(nn.Module):
                 f //= 2
         self.n_octaves = octave
 
-    def raw_maps(self, x: torch.Tensor) -> torch.Tensor:
-        feats = self.trunk(x)
+    def raw_maps(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        feats = self.trunk(x, train)
         h = feats[-1]
         for o in range(self.n_octaves + 1):
             if o == 0:
-                h = self.dec0a(h)
+                h = self.dec0a(h, train=train)
             else:
-                h = getattr(self, f"dec{o}a")(h, up2=True, skip=feats[-1 - o])
-            h = getattr(self, f"dec{o}b")(h)
+                h = getattr(self, f"dec{o}a")(h, up2=True, skip=feats[-1 - o], train=train)
+            h = getattr(self, f"dec{o}b")(h, train=train)
             if o < self.n_octaves:
-                h = getattr(self, f"dec{o}d")(getattr(self, f"dec{o}c")(h))
+                h = getattr(self, f"dec{o}c")(h, train=train)
+                h = getattr(self, f"dec{o}d")(h, train=train)
         return self.heat(h)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         """[B, H, W, 3] -> keypoints [B, K, 2] (x, y) in f32; the raw maps
         go to the kernel in the compute dtype, which widens them in registers."""
-        return pose_head(self.raw_maps(x).contiguous())
+        return pose_head(self.raw_maps(x, train).contiguous())
 
 
 class Translator(nn.Module):
@@ -155,20 +164,75 @@ class Translator(nn.Module):
             n_octaves=self.n_octaves,
         )
 
+    def decode(self, joint: torch.Tensor, train: bool) -> tuple[torch.Tensor, torch.Tensor]:
+        """The training form, torch convolutions: joint [N, h, w, C] -> (crude
+        f32, mask f32), the 2x upsamples (TF1-legacy) between the octaves and
+        the crude and mask heads apart."""
+        h = joint
+        for o in range(self.n_octaves + 1):
+            h = getattr(self, f"oct{o}a")(h, up2=o > 0, train=train)
+            h = getattr(self, f"oct{o}b")(h, train=train)
+            if o < self.n_octaves:
+                h = getattr(self, f"oct{o}c")(h, train=train)
+                h = getattr(self, f"oct{o}d")(h, train=train)
+        return self.crude(h).float(), torch.sigmoid(self.mask(h).float())
+
+
+class ImageDiscriminator(nn.Module):
+    """PatchGAN: six [pad 1 + 4x4 stride-2 SAME] convs, ``filters`` doubling
+    to 32x, leaky ReLU 0.01, then pad 1 + 3x3 SAME to one logit map with no
+    bias, returned in f32."""
+
+    def __init__(self, filters: int = 64, dtype=torch.float32):
+        super().__init__()
+        ch, prev = filters, 3
+        for i in range(6):
+            setattr(self, f"conv{i}", Conv(prev, ch, 4, 2, dtype=dtype, pad=1))
+            prev, ch = ch, 2 * ch
+        self.logit = Conv(prev, 1, 3, 1, use_bias=False, dtype=dtype, pad=1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for i in range(6):
+            x = F.leaky_relu(getattr(self, f"conv{i}")(x), 0.01)
+        return self.logit(x).float()
+
 
 class Stage1Generator(nn.Module):
-    """Stage-1 graph at inference: detect, embed, and generate T frames from
-    one source frame."""
+    """Stage-1 graph: the training forward (image encoder on frame t, pose
+    encoder on both frames as one 2B batch, Gaussian maps at
+    ``heatmap_size``, translator, masked blend), and for inference detect,
+    embed, and generate T frames from one source frame."""
 
     def __init__(self, n_pts: int, image_size: int = 128, encoder_filters: int = 32,
                  translator_filters: int = 256, pose_decoder_filters: int = 128,
-                 dtype=torch.float32):
+                 dtype=torch.float32, heatmap_size: int = 32, heatmap_inv_std: float = 14.3,
+                 pair_mode: str = "concat"):
         super().__init__()
+        self.dtype = dtype
+        self.heatmap_size = heatmap_size
+        self.heatmap_inv_std = heatmap_inv_std
+        self._pair, self._unpair = pair_fns(pair_mode)
         self.image_encoder = ImageEncoder(encoder_filters, dtype)
         self.pose_encoder = PoseEncoder(
             n_pts, image_size, pose_decoder_filters, encoder_filters, dtype
         )
         self.translator = Translator(encoder_filters * 4 + 2 * n_pts, translator_filters, dtype)
+
+    def forward(self, im: torch.Tensor, future_im: torch.Tensor, train: bool) -> dict:
+        """im, future_im: [B, H, W, 3] f32 -> final, crude (f32 [B, H, W, 3]),
+        mask (f32 [B, H, W, 1]), current_mu and future_mu ([B, K, 2] f32).
+        Both frames share the pose encoder's BN batch statistics; the maps are
+        rendered on the f32 grid and written once in the compute dtype."""
+        emb = self.image_encoder(im, train)[-2]
+        mu = self.pose_encoder(self._pair(im, future_im), train)
+        current_mu, future_mu = self._unpair(mu)
+        hs, inv_std = self.heatmap_size, self.heatmap_inv_std
+        maps = [gaussian_render(m.contiguous(), hs, hs, inv_std, out_dtype=self.dtype)
+                for m in (current_mu, future_mu)]
+        crude, mask = self.translator.decode(torch.cat([emb.to(self.dtype)] + maps, dim=-1),
+                                             train)
+        return {"final": blend(im, crude, mask), "crude": crude, "mask": mask,
+                "current_mu": current_mu, "future_mu": future_mu}
 
     def detect(self, im: torch.Tensor) -> torch.Tensor:
         """Frames [B, H, W, 3] -> keypoints [B, K, 2]."""

@@ -7,7 +7,12 @@ from .conv3x3 import (
     up2_conv3_affine_plain,
 )
 from .coords import blend, colorize_point_maps, grid, heatmaps_to_keypoints, render_gaussian_maps, soft_argmax_1d
-from .keypoint_kernels import gaussian_render, pose_head
+from .keypoint_kernels import (
+    gaussian_render,
+    gaussian_render_backward,
+    pose_head,
+    pose_head_backward,
+)
 from .resize import up2_conv3, upsample2x
 
 # every kernel wrapper of the port, by name; each counts its launches
@@ -16,6 +21,8 @@ KERNELS = {
     "up2_conv3_affine": up2_conv3_affine,
     "pose_head": pose_head,
     "gaussian_render": gaussian_render,
+    "pose_head_backward": pose_head_backward,
+    "gaussian_render_backward": gaussian_render_backward,
 }
 
 
@@ -36,10 +43,12 @@ __all__ = [
     "conv3x3_affine_plain",
     "fold_bn",
     "gaussian_render",
+    "gaussian_render_backward",
     "grid",
     "heatmaps_to_keypoints",
     "launch_counts",
     "pose_head",
+    "pose_head_backward",
     "render_gaussian_maps",
     "reset_launch_counts",
     "soft_argmax_1d",

@@ -1,6 +1,7 @@
-"""The keypoint path's kernels: fused soft-argmax and Gaussian render.
+"""The keypoint path's kernels: fused soft-argmax and Gaussian render, and
+their backwards.
 
-Both are in ``csrc/keypoint.cu`` (CUDA C++ for sm_90a, built by ``_build``):
+All four are in ``csrc/keypoint.cu`` (CUDA C++ for sm_90a, built by ``_build``):
 
 - :func:`pose_head` replaces kpvid_tpu/ops/pallas_kernels.py::pose_head_pallas
   (the ``pl.pallas_call`` at pallas_kernels.py:92): raw heatmaps [B, H, W, K]
@@ -18,11 +19,21 @@ Both are in ``csrc/keypoint.cu`` (CUDA C++ for sm_90a, built by ``_build``):
   once into shared memory. The grid and c2 are those of the plain version
   (coords.grid and inv_std_squared), so a bf16 ``grid_dtype`` takes JAX's
   values.
+- :func:`pose_head_backward` and :func:`gaussian_render_backward` are the
+  gradients stage-1 training takes through the two (the TPU kernels have no
+  VJP: JAX trains through the jnp forms by autodiff). When the maps require
+  a gradient, ``pose_head`` launches the forward's training form, which also
+  writes both softmaxes (p [B, K, W], q [B, K, H], f32), and its backward
+  writes the maps' gradient from them in the maps' dtype without reading the
+  maps; ``gaussian_render``'s backward reduces the maps' cotangent to the
+  points' gradient [N, K, 2] f32, one block a frame, in a fixed order. Both
+  are ``torch.autograd.Function`` s.
 
 The plain PyTorch versions are ops/coords.py::heatmaps_to_keypoints and
-::render_gaussian_maps; each wrapper takes them for a tensor on the CPU and
-launches its kernel for a CUDA tensor or raises. ``launches`` on each
-wrapper counts its kernel launches.
+::render_gaussian_maps, under torch autograd for the gradients; each wrapper
+takes them for a tensor on the CPU and launches its kernel for a CUDA tensor
+or raises. ``launches`` on each wrapper counts its kernel launches; the
+backwards count theirs apart from the forwards.
 """
 
 from __future__ import annotations
@@ -41,11 +52,15 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 def _lib():
     lib = _build.load(_SOURCE)
     if not getattr(lib, "_kpvid_bound", False):
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.kpvid_pose_head.argtypes = [i, p, p, p, p, i, i, i, i, p]
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.kpvid_pose_head.argtypes = [i, p, p, p, p, p, p, i, i, i, i, p]
         lib.kpvid_pose_head.restype = i
-        lib.kpvid_gaussian_render.argtypes = [i, p, p, p, p, i, i, i, i, ctypes.c_float, p]
+        lib.kpvid_gaussian_render.argtypes = [i, p, p, p, p, i, i, i, i, f, p]
         lib.kpvid_gaussian_render.restype = i
+        lib.kpvid_pose_head_backward.argtypes = [i, p, p, p, p, p, p, p, i, i, i, i, p]
+        lib.kpvid_pose_head_backward.restype = i
+        lib.kpvid_gaussian_render_backward.argtypes = [i, p, p, p, p, p, i, i, i, i, f, p]
+        lib.kpvid_gaussian_render_backward.restype = i
         lib.kpvid_cuda_error_string.argtypes = [i]
         lib.kpvid_cuda_error_string.restype = ctypes.c_char_p
         lib._kpvid_bound = True
@@ -69,33 +84,81 @@ def _raise_on(err: int, lib, name: str) -> None:
         )
 
 
-def pose_head(raw_maps: torch.Tensor) -> torch.Tensor:
-    """Spatial soft-argmax, fused: [B, H, W, K] f32 or bf16 -> [B, K, 2] f32 (x, y)."""
-    if raw_maps.device.type == "cpu":
-        return heatmaps_to_keypoints(raw_maps)
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _pose_head_launch(raw_maps: torch.Tensor, marginals: bool):
+    """The forward kernel; with ``marginals`` its training form, which also
+    returns the two softmaxes p [B, K, W] and q [B, K, H]."""
     _check_cuda(raw_maps, "pose_head", 4, _DTYPES)
     b, h, w, k = raw_maps.shape
-    out = torch.empty((b, k, 2), dtype=torch.float32, device=raw_maps.device)
-    gx = grid(w, raw_maps.device)
-    gy = grid(h, raw_maps.device)
+    dev = raw_maps.device
+    out = torch.empty((b, k, 2), dtype=torch.float32, device=dev)
+    p = torch.empty((b, k, w), dtype=torch.float32, device=dev) if marginals else None
+    q = torch.empty((b, k, h), dtype=torch.float32, device=dev) if marginals else None
+    gx, gy = grid(w, dev), grid(h, dev)
     lib = _lib()
     err = lib.kpvid_pose_head(
         _DTYPES[raw_maps.dtype], raw_maps.data_ptr(), gx.data_ptr(), gy.data_ptr(),
-        out.data_ptr(), b, h, w, k, torch.cuda.current_stream(raw_maps.device).cuda_stream,
+        out.data_ptr(), p.data_ptr() if marginals else None,
+        q.data_ptr() if marginals else None, b, h, w, k, _stream(raw_maps),
     )
     _raise_on(err, lib, "pose_head")
     pose_head.launches += 1
+    return out, p, q
+
+
+def pose_head_backward(g: torch.Tensor, points: torch.Tensor, p: torch.Tensor, q: torch.Tensor,
+                       dtype: torch.dtype) -> torch.Tensor:
+    """The maps' gradient [B, H, W, K] in ``dtype`` from the points'
+    cotangent ``g`` [B, K, 2], the forward's points and its softmaxes p
+    [B, K, W] and q [B, K, H] (all f32, on the card)."""
+    for t, name in ((g, "g"), (points, "points"), (p, "p"), (q, "q")):
+        _check_cuda(t, f"pose_head_backward ({name})", 3, (torch.float32,))
+    if dtype not in _DTYPES:
+        raise ValueError(f"pose_head_backward writes float32 or bfloat16, got {dtype}")
+    b, k, w = p.shape
+    h = q.shape[2]
+    dev = g.device
+    out = torch.empty((b, h, w, k), dtype=dtype, device=dev)
+    gy, gx = grid(h, dev), grid(w, dev)
+    lib = _lib()
+    err = lib.kpvid_pose_head_backward(
+        _DTYPES[dtype], g.data_ptr(), points.data_ptr(), p.data_ptr(), q.data_ptr(),
+        gy.data_ptr(), gx.data_ptr(), out.data_ptr(), b, h, w, k, _stream(g),
+    )
+    _raise_on(err, lib, "pose_head_backward")
+    pose_head_backward.launches += 1
     return out
 
 
-def gaussian_render(mu: torch.Tensor, height: int, width: int, inv_std: float = 14.3,
-                    grid_dtype: torch.dtype = torch.float32,
-                    out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """Gaussian maps straight into NHWC: [B, K, 2] f32 -> [B, H, W, K] in
-    ``out_dtype`` (f32 or bf16), on the grid and inv_std^2 of ``grid_dtype``
-    (see render_gaussian_maps)."""
-    if mu.device.type == "cpu":
-        return render_gaussian_maps(mu, height, width, inv_std, grid_dtype, out_dtype)
+class _PoseHead(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, raw_maps):
+        out, p, q = _pose_head_launch(raw_maps, marginals=True)
+        ctx.save_for_backward(out, p, q)
+        ctx.maps_dtype = raw_maps.dtype
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        out, p, q = ctx.saved_tensors
+        return pose_head_backward(g.float().contiguous(), out, p, q, ctx.maps_dtype)
+
+
+def pose_head(raw_maps: torch.Tensor) -> torch.Tensor:
+    """Spatial soft-argmax, fused: [B, H, W, K] f32 or bf16 -> [B, K, 2] f32
+    (x, y), differentiable in the maps."""
+    if raw_maps.device.type == "cpu":
+        return heatmaps_to_keypoints(raw_maps)
+    if torch.is_grad_enabled() and raw_maps.requires_grad:
+        return _PoseHead.apply(raw_maps)
+    return _pose_head_launch(raw_maps, marginals=False)[0]
+
+
+def _render_launch(mu: torch.Tensor, height: int, width: int, inv_std: float,
+                   grid_dtype: torch.dtype, out_dtype: torch.dtype) -> torch.Tensor:
     _check_cuda(mu, "gaussian_render", 3, (torch.float32,))
     if out_dtype not in _DTYPES:
         raise ValueError(f"gaussian_render kernel writes float32 or bfloat16, got {out_dtype}")
@@ -106,13 +169,61 @@ def gaussian_render(mu: torch.Tensor, height: int, width: int, inv_std: float = 
     lib = _lib()
     err = lib.kpvid_gaussian_render(
         _DTYPES[out_dtype], mu.data_ptr(), gy.data_ptr(), gx.data_ptr(), out.data_ptr(),
-        b, height, width, k, inv_std_squared(inv_std, grid_dtype),
-        torch.cuda.current_stream(mu.device).cuda_stream,
+        b, height, width, k, inv_std_squared(inv_std, grid_dtype), _stream(mu),
     )
     _raise_on(err, lib, "gaussian_render")
     gaussian_render.launches += 1
     return out
 
 
+def gaussian_render_backward(dmaps: torch.Tensor, mu: torch.Tensor, inv_std: float = 14.3,
+                             grid_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The points' gradient [N, K, 2] f32 from the maps' cotangent ``dmaps``
+    [N, H, W, K] (f32 or bf16, widened to f32) at the points ``mu``, on the
+    grid and c2 of the forward's ``grid_dtype``."""
+    _check_cuda(dmaps, "gaussian_render_backward (dmaps)", 4, _DTYPES)
+    _check_cuda(mu, "gaussian_render_backward (mu)", 3, (torch.float32,))
+    n, h, w, k = dmaps.shape
+    dmu = torch.empty((n, k, 2), dtype=torch.float32, device=mu.device)
+    gy, gx = grid(h, mu.device, grid_dtype), grid(w, mu.device, grid_dtype)
+    lib = _lib()
+    err = lib.kpvid_gaussian_render_backward(
+        _DTYPES[dmaps.dtype], dmaps.data_ptr(), mu.data_ptr(), gy.data_ptr(), gx.data_ptr(),
+        dmu.data_ptr(), n, h, w, k, inv_std_squared(inv_std, grid_dtype), _stream(mu),
+    )
+    _raise_on(err, lib, "gaussian_render_backward")
+    gaussian_render_backward.launches += 1
+    return dmu
+
+
+class _GaussianRender(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, mu, height, width, inv_std, grid_dtype, out_dtype):
+        ctx.save_for_backward(mu)
+        ctx.inv_std, ctx.grid_dtype = inv_std, grid_dtype
+        return _render_launch(mu, height, width, inv_std, grid_dtype, out_dtype)
+
+    @staticmethod
+    def backward(ctx, dmaps):
+        (mu,) = ctx.saved_tensors
+        dmu = gaussian_render_backward(dmaps.contiguous(), mu, ctx.inv_std, ctx.grid_dtype)
+        return dmu, None, None, None, None, None
+
+
+def gaussian_render(mu: torch.Tensor, height: int, width: int, inv_std: float = 14.3,
+                    grid_dtype: torch.dtype = torch.float32,
+                    out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Gaussian maps straight into NHWC: [B, K, 2] f32 -> [B, H, W, K] in
+    ``out_dtype`` (f32 or bf16), on the grid and inv_std^2 of ``grid_dtype``
+    (see render_gaussian_maps); differentiable in ``mu``."""
+    if mu.device.type == "cpu":
+        return render_gaussian_maps(mu, height, width, inv_std, grid_dtype, out_dtype)
+    if torch.is_grad_enabled() and mu.requires_grad:
+        return _GaussianRender.apply(mu, height, width, inv_std, grid_dtype, out_dtype)
+    return _render_launch(mu, height, width, inv_std, grid_dtype, out_dtype)
+
+
 pose_head.launches = 0
 gaussian_render.launches = 0
+pose_head_backward.launches = 0
+gaussian_render_backward.launches = 0

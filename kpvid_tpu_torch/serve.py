@@ -38,7 +38,8 @@ def build_parser() -> ArgumentParser:
     parser = ArgumentParser(description="kpvid_tpu_torch serving daemon")
     parser.add_argument("--config", type=str, required=True)
     parser.add_argument("--checkpoint_stage1", type=str, required=True,
-                        help="the port's stage-1 parameter file (.npz)")
+                        help="the port's stage-1 parameter file (.npz), a trainer ckpt-N "
+                             "directory or the directory above one")
     parser.add_argument("--checkpoint_stage2", type=str, required=True,
                         help="the port's stage-2 parameter file (.npz), a trainer "
                              "ckpt-N directory, or the directory of its ckpt-N")

@@ -29,20 +29,22 @@ accumulation) are not ported yet.
 from __future__ import annotations
 
 import torch
-from torch import nn
 
 from ..configs import Config
 from ..device import resolve_device, to_device
 from ..losses import discriminator_loss, generator_adv_loss, kl_raw_sigma, seq_recon_loss
-from ..models import MotionGenerator, SeqDiscriminator, init_like_jax
+from ..models import MotionGenerator, SeqDiscriminator
 from ..ops.batching import pair_fns, resolve_pair_mode
-from .state import load_optimizer_arrays, make_lr_schedule, make_optimizer, optimizer_arrays
-
-G_PREFIX = "stage2"  # FinalGenerator's name for the motion generator
-D_PREFIX = "discriminator"
+from .state import GANTrainer
 
 
-class Stage2Trainer:
+class Stage2Trainer(GANTrainer):
+    """Parameters keyed ``stage2.*`` (FinalGenerator's name for the motion
+    generator) and ``discriminator.*``."""
+
+    G_PREFIX = "stage2"
+    D_PREFIX = "discriminator"
+
     def __init__(self, config: Config, device: str | torch.device = "cuda"):
         self.config = config
         self.device = resolve_device(device)
@@ -53,44 +55,12 @@ class Stage2Trainer:
         self.n_pts = m.n_pts
         self.vae_dim = m.vae_dim
         self.n_future = m.n_future_frames
-        self.generator = MotionGenerator(m.n_pts, m.n_action, m.n_future_frames, m.cell_info,
-                                         m.vae_dim, self.dtype, encoder=True)
-        self.discriminator = SeqDiscriminator(2 * m.n_pts, m.cell_info, self.dtype)
-        self.model = nn.ModuleDict({G_PREFIX: self.generator, D_PREFIX: self.discriminator})
-        self.model.to(self.device)
-        self._g_names, self._g_params = map(list, zip(*self.generator.named_parameters()))
-        self._d_names, self._d_params = map(list, zip(*self.discriminator.named_parameters()))
-        self.g_opt = make_optimizer(self._g_params, config.training.lr)
-        self.d_opt = make_optimizer(self._d_params, config.training.lr)
-        self.lr_schedule = make_lr_schedule(config.training.lr)
+        self._setup(MotionGenerator(m.n_pts, m.n_action, m.n_future_frames, m.cell_info,
+                                    m.vae_dim, self.dtype, encoder=True),
+                    SeqDiscriminator(2 * m.n_pts, m.cell_info, self.dtype),
+                    config.training.lr, self.device)
         self.pair_mode = resolve_pair_mode(config.training.pair_batching)
         self._pair, self._unpair = pair_fns(self.pair_mode)
-        self.step = 0
-
-    # ------------------------------------------------------------ parameters
-    def init_parameters(self, seed: int) -> dict[str, torch.Tensor]:
-        """Both networks' parameters with the JAX package's init laws, drawn
-        on the CPU from ``seed``, keyed ``stage2.*`` and ``discriminator.*``."""
-        return init_like_jax(self.model, seed)
-
-    def load_parameters(self, params: dict) -> None:
-        self.model.load_state_dict({k: torch.as_tensor(v) for k, v in params.items()},
-                                   strict=True)
-
-    def state_arrays(self) -> dict[str, torch.Tensor]:
-        """Everything a resumed run needs: the step, both parameter sets and
-        both Adam states (the trainer checkpoint's arrays)."""
-        out = {"step": torch.tensor(self.step, dtype=torch.int64)}
-        out.update({k: v.detach() for k, v in self.model.state_dict().items()})
-        out.update(optimizer_arrays(self.g_opt, self._g_names, f"g_opt.{G_PREFIX}"))
-        out.update(optimizer_arrays(self.d_opt, self._d_names, f"d_opt.{D_PREFIX}"))
-        return out
-
-    def load_state_arrays(self, arrays) -> None:
-        self.load_parameters({k: arrays[k] for k in self.model.state_dict()})
-        load_optimizer_arrays(self.g_opt, self._g_names, f"g_opt.{G_PREFIX}", arrays)
-        load_optimizer_arrays(self.d_opt, self._d_names, f"d_opt.{D_PREFIX}", arrays)
-        self.step = int(arrays["step"])
 
     # --------------------------------------------------------------- helpers
     def _flatten_batch(self, batch: dict):
@@ -129,20 +99,6 @@ class Stage2Trainer:
         grads = torch.autograd.grad(loss, self._d_params)
         return grads, {"loss_D": loss.detach(), "D_real": d_real.detach(),
                        "D_fake": d_fake.detach()}
-
-    def _apply(self, opt, params, grads) -> None:
-        lr = self.lr_schedule(self.step)  # optax: the count before this update
-        for group in opt.param_groups:
-            group["lr"] = lr
-        for p, g in zip(params, grads):
-            p.grad = g
-        opt.step()
-        for p in params:
-            p.grad = None
-
-    def _finish(self, d_metrics, g_metrics) -> dict:
-        self.step += 1
-        return {**d_metrics, **g_metrics, "lr": self.lr_schedule(self.step)}
 
     # ----------------------------------------------------------- train steps
     def train_step(self, batch: dict, noise) -> dict:

@@ -16,6 +16,9 @@ Counterpart of kpvid_tpu/train/state.py:
 The optimizer state is read and written as flat arrays
 (``{prefix}.{name}.{exp_avg,exp_avg_sq,step}``) for the trainer's
 checkpoint, so a resumed run continues with the same bits.
+:class:`GANTrainer` holds what both stages' trainers share: the two
+networks under one ``ModuleDict``, an Adam each, the step, the update with
+the schedule's rate and the checkpoint's arrays.
 """
 
 from __future__ import annotations
@@ -24,8 +27,10 @@ from collections.abc import Callable, Mapping
 
 import numpy as np
 import torch
+from torch import nn
 
 from ..configs import LRConfig
+from ..models import init_like_jax
 
 ADAM_BETAS = (0.5, 0.999)
 ADAM_EPS = 1e-8
@@ -84,3 +89,63 @@ def load_optimizer_arrays(opt: torch.optim.Optimizer, names: list[str], prefix: 
             "exp_avg": exp_avg.to(device=p.device, dtype=p.dtype).clone(),
             "exp_avg_sq": exp_avg_sq.to(device=p.device, dtype=p.dtype).clone(),
         }
+
+
+class GANTrainer:
+    """A generator and a discriminator keyed ``G_PREFIX.*`` and
+    ``D_PREFIX.*`` in ``self.model``, each with its own Adam; subclasses set
+    the prefixes and call :meth:`_setup` from their constructor."""
+
+    G_PREFIX = ""
+    D_PREFIX = ""
+
+    def _setup(self, generator: nn.Module, discriminator: nn.Module, lr_cfg: LRConfig,
+               device: torch.device) -> None:
+        self.generator = generator
+        self.discriminator = discriminator
+        self.model = nn.ModuleDict({self.G_PREFIX: generator, self.D_PREFIX: discriminator})
+        self.model.to(device)
+        self._g_names, self._g_params = map(list, zip(*generator.named_parameters()))
+        self._d_names, self._d_params = map(list, zip(*discriminator.named_parameters()))
+        self.g_opt = make_optimizer(self._g_params, lr_cfg)
+        self.d_opt = make_optimizer(self._d_params, lr_cfg)
+        self.lr_schedule = make_lr_schedule(lr_cfg)
+        self.step = 0
+
+    def init_parameters(self, seed: int) -> dict[str, torch.Tensor]:
+        """Both networks' parameters (and BN statistics) with the JAX
+        package's init laws, drawn on the CPU from ``seed``."""
+        return init_like_jax(self.model, seed)
+
+    def load_parameters(self, params: dict) -> None:
+        self.model.load_state_dict({k: torch.as_tensor(v) for k, v in params.items()},
+                                   strict=True)
+
+    def state_arrays(self) -> dict[str, torch.Tensor]:
+        """Everything a resumed run needs: the step, both networks (with any
+        BN statistics) and both Adam states (the trainer checkpoint's arrays)."""
+        out = {"step": torch.tensor(self.step, dtype=torch.int64)}
+        out.update({k: v.detach() for k, v in self.model.state_dict().items()})
+        out.update(optimizer_arrays(self.g_opt, self._g_names, f"g_opt.{self.G_PREFIX}"))
+        out.update(optimizer_arrays(self.d_opt, self._d_names, f"d_opt.{self.D_PREFIX}"))
+        return out
+
+    def load_state_arrays(self, arrays) -> None:
+        self.load_parameters({k: arrays[k] for k in self.model.state_dict()})
+        load_optimizer_arrays(self.g_opt, self._g_names, f"g_opt.{self.G_PREFIX}", arrays)
+        load_optimizer_arrays(self.d_opt, self._d_names, f"d_opt.{self.D_PREFIX}", arrays)
+        self.step = int(arrays["step"])
+
+    def _apply(self, opt, params, grads) -> None:
+        lr = self.lr_schedule(self.step)  # optax: the count before this update
+        for group in opt.param_groups:
+            group["lr"] = lr
+        for p, g in zip(params, grads):
+            p.grad = g
+        opt.step()
+        for p in params:
+            p.grad = None
+
+    def _finish(self, d_metrics, g_metrics) -> dict:
+        self.step += 1
+        return {**d_metrics, **g_metrics, "lr": self.lr_schedule(self.step)}

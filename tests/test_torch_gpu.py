@@ -10,7 +10,13 @@ atol 1e-4); bfloat16 outputs round once in the kernel and twice in the plain
 version (conv output, then the affine), so they are held to 2% of the
 output's largest magnitude. The keypoints of the soft-argmax are f32 from f32
 or bf16 maps (rtol 1e-4, atol 1e-5); Gaussian maps written in bf16 round the
-same f32 product once on both sides, so they stay within one bf16 step.
+same f32 product once on both sides, so they stay within one bf16 step. The
+backward kernels against the plain versions' torch autograd: f32 gradients
+within 1e-5 of each tensor's largest magnitude; a bf16 maps' gradient within
+one bf16 step of each element or that f32 bound, whichever is larger (both
+round an f32 value once, and where the two marginals' terms cancel the f32
+values differ by more than one step of their small sum); the points'
+gradient from a bf16 cotangent within 1e-4 of its largest magnitude.
 
 The conv shapes cover the main path at N = 2 (Config() widths), ragged
 spatial tiles, C not a multiple of the 32-channel chunk, Cout not a multiple
@@ -32,9 +38,11 @@ from kpvid_tpu_torch.ops import (
     conv3x3_affine,
     conv3x3_affine_plain,
     gaussian_render,
+    gaussian_render_backward,
     heatmaps_to_keypoints,
     launch_counts,
     pose_head,
+    pose_head_backward,
     render_gaussian_maps,
     reset_launch_counts,
     up2_conv3_affine,
@@ -170,6 +178,109 @@ def test_gaussian_render_kernel_matches_plain(dev, out_dtype, grid_dtype, n, k):
         assert _within_one_bf16_step(got, want)
 
 
+def _max_gap(got, want) -> float:
+    """max |got - want| over max |want|."""
+    got, want = got.float(), want.float()
+    return float((got - want).abs().max()) / max(float(want.abs().max()), 1e-30)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "shape",
+    # stage 1's training shape; the smoke widths; H = 37; K = 5 (scalar stores)
+    [(32, 128, 128, 40), (2, 32, 32, 8), (2, 37, 24, 40), (3, 16, 20, 5)],
+)
+def test_pose_head_backward_kernel_matches_plain(dev, dtype, shape):
+    g = torch.Generator().manual_seed(6)
+    raw = (torch.randn(*shape, generator=g) * 3).to(dev, dtype)
+    ct = torch.randn(shape[0], shape[3], 2, generator=g).to(dev)
+    kernel_in = raw.clone().requires_grad_()
+    plain_in = raw.clone().requires_grad_()
+    reset_launch_counts()
+    pts = pose_head(kernel_in)
+    (got,) = torch.autograd.grad(pts, kernel_in, ct)
+    torch.cuda.synchronize()
+    assert launch_counts()["pose_head"] == 1 and launch_counts()["pose_head_backward"] == 1
+    (want,) = torch.autograd.grad(heatmaps_to_keypoints(plain_in), plain_in, ct)
+    assert got.dtype == dtype and got.shape == raw.shape
+    if dtype == torch.float32:
+        assert _max_gap(got, want) <= 1e-5
+    else:
+        g32, w32 = got.float(), want.float()
+        step = 2.0**-7 * torch.maximum(g32.abs(), w32.abs())
+        assert bool(((g32 - w32).abs() <= torch.clamp(step, min=1e-5 * float(w32.abs().max()))).all())
+    torch.testing.assert_close(pts.detach(), heatmaps_to_keypoints(raw), rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,hw,k", [(16, 32, 40), (3, 8, 5), (2, 128, 40), (5, 16, 8)])
+def test_render_backward_kernel_matches_plain(dev, out_dtype, n, hw, k):
+    """Stage 1's render at [16, 32^2, 40] (the f32 grid), small and odd K,
+    and 128^2; the maps' cotangent in the maps' dtype."""
+    g = torch.Generator().manual_seed(7)
+    mu = (torch.rand(n, k, 2, generator=g) * 2 - 1).to(dev)
+    ct = torch.randn(n, hw, hw, k, generator=g).to(dev, out_dtype)
+    kernel_in, plain_in = mu.clone().requires_grad_(), mu.clone().requires_grad_()
+    reset_launch_counts()
+    maps = gaussian_render(kernel_in, hw, hw, 14.3, out_dtype=out_dtype)
+    (got,) = torch.autograd.grad(maps, kernel_in, ct)
+    torch.cuda.synchronize()
+    assert launch_counts()["gaussian_render_backward"] == 1
+    want_maps = render_gaussian_maps(plain_in, hw, hw, 14.3, out_dtype=out_dtype)
+    (want,) = torch.autograd.grad(want_maps, plain_in, ct)
+    assert got.dtype == torch.float32 and got.shape == mu.shape
+    assert _max_gap(got, want) <= (1e-5 if out_dtype == torch.float32 else 1e-4)
+    again = gaussian_render_backward(ct.contiguous(), mu, 14.3)
+    assert torch.equal(again, gaussian_render_backward(ct.contiguous(), mu, 14.3))
+
+
+def test_stage1_step_on_card_launches_and_matches_cpu(dev):
+    """One fused stage-1 step at smoke widths, f32 with TF32 off: one #3 and
+    two #4 forwards and their three backwards, no conv kernel; losses within
+    rtol 1e-4 and every gradient tensor within 5% in relative L2 of the
+    CPU's step from the same parameters and batch. Not element by element:
+    the step's gradient is not continuous in its inputs (ReLU and leaky ReLU
+    kinks, max-pools, the perceptual L1's signs), and forwards that differ
+    in the last bit turn some of those terms over (chip_smoke.py measures
+    the card against itself with an input one ulp off). Not the biases whose
+    gradient is zero in exact arithmetic (a conv's before a train-mode BN,
+    the heat map's): each side holds only its own rounding there."""
+    import dataclasses
+
+    from kpvid_tpu_torch.configs import ModelConfig, TrainingConfig
+    from kpvid_tpu_torch.losses import synthesize_vgg19_params
+    from kpvid_tpu_torch.train import Stage1Trainer
+
+    cfg = dataclasses.replace(
+        Config(), model=ModelConfig(n_pts=8, image_size=32, heatmap_size=8, encoder_filters=8,
+                                    translator_filters=16, pose_decoder_filters=16,
+                                    discriminator_filters=8),
+        training=TrainingConfig(compute_dtype="float32", batch_size=2)).validate()
+    rng = np.random.default_rng(0)
+    batch = {k: rng.uniform(-1, 1, (2, 32, 32, 3)).astype(np.float32)
+             for k in ("image", "future_image")}
+    vgg = synthesize_vgg19_params(max_width=16)
+    out = {}
+    for device in (dev, "cpu"):
+        t = Stage1Trainer(cfg, vgg, device=device)
+        t.load_parameters(t.init_parameters(3))
+        reset_launch_counts()
+        g_grads, fake, g_m = t.g_grads(*t._pair_of(batch))
+        d_grads, d_m = t.d_grads(t._pair_of(batch)[1], fake)
+        names = t._g_names + t._d_names
+        out[str(device)] = ({k: float(v) for k, v in {**g_m, **d_m}.items()},
+                            [g.cpu() for g in list(g_grads) + list(d_grads)], launch_counts())
+    (lc, gc, counts), (lp, gp, _) = out[str(dev)], out["cpu"]
+    assert counts == {"conv3x3_affine": 0, "up2_conv3_affine": 0, "pose_head": 1,
+                      "gaussian_render": 2, "pose_head_backward": 1,
+                      "gaussian_render_backward": 2}
+    for k in lp:
+        assert lc[k] == pytest.approx(lp[k], rel=1e-4), k
+    for name, a, b in zip(names, gc, gp):
+        if not name.endswith((".conv.bias", "heat.bias")):
+            assert float((a - b).norm()) <= 5e-2 * max(float(b.norm()), 1e-30), name
+
+
 def test_wrappers_count_launches_and_check_inputs(dev):
     reset_launch_counts()
     x, k, s, t = _conv_inputs(dev, torch.float32, 1, 8, 8, 16, 16)
@@ -179,6 +290,7 @@ def test_wrappers_count_launches_and_check_inputs(dev):
     gaussian_render(torch.zeros(1, 4, 2, device=dev), 8, 8)
     assert launch_counts() == {
         "conv3x3_affine": 1, "up2_conv3_affine": 1, "pose_head": 1, "gaussian_render": 1,
+        "pose_head_backward": 0, "gaussian_render_backward": 0,
     }
     with pytest.raises(TypeError):
         conv3x3_affine(x.half(), k.half(), s, t)
@@ -204,6 +316,7 @@ def test_generate_on_card_matches_cpu(dev):
     got = engine.final.generate(im, act, z)
     assert launch_counts() == {
         "conv3x3_affine": 8, "up2_conv3_affine": 2, "pose_head": 1, "gaussian_render": 2,
+        "pose_head_backward": 0, "gaussian_render_backward": 0,
     }
     want = cpu.generate(im, act, z)
     for key in ("current_points", "future_points", "pred_im_seq", "mask"):
@@ -237,6 +350,7 @@ def test_generate_bf16_on_card_matches_plain(dev):
     got = gen.generate(im, act, z)
     assert launch_counts() == {
         "conv3x3_affine": 8, "up2_conv3_affine": 2, "pose_head": 1, "gaussian_render": 2,
+        "pose_head_backward": 0, "gaussian_render_backward": 0,
     }
     with contextlib.ExitStack() as stack:
         for target, fn in (

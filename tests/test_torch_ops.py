@@ -3,8 +3,10 @@
 Each kernel wrapper of the port takes its plain PyTorch version for a CPU
 tensor; these tests hold those plain versions against the JAX package's
 Pallas kernels run in interpret mode, and the plain ops against their jnp
-counterparts. Inputs come from numpy seeds; everything is float32 except
-the bfloat16 Gaussian-render checks.
+counterparts; the gradients the plain soft-argmax and render take under
+torch autograd against ``jax.vjp`` of the jnp forms, which is what JAX's
+stage-1 training differentiates. Inputs come from numpy seeds; everything
+is float32 except the bfloat16 Gaussian-render and bf16-maps checks.
 """
 
 import ml_dtypes
@@ -12,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from kpvid_tpu.ops import heatmaps_to_keypoints as jax_heatmaps_to_keypoints
@@ -179,6 +182,58 @@ def test_render_gaussian_maps_batch_dims(rng):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4, atol=1e-5)
 
 
+def _vjp_of_soft_argmax(raw, g):
+    """JAX's gradient of the maps through heatmaps_to_keypoints(raw.astype(f32)),
+    as PoseEncoder differentiates it, in the maps' dtype."""
+    _, vjp = jax.vjp(lambda r: jax_heatmaps_to_keypoints(r.astype(jnp.float32)), jnp.asarray(raw))
+    return np.asarray(vjp(jnp.asarray(g))[0].astype(jnp.float32))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(2, 32, 24, 8), (3, 16, 16, 5)])
+def test_soft_argmax_grad_matches_jax(rng, shape, dtype):
+    """The maps' gradient of the plain soft-argmax under torch autograd, the
+    CPU side of the pose_head kernel's backward: f32 within atol 1e-6 of
+    JAX's; bf16 maps get a bf16 gradient (the f32 gradient rounded once, as
+    the VJP of astype(f32) rounds it) within one bf16 step."""
+    raw = (3 * rng.normal(size=shape)).astype(np.float32)
+    g = rng.normal(size=(shape[0], shape[3], 2)).astype(np.float32)
+    if dtype == "bfloat16":
+        raw = raw.astype(ml_dtypes.bfloat16)
+    want = _vjp_of_soft_argmax(raw, g)
+    raw_t = _t(raw).to(getattr(torch, dtype)).requires_grad_()
+    (got,) = torch.autograd.grad(ops.pose_head(raw_t), raw_t, _t(g))
+    assert got.dtype == raw_t.dtype and got.shape == raw_t.shape
+    if dtype == "float32":
+        np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-6)
+    else:
+        assert _within_one_bf16_step(got, want)
+
+
+@pytest.mark.parametrize("out_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mu_shape,hw", [((3, 8, 2), (32, 32)), ((2, 5, 2), (8, 16))])
+def test_render_grad_matches_jax(rng, mu_shape, hw, out_dtype):
+    """The points' gradient of the plain render under torch autograd, the
+    CPU side of the gaussian_render kernel's backward, against JAX's VJP of
+    render_gaussian_maps(mu).astype(out_dtype) on the f32 grid, as the
+    stage-1 forward renders: the cotangent in ``out_dtype`` widened to f32.
+    Within 1e-5 of the largest |gradient|: each point's gradient sums terms
+    up to 2 inv_std^2 = 409 times the unit cotangent that cancel to a tenth
+    of that, so f32 reassociation alone moves it by a few 1e-6 of its max
+    (atol 1e-6 is below one f32 step of these values)."""
+    mu = rng.uniform(-1, 1, mu_shape).astype(np.float32)
+    ct = rng.normal(size=(mu_shape[0], *hw, mu_shape[1])).astype(np.float32)
+    jdt = getattr(jnp, out_dtype)
+    ct = np.asarray(jnp.asarray(ct).astype(jdt).astype(jnp.float32))
+    _, vjp = jax.vjp(lambda m: jax_render_gaussian_maps(m, *hw, 14.3).astype(jdt), jnp.asarray(mu))
+    want = np.asarray(vjp(jnp.asarray(ct).astype(jdt))[0])
+    mu_t = _t(mu).requires_grad_()
+    maps = ops.gaussian_render(mu_t, *hw, 14.3, out_dtype=getattr(torch, out_dtype))
+    (got,) = torch.autograd.grad(maps, mu_t, _t(ct).to(maps.dtype))
+    assert got.dtype == torch.float32 and got.shape == mu_t.shape
+    assert np.abs(got.numpy() - want).max() <= 1e-5 * np.abs(want).max()
+
+
 def test_blend(rng):
     bg, crude, mask = (_t(rng.uniform(-1, 1, (2, 4, 4, 3))) for _ in range(3))
     np.testing.assert_allclose(
@@ -195,6 +250,10 @@ def test_cpu_tensors_take_plain_versions_and_count_nothing(rng):
     )
     ops.pose_head(x)
     ops.gaussian_render(torch.zeros(1, 4, 2), 8, 8)
+    raw = x.clone().requires_grad_()
+    pts = torch.zeros(1, 4, 2, requires_grad=True)
+    torch.autograd.grad(ops.pose_head(raw).sum() + ops.gaussian_render(pts, 8, 8).sum(),
+                        [raw, pts])
     mu = torch.rand(2, 4, 2) * 2 - 1
     torch.testing.assert_close(
         ops.gaussian_render(mu, 8, 8, grid_dtype=torch.bfloat16),
@@ -217,6 +276,16 @@ def test_kernel_wrappers_refuse_other_devices():
         ops.pose_head(x)
     with pytest.raises(ValueError, match="CUDA"):
         ops.gaussian_render(torch.empty(1, 4, 2, device="meta"), 8, 8)
+    pts = torch.empty(1, 4, 2, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.pose_head(x.requires_grad_())
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.gaussian_render(pts.requires_grad_(), 8, 8)
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.pose_head_backward(pts, pts, torch.empty(1, 4, 8, device="meta"),
+                               torch.empty(1, 4, 8, device="meta"), torch.float32)
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.gaussian_render_backward(x, pts)
 
 
 def test_build_needs_nvcc(monkeypatch, tmp_path):

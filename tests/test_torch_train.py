@@ -162,6 +162,32 @@ def test_losses_match_jax():
         np.testing.assert_allclose(float(got), float(want), rtol=1e-6)
 
 
+def test_stage2_summary_images_match_jax(jax_init):
+    """The stage-2 summary images on JAX's noise: the input image, the first
+    frame's points at full resolution and the predicted and real pose strips,
+    within atol 1e-5 (f32 renders of points that agree to 1e-6)."""
+    from kpvid_tpu.eval.visualize import stage2_summary_images as jax_summary
+    from kpvid_tpu.utils import get_n_colors as jax_colors
+    from kpvid_tpu_torch.eval.visualize import stage2_summary_images
+    from kpvid_tpu_torch.utils import get_n_colors
+
+    jt = JaxStage2Trainer(jax_config())
+    trainer = port_trainer(jax_init)
+    batch = make_batch(6)
+    batch["image"] = np.random.default_rng(6).uniform(-1, 1, (B, 32, 32, 3)).astype(np.float32)
+    colors = get_n_colors(TRAIN_SMOKE["n_pts"])
+    assert np.array_equal(np.asarray(colors), np.asarray(jax_colors(TRAIN_SMOKE["n_pts"])))
+    key = jax.random.PRNGKey(8)
+    want = jax_summary(jt, jax_init, batch, colors, key)
+    noise = np.asarray(jax.random.normal(key, (2, TRAIN_SMOKE["vae_dim"])))
+    got = stage2_summary_images(trainer, batch, colors, noise)
+    assert sorted(got) == sorted(want)
+    for k in want:
+        assert got[k].shape == want[k].shape, k
+        np.testing.assert_allclose(got[k], np.asarray(want[k], np.float32), rtol=0, atol=1e-5,
+                                   err_msg=k)
+
+
 def test_eval_step_matches_jax(jax_init):
     jt = JaxStage2Trainer(jax_config())
     trainer = port_trainer(jax_init)
@@ -252,11 +278,11 @@ def test_lr_schedule_matches_optax(warmup):
 
 
 def test_config_refuses_knobs_of_later_slices():
-    with pytest.raises(ValueError, match="item 8"):
+    with pytest.raises(ValueError, match="'Training knobs'"):
         port_config(grad_accum=2)
-    with pytest.raises(ValueError, match="item 9"):
+    with pytest.raises(ValueError, match="'Multi-GPU'"):
         port_config(dp_grad_dtype="bfloat16")
-    with pytest.raises(ValueError, match="item 9"):
+    with pytest.raises(ValueError, match="'Multi-GPU'"):
         dataclasses.replace(port_config(), parallel=tcfgs.ParallelConfig(mesh_data=4)).validate()
 
 
@@ -373,10 +399,9 @@ def test_train_cli_resume_equals_uninterrupted(trained):
     assert sorted(got) == sorted(want) and int(got["step"]) == 4
     for k in want:
         assert got[k].dtype == want[k].dtype and np.array_equal(got[k], want[k]), k
-    with pytest.raises(NotImplementedError, match="item 6"):
-        main(["--mode", "detector_translator", "--config", str(root / "a.yaml")])
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        main(["--mode", "motion_generator", "--config", str(root / "a.yaml")])
+    for mode in ("detector_translator", "motion_generator"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            main(["--mode", mode, "--config", str(root / "a.yaml")])
 
 
 def test_daemon_serves_from_a_trainer_checkpoint(trained):
