@@ -53,6 +53,20 @@ imports nothing of JAX or of the JAX package, and:
    batch rows and pad fraction both ways, where the dispatcher's and the
    handlers' host time goes (npz and GIF encoding apart from the socket
    write), one response's encoding alone, and the batch-32 readback time;
+5b. artifact: exports the serving artifact (``eval/export.py``) at
+   ``Config()`` in bf16 with phase 3's random weights, buckets 1, 4 and 32,
+   traced once on the card and once on the CPU, and prints each file's bytes
+   and export time; loads each in a fresh spawned process that imports the
+   loader and the engine only (it checks that no model, config, checkpoint
+   or JAX module was imported) and runs each bucket's batch through
+   ``ArtifactEngine``: launches 8 / 2 / 1 / 2 per batch, and the outputs
+   against ``InferenceEngine.run`` on the same batch (uint8 within one step,
+   points within 1e-5; it says whether the bits are the same); times the
+   batch-32 generate of the CPU-traced artifact against the live one, host
+   loop and device time, in turns (live, artifact, artifact, live); then
+   starts ``python -m kpvid_tpu_torch.serve --artifact`` on a free port,
+   sends it 16 requests from a spawned client process, and checks
+   ``/healthz`` and every npz, and response 0 against ``InferenceEngine``;
 6. label: writes a synthetic Penn-Action tree (32 videos, about 1,400
    frames), saves the stage-1 parameters with ``save_parameters`` and runs
    ``python -m kpvid_tpu_torch.make_pseudo_labels``'s ``main`` on the card
@@ -114,7 +128,8 @@ imports nothing of JAX or of the JAX package, and:
 It exits non-zero on any failed check, and without a CUDA device. The line
 before the last holds the kernels' JSON record (launches per generate, per
 served batch, per labeled chunk, per stage-1 and stage-2 train step and per
-evaluate batch; the backward kernels' ``launches`` are per stage-1 step),
+evaluate batch, per artifact batch; the backward kernels' ``launches`` are
+per stage-1 step),
 the last line the device.
 """
 
@@ -645,12 +660,13 @@ def throughput_phase(cfg, params, card: str) -> float:
         mu = s1.detect(images)
         fut = gen.stage2.decode(z, mu.reshape(b, -1), act)
         fut = fut.reshape(b, m.n_future_frames, m.n_pts, 2)
-        first = gen._split_first_conv(images, mu, fut)
+        first = gen.model.split_first_conv(images, mu, fut)
         heads = s1.translator.fused_heads()
         stages = {
             "detect (pose encoder + pose_head)": lambda: s1.detect(images),
             "motion decode (LSTM)": lambda: gen.stage2.decode(z, mu.reshape(b, -1), act),
-            "split first conv (+ gaussian_render)": lambda: gen._split_first_conv(images, mu, fut),
+            "split first conv (+ gaussian_render)": lambda: gen.model.split_first_conv(images, mu,
+                                                                                       fut),
             "translator decode (conv kernels)": lambda: s1.translator(first, *heads),
         }
         stages["the whole generate"] = lambda: gen.generate(images, act, z)
@@ -1044,6 +1060,229 @@ def serve_phase(cfg, params, card: str) -> dict:
     return report
 
 
+ARTIFACT_BUCKETS = (1, 4, 32)
+ARTIFACT_REQUESTS = 16
+# modules a process that only loads and serves an artifact must not import
+NOT_FOR_ARTIFACTS = ("kpvid_tpu_torch.models", "kpvid_tpu_torch.configs",
+                     "kpvid_tpu_torch.checkpoint", "jax", "kpvid_tpu.")
+
+
+def artifact_child(path: str, inputs_path: str, out_dir: str) -> None:
+    """A fresh process that imports the loader and the engine and nothing of
+    the model: loads the artifact onto the card, runs each bucket's batch
+    (once to warm up, once counted) and writes the outputs, the launch
+    counts per batch, the load time and the forbidden modules it imported."""
+    from kpvid_tpu_torch import ops
+    from kpvid_tpu_torch.eval.export import load_serving
+    from kpvid_tpu_torch.eval.server import ArtifactEngine
+
+    t0 = time.perf_counter()
+    engine = ArtifactEngine(load_serving(path, device="cuda"))
+    load_s = time.perf_counter() - t0
+    report = {"load_s": load_s, "buckets": list(engine.buckets), "launches": {}}
+    with np.load(inputs_path) as data:
+        for b in engine.buckets:
+            args = tuple(data[f"{name}_{b}"] for name in ("images", "actions", "z"))
+            engine.run(*args)
+            ops.reset_launch_counts()
+            out = engine.run(*args)
+            report["launches"][b] = ops.launch_counts()
+            np.savez(Path(out_dir) / f"out_{b}.npz", **out)
+    report["modules"] = sorted(m for m in sys.modules if m.startswith(NOT_FOR_ARTIFACTS))
+    (Path(out_dir) / "report.json").write_text(json.dumps(report))
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def artifact_phase(cfg, params, card: str, root: Path) -> dict:
+    """The serving artifact at Config() in bf16: exported on the card and on
+    the CPU, each loaded by a fresh process onto the card and held against
+    InferenceEngine, the batch-32 generate timed against the live one, and
+    the daemon served from the CPU-traced file."""
+    import multiprocessing
+
+    import torch
+    from PIL import Image
+
+    from kpvid_tpu_torch import ops
+    from kpvid_tpu_torch.data.augment import resolve_frame_ops
+    from kpvid_tpu_torch.eval import InferenceEngine, request_z
+    from kpvid_tpu_torch.eval import server as server_mod
+    from kpvid_tpu_torch.eval.export import export_serving, load_serving
+
+    m = cfg.model
+    t, s, k = m.n_future_frames, m.image_size, m.n_pts
+    engine = InferenceEngine(cfg, params, device="cuda")
+    report = {"files": {}, "children": {}}
+    paths = {}
+    for traced_on in ("cuda", "cpu"):
+        paths[traced_on] = root / f"serving_{traced_on}.npz"
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        meta = export_serving(engine.final, paths[traced_on], batch_sizes=ARTIFACT_BUCKETS,
+                              device=traced_on)
+        export_s = time.perf_counter() - t0
+        n_bytes = paths[traced_on].stat().st_size
+        check(meta["device"] == traced_on and meta["batch_sizes"] == list(ARTIFACT_BUCKETS)
+              and sum(ops.launch_counts().values()) == 0,
+              f"artifact traced on {traced_on}: buckets {meta['batch_sizes']}, {n_bytes} bytes "
+              f"in {export_s:.1f} s, no kernel launched while tracing")
+        report["files"][traced_on] = {"bytes": n_bytes, "export_s": export_s,
+                                      "outputs": meta["outputs"],
+                                      "torch_version": meta["torch_version"]}
+    with np.load(paths["cpu"]) as data:
+        report["bytes_per_program"] = {b: int(data[f"graph_b{b}"].size) for b in ARTIFACT_BUCKETS}
+    print(f"artifact bytes per bucket program: {report['bytes_per_program']}", flush=True)
+
+    rng = np.random.default_rng(5)
+    batches = {}
+    for b in ARTIFACT_BUCKETS:
+        batches[b] = (rng.uniform(-1, 1, (b, s, s, 3)).astype(np.float32),
+                      rng.integers(0, m.n_action, b),
+                      np.stack([request_z(500 + i, m.vae_dim) for i in range(b)]))
+    np.savez(root / "artifact_inputs.npz", **{
+        f"{name}_{b}": arr for b, args in batches.items()
+        for name, arr in zip(("images", "actions", "z"), args)})
+    live = {b: engine.run(*args) for b, args in batches.items()}
+
+    # one fresh process per file, both at once
+    procs = {}
+    t0 = time.perf_counter()
+    for traced_on, path in paths.items():
+        out_dir = root / f"artifact_child_{traced_on}"
+        out_dir.mkdir()
+        procs[traced_on] = multiprocessing.get_context("spawn").Process(
+            target=artifact_child, args=(str(path), str(root / "artifact_inputs.npz"),
+                                         str(out_dir)))
+        procs[traced_on].start()
+    for proc in procs.values():
+        proc.join(timeout=600)
+        if proc.is_alive():
+            proc.kill()
+            proc.join()
+    for traced_on, proc in procs.items():
+        out_dir = root / f"artifact_child_{traced_on}"
+        check(proc.exitcode == 0, f"a fresh process loaded the {traced_on}-traced artifact "
+                                  f"and ran every bucket ({time.perf_counter() - t0:.1f} s for "
+                                  "both processes)")
+        child = json.loads((out_dir / "report.json").read_text())
+        check(child["modules"] == [], f"loading and serving the {traced_on}-traced artifact "
+                                      "imported no models, configs, checkpoint or JAX")
+        worst, identical = {}, True
+        for b in ARTIFACT_BUCKETS:
+            counts = child["launches"][str(b)]
+            check(counts == EXPECTED_LAUNCHES,
+                  f"{traced_on}-traced artifact, bucket {b}: launches {counts} are 8 / 2 / 1 / 2")
+            with np.load(out_dir / f"out_{b}.npz") as got:
+                for key in engine.OUTPUT_KEYS:
+                    a, w = got[key], live[b][key]
+                    identical &= bool(np.array_equal(a, w))
+                    if a.dtype == np.uint8:
+                        err = int(np.abs(a.astype(np.int16) - w.astype(np.int16)).max())
+                        bound = 1
+                    else:
+                        err = float(np.abs(a - w).max())
+                        bound = 1e-5
+                    worst[key] = max(worst.get(key, 0), err)
+                    if err > bound:
+                        raise CheckFailed(f"{traced_on}-traced artifact, bucket {b}: {key} "
+                                          f"differs from InferenceEngine by {err} (bound {bound})")
+        check(True, f"{traced_on}-traced artifact on the card agrees with InferenceEngine at "
+                    f"buckets {ARTIFACT_BUCKETS}: {worst}; the same bits: {identical}")
+        report["children"][traced_on] = {"load_s": child["load_s"], "worst": worst,
+                                         "identical": identical,
+                                         "launches_per_batch": child["launches"]["32"]}
+
+    # batch 32: the artifact's generate against the live one, on cuda inputs
+    art = load_serving(paths["cpu"], device="cuda")
+    im, actions, z = batches[32]
+    args = (torch.as_tensor(im, device="cuda"),
+            torch.as_tensor(np.eye(m.n_action, dtype=np.float32)[actions], device="cuda"),
+            torch.as_tensor(z, device="cuda"))
+    timing = {}
+    with torch.no_grad():
+        for name, fn in (("live", lambda: engine.final.generate(*args)),
+                         ("artifact", lambda: art.generate(*args)),
+                         ("artifact again", lambda: art.generate(*args)),
+                         ("live again", lambda: engine.final.generate(*args))):
+            timing[name] = {"host_loop_ms": time_ms(fn, 1.0), "device_ms": device_ms(fn, 1, 1.0)}
+    frames = 32 * t
+    for name, r in timing.items():
+        r["frames_per_s"] = frames / r["host_loop_ms"] * 1e3
+        print(f"generate batch 32 bf16, {name}: host loop {r['host_loop_ms']:.2f} ms "
+              f"({r['frames_per_s']:.1f} frames/s), device {r['device_ms']:.2f} ms on {card}",
+              flush=True)
+    report["b32"] = timing
+    del art
+
+    # the daemon from the CPU-traced file, in a process of its own
+    port = free_port()
+    base = f"http://127.0.0.1:{port}"
+    log = (root / "serve_artifact.log").open("w")
+    t0 = time.perf_counter()
+    daemon = subprocess.Popen(
+        [sys.executable, "-m", "kpvid_tpu_torch.serve", "--artifact", str(paths["cpu"]),
+         "--port", str(port)], cwd=Path(__file__).resolve().parent, stdout=log,
+        stderr=subprocess.STDOUT)
+    try:
+        health = None
+        while health is None and daemon.poll() is None and time.perf_counter() - t0 < 600:
+            try:
+                with urllib.request.urlopen(f"{base}/healthz", timeout=5) as r:
+                    health = json.loads(r.read())
+            except OSError:
+                time.sleep(0.5)
+        up_s = time.perf_counter() - t0
+        if health is None:
+            log.flush()
+            print((root / "serve_artifact.log").read_text()[-4000:], flush=True)
+        check(health == {"status": "ok", "image_size": s, "n_action": m.n_action,
+                         "n_future_frames": t, "buckets": list(ARTIFACT_BUCKETS)},
+              f"serve --artifact is up in {up_s:.1f} s (load and warm-up): /healthz {health}")
+        reqs = serve_traffic(m)[:ARTIFACT_REQUESTS]
+        results, latency, wall = drive(base, reqs)
+    finally:
+        daemon.terminate()
+        try:
+            daemon.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            daemon.kill()
+            daemon.wait()
+        log.close()
+    check(all(r is not None and r[0] == 200 for r in results),
+          f"serve --artifact answered all {len(reqs)} requests 200 in {wall:.2f} s")
+    first = None
+    for i, (req, (_, ctype, body)) in enumerate(zip(reqs, results)):
+        out = dict(np.load(io.BytesIO(body)))
+        if not (ctype == "application/x-npz" and out["pred_im_seq"].dtype == np.uint8
+                and out["pred_im_seq"].shape == (t, s, s, 3) and out["mask"].dtype == np.uint8
+                and out["mask"].shape == (t, s, s, 1) and out["current_points"].shape == (k, 2)
+                and out["future_points"].shape == (t, k, 2)
+                and np.isfinite(out["future_points"]).all() and int(out["seed"]) == req["seed"]):
+            raise CheckFailed(f"serve --artifact: request {i} has wrong outputs")
+        if first is None:
+            first = out
+    image = server_mod.preprocess_image(Image.open(io.BytesIO(base64.b64decode(reqs[0]["image"]))),
+                                        s, resolve_frame_ops("auto"))
+    want = engine.run(image[None], np.asarray([reqs[0]["action"]]),
+                      request_z(reqs[0]["seed"], m.vae_dim)[None])
+    errs = check_bucket_agreement(first, {x: v[0] for x, v in want.items()},
+                                  "serve --artifact response 0 vs InferenceEngine at bucket 1")
+    check(True, f"serve --artifact: every npz holds the contract; response 0 agrees with "
+                f"InferenceEngine: {errs}")
+    report["serve"] = {"up_s": up_s, "wall_s": wall, "requests": len(reqs),
+                       "requests_per_s": len(reqs) / wall, "response0_vs_engine": errs}
+    for path in paths.values():
+        path.unlink()
+    return report
+
+
 def label_phase(cfg, params, card: str, root: Path) -> dict:
     """The labeler on a synthetic tree at 128-frame chunks, bf16. Leaves the
     tree (``root/penn``, its labels) and the stage-1 parameter file
@@ -1213,7 +1452,6 @@ def backward_kernel_phase(m) -> dict:
     import torch
 
     from kpvid_tpu_torch import ops
-    from kpvid_tpu_torch.ops.keypoint_kernels import _pose_head_launch
 
     gen = torch.Generator(device="cuda").manual_seed(3)
     b, s, k = 2 * S1_BATCH, m.image_size, m.n_pts
@@ -1221,7 +1459,7 @@ def backward_kernel_phase(m) -> dict:
     for dtype in (torch.float32, torch.bfloat16):
         raw = (3 * torch.randn((b, s, s, k), generator=gen, device="cuda")).to(dtype)
         ct = torch.randn((b, k, 2), generator=gen, device="cuda")
-        pts, p, q = _pose_head_launch(raw, marginals=True)
+        pts, p, q = torch.ops.kpvid.pose_head_train(raw)
         got = ops.pose_head_backward(ct, pts, p, q, dtype)
         again = ops.pose_head_backward(ct, pts, p, q, dtype)
         torch.cuda.synchronize()
@@ -1249,7 +1487,7 @@ def backward_kernel_phase(m) -> dict:
                 lambda: torch.autograd.grad(plain_pts, raw_req, ct, retain_graph=True))
             n_bytes = got.numel() * 2 + 4.0 * b * k * (2 * s) + 4.0 * 2 * b * k * 2
             rec["bound_ms"], rec["bound_by"] = bound_ms(n_bytes, 3.0 * got.numel(), "float32")
-            fwd_train = device_ms(lambda: _pose_head_launch(raw, marginals=True), reps=20)
+            fwd_train = device_ms(lambda: torch.ops.kpvid.pose_head_train(raw), reps=20)
             fwd_inf = device_ms(lambda: ops.pose_head(raw), reps=20)
     print(f"pose_head_backward bf16 [{b}, {s}, {s}, {k}] per stage-1 step: device "
           f"{rec['ms']:.4f} ms ({100 * rec['bound_ms'] / rec['ms']:.1f}% of the bound "
@@ -1775,6 +2013,7 @@ def main() -> int:
     serve = serve_phase(cfg, params, card)
     with tempfile.TemporaryDirectory(prefix="kpvid_smoke_") as tmp:
         root = Path(tmp)
+        artifact = artifact_phase(cfg, params, card, root)
         label = label_phase(cfg, params, card, root)
         stage1 = stage1_phase(cfg, card, root)
         relabel = relabel_phase(cfg, root)
@@ -1798,6 +2037,7 @@ def main() -> int:
             "launches_per_path": {
                 "generate": counts[name],
                 "serve_per_batch": serve["pipeline"]["launches_per_batch"][name],
+                "artifact_per_batch": artifact["children"]["cpu"]["launches_per_batch"][name],
                 "label_per_chunk": label["launches"][name] / label["chunks"],
                 "train_stage1_per_step": s1,
                 "evaluate_per_batch": evaluation["launches_per_batch"][name],
@@ -1815,7 +2055,7 @@ def main() -> int:
         if name == "gaussian_render":
             kernels[-1]["evaluate_point_images_128"] = evaluation["render_128"]
     print(json.dumps({"kernels": kernels, "batch": BATCH, "frames_per_s_b32_bf16": fps,
-                      "serve": serve, "label": {k: v for k, v in label.items()
+                      "serve": serve, "artifact": artifact, "label": {k: v for k, v in label.items()
                                                 if k != "pose_head_chunk"},
                       "stage1": stage1, "relabel": relabel,
                       "train": train, "evaluate": {k: v for k, v in evaluation.items()

@@ -3,8 +3,8 @@
 Counterpart of kpvid_tpu/eval/server.py (``preprocess_image``,
 ``request_z``, ``to_uint8``, ``device_quantize``, ``encode_gif``, the npz
 body as ``encode_npz``, ``InferenceEngine``, ``MicroBatcher``, the HTTP handler and
-``make_server``); the JAX package's serving artifact and mesh serving come
-with later slices.
+``make_server``, and ``ArtifactEngine``, the daemon's engine over a
+one-file serving artifact, eval/export.py); mesh serving is not ported.
 
 - ``InferenceEngine`` maps a host batch (images, actions, z) to host
   outputs. A request's motion latent comes from its seed on the host
@@ -14,6 +14,9 @@ with later slices.
   ``dispatch`` launches the whole generation from Python (PyTorch has no
   compiled program to enqueue) and starts the readback on a second stream
   (device.py::start_readback); ``fetch`` waits for that batch's copy alone.
+- ``ArtifactEngine`` is the same engine over a loaded serving artifact: no
+  model code, config or checkpoint on the serving host; its buckets are the
+  artifact's batch sizes.
 - ``MicroBatcher``: requests land in a queue; one dispatcher thread, which
   owns the device, takes up to the largest bucket of them (lingering
   ``max_wait_ms`` after the first so a lone request is not held), zero-pads
@@ -52,13 +55,16 @@ from concurrent.futures import Future
 from dataclasses import dataclass, field
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
+from typing import TYPE_CHECKING
+
 import numpy as np
 import torch
 
-from ..configs import Config
 from ..data import augment
 from ..device import Readback, start_readback
-from .final import FinalGenerator
+
+if TYPE_CHECKING:
+    from ..configs import Config
 
 DEFAULT_BUCKETS = (1, 2, 4, 8, 16, 32)
 
@@ -121,6 +127,25 @@ def encode_npz(out: dict, seed: int) -> bytes:
     return buf.getvalue()
 
 
+def one_hot(actions: np.ndarray, n_action: int) -> np.ndarray:
+    """[B] int -> [B, n_action] f32 one-hot."""
+    actions = np.asarray(actions)
+    act = np.zeros((actions.shape[0], n_action), np.float32)
+    act[np.arange(actions.shape[0]), actions] = 1.0
+    return act
+
+
+def start_serve_readback(out: dict, copy_stream) -> Readback:
+    """The engines' epilogue: the image-valued outputs quantized to uint8 on
+    the device, the points in f32, and their readback started."""
+    return start_readback({
+        "pred_im_seq": device_quantize(out["pred_im_seq"]),
+        "mask": device_quantize(out["mask"], rescale=False),
+        "current_points": out["current_points"].float(),
+        "future_points": out["future_points"].float(),
+    }, copy_stream)
+
+
 class InferenceEngine:
     """Owns the parameters and maps a host-side (images, actions, z) batch to
     host-side numpy outputs: pred_im_seq and mask as uint8, points as f32."""
@@ -130,6 +155,8 @@ class InferenceEngine:
     def __init__(self, config: Config, params: dict, device: str | torch.device = "cuda"):
         """params: from ``FinalGenerator.init_parameters``, ``bridge.from_jax``
         or ``checkpoint.load_parameters``."""
+        from .final import FinalGenerator
+
         self.config = config
         self.final = FinalGenerator(config, device=device)
         self.final.load_parameters(params)
@@ -144,16 +171,8 @@ class InferenceEngine:
     def dispatch(self, images: np.ndarray, actions: np.ndarray, z: np.ndarray) -> Readback:
         """Launch the batch on the current stream and start its readback;
         returns without waiting for the device. Pair with :meth:`fetch`."""
-        actions = np.asarray(actions)
-        act = np.zeros((actions.shape[0], self.n_action), np.float32)
-        act[np.arange(actions.shape[0]), actions] = 1.0
-        out = self.final.generate(images, act, z)
-        return start_readback({
-            "pred_im_seq": device_quantize(out["pred_im_seq"]),
-            "mask": device_quantize(out["mask"], rescale=False),
-            "current_points": out["current_points"].float(),
-            "future_points": out["future_points"].float(),
-        }, self.copy_stream)
+        out = self.final.generate(images, one_hot(actions, self.n_action), z)
+        return start_serve_readback(out, self.copy_stream)
 
     @staticmethod
     def fetch(out: Readback) -> dict:
@@ -162,6 +181,44 @@ class InferenceEngine:
 
     def run(self, images: np.ndarray, actions: np.ndarray, z: np.ndarray) -> dict:
         """images [B, S, S, 3] f32 in [-1, 1]; actions [B] int; z [B, vae_dim]."""
+        return self.fetch(self.dispatch(images, actions, z))
+
+
+class ArtifactEngine:
+    """InferenceEngine drop-in over a loaded serving artifact
+    (eval/export.py::load_serving): the daemon runs from ONE file, with no
+    model code, config or checkpoint on the serving host. Its buckets are
+    the artifact's batch sizes (static shapes, one program each); the uint8
+    epilogue and the readback are InferenceEngine's, so the wire format is
+    the same. The programs run the same aten ops and kernels as the live
+    engine."""
+
+    OUTPUT_KEYS = InferenceEngine.OUTPUT_KEYS
+
+    def __init__(self, artifact):
+        meta = artifact.meta
+        self.artifact = artifact
+        self.device = artifact.device
+        self.copy_stream = (torch.cuda.Stream(self.device) if self.device.type == "cuda"
+                            else None)
+        self.vae_dim = int(meta["vae_dim"])
+        self.image_size = int(meta["image_size"])
+        self.n_action = int(meta["n_action"])
+        self.n_future_frames = int(meta["n_future_frames"])
+        self.n_data = 1  # each program is a one-device program
+        self.buckets = tuple(artifact.batch_sizes)
+
+    def dispatch(self, images: np.ndarray, actions: np.ndarray, z: np.ndarray) -> Readback:
+        b = images.shape[0]
+        if b not in self.buckets:
+            raise ValueError(
+                f"batch size {b} not in the artifact's exported buckets {list(self.buckets)}")
+        out = self.artifact.generate(images, one_hot(actions, self.n_action), z)
+        return start_serve_readback(out, self.copy_stream)
+
+    fetch = staticmethod(InferenceEngine.fetch)
+
+    def run(self, images: np.ndarray, actions: np.ndarray, z: np.ndarray) -> dict:
         return self.fetch(self.dispatch(images, actions, z))
 
 

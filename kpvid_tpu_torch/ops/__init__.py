@@ -1,3 +1,4 @@
+from . import library  # registers the torch.ops.kpvid ops
 from .chain import translator_chain
 from .conv3x3 import (
     conv3x3_affine,

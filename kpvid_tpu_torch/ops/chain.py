@@ -58,7 +58,7 @@ def translator_chain(
         for layer in ("c", "d"):
             x = conv3x3_affine(x, *folded(f"oct{o}{layer}"))
 
-    ones = torch.ones(head_bias.shape, dtype=torch.float32, device=x.device)
+    ones = torch.ones_like(head_bias, dtype=torch.float32)
     y = conv3x3_affine(x, head_kernel.to(dt), ones, head_bias.float(), relu=False)
     crude = y[..., :3].float()
     mask = torch.sigmoid(y[..., 3:4].float())

@@ -17,9 +17,10 @@ cores (an implicit GEMM with ``wgmma``, ``csrc/conv3x3_mma.cuh``); float32
 runs on the CUDA cores, since TF32 tensor cores would not hold the f32 parity
 checks.
 
-Each wrapper takes its plain PyTorch version for a tensor on the CPU, and
-launches its kernel for a CUDA tensor or raises. ``launches`` on each
-wrapper counts its kernel launches.
+Each wrapper calls its ``torch.ops.kpvid`` op (ops/library.py), whose CPU
+implementation is the plain PyTorch version here and whose CUDA
+implementation, :func:`launch`, launches the kernel or raises.
+``launches`` on each wrapper counts its kernel launches.
 """
 
 from __future__ import annotations
@@ -75,7 +76,8 @@ def _lib():
     return lib
 
 
-def _launch(x, kernel, scale, shift, relu: bool, up2: bool) -> torch.Tensor:
+def launch(x, kernel, scale, shift, relu: bool, up2: bool) -> torch.Tensor:
+    """Launch #1 (or #2 with ``up2``) on CUDA tensors; the ops' CUDA implementation."""
     if x.device.type != "cuda":
         raise ValueError(f"the conv3x3 kernel runs on a CUDA tensor, got {x.device}")
     if x.dtype not in _DTYPES:
@@ -106,6 +108,7 @@ def _launch(x, kernel, scale, shift, relu: bool, up2: bool) -> torch.Tensor:
         raise RuntimeError(
             f"conv3x3 kernel launch failed: {lib.kpvid_cuda_error_string(err).decode()}"
         )
+    (up2_conv3_affine if up2 else conv3x3_affine).launches += 1
     return out
 
 
@@ -114,22 +117,14 @@ def conv3x3_affine(x, kernel, scale, shift, relu: bool = True) -> torch.Tensor:
 
     x: [N, H, W, C] float32 or bfloat16; kernel: [3, 3, C, Cout] HWIO;
     scale/shift: [Cout] f32 -> [N, H, W, Cout] in x.dtype."""
-    if x.device.type == "cpu":
-        return conv3x3_affine_plain(x, kernel, scale, shift, relu)
-    out = _launch(x, kernel, scale, shift, relu, up2=False)
-    conv3x3_affine.launches += 1
-    return out
+    return torch.ops.kpvid.conv3x3_affine(x, kernel, scale, shift, relu)
 
 
 def up2_conv3_affine(x, kernel, scale, shift, relu: bool = True) -> torch.Tensor:
     """act(conv3x3_SAME(upsample2x_tf1(x), kernel) * scale + shift).
 
     x: [N, H, W, C]; kernel: [3, 3, C, F] -> [N, 2H, 2W, F] in x.dtype."""
-    if x.device.type == "cpu":
-        return up2_conv3_affine_plain(x, kernel, scale, shift, relu)
-    out = _launch(x, kernel, scale, shift, relu, up2=True)
-    up2_conv3_affine.launches += 1
-    return out
+    return torch.ops.kpvid.up2_conv3_affine(x, kernel, scale, shift, relu)
 
 
 conv3x3_affine.launches = 0

@@ -65,7 +65,8 @@ def render_gaussian_maps(
 
     The grid and c2 = inv_std^2 take the values JAX gives them in
     ``grid_dtype`` (the keypoints' dtype there); the arithmetic is f32, and
-    the product is rounded once to ``out_dtype``."""
+    the product is rounded once to ``out_dtype``, into contiguous NHWC as the
+    kernel writes it."""
     batch_shape = mu.shape[:-2]
     k = mu.shape[-2]
     mu2 = mu.float().reshape(-1, k, 2)
@@ -76,7 +77,7 @@ def render_gaussian_maps(
     ex = torch.exp(-torch.square(gx - mu2[..., 0:1]) * c2)  # [B, K, W]
     maps = ey[:, :, :, None] * ex[:, :, None, :]  # [B, K, H, W]
     maps = maps.permute(0, 2, 3, 1)
-    return maps.reshape(*batch_shape, height, width, k).to(out_dtype)
+    return maps.reshape(*batch_shape, height, width, k).to(out_dtype).contiguous()
 
 
 def blend(background: torch.Tensor, crude: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:

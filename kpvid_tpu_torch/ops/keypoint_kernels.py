@@ -30,9 +30,11 @@ All four are in ``csrc/keypoint.cu`` (CUDA C++ for sm_90a, built by ``_build``):
   are ``torch.autograd.Function`` s.
 
 The plain PyTorch versions are ops/coords.py::heatmaps_to_keypoints and
-::render_gaussian_maps, under torch autograd for the gradients; each wrapper
-takes them for a tensor on the CPU and launches its kernel for a CUDA tensor
-or raises. ``launches`` on each wrapper counts its kernel launches; the
+::render_gaussian_maps, and here the backwards' closed forms. Each wrapper
+calls its ``torch.ops.kpvid`` op (ops/library.py), whose CPU implementation
+is the plain version and whose CUDA implementation launches the kernel or
+raises; a CPU tensor that requires a gradient takes the plain forward under
+torch autograd. ``launches`` on each wrapper counts its kernel launches; the
 backwards count theirs apart from the forwards.
 """
 
@@ -88,9 +90,10 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _pose_head_launch(raw_maps: torch.Tensor, marginals: bool):
-    """The forward kernel; with ``marginals`` its training form, which also
-    returns the two softmaxes p [B, K, W] and q [B, K, H]."""
+def pose_head_launch(raw_maps: torch.Tensor, marginals: bool):
+    """Launch #3 on a CUDA tensor; with ``marginals`` its training form, which
+    also returns the two softmaxes p [B, K, W] and q [B, K, H]. The CUDA
+    implementation of ``kpvid::pose_head`` and ``kpvid::pose_head_train``."""
     _check_cuda(raw_maps, "pose_head", 4, _DTYPES)
     b, h, w, k = raw_maps.shape
     dev = raw_maps.device
@@ -109,11 +112,33 @@ def _pose_head_launch(raw_maps: torch.Tensor, marginals: bool):
     return out, p, q
 
 
-def pose_head_backward(g: torch.Tensor, points: torch.Tensor, p: torch.Tensor, q: torch.Tensor,
-                       dtype: torch.dtype) -> torch.Tensor:
-    """The maps' gradient [B, H, W, K] in ``dtype`` from the points'
-    cotangent ``g`` [B, K, 2], the forward's points and its softmaxes p
-    [B, K, W] and q [B, K, H] (all f32, on the card)."""
+def pose_head_train_plain(raw_maps: torch.Tensor):
+    """Plain version of the training form: (points [B, K, 2], p [B, K, W],
+    q [B, K, H]), all f32; the points are heatmaps_to_keypoints's."""
+    raw = raw_maps.float()
+    p = torch.softmax(raw.mean(dim=1), dim=1)  # [B, W, K]
+    q = torch.softmax(raw.mean(dim=2), dim=1)  # [B, H, K]
+    x = torch.sum(p * grid(p.shape[1], p.device)[:, None], dim=1)
+    y = torch.sum(q * grid(q.shape[1], q.device)[:, None], dim=1)
+    return (torch.stack([x, y], dim=-1), p.transpose(1, 2).contiguous(),
+            q.transpose(1, 2).contiguous())
+
+
+def pose_head_backward_plain(g: torch.Tensor, points: torch.Tensor, p: torch.Tensor,
+                             q: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Plain version of #3's backward, the kernel's closed form:
+    d raw[b, h, w, k] = g_x p_w (gx_w - x) / H + g_y q_h (gy_h - y) / W, in
+    f32, rounded once to ``dtype``."""
+    w, h = p.shape[2], q.shape[2]
+    cx = g[..., 0:1] * p * (grid(w, p.device) - points[..., 0:1]) / h  # [B, K, W]
+    cy = g[..., 1:2] * q * (grid(h, q.device) - points[..., 1:2]) / w  # [B, K, H]
+    d = cy[:, :, :, None] + cx[:, :, None, :]  # [B, K, H, W]
+    return d.permute(0, 2, 3, 1).to(dtype).contiguous()
+
+
+def pose_head_backward_launch(g, points, p, q, dtype: torch.dtype) -> torch.Tensor:
+    """Launch #3's backward on CUDA tensors; the CUDA implementation of
+    ``kpvid::pose_head_backward``."""
     for t, name in ((g, "g"), (points, "points"), (p, "p"), (q, "q")):
         _check_cuda(t, f"pose_head_backward ({name})", 3, (torch.float32,))
     if dtype not in _DTYPES:
@@ -133,10 +158,18 @@ def pose_head_backward(g: torch.Tensor, points: torch.Tensor, p: torch.Tensor, q
     return out
 
 
+def pose_head_backward(g: torch.Tensor, points: torch.Tensor, p: torch.Tensor, q: torch.Tensor,
+                       dtype: torch.dtype) -> torch.Tensor:
+    """The maps' gradient [B, H, W, K] in ``dtype`` from the points'
+    cotangent ``g`` [B, K, 2], the forward's points and its softmaxes p
+    [B, K, W] and q [B, K, H] (all f32)."""
+    return torch.ops.kpvid.pose_head_backward(g, points, p, q, dtype)
+
+
 class _PoseHead(torch.autograd.Function):
     @staticmethod
     def forward(ctx, raw_maps):
-        out, p, q = _pose_head_launch(raw_maps, marginals=True)
+        out, p, q = torch.ops.kpvid.pose_head_train(raw_maps)
         ctx.save_for_backward(out, p, q)
         ctx.maps_dtype = raw_maps.dtype
         return out
@@ -149,16 +182,19 @@ class _PoseHead(torch.autograd.Function):
 
 def pose_head(raw_maps: torch.Tensor) -> torch.Tensor:
     """Spatial soft-argmax, fused: [B, H, W, K] f32 or bf16 -> [B, K, 2] f32
-    (x, y), differentiable in the maps."""
-    if raw_maps.device.type == "cpu":
-        return heatmaps_to_keypoints(raw_maps)
+    (x, y), differentiable in the maps. A CPU tensor that requires a gradient
+    takes the plain version under torch autograd."""
     if torch.is_grad_enabled() and raw_maps.requires_grad:
+        if raw_maps.device.type == "cpu":
+            return heatmaps_to_keypoints(raw_maps)
         return _PoseHead.apply(raw_maps)
-    return _pose_head_launch(raw_maps, marginals=False)[0]
+    return torch.ops.kpvid.pose_head(raw_maps)
 
 
-def _render_launch(mu: torch.Tensor, height: int, width: int, inv_std: float,
-                   grid_dtype: torch.dtype, out_dtype: torch.dtype) -> torch.Tensor:
+def render_launch(mu: torch.Tensor, height: int, width: int, inv_std: float,
+                  grid_dtype: torch.dtype, out_dtype: torch.dtype) -> torch.Tensor:
+    """Launch #4 on a CUDA tensor; the CUDA implementation of
+    ``kpvid::gaussian_render``."""
     _check_cuda(mu, "gaussian_render", 3, (torch.float32,))
     if out_dtype not in _DTYPES:
         raise ValueError(f"gaussian_render kernel writes float32 or bfloat16, got {out_dtype}")
@@ -176,11 +212,27 @@ def _render_launch(mu: torch.Tensor, height: int, width: int, inv_std: float,
     return out
 
 
-def gaussian_render_backward(dmaps: torch.Tensor, mu: torch.Tensor, inv_std: float = 14.3,
-                             grid_dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """The points' gradient [N, K, 2] f32 from the maps' cotangent ``dmaps``
-    [N, H, W, K] (f32 or bf16, widened to f32) at the points ``mu``, on the
-    grid and c2 of the forward's ``grid_dtype``."""
+def gaussian_render_backward_plain(dmaps: torch.Tensor, mu: torch.Tensor, inv_std: float,
+                                   grid_dtype: torch.dtype) -> torch.Tensor:
+    """Plain version of #4's backward, the kernel's closed form:
+    d mu_x[n, k] = 2 c2 sum_{h,w} G ey_h ex_w (gx_w - mu_x), d mu_y likewise
+    with (gy_h - mu_y), in f32."""
+    _, h, w, _ = dmaps.shape
+    c2 = inv_std_squared(inv_std, grid_dtype)
+    m = mu.float()
+    dy = grid(h, mu.device, grid_dtype)[None, :, None] - m[:, None, :, 1]  # [N, H, K]
+    dx = grid(w, mu.device, grid_dtype)[None, :, None] - m[:, None, :, 0]  # [N, W, K]
+    t = (dmaps.float() * torch.exp(-(dy * dy) * c2)[:, :, None]
+         * torch.exp(-(dx * dx) * c2)[:, None])  # [N, H, W, K]
+    ax = torch.sum(t * dx[:, None], dim=(1, 2))
+    ay = torch.sum(t * dy[:, :, None], dim=(1, 2))
+    return 2.0 * c2 * torch.stack([ax, ay], dim=-1)
+
+
+def render_backward_launch(dmaps: torch.Tensor, mu: torch.Tensor, inv_std: float,
+                           grid_dtype: torch.dtype) -> torch.Tensor:
+    """Launch #4's backward on CUDA tensors; the CUDA implementation of
+    ``kpvid::gaussian_render_backward``."""
     _check_cuda(dmaps, "gaussian_render_backward (dmaps)", 4, _DTYPES)
     _check_cuda(mu, "gaussian_render_backward (mu)", 3, (torch.float32,))
     n, h, w, k = dmaps.shape
@@ -196,12 +248,20 @@ def gaussian_render_backward(dmaps: torch.Tensor, mu: torch.Tensor, inv_std: flo
     return dmu
 
 
+def gaussian_render_backward(dmaps: torch.Tensor, mu: torch.Tensor, inv_std: float = 14.3,
+                             grid_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The points' gradient [N, K, 2] f32 from the maps' cotangent ``dmaps``
+    [N, H, W, K] (f32 or bf16, widened to f32) at the points ``mu``, on the
+    grid and c2 of the forward's ``grid_dtype``."""
+    return torch.ops.kpvid.gaussian_render_backward(dmaps, mu, inv_std, grid_dtype)
+
+
 class _GaussianRender(torch.autograd.Function):
     @staticmethod
     def forward(ctx, mu, height, width, inv_std, grid_dtype, out_dtype):
         ctx.save_for_backward(mu)
         ctx.inv_std, ctx.grid_dtype = inv_std, grid_dtype
-        return _render_launch(mu, height, width, inv_std, grid_dtype, out_dtype)
+        return torch.ops.kpvid.gaussian_render(mu, height, width, inv_std, grid_dtype, out_dtype)
 
     @staticmethod
     def backward(ctx, dmaps):
@@ -215,12 +275,14 @@ def gaussian_render(mu: torch.Tensor, height: int, width: int, inv_std: float = 
                     out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Gaussian maps straight into NHWC: [B, K, 2] f32 -> [B, H, W, K] in
     ``out_dtype`` (f32 or bf16), on the grid and inv_std^2 of ``grid_dtype``
-    (see render_gaussian_maps); differentiable in ``mu``."""
-    if mu.device.type == "cpu":
-        return render_gaussian_maps(mu, height, width, inv_std, grid_dtype, out_dtype)
+    (see render_gaussian_maps); differentiable in ``mu``. A CPU tensor that
+    requires a gradient takes the plain version under torch autograd."""
     if torch.is_grad_enabled() and mu.requires_grad:
+        if mu.device.type == "cpu":
+            return render_gaussian_maps(mu, height, width, inv_std, grid_dtype, out_dtype)
         return _GaussianRender.apply(mu, height, width, inv_std, grid_dtype, out_dtype)
-    return _render_launch(mu, height, width, inv_std, grid_dtype, out_dtype)
+    return torch.ops.kpvid.gaussian_render(mu, height, width, float(inv_std), grid_dtype,
+                                           out_dtype)
 
 
 pose_head.launches = 0

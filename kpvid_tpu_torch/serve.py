@@ -10,6 +10,12 @@ from JAX checkpoints), a trainer ``ckpt-N`` directory
 one (its newest ``ckpt-N``). They are merged into the model by name, each of
 them required to match at least one tensor, as the JAX CLI merges its two
 checkpoints.
+Or from a one-file serving artifact (``python -m
+kpvid_tpu_torch.export_serving`` writes one; no config, checkpoint or model
+code is read):
+
+    python -m kpvid_tpu_torch.serve --artifact serving.npz --port 8000
+
 The daemon runs on the card and raises without one (``--device cpu`` runs
 the plain versions on the CPU). Then:
 
@@ -24,7 +30,7 @@ the plain versions on the CPU). Then:
     open("pred.gif", "wb").write(r.read())
     EOF
 
-The JAX CLI's ``--artifact`` and ``--mesh`` come with later slices.
+The JAX CLI's ``--mesh`` is not ported.
 """
 
 from __future__ import annotations
@@ -36,13 +42,18 @@ from argparse import ArgumentParser
 
 def build_parser() -> ArgumentParser:
     parser = ArgumentParser(description="kpvid_tpu_torch serving daemon")
-    parser.add_argument("--config", type=str, required=True)
-    parser.add_argument("--checkpoint_stage1", type=str, required=True,
+    parser.add_argument("--config", type=str, default=None)
+    parser.add_argument("--checkpoint_stage1", type=str, default=None,
                         help="the port's stage-1 parameter file (.npz), a trainer ckpt-N "
                              "directory or the directory above one")
-    parser.add_argument("--checkpoint_stage2", type=str, required=True,
+    parser.add_argument("--checkpoint_stage2", type=str, default=None,
                         help="the port's stage-2 parameter file (.npz), a trainer "
                              "ckpt-N directory, or the directory of its ckpt-N")
+    parser.add_argument("--artifact", type=str, default=None,
+                        help="serve from a serving artifact (python -m "
+                             "kpvid_tpu_torch.export_serving) instead of config + "
+                             "checkpoints: ONE file, no model code read. Buckets are the "
+                             "artifact's batch sizes")
     parser.add_argument("--host", type=str, default="127.0.0.1")
     parser.add_argument("--port", type=int, default=8000)
     parser.add_argument("--buckets", type=int, nargs="+", default=None,
@@ -94,13 +105,33 @@ def load_generator_parameters(target: dict, stage1: str, stage2: str) -> dict:
 def main(argv=None):
     args = build_parser().parse_args(argv)
     from .device import resolve_device
-    from .eval import DEFAULT_BUCKETS, make_server
+    from .eval.server import DEFAULT_BUCKETS, make_server
     from .utils import logger, setup_console_logging
 
     setup_console_logging()
+    if args.artifact:
+        if args.config or args.checkpoint_stage1 or args.checkpoint_stage2:
+            raise SystemExit("--artifact replaces --config/--checkpoint_stage1/"
+                             "--checkpoint_stage2; pass one or the other")
+    elif not (args.config and args.checkpoint_stage1 and args.checkpoint_stage2):
+        raise SystemExit("pass --config + --checkpoint_stage1 + "
+                         "--checkpoint_stage2 (or --artifact)")
     resolve_device(args.device)  # no card: raise before reading anything
-    engine = load_engine(args)
-    buckets = tuple(args.buckets) if args.buckets else DEFAULT_BUCKETS
+    if args.artifact:
+        from .eval.export import load_serving
+        from .eval.server import ArtifactEngine
+
+        engine = ArtifactEngine(load_serving(args.artifact, device=args.device))
+        logger.info("serving artifact %s: buckets %s, traced on %s", args.artifact,
+                    list(engine.buckets), engine.artifact.meta["device"])
+        buckets = tuple(args.buckets) if args.buckets else engine.buckets
+        unknown = set(buckets) - set(engine.buckets)
+        if unknown:
+            raise SystemExit(f"buckets {sorted(unknown)} not exported in the "
+                             f"artifact (has {list(engine.buckets)})")
+    else:
+        engine = load_engine(args)
+        buckets = tuple(args.buckets) if args.buckets else DEFAULT_BUCKETS
     if not args.no_warmup:
         logger.info("warming up %d buckets %s ...", len(buckets), list(buckets))
     server, batcher = make_server(

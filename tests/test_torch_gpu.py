@@ -18,6 +18,11 @@ round an f32 value once, and where the two marginals' terms cancel the f32
 values differ by more than one step of their small sum); the points'
 gradient from a bf16 cotangent within 1e-4 of its largest magnitude.
 
+Each ``torch.ops.kpvid`` op passes ``torch.library.opcheck`` on CUDA tensors,
+and a serving artifact traced on the CPU or on the card runs on the card
+through the kernels: 8 / 2 / 1 / 2 launches a batch, the live engine's
+outputs within one uint8 step and 1e-5 on the points.
+
 The conv shapes cover the main path at N = 2 (Config() widths), ragged
 spatial tiles, C not a multiple of the 32-channel chunk, Cout not a multiple
 of the output-channel tile, ReLU on and off, and C % 8 != 0, which takes the
@@ -496,3 +501,78 @@ def test_stage2_grads_on_card_match_cpu(dev):
         assert lc[k] == pytest.approx(lp[k], rel=1e-5), k
     for a, b in zip(gc, gp):
         assert float((a - b).abs().max()) <= 2e-3 * max(float(b.abs().max()), 1e-30)
+
+
+def _op_cases(dev):
+    """Arguments of each torch.ops.kpvid op on the card, f32 and bf16."""
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(2, 6, 5, 12, generator=g).to(dev)
+    k = (torch.randn(3, 3, 12, 8, generator=g) / 10).to(dev)
+    sc, sh = (torch.rand(8, generator=g) + 0.5).to(dev), (torch.randn(8, generator=g) / 10).to(dev)
+    raw = (3 * torch.randn(2, 9, 7, 8, generator=g)).to(dev)
+    pts, p, q = torch.ops.kpvid.pose_head_train(raw)
+    ct = torch.randn(2, 8, 2, generator=g).to(dev)
+    mu = (torch.rand(3, 8, 2, generator=g) * 2 - 1).to(dev)
+    dmaps = torch.randn(3, 8, 6, 8, generator=g).to(dev)
+    f32, bf16 = torch.float32, torch.bfloat16
+    return {
+        "conv3x3_affine": [(x, k, sc, sh, True), (x.to(bf16), k.to(bf16), sc, sh, False)],
+        "up2_conv3_affine": [(x, k, sc, sh, True), (x.to(bf16), k.to(bf16), sc, sh, False)],
+        "pose_head": [(raw,), (raw.to(bf16),)],
+        "pose_head_train": [(raw,), (raw.to(bf16),)],
+        "pose_head_backward": [(ct, pts, p, q, f32), (ct, pts, p, q, bf16)],
+        "gaussian_render": [(mu, 8, 6, 14.3, f32, f32), (mu, 8, 6, 14.3, bf16, bf16)],
+        "gaussian_render_backward": [(dmaps, mu, 14.3, f32), (dmaps.to(bf16), mu, 14.3, bf16)],
+    }
+
+
+@pytest.mark.parametrize("name", ["conv3x3_affine", "gaussian_render", "gaussian_render_backward",
+                                  "pose_head", "pose_head_backward", "pose_head_train",
+                                  "up2_conv3_affine"])
+def test_opcheck_on_card(dev, name):
+    """Each op's schema, fake implementation (shapes, dtypes and strides of
+    the kernel's output) and autograd registration against its CUDA
+    implementation, the kernel."""
+    for args in _op_cases(dev)[name]:
+        torch.library.opcheck(getattr(torch.ops.kpvid, name).default, args)
+
+
+@pytest.mark.parametrize("traced_on", ["cpu", "cuda"])
+def test_artifact_runs_on_card_through_the_kernels(dev, tmp_path, traced_on):
+    """The smoke config in bfloat16: an artifact traced on the CPU (no card
+    needed to write it) or on the card, loaded onto the card, launches
+    8 / 2 / 1 / 2 kernels a batch and serves what the live engine serves:
+    uint8 within one step, points within 1e-5."""
+    from kpvid_tpu_torch.eval import ArtifactEngine, export_serving, load_serving
+
+    cfg = load_config("kpvid_tpu_torch/configs/smoke.yaml")
+    cfg.training.compute_dtype = "bfloat16"
+    params = _randomized(FinalGenerator(cfg, device="cpu"), 4)
+    live = InferenceEngine(cfg, params, device="cuda")
+    path = tmp_path / "serving.npz"
+    reset_launch_counts()
+    export_serving(live.final, path, batch_sizes=(1, 2), device=traced_on)
+    assert sum(launch_counts().values()) == 0
+    engine = ArtifactEngine(load_serving(path, device="cuda"))
+    assert engine.buckets == (1, 2) and engine.device.type == "cuda"
+    # nothing of the tracing device is left in the moved graphs
+    for program in engine.artifact.programs.values():
+        assert not [n for n in program.graph.nodes
+                    if "cpu" in str(n.kwargs.get("device", "")) or any(
+                        isinstance(a, torch.device) and a.type == "cpu" for a in n.args)]
+    rng = np.random.default_rng(4)
+    images = rng.uniform(-1, 1, (2, 32, 32, 3)).astype(np.float32)
+    actions = np.asarray([3, 7])
+    z = np.stack([request_z(s, cfg.model.vae_dim) for s in (8, 9)])
+    want = live.run(images, actions, z)
+    reset_launch_counts()
+    got = engine.run(images, actions, z)
+    assert launch_counts() == {
+        "conv3x3_affine": 8, "up2_conv3_affine": 2, "pose_head": 1, "gaussian_render": 2,
+        "pose_head_backward": 0, "gaussian_render_backward": 0,
+    }
+    for key in ("pred_im_seq", "mask"):
+        assert got[key].dtype == np.uint8
+        assert int(np.abs(got[key].astype(np.int16) - want[key].astype(np.int16)).max()) <= 1, key
+    for key in ("current_points", "future_points"):
+        np.testing.assert_allclose(got[key], want[key], rtol=1e-5, atol=1e-6, err_msg=key)

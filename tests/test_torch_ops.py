@@ -264,28 +264,39 @@ def test_cpu_tensors_take_plain_versions_and_count_nothing(rng):
 
 def test_kernel_wrappers_refuse_other_devices():
     """Only a CPU tensor selects the plain version; any other device must be
-    CUDA, and the kernel path refuses what it does not take."""
+    CUDA: the kernels' launchers (the ops' CUDA implementations) refuse a
+    tensor elsewhere. A meta tensor reaches the ops' fake implementations,
+    which give shapes and dtypes and launch nothing."""
+    from kpvid_tpu_torch.ops import conv3x3, keypoint_kernels
+
     x = torch.empty(1, 8, 8, 4, device="meta")
     k = torch.empty(3, 3, 4, 4, device="meta")
     s = torch.empty(4, device="meta")
-    with pytest.raises(ValueError, match="CUDA"):
-        ops.conv3x3_affine(x, k, s, s)
-    with pytest.raises(ValueError, match="CUDA"):
-        ops.up2_conv3_affine(x, k, s, s)
-    with pytest.raises(ValueError, match="CUDA"):
-        ops.pose_head(x)
-    with pytest.raises(ValueError, match="CUDA"):
-        ops.gaussian_render(torch.empty(1, 4, 2, device="meta"), 8, 8)
     pts = torch.empty(1, 4, 2, device="meta")
+    p = torch.empty(1, 4, 8, device="meta")
+    for up2 in (False, True):
+        with pytest.raises(ValueError, match="CUDA"):
+            conv3x3.launch(x, k, s, s, True, up2)
+    for marginals in (False, True):
+        with pytest.raises(ValueError, match="CUDA"):
+            keypoint_kernels.pose_head_launch(x, marginals)
     with pytest.raises(ValueError, match="CUDA"):
-        ops.pose_head(x.requires_grad_())
+        keypoint_kernels.render_launch(pts, 8, 8, 14.3, torch.float32, torch.float32)
     with pytest.raises(ValueError, match="CUDA"):
-        ops.gaussian_render(pts.requires_grad_(), 8, 8)
+        keypoint_kernels.pose_head_backward_launch(pts, pts, p, p, torch.float32)
     with pytest.raises(ValueError, match="CUDA"):
-        ops.pose_head_backward(pts, pts, torch.empty(1, 4, 8, device="meta"),
-                               torch.empty(1, 4, 8, device="meta"), torch.float32)
-    with pytest.raises(ValueError, match="CUDA"):
-        ops.gaussian_render_backward(x, pts)
+        keypoint_kernels.render_backward_launch(x, pts, 14.3, torch.float32)
+    ops.reset_launch_counts()
+    for out, shape, dtype in (
+        (ops.conv3x3_affine(x, k, s, s), (1, 8, 8, 4), torch.float32),
+        (ops.up2_conv3_affine(x, k, s, s), (1, 16, 16, 4), torch.float32),
+        (ops.pose_head(x), (1, 4, 2), torch.float32),
+        (ops.gaussian_render(pts, 8, 6, out_dtype=torch.bfloat16), (1, 8, 6, 4), torch.bfloat16),
+        (ops.pose_head_backward(pts, pts, p, p, torch.bfloat16), (1, 8, 8, 4), torch.bfloat16),
+        (ops.gaussian_render_backward(x, pts), (1, 4, 2), torch.float32),
+    ):
+        assert out.device.type == "meta" and tuple(out.shape) == shape and out.dtype == dtype
+    assert ops.launch_counts() == {name: 0 for name in ops.KERNELS}
 
 
 def test_build_needs_nvcc(monkeypatch, tmp_path):

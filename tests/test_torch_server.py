@@ -368,3 +368,103 @@ def test_serve_cli_merges_both_parameter_files(engine, tmp_path, rng):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             serve.main(argv)
+
+
+@pytest.fixture(scope="module")
+def artifacts(engines, tmp_path_factory):
+    """(JAX ArtifactEngine, the port's ArtifactEngine, the port's artifact
+    path), both exported at buckets 1 and 2 on the CPU from the engines'
+    weights."""
+    from kpvid_tpu.eval import ArtifactEngine as JaxArtifactEngine
+    from kpvid_tpu.eval.export import export_serving as jax_export_serving
+    from kpvid_tpu.eval.export import load_serving as jax_load_serving
+    from kpvid_tpu_torch.eval import ArtifactEngine, export_serving, load_serving
+
+    jax_engine, engine = engines
+    root = tmp_path_factory.mktemp("artifacts")
+    jax_export_serving(jax_engine.final, jax_engine.s1_vars, jax_engine.s2_params,
+                       root / "jax.npz", batch_sizes=(1, 2), platforms=("cpu",))
+    export_serving(engine.final, root / "torch.npz", batch_sizes=(1, 2))
+    return (JaxArtifactEngine(jax_load_serving(root / "jax.npz")),
+            ArtifactEngine(load_serving(root / "torch.npz", device="cpu")), root / "torch.npz")
+
+
+def test_artifact_engine_matches_inference_engine(engine, artifacts, rng):
+    """The daemon's engine over the artifact against the live engine on the
+    same weights: uint8 within one step, points rtol 1e-5 / atol 1e-6."""
+    art_engine = artifacts[1]
+    assert art_engine.buckets == (1, 2) and art_engine.n_data == 1
+    assert art_engine.image_size == 32 and art_engine.n_action == 5
+    assert art_engine.n_future_frames == 6 and art_engine.vae_dim == 8
+    images = _images(rng, 2)
+    actions = np.asarray([1, 4])
+    z = np.stack([request_z(s, engine.vae_dim) for s in (7, 8)])
+    a = engine.run(images, actions, z)
+    b = art_engine.run(images, actions, z)
+    assert set(a) == set(b) == set(art_engine.OUTPUT_KEYS)
+    for key in ("pred_im_seq", "mask"):
+        assert b[key].dtype == np.uint8, key
+        _u8_close(a[key], b[key])
+    for key in ("current_points", "future_points"):
+        np.testing.assert_allclose(a[key], b[key], rtol=1e-5, atol=1e-6, err_msg=key)
+    with pytest.raises(ValueError, match="batch size 3"):
+        art_engine.dispatch(_images(rng, 3), np.zeros(3, np.int64), np.zeros((3, 8), np.float32))
+
+
+def test_artifact_engine_matches_jax_artifact_engine(artifacts, rng):
+    """The port's ArtifactEngine against JAX's on the same weights, images,
+    actions and seeds: uint8 within one step, points within 1e-5."""
+    jax_art, art_engine, _ = artifacts
+    assert art_engine.buckets == jax_art.buckets
+    for b in art_engine.buckets:
+        images = _images(rng, b)
+        actions = np.arange(b) % 5
+        z = np.stack([request_z(30 + s, 8) for s in range(b)])
+        want = jax_art.run(images, actions, z)
+        got = art_engine.run(images, actions, z)
+        for key in ("pred_im_seq", "mask"):
+            assert got[key].dtype == want[key].dtype == np.uint8
+            _u8_close(got[key], want[key])
+        for key in ("current_points", "future_points"):
+            np.testing.assert_allclose(got[key], want[key], rtol=0, atol=1e-5, err_msg=key)
+
+
+def test_http_serves_from_artifact(artifacts, rng):
+    """The HTTP daemon runs from the artifact: /healthz reports its buckets
+    and sizes; a generate round trip returns the npz contract."""
+    art_engine = artifacts[1]
+    srv = _Server(art_engine, buckets=art_engine.buckets, max_wait_ms=1.0)
+    try:
+        h = srv.get("/healthz")
+        assert h == {"status": "ok", "image_size": 32, "n_action": 5, "n_future_frames": 6,
+                     "buckets": [1, 2]}
+        with srv.post({"image": _png_b64(rng.integers(0, 256, (48, 40, 3), dtype=np.uint8)),
+                       "action": 2, "seed": 5}) as r:
+            assert r.headers["X-Kpvid-Seed"] == "5"
+            out = dict(np.load(io.BytesIO(r.read())))
+    finally:
+        srv.close()
+    assert out["pred_im_seq"].shape == (6, 32, 32, 3) and out["pred_im_seq"].dtype == np.uint8
+    assert out["mask"].shape == (6, 32, 32, 1) and out["mask"].dtype == np.uint8
+    assert out["current_points"].shape == (4, 2) and out["future_points"].shape == (6, 4, 2)
+    assert int(out["seed"]) == 5
+
+
+def test_serve_cli_artifact_refusals(artifacts, tmp_path):
+    """serve.main refuses --artifact with --config or a checkpoint, no source
+    at all, and --buckets the artifact lacks, with the JAX CLI's messages;
+    without a card it raises before reading the artifact."""
+    from kpvid_tpu_torch import serve
+
+    art = str(artifacts[2])
+    for extra in (["--config", "cfg.yaml"], ["--checkpoint_stage1", "s1.npz"],
+                  ["--checkpoint_stage2", "s2.npz"]):
+        with pytest.raises(SystemExit, match="--artifact replaces --config"):
+            serve.main(["--artifact", art, *extra])
+    with pytest.raises(SystemExit, match=r"pass --config \+ --checkpoint_stage1"):
+        serve.main(["--config", "cfg.yaml"])
+    with pytest.raises(SystemExit, match=r"buckets \[3\] not exported in the artifact"):
+        serve.main(["--artifact", art, "--buckets", "1", "3", "--device", "cpu"])
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            serve.main(["--artifact", art])
