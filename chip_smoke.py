@@ -123,12 +123,37 @@ imports nothing of JAX or of the JAX package, and:
    shapes against its plain version (f32 grid into f32 maps, bf16 grid into
    bf16 and f32 maps) and its times, and that a second run with the same
    seed writes the same bytes; it prints samples/s with generate and PNG
-   writing timed apart.
+   writing timed apart;
+10. dp: data parallelism (``kpvid_tpu_torch/parallel``) at ``Config()``,
+   global batch 16. (a) ``train.main`` of each stage for 3 steps in one
+   process, then through the KPVID_* contract at world size 1 on NCCL in
+   this process: with the f32 all-reduce the same bits in every array of
+   ``ckpt-3`` and the same launches (stage 1: 1 / 2 forward and 1 / 2
+   backward #3 / #4 a step), with the bf16 one every loss finite; one step
+   of the data-parallel trainer with the bf16 all-reduce within 2.05 lr of
+   the f32 one and not its bits; both steps timed (median of 5) beside
+   phases 7 and 8's; (e) the collectives of one step (``torch.profiler``,
+   ``parallel.collective_inventory``): counts and bytes, f32 against bf16,
+   the bf16 bucket saving 2 bytes a parameter. (c) grad_accum 2: stage 2 in
+   f32 against K = 1 (parameters within 1e-5, or 2 lr where the first-step
+   gradient is below 1e-6: a sign step); stage 1 in bf16 launches #3 / #4
+   forward and backward K times a step; peak memory at K = 1 and 2. (b) two
+   ranks (``chip_smoke.py --dp-rank-worker``) sharing the card over gloo,
+   each one f32 step (TF32 off) on its 8 rows, against one process at 16:
+   both replicas the same bits, losses within rtol 1e-4; stage 2's
+   parameters within 1e-5 (the same sign-step rule); stage 1's gradients
+   each within 5% relative L2 (phase 7's bound); whether gloo sums bf16 on
+   the card and on the host. (d) the labeler on those two ranks (a stride of
+   the videos each) within 1e-5 of the one-process labels of the same
+   checkpoint, one #3 a chunk; evaluate on the two ranks at batch 4 (one
+   batch each, 8 / 2 / 1 / 4 launches) writes the one-process tree byte
+   for byte.
 
 It exits non-zero on any failed check, and without a CUDA device. The line
 before the last holds the kernels' JSON record (launches per generate, per
 served batch, per labeled chunk, per stage-1 and stage-2 train step and per
-evaluate batch, per artifact batch; the backward kernels' ``launches`` are
+evaluate batch, per artifact batch, per rank of a data-parallel stage-1 step
+and per stage-1 step at grad_accum 2; the backward kernels' ``launches`` are
 per stage-1 step),
 the last line the device.
 """
@@ -1964,6 +1989,483 @@ def evaluate_phase(cfg, card: str, root: Path) -> dict:
             "samples_per_s": [8 / r["seconds"] for r in runs]}
 
 
+DP_STEPS = 3
+DP_BATCH = TRAIN_BATCH  # global; 2 ranks on the card take 8 rows each
+DP_ENV = ("KPVID_COORDINATOR", "KPVID_NUM_PROCESSES", "KPVID_PROCESS_ID", "KPVID_DIST_BACKEND")
+# one step with the bf16 all-reduce against the f32 one: Adam's first update
+# is lr * g / (|g| + eps), so where bf16 rounding flips the sign of a
+# near-zero gradient the two differ by 2 lr (tests/test_dp_step.py:167-181)
+BF16_ENVELOPE_LR = 2.05
+# stage 2, 2 ranks against one process, and grad_accum 2 against 1 (f32):
+# parameters within 1e-5 (tests/test_dp_step.py:159-165), but where Adam's
+# first update is a sign step (a first-step gradient below 1e-6, whose sign
+# each side's rounding decides): 2 lr there (tests/test_torch_train.py)
+DP_S2_PARAM_ATOL = 1e-5
+SIGN_STEP_GRAD = 1e-6
+DP_WORKER_TIMEOUT_S = 420
+
+
+def keep_reduced_grads(trainer) -> list:
+    """Wrap the trainer's gradient reduction so that the reduced gradients of
+    each update are kept on the host, keyed by state-dict name ('fused': the
+    generator's update first)."""
+    reduce, kept = trainer._reduce_grads, []
+    names = [[f"{trainer.G_PREFIX}.{n}" for n in trainer._g_names],
+             [f"{trainer.D_PREFIX}.{n}" for n in trainer._d_names]]
+
+    def recording(grads):
+        out = reduce(grads)
+        group = names[0] if len(out) == len(names[0]) else names[1]
+        kept.append({n: g.detach().float().cpu().clone() for n, g in zip(group, out)})
+        return out
+
+    trainer._reduce_grads = recording
+    return kept
+
+
+def params_of(trainer) -> dict:
+    """A host copy of the trainer's arrays (a copy on the CPU as well)."""
+    return {k: v.detach().float().cpu().clone() for k, v in trainer.model.state_dict().items()}
+
+
+def s2_params_agree(got: dict, want: dict, grads: dict, lr: float, what: str) -> dict:
+    """Stage 2's bound: every parameter within DP_S2_PARAM_ATOL, or within
+    2 lr where its first-step gradient is below SIGN_STEP_GRAD."""
+    worst, beyond, sign_steps = 0.0, 0, 0
+    for k, g in grads.items():
+        diff = (got[k] - want[k]).abs()
+        worst = max(worst, float(diff.max()))
+        out = diff > DP_S2_PARAM_ATOL
+        beyond += int(out.sum())
+        sign = g.abs() < SIGN_STEP_GRAD
+        sign_steps += int((out & sign).sum())
+        if bool((out & ~sign).any()) or bool((diff[out] > 2.05 * lr).any()):
+            raise CheckFailed(f"{what}: {k} differs by {float(diff.max()):.3e}, beyond "
+                              f"{DP_S2_PARAM_ATOL} where the gradient is not a sign step")
+    check(True, f"{what}: every parameter within {DP_S2_PARAM_ATOL} (worst {worst:.3e}; "
+                f"{beyond} elements beyond it, all sign steps within 2 lr)")
+    return {"worst": worst, "beyond": beyond, "sign_steps": sign_steps}
+
+
+def s1_grads_agree(got: dict, want: dict, what: str) -> float:
+    """Stage 1's bound (phase 7): each gradient tensor within S1_GRAD_L2 in
+    relative L2, but the biases whose gradient is zero in exact arithmetic
+    and the unread octave."""
+    kept = [n for n in want if not n.endswith(ZERO_GRAD) and not n.startswith(S1_UNUSED)]
+    l2 = {n: float((got[n] - want[n]).norm()) / max(float(want[n].norm()), 1e-30) for n in kept}
+    worst = max(l2, key=l2.get)
+    check(l2[worst] <= S1_GRAD_L2, f"{what}: every gradient tensor within {S1_GRAD_L2} in "
+                                   f"relative L2 ({len(kept)} tensors, worst {l2[worst]:.3e} "
+                                   f"{worst})")
+    return l2[worst]
+
+
+def tree_bytes(root: Path) -> dict:
+    return {p.relative_to(root).as_posix(): p.read_bytes() for p in sorted(root.rglob("*.png"))}
+
+
+def dp_inputs(cfg, root: Path) -> dict:
+    """A global batch of each stage from phase 6's tree (and step 0's noise)."""
+    from kpvid_tpu_torch.data import HostDataPipeline, ImagePairDataset, SequenceDataset
+    from kpvid_tpu_torch.train.cli import step_noise
+
+    m = cfg.model
+    out = {}
+    for stage, ds in ((1, ImagePairDataset(str(root / "penn"), "train", image_size=m.image_size)),
+                      (2, SequenceDataset(str(root / "penn"), "train", m.n_pts, m.n_action,
+                                          image_size=m.image_size))):
+        batches = HostDataPipeline(ds, DP_BATCH, shuffle=True, repeat=True, seed=9).batches()
+        out[stage] = next(batches)
+        batches.close()
+    out["noise"] = step_noise(0, 0, 1, DP_BATCH, m.vae_dim)[0]
+    return out
+
+
+def step_args(stage: int, inputs: dict, rows: slice, device):
+    from kpvid_tpu_torch.device import to_device
+
+    batch = {k: to_device(v[rows], device) for k, v in inputs[stage].items()}
+    return (batch,) if stage == 1 else (batch, inputs["noise"])
+
+
+def dp_rank_worker(job_path: str) -> int:
+    """One rank of phase 10's two processes on the card (gloo): a f32 step
+    of each stage on its 8 rows, the bf16 probe, the labeler and evaluate.
+    Writes rank{r}.npz / rank{r}.json into the job's directory."""
+    import hashlib
+
+    import torch
+    import torch.distributed as dist
+
+    from kpvid_tpu_torch import evaluate, make_pseudo_labels, ops, parallel
+    from kpvid_tpu_torch.configs import Config
+    from kpvid_tpu_torch.losses import synthesize_vgg19_params
+
+    job = json.loads(Path(job_path).read_text())
+    out = Path(job["out"])
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    multiproc = parallel.maybe_initialize("cuda")
+    rank, world = parallel.world()
+    cfg = Config().validate()
+    cfg32 = dataclasses.replace(cfg, training=dataclasses.replace(
+        cfg.training, compute_dtype="float32", batch_size=DP_BATCH))
+    inputs = {1: dict(np.load(job["s1_batch"])), 2: dict(np.load(job["s2_batch"]))}
+    inputs["noise"] = inputs[2].pop("noise")
+    b = DP_BATCH // world
+    arrays, info = {}, {"rank": rank, "world": world, "multiproc": multiproc,
+                        "backend": dist.get_backend(), "device": str(torch.cuda.current_device())}
+    for stage in (2, 1):
+        vgg = synthesize_vgg19_params() if stage == 1 else None
+        trainer, step = parallel.make_dp_reduce_step(cfg32, stage, vgg_params=vgg)
+        trainer.load_parameters(trainer.init_parameters(1))
+        kept = keep_reduced_grads(trainer)
+        ops.reset_launch_counts()
+        metrics = step(*step_args(stage, inputs, slice(rank * b, (rank + 1) * b), trainer.device))
+        info[f"s{stage}_launches"] = ops.launch_counts()
+        info[f"s{stage}_metrics"] = {k: float(v) for k, v in metrics.items()}
+        params = params_of(trainer)
+        info[f"s{stage}_digest"] = hashlib.sha256(b"".join(
+            params[k].numpy().tobytes() for k in sorted(params))).hexdigest()
+        if rank == 0:
+            arrays.update({f"s{stage}_after/{k}": v.numpy() for k, v in params.items()})
+            for group in kept:
+                arrays.update({f"s{stage}_grad/{k}": v.numpy() for k, v in group.items()})
+        del trainer, step, kept
+        torch.cuda.empty_cache()
+
+    # does gloo sum bf16, on the card and on the host? (no up-cast in silence)
+    for where in ("cuda", "cpu"):
+        x = torch.full((1000,), 1.5 + rank, dtype=torch.bfloat16, device=where)
+        try:
+            dist.all_reduce(x)
+            info[f"gloo_bf16_{where}"] = f"ok, sum {float(x[0])}"
+        except RuntimeError as e:
+            info[f"gloo_bf16_{where}"] = f"refused: {str(e).splitlines()[0]}"
+
+    ops.reset_launch_counts()
+    stats = make_pseudo_labels.main(job["label_args"])
+    info["label"] = {"launches": ops.launch_counts(), "videos": stats["videos"],
+                     "frames": stats["frames"], "chunks": stats["chunks"],
+                     "seconds": stats["seconds"]}
+    ops.reset_launch_counts()
+    stats = evaluate.main(job["evaluate_args"])
+    info["evaluate"] = {"launches": ops.launch_counts(), "samples": stats["samples"],
+                        "batches": stats["batches"], "seconds": stats["seconds"]}
+    np.savez(out / f"rank{rank}.npz", **arrays)
+    (out / f"rank{rank}.json").write_text(json.dumps(info))
+    return 0
+
+
+def spawn_dp_ranks(job: dict, out: Path, n: int = 2) -> list[dict]:
+    """``chip_smoke.py --dp-rank-worker`` twice through the KPVID_* contract,
+    sharing the card over gloo; both must exit 0 within the time limit."""
+    import os
+
+    out.mkdir(parents=True, exist_ok=True)
+    (out / "job.json").write_text(json.dumps(dict(job, out=str(out))))
+    port = free_port()
+    procs, logs = [], []
+    for pid in range(n):
+        env = dict(os.environ, KPVID_COORDINATOR=f"127.0.0.1:{port}", KPVID_NUM_PROCESSES=str(n),
+                   KPVID_PROCESS_ID=str(pid), KPVID_DIST_BACKEND="gloo",
+                   KPVID_COLLECTIVE_TIMEOUT="300")
+        logs.append(out / f"rank{pid}.log")
+        with logs[-1].open("w") as f:
+            procs.append(subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()), "--dp-rank-worker",
+                 str(out / "job.json")], env=env, stdout=f, stderr=subprocess.STDOUT))
+    deadline = time.monotonic() + DP_WORKER_TIMEOUT_S
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, log in zip(procs, logs):
+        if p.returncode != 0:
+            raise CheckFailed(f"a rank exited {p.returncode}:\n{log.read_text()[-3000:]}")
+    return [json.loads((out / f"rank{r}.json").read_text()) for r in range(n)]
+
+
+def dp_phase(cfg, card: str, root: Path, base_step_ms: dict) -> dict:
+    """Phase 10: data parallelism through the KPVID_* contract. World size 1
+    on NCCL in this process; two ranks sharing the card over gloo; grad_accum;
+    the collectives of a step. ``base_step_ms``: the single-process step ms of
+    phases 7 and 8 (keyed by stage), printed beside the data-parallel step's."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+    from torch.profiler import DeviceType, ProfilerActivity, profile
+
+    from kpvid_tpu_torch import evaluate, ops, parallel
+    from kpvid_tpu_torch.checkpoint import load_checkpoint
+    from kpvid_tpu_torch.losses import synthesize_vgg19_params
+    from kpvid_tpu_torch.train import Stage1Trainer, Stage2Trainer
+    from kpvid_tpu_torch.train import main as train_main
+
+    m = cfg.model
+    lr = cfg.training.lr.start_val * cfg.training.lr.scale
+    dev = torch.device("cuda")
+    inputs = dp_inputs(cfg, root)
+    rep = {}
+    modes = {1: "detector_translator", 2: "motion_generator"}
+    sweep = {1: dict(NO_LAUNCHES, pose_head=1, gaussian_render=2), 2: NO_LAUNCHES}
+    per_step = {1: S1_PER_STEP, 2: NO_LAUNCHES}
+
+    def cli(stage: int, name: str, **training):
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        run = train_main(["--mode", modes[stage], "--max-steps", str(DP_STEPS), "--no-images",
+                          "--config", str(train_config(cfg, root, name, f"log_{name}",
+                                                       **training))])
+        counts = ops.launch_counts()
+        return (run, counts, load_checkpoint(root / f"log_{name}" / modes[stage]
+                                             / f"ckpt-{DP_STEPS}"), time.perf_counter() - t0)
+
+    # (a) world size 1 on NCCL through the env contract, against one process
+    base = {stage: cli(stage, f"dp_base_s{stage}") for stage in (1, 2)}
+    os.environ.update(KPVID_COORDINATOR=f"127.0.0.1:{free_port()}", KPVID_NUM_PROCESSES="1",
+                      KPVID_PROCESS_ID="0")
+    try:
+        for stage in (1, 2):
+            run, counts, ck, secs = cli(stage, f"dp_f32_s{stage}")
+            _, base_counts, base_ck, base_secs = base[stage]
+            want = {k: v * DP_STEPS + sweep[stage][k] for k, v in per_step[stage].items()}
+            differ = [k for k in base_ck if not np.array_equal(base_ck[k], ck.get(k))]
+            check(dist.is_initialized() and dist.get_backend() == "nccl"
+                  and dist.get_world_size() == 1 and counts == base_counts == want
+                  and sorted(ck) == sorted(base_ck) and not differ,
+                  f"stage {stage} through the env contract on NCCL, world size 1, f32 reduce: "
+                  f"{DP_STEPS} steps end with the single-process run's bits in all {len(ck)} "
+                  f"arrays; launches {counts} (per step {per_step[stage]} and the sweep's); "
+                  f"{secs:.1f} s against {base_secs:.1f} s")
+            run16, counts16, ck16, _ = cli(stage, f"dp_bf16_s{stage}", dp_grad_dtype="bfloat16")
+            gap = max(float(np.abs(ck16[k] - base_ck[k]).max()) for k in base_ck
+                      if k.startswith(("stage", "discriminator", "image_discriminator")))
+            check(all(np.isfinite(v) for v in run16["metrics"].values()) and counts16 == want
+                  and gap > 0,
+                  f"stage {stage}, bf16 reduce: {DP_STEPS} steps, every loss finite ("
+                  + ", ".join(f"{k} {v:.4g}" for k, v in run16["metrics"].items())
+                  + f"), parameters {gap:.3e} from the f32 run's ({gap / lr:.2f} lr)")
+            rep[f"s{stage}_world1"] = {"seconds": secs, "seconds_single": base_secs,
+                                       "bf16_gap_after_3": gap, "launches": counts}
+            if stage == 1:
+                rep["launches_dp_per_step"] = {k: (v - sweep[1][k]) / DP_STEPS
+                                               for k, v in counts.items()}
+
+        # one step, bf16 reduce against f32 (2.05 lr), then (e) the
+        # collectives of one more profiled step of each
+        vgg = synthesize_vgg19_params()
+        for stage in (1, 2):
+            steps, profiles = {}, {}
+            for dt in ("single", "float32", "bfloat16"):  # "single": no process group's step
+                c = dataclasses.replace(cfg, training=dataclasses.replace(
+                    cfg.training, batch_size=DP_BATCH,
+                    dp_grad_dtype="float32" if dt == "single" else dt))
+                if dt == "single":
+                    trainer = (Stage1Trainer(c, vgg, device=dev) if stage == 1
+                               else Stage2Trainer(c, device=dev))
+                    step = trainer.train_step
+                else:
+                    trainer, step = parallel.make_dp_reduce_step(c, stage, vgg_params=vgg)
+                trainer.load_parameters(trainer.init_parameters(0))
+                args = step_args(stage, inputs, slice(0, DP_BATCH), dev)
+                step(*args)
+                after = params_of(trainer)
+                times = []
+                for _ in range(6):  # the first is a warm-up
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    step(*args)
+                    torch.cuda.synchronize()
+                    times.append(1e3 * (time.perf_counter() - t0))
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                             record_shapes=True) as prof:
+                    step(*args)
+                    torch.cuda.synchronize()
+                inv = parallel.collective_inventory(prof)
+                events = prof.key_averages()
+                kerns = [e for e in events if e.device_type == DeviceType.CUDA]
+                profiles[dt] = {
+                    "device_ms": sum(e.self_device_time_total for e in kerns) / 1e3,
+                    "kernels": sum(e.count for e in kerns),
+                    "collective_host_ms": sum(e.cpu_time_total for e in events
+                                              if e.key.startswith(("nccl:", "gloo:"))) / 1e3,
+                    "cpu_ops": sum(e.count for e in events if e.device_type == DeviceType.CPU
+                                   and e.key.startswith("aten::"))}
+                steps[dt] = (after, inv, sum(p.numel() for p in trainer.model.parameters()),
+                             float(np.median(times[1:])))
+                del trainer, step
+                torch.cuda.empty_cache()
+            (p32, inv32, n_params, ms32), (p16, inv16, _, ms16) = (steps["float32"],
+                                                                   steps["bfloat16"])
+            p1, inv1, _, ms1 = steps["single"]
+            check(inv1.total_ops == 0 and all(torch.equal(p1[k], p32[k]) for k in p32),
+                  f"stage {stage}: the single-process step runs no collective, and the "
+                  "data-parallel step at world size 1 with the f32 all-reduce gives its bits")
+            print(f"stage {stage} step, bf16 compute, batch {DP_BATCH} (median of 5, host clock, "
+                  f"synchronised): single process {ms1:.2f} ms; data-parallel at world size 1 "
+                  f"(NCCL) {ms32:.2f} ms with the f32 all-reduce, {ms16:.2f} ms with the bf16 one; "
+                  f"phase {6 + stage}'s step {base_step_ms.get(stage, float('nan')):.2f} ms; one "
+                  "profiled step each (torch.profiler): " + "; ".join(
+                      f"{dt}: device {p['device_ms']:.2f} ms over {p['kernels']} kernels, "
+                      f"{p['cpu_ops']} aten ops, {p['collective_host_ms']:.2f} ms of host time in "
+                      "the collectives' records" for dt, p in profiles.items()), flush=True)
+            keys = [k for k in p32 if "running_" not in k]
+            gap = max(float((p16[k] - p32[k]).abs().max()) for k in keys)
+            check(0 < gap <= BF16_ENVELOPE_LR * lr,
+                  f"stage {stage}, one step: bf16 reduce within {BF16_ENVELOPE_LR} lr of the f32 "
+                  f"reduce (max {gap:.3e}, {gap / lr:.3f} lr) and not its bits")
+            saved = inv32.total_bytes - inv16.total_bytes
+            check(inv32.counts == inv16.counts and saved == 2 * n_params,
+                  f"stage {stage} collectives per step (NCCL, world size 1): {inv32.counts} "
+                  f"either way; {inv32.total_bytes / 1e6:.3f} MB in f32, "
+                  f"{inv16.total_bytes / 1e6:.3f} MB in bf16: the gradients' "
+                  f"{2 * n_params / 1e6:.3f} MB saved ({n_params} parameters)")
+            rep[f"s{stage}_inventory"] = {
+                "counts": inv32.counts, "bytes_f32": inv32.total_bytes,
+                "bytes_bf16": inv16.total_bytes, "n_params": n_params,
+                "bf16_gap_one_step": gap, "step_ms_f32": ms32, "step_ms_bf16": ms16,
+                "step_ms_single_process": ms1, "step_ms_phase": base_step_ms.get(stage),
+                "profiles": profiles}
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for var in DP_ENV:
+            os.environ.pop(var, None)
+
+    # (c) grad_accum 2. Stage 2, f32: K = 2 against K = 1 on the same rows
+    cfg32 = dataclasses.replace(cfg, training=dataclasses.replace(
+        cfg.training, compute_dtype="float32", batch_size=DP_BATCH))
+    runs = {}
+    for k in (1, 2):
+        c = dataclasses.replace(cfg32, training=dataclasses.replace(cfg32.training, grad_accum=k))
+        t = Stage2Trainer(c, device=dev)
+        t.load_parameters(t.init_parameters(1))
+        kept = keep_reduced_grads(t)
+        metrics = (t.train_step_accum if k > 1 else t.train_step)(
+            *step_args(2, inputs, slice(0, DP_BATCH), dev))
+        runs[k] = (params_of(t), {**kept[0], **kept[1]}, metrics)
+    rep["s2_accum"] = s2_params_agree(runs[2][0], runs[1][0], runs[1][1], lr,
+                                      "stage 2, f32, grad_accum 2 against 1")
+    # stage 1, bf16: launches of #3 / #4 forward and backward K times a step; peak memory
+    peaks = {}
+    for k in (1, 2):
+        c = dataclasses.replace(cfg, training=dataclasses.replace(
+            cfg.training, batch_size=DP_BATCH, grad_accum=k))
+        t = Stage1Trainer(c, vgg, device=dev)
+        t.load_parameters(t.init_parameters(0))
+        args = step_args(1, inputs, slice(0, DP_BATCH), dev)
+        fn = t.train_step_accum if k > 1 else t.train_step
+        fn(*args)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        metrics = fn(*args)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        peaks[k] = torch.cuda.max_memory_allocated() / 2**30
+        want = {name: k * c_ for name, c_ in S1_PER_STEP.items()}
+        check(counts == want and all(np.isfinite(float(v)) for v in metrics.values()),
+              f"stage 1, bf16, batch {DP_BATCH}, grad_accum {k}: launches {counts} ({k} x "
+              f"{S1_PER_STEP}), losses finite; peak memory {peaks[k]:.2f} GiB")
+        if k == 2:
+            rep["launches_accum_per_step"] = counts
+        del t
+        torch.cuda.empty_cache()
+    rep["s1_peak_gib"] = peaks
+
+    # (b) + (d): two ranks sharing the card over gloo
+    out = root / "dp_ranks"
+    out.mkdir()
+    np.savez(out / "s1_batch.npz", **inputs[1])
+    np.savez(out / "s2_batch.npz", **inputs[2], noise=inputs["noise"])
+    labels_before = {p.name: np.load(p) for p in (root / "penn" / "pseudo_labels").glob("*.npy")}
+    conf = root / "eval.yaml"  # phase 9's
+    ck2 = str(root / "log_a" / "motion_generator" / f"ckpt-{TRAIN_STEPS}")
+    eval_args = ["--config", str(conf), "--checkpoint_stage1",
+                 str(root / "log_s1" / "detector_translator"), "--checkpoint_stage2", ck2,
+                 "--batch_size", "4"]
+    job = {"s1_batch": str(out / "s1_batch.npz"), "s2_batch": str(out / "s2_batch.npz"),
+           "label_args": ["--config", str(root / "cfg.yaml"), "--checkpoint",
+                          str(root / "log_s1" / "detector_translator")],
+           "evaluate_args": eval_args + ["--save_dir", str(root / "eval_dp2")]}
+    t0 = time.perf_counter()
+    infos = spawn_dp_ranks(job, out)
+    spawn_s = time.perf_counter() - t0
+    arrays = dict(np.load(out / "rank0.npz"))
+    check([i["rank"] for i in infos] == [0, 1] and all(i["backend"] == "gloo" and i["world"] == 2
+                                                        for i in infos)
+          and infos[0]["s1_digest"] == infos[1]["s1_digest"]
+          and infos[0]["s2_digest"] == infos[1]["s2_digest"],
+          f"two ranks on the card over gloo ({spawn_s:.1f} s): both replicas end each step with "
+          "the same bits")
+    check(all(i["s1_launches"] == S1_PER_STEP and i["s2_launches"] == NO_LAUNCHES for i in infos),
+          f"each rank's stage-1 step launched {infos[0]['s1_launches']}")
+    for stage in (2, 1):
+        t = (Stage1Trainer(cfg32, vgg, device=dev) if stage == 1
+             else Stage2Trainer(cfg32, device=dev))
+        t.load_parameters(t.init_parameters(1))
+        kept = keep_reduced_grads(t)
+        metrics = t.train_step(*step_args(stage, inputs, slice(0, DP_BATCH), dev))
+        want_g = {**kept[0], **kept[1]}
+        got_g = {k[len(f"s{stage}_grad/"):]: torch.from_numpy(v) for k, v in arrays.items()
+                 if k.startswith(f"s{stage}_grad/")}
+        got_p = {k[len(f"s{stage}_after/"):]: torch.from_numpy(v) for k, v in arrays.items()
+                 if k.startswith(f"s{stage}_after/")}
+        loss_gap = max(abs(infos[0][f"s{stage}_metrics"][k] - float(v)) / max(abs(float(v)), 1e-12)
+                       for k, v in metrics.items())
+        check(loss_gap <= STEP_LOSS_RTOL,
+              f"stage {stage}, f32: 2 ranks x {DP_BATCH // 2} rows against one process at "
+              f"{DP_BATCH}: losses within {STEP_LOSS_RTOL} (worst {loss_gap:.3e})")
+        if stage == 2:
+            rep["two_ranks_s2"] = s2_params_agree(got_p, params_of(t), want_g, lr,
+                                                  "stage 2, 2 ranks against one process")
+        else:
+            rep["two_ranks_s1_grad_l2"] = s1_grads_agree(got_g, want_g,
+                                                         "stage 1, 2 ranks (sync-BN) against "
+                                                         "one process")
+        rep[f"two_ranks_s{stage}_loss_gap"] = loss_gap
+        del t
+        torch.cuda.empty_cache()
+    rep["gloo_bf16"] = {w: infos[0][f"gloo_bf16_{w}"] for w in ("cuda", "cpu")}
+    print(f"gloo's bf16 all-reduce: on the card {rep['gloo_bf16']['cuda']}; on the host "
+          f"{rep['gloo_bf16']['cpu']}", flush=True)
+
+    # (d) the labeler and evaluate on two ranks
+    labels = {p.name: np.load(p) for p in (root / "penn" / "pseudo_labels").glob("*.npy")}
+    label_gap = max(float(np.abs(labels[k] - labels_before[k]).max()) for k in labels_before)
+    n_chunks = sum(i["label"]["chunks"] for i in infos)
+    check(sorted(labels) == sorted(labels_before) and label_gap <= 1e-5
+          and sum(i["label"]["videos"] for i in infos) == 32
+          and all(i["label"]["launches"] == dict(NO_LAUNCHES, pose_head=i["label"]["chunks"])
+                  for i in infos),
+          f"the labeler on 2 ranks ({[i['label']['videos'] for i in infos]} videos, "
+          f"{n_chunks} chunks, one pose_head each) writes the one-process labels of the same "
+          f"checkpoint within 1e-5 (max {label_gap:.3e})")
+    ops.reset_launch_counts()
+    one = evaluate.main(eval_args + ["--save_dir", str(root / "eval_dp1")])
+    got, want = tree_bytes(root / "eval_dp2"), tree_bytes(root / "eval_dp1")
+    check(one["batches"] == 2 and [i["evaluate"]["batches"] for i in infos] == [1, 1]
+          and all(i["evaluate"]["launches"] == EVAL_LAUNCHES for i in infos)
+          and sorted(got) == sorted(want) and all(got[k] == want[k] for k in want)
+          and len(want) == 8 * (2 + 5 * m.n_future_frames),
+          f"evaluate on 2 ranks at batch 4 (one batch each, 8 / 2 / 1 / 4 launches) writes the "
+          f"one-process tree byte for byte ({len(want)} PNGs)")
+    rep.update(spawn_seconds=spawn_s, label_gap=label_gap,
+               rank_label=[i["label"] for i in infos], rank_evaluate=[i["evaluate"] for i in infos])
+    print(f"dp on {card}: " + json.dumps({k: v for k, v in rep.items()
+                                         if not k.startswith("rank_")}), flush=True)
+    return rep
+
+
 KERNEL_META = {
     # the bf16 body the path runs; conv3x3.cu includes it and holds the f32 route
     "conv3x3_affine": ("cuda", "kpvid_tpu_torch/csrc/conv3x3_mma.cuh",
@@ -1986,6 +2488,8 @@ KERNEL_META = {
 def main() -> int:
     import torch
 
+    if len(sys.argv) == 3 and sys.argv[1] == "--dp-rank-worker":
+        return dp_rank_worker(sys.argv[2])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -2019,6 +2523,7 @@ def main() -> int:
         relabel = relabel_phase(cfg, root)
         train = train_phase(cfg, card, root)
         evaluation = evaluate_phase(cfg, card, root)
+        dp = dp_phase(cfg, card, root, {1: stage1["step_ms"], 2: train["step_ms"]})
 
     kernels = []
     records.update(stage1.pop("kernels"))
@@ -2042,6 +2547,8 @@ def main() -> int:
                 "train_stage1_per_step": s1,
                 "evaluate_per_batch": evaluation["launches_per_batch"][name],
                 "train_per_step": train["launches_per_step"][name],
+                "train_stage1_dp_per_step_per_rank": dp["launches_dp_per_step"][name],
+                "train_stage1_accum2_per_step": dp["launches_accum_per_step"][name],
             },
         })
         if counts[name]:
@@ -2060,6 +2567,7 @@ def main() -> int:
                       "stage1": stage1, "relabel": relabel,
                       "train": train, "evaluate": {k: v for k, v in evaluation.items()
                                                    if k != "render_128"},
+                      "dp": {k: v for k, v in dp.items() if not k.startswith("launches_")},
                       "card": card}))
     print(gpu_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

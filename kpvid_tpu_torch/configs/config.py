@@ -6,9 +6,8 @@ trainers (with ``LRConfig``), the ``data`` fields of the pipelines, and
 ``validate``'s checks of them. The YAML schema is the JAX package's: ``model`` and
 ``training.lr`` keys are checked strictly; the sections and the ``paths``,
 ``training``, ``data`` and ``parallel`` keys that the port does not read
-yet are accepted and left unread. ``validate`` refuses the knobs of later
-slices (``grad_accum > 1``, ``dp_grad_dtype='bfloat16'``, a mesh) rather
-than ignore them.
+yet are accepted and left unread. ``validate`` refuses a 'model' mesh axis
+(tensor parallelism is not ported) rather than ignore it.
 """
 
 from __future__ import annotations
@@ -81,8 +80,10 @@ class TrainingConfig:
     # (moving averages) or 'train' (the batch's statistics, never kept)
     bn_eval_mode: str = "inference"
     summary_bn_mode: str = "inference"
-    # knobs of later slices; validate() refuses any other value
+    # 'fused' only: one update from K micros of batch_size / K rows
     grad_accum: int = 1
+    # the data-parallel gradient all-reduce: 'float32' or 'bfloat16' (half
+    # the bytes; parallel/dp_step.py)
     dp_grad_dtype: str = "float32"
 
 
@@ -106,8 +107,12 @@ class ModelConfig:
 
 @dataclasses.dataclass
 class ParallelConfig:
+    # processes whose gradients are averaged; None = all of them
     mesh_data: int | None = None
+    # tensor parallelism: validate() refuses anything but 1
     mesh_model: int = 1
+    # read, and unused until tensor parallelism is ported
+    min_shard_dim: int = 1024
 
 
 @dataclasses.dataclass
@@ -156,23 +161,35 @@ class Config:
             raise ValueError("training.lr.scale must be positive")
         if t.lr.warmup_steps < 0:
             raise ValueError("training.lr.warmup_steps must be >= 0")
+        if t.dp_grad_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"unknown dp_grad_dtype {t.dp_grad_dtype!r}")
+        if t.grad_accum < 1:
+            raise ValueError("training.grad_accum must be >= 1")
+        if t.grad_accum > 1:
+            if t.batch_size % t.grad_accum:
+                raise ValueError(
+                    f"batch_size ({t.batch_size}) must be divisible by "
+                    f"grad_accum ({t.grad_accum})"
+                )
+            if t.gan_step_mode != "fused":
+                raise ValueError(
+                    "grad_accum > 1 implements the 'fused' step semantics "
+                    f"only (got gan_step_mode={t.gan_step_mode!r})"
+                )
+        if t.dp_grad_dtype == "bfloat16" and self.parallel.mesh_model > 1:
+            raise ValueError(
+                "training.dp_grad_dtype='bfloat16' is pure-DP only "
+                "(parallel.mesh_model must be 1; see parallel/dp_step.py)"
+            )
         if t.batch_size <= 0:
             raise ValueError("batch_size must be positive")
-        if t.grad_accum != 1:
-            raise ValueError(
-                f"training.grad_accum={t.grad_accum}: gradient accumulation is not "
-                "ported yet (ROADMAP section 1, 'Training knobs'); set it to 1"
-            )
-        if t.dp_grad_dtype != "float32":
-            raise ValueError(
-                f"training.dp_grad_dtype={t.dp_grad_dtype!r}: the compressed "
-                "gradient all-reduce is not ported yet (ROADMAP section 1, 'Multi-GPU')"
-            )
         p = self.parallel
-        if p.mesh_model != 1 or p.mesh_data not in (None, 1):
+        if p.mesh_model < 1 or (p.mesh_data is not None and p.mesh_data < 1):
+            raise ValueError("parallel.mesh_data/mesh_model must be >= 1")
+        if p.mesh_model != 1:
             raise ValueError(
-                "parallel.mesh_data/mesh_model: the port runs one card; the mesh "
-                "is not ported yet (ROADMAP section 1, 'Multi-GPU')"
+                f"parallel.mesh_model={p.mesh_model}: tensor parallelism is not ported "
+                "yet (ROADMAP section 1, 'Multi-GPU, the rest'); the port is pure DP"
             )
         return self
 

@@ -1,14 +1,15 @@
 """Host data pipeline: worker threads sample, the consumer batches in order.
 
-A copy of kpvid_tpu/data/base.py for one process: a pool of threads runs
+A copy of kpvid_tpu/data/base.py: a pool of threads runs
 the dataset's ``sample(idx, rng)`` (PIL and the native kernels release the
 GIL), the consumer puts the results back in sequence order and stacks
 fixed-shape numpy batches, and bounded queues give prefetch back-pressure.
 It is deterministic: each epoch's order is seeded by (seed, epoch) and each
 sample's rng by (seed, epoch, idx), so the batches do not depend on the
 worker count or the scheduling, and ``start_sample`` resumes the exact
-stream an interrupted run would have produced. The JAX package's per-host
-sharding waits for the multi-GPU slice.
+stream an interrupted run would have produced. ``shard_id``/``num_shards``
+give a process of a data-parallel run its strided part of every epoch
+(parallel/distributed.py).
 
 ``device_prefetch`` moves batches to the device ``size`` steps ahead of the
 consumer: each array is staged in pinned memory and copied without blocking
@@ -56,12 +57,25 @@ class HostDataPipeline:
         prefetch: int = 2,
         seed: int = 0,
         drop_remainder: bool | None = None,
+        shard_id: int = 0,
+        num_shards: int = 1,
         start_sample: int = 0,
+        shard_granularity: str = "sample",
     ):
-        """start_sample: resume the index stream after this many consumed
-        samples (train/cli.py passes step * batch_size). drop_remainder defaults
-        to ``repeat``: training wants static shapes, an evaluation sweep
-        every sample."""
+        """shard_id/num_shards: this process's shard of a data-parallel run.
+        Every process draws the same seeded permutation and takes a strided
+        part of it, so the shards partition each epoch.
+
+        shard_granularity: 'sample' strides single indices (training: each
+        process feeds its local rows of every global batch); 'batch' strides
+        whole ``batch_size`` chunks, so the shard's batches are exactly the
+        single-process run's batches shard_id, shard_id + num_shards, ...
+        (evaluate, whose outputs per batch must be the one-process run's).
+
+        start_sample: resume the index stream after this many consumed
+        samples of the shard (train/cli.py passes step * local batch size).
+        drop_remainder defaults to ``repeat``: training wants static shapes,
+        an evaluation sweep every sample."""
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -71,16 +85,34 @@ class HostDataPipeline:
         self.num_workers = max(1, num_workers)
         self.prefetch = max(1, prefetch)
         self.seed = seed
+        if not 0 <= shard_id < num_shards:
+            raise ValueError(f"shard_id {shard_id} not in [0, {num_shards})")
+        if shard_granularity not in ("sample", "batch"):
+            raise ValueError(f"unknown shard_granularity {shard_granularity!r}")
+        self.shard_id = shard_id
+        self.num_shards = num_shards
+        self.shard_granularity = shard_granularity
         self.start_sample = start_sample
         self.drop_remainder = repeat if drop_remainder is None else drop_remainder
 
+    def _shard(self, idxs: np.ndarray) -> np.ndarray:
+        if self.num_shards == 1:
+            return idxs
+        if self.shard_granularity == "batch":
+            b = self.batch_size
+            own = [idxs[i:i + b] for i in range(0, len(idxs), b)][self.shard_id::self.num_shards]
+            return np.concatenate(own) if own else idxs[:0]
+        return idxs[self.shard_id::self.num_shards]
+
     def _index_stream(self) -> Iterator[tuple[int, int]]:
         n = len(self.dataset)
-        epoch, offset = divmod(self.start_sample, n) if self.start_sample and n else (0, 0)
+        shard_len = len(self._shard(np.arange(n)))
+        epoch, offset = (divmod(self.start_sample, shard_len) if self.start_sample and shard_len
+                         else (0, 0))
         while True:
             order_rng = np.random.default_rng(np.random.SeedSequence([self.seed, epoch]))
             idxs = order_rng.permutation(n) if self.shuffle else np.arange(n)
-            for i in idxs[offset:]:
+            for i in self._shard(idxs)[offset:]:
                 yield epoch, int(i)
             offset = 0
             epoch += 1

@@ -64,9 +64,12 @@ class VideoFramesDataset:
             frames[i] = ops.to_u8(im) if self.as_uint8 else ops.to_unit(im)
         return frames if self.as_uint8 else frames * 2.0 - 1.0
 
-    def iter_videos(self) -> Iterator[tuple[int, int, np.ndarray]]:
-        """Yield (video_id, n_frames, frames) for every video of the split."""
-        for idx in range(len(self.videos)):
+    def iter_videos(self, shard_id: int = 0,
+                    num_shards: int = 1) -> Iterator[tuple[int, int, np.ndarray]]:
+        """Yield (video_id, n_frames, frames) for every video of the split, or
+        of its stride ``shard_id::num_shards`` (a process of a multi-process
+        labeler decodes only its own videos)."""
+        for idx in range(shard_id, len(self.videos), num_shards):
             frames = self.load_video(idx)
             yield self.video_id(idx), frames.shape[0], frames
 

@@ -21,8 +21,15 @@ The latents of global batch ``b`` are ``np.random.default_rng([seed, b])``
 standard normals [B, vae_dim] (f32), drawn on the host: JAX's
 ``fold_in(seed, b)`` stream cannot be drawn without JAX. It runs on the card
 and raises without one (``--device cpu`` runs the plain versions on the
-CPU). The JAX CLI's ``--mesh`` and its multi-host sharding wait for the
-multi-GPU slice.
+CPU).
+
+Several processes (the KPVID_* environment, parallel/distributed.py), one
+card each: each generates and writes the batches ``i, i + N, ...`` of the
+one-process run (a 'batch'-granularity shard of the pipeline), with the
+latents of those global batch indices, so the tree is the one-process
+tree byte for byte; the first process writes the synthetic data while the
+others wait, and all wait at the end. The JAX CLI's ``--mesh`` (one process
+over several devices) is not ported.
 """
 
 from __future__ import annotations
@@ -65,6 +72,10 @@ def batch_z(seed: int, b: int, rows: int, vae_dim: int) -> np.ndarray:
 def main(argv=None) -> dict:
     """Write the PNG tree; returns the run's counts and seconds."""
     args = build_parser().parse_args(argv)
+    from .parallel import barrier, is_primary, maybe_initialize, world
+
+    multiproc = maybe_initialize(args.device)
+    rank, n_proc = world()
     from .configs import load_config
     from .data import HostDataPipeline, SequenceDataset
     from .device import resolve_device
@@ -81,8 +92,10 @@ def main(argv=None) -> dict:
     if args.synthetic:
         from .data import make_synthetic_penn_tree, make_synthetic_pseudo_labels
 
-        make_synthetic_penn_tree(data_dir)
-        make_synthetic_pseudo_labels(data_dir, n_pts=m.n_pts)
+        if is_primary():  # one writer on a shared filesystem
+            make_synthetic_penn_tree(data_dir)
+            make_synthetic_pseudo_labels(data_dir, n_pts=m.n_pts)
+        barrier("kpvid_eval_synthetic")
 
     final = FinalGenerator(config, device=device)
     final.load_parameters(load_generator_parameters(
@@ -92,7 +105,8 @@ def main(argv=None) -> dict:
                               sequence_len=config.data.sequence_len, image_size=m.image_size,
                               with_image_seq=True, native_ops=config.data.native_ops)
     pipe = HostDataPipeline(test_ds, batch_size, num_workers=config.data.num_workers, seed=0,
-                            drop_remainder=False)
+                            drop_remainder=False, shard_id=rank, num_shards=n_proc,
+                            shard_granularity="batch")
 
     n_workers = args.png_workers or min(8, 2 * (os.cpu_count() or 1))
     pool = ThreadPoolExecutor(max_workers=n_workers)
@@ -110,7 +124,8 @@ def main(argv=None) -> dict:
     t_start = time.perf_counter()
     batches = pipe.batches()
     try:
-        for b in itertools.count():
+        for k in itertools.count():
+            b = rank + k * n_proc  # the global batch index
             t0 = time.perf_counter()
             batch = next(batches, None)
             data_s += time.perf_counter() - t0
@@ -148,9 +163,11 @@ def main(argv=None) -> dict:
         pool.shutdown(wait=True, cancel_futures=True)
     seconds = time.perf_counter() - t_start
     logger.info("wrote %d samples in %d batches to %s in %.2fs (%.2f samples/s); waiting for "
-                "data %.2fs, generate %.2fs, PNG writers %.2fs over %d threads", n_written,
+                "data %.2fs, generate %.2fs, PNG writers %.2fs over %d threads%s", n_written,
                 n_batches, args.save_dir, seconds, n_written / max(seconds, 1e-9), data_s,
-                generate_s, write_s, n_workers)
+                generate_s, write_s, n_workers,
+                f" [process {rank}/{n_proc}]" if multiproc else "")
+    barrier("kpvid_eval_done")  # every shard's PNGs are on disk before anyone reads them
     return {"samples": n_written, "batches": n_batches, "seconds": seconds,
             "data_seconds": data_s, "generate_seconds": generate_s, "write_seconds": write_s,
             "png_workers": n_workers, "save_dir": str(args.save_dir)}

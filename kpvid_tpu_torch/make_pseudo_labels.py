@@ -3,7 +3,7 @@
     python -m kpvid_tpu_torch.make_pseudo_labels --config kpvid_tpu/configs/penn.yaml \
         --checkpoint stage1.npz
 
-Counterpart of the JAX package's ``make_pseudo_labels.py``, in one process.
+Counterpart of the JAX package's ``make_pseudo_labels.py``.
 Writes ``<data_dir>/pseudo_labels/{video_id:04d}.npy`` of shape
 [n_frames, K, 2] (f32, x and y in [-1, 1]) for every train and test video.
 ``--checkpoint`` is the port's stage-1 parameter file
@@ -21,6 +21,12 @@ videos while the card labels the current slab; frames pack into
 ends in the ``pose_head`` soft-argmax kernel, one launch a slab; two slabs
 stay in flight while the [chunk, K, 2] results come back on a second
 stream, and each video is saved as soon as its last row is back.
+
+Several processes (the KPVID_* environment, parallel/distributed.py), one
+card each: each labels its stride of each split's videos (process ``i`` of
+``N`` takes videos ``i, i + N, ...``) into the shared ``pseudo_labels/``,
+with no collective; the first writes the synthetic tree while the others
+wait, and all wait at the end until every label file is written.
 """
 
 from __future__ import annotations
@@ -74,6 +80,10 @@ def detect_u8(enc, frames_u8: torch.Tensor) -> torch.Tensor:
 def main(argv=None) -> dict:
     """Label every video; returns the run's counts and seconds."""
     args = build_parser().parse_args(argv)
+    from .parallel import barrier, is_primary, maybe_initialize, world
+
+    multiproc = maybe_initialize(args.device)
+    rank, n_proc = world()
     from .configs import load_config
     from .data import VideoFramesDataset, make_synthetic_penn_tree, pack_chunks, prefetch_videos
     from .device import resolve_device, start_readback, to_device
@@ -85,7 +95,9 @@ def main(argv=None) -> dict:
     m_cfg = config.model
     data_dir = config.paths.data_dir
     if args.synthetic:
-        make_synthetic_penn_tree(data_dir)
+        if is_primary():  # one writer on a shared filesystem
+            make_synthetic_penn_tree(data_dir)
+        barrier("kpvid_labeler_synthetic")
     chunk = args.chunk or config.data.labeler_chunk
     out_dir = touch_dir(osp.join(data_dir, "pseudo_labels"))
     enc, n = load_pose_encoder(config, args.checkpoint, device)
@@ -99,8 +111,9 @@ def main(argv=None) -> dict:
         for subset in ("train", "test"):
             ds = VideoFramesDataset(data_dir, subset, image_size=m_cfg.image_size,
                                     as_uint8=True, native_ops=config.data.native_ops)
-            logger.info("%s set: %d videos", subset, len(ds))
-            for idx in range(len(ds)):
+            if is_primary():
+                logger.info("%s set: %d videos", subset, len(ds))
+            for idx in range(rank, len(ds), n_proc):  # this process's stride
                 t0 = time.perf_counter()
                 frames = ds.load_video(idx)
                 decode_s += time.perf_counter() - t0
@@ -150,9 +163,13 @@ def main(argv=None) -> dict:
         raise RuntimeError(f"incomplete videos: {sorted(remaining)}")
     seconds = time.perf_counter() - t_start
     logger.info("labeled %d videos / %d frames in %d chunks of %d in %.2fs (%.1f frames/s); "
-                "decode %.2fs, waiting for slabs %.2fs",
+                "decode %.2fs, waiting for slabs %.2fs%s",
                 stats["videos"], stats["frames"], stats["chunks"], chunk, seconds,
-                stats["frames"] / max(seconds, 1e-9), decode_s, wait_s)
+                stats["frames"] / max(seconds, 1e-9), decode_s, wait_s,
+                f" [process {rank}/{n_proc}]" if multiproc else "")
+    # every shard's labels are on disk before any process (a chained
+    # stage-2 run) reads the directory
+    barrier("kpvid_labeler_done")
     return dict(stats, chunk=chunk, seconds=seconds, decode_seconds=decode_s,
                 wait_seconds=wait_s, out_dir=str(out_dir))
 

@@ -5,6 +5,7 @@ from .layers import (
     Dense,
     StackedLSTM,
     init_like_jax,
+    syncing_batch_stats,
     updating_batch_stats,
 )
 from .networks import (
@@ -33,5 +34,6 @@ __all__ = [
     "Stage1Generator",
     "Translator",
     "init_like_jax",
+    "syncing_batch_stats",
     "updating_batch_stats",
 ]

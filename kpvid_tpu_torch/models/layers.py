@@ -16,7 +16,10 @@ they are. Parity points:
   fast variance ``max(0, E[x^2] - E[x]^2)``, and, inside
   :func:`updating_batch_stats` only, moves the running statistics to
   ``0.999 old + 0.001 batch`` with that same biased variance (torch's
-  ``F.batch_norm`` would update with the unbiased one);
+  ``F.batch_norm`` would update with the unbiased one); inside
+  :func:`syncing_batch_stats` the batch statistics ``[E[x], E[x^2]]`` are
+  averaged over the process group first, differentiably (Flax's
+  ``axis_name``: sync-BN for the data-parallel step);
 - the LSTM gate order is i, j, f, o with ``sigmoid(f + 1.0)`` and an f32
   cell state: not ``nn.LSTM``'s layout. Its gates are computed as JAX's
   ``jnp.dot(..., preferred_element_type=float32)`` computes them: the
@@ -41,6 +44,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.resize import upsample2x
+from ..parallel.distributed import all_reduce_mean
 
 
 def _same_pads(size: int, kernel: int, stride: int) -> tuple[int, int]:
@@ -87,6 +91,7 @@ class BatchNorm(nn.Module):
         super().__init__()
         self.eps = eps
         self.update_stats = False  # set by updating_batch_stats
+        self.sync = False  # set by syncing_batch_stats
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
@@ -96,7 +101,10 @@ class BatchNorm(nn.Module):
         if train:
             xf = x.float()
             mean = xf.mean(dim=(0, 1, 2))
-            var = torch.clamp(torch.square(xf).mean(dim=(0, 1, 2)) - torch.square(mean), min=0.0)
+            mean_sq = torch.square(xf).mean(dim=(0, 1, 2))
+            if self.sync:
+                mean, mean_sq = all_reduce_mean(torch.stack([mean, mean_sq])).unbind(0)
+            var = torch.clamp(mean_sq - torch.square(mean), min=0.0)
             if self.update_stats:
                 with torch.no_grad():
                     m = self.MOMENTUM
@@ -122,6 +130,23 @@ def updating_batch_stats(model: nn.Module):
     finally:
         for bn in bns:
             bn.update_stats = False
+
+
+@contextlib.contextmanager
+def syncing_batch_stats(model: nn.Module, enabled: bool = True):
+    """Within the block (when ``enabled``), every train-mode BatchNorm of
+    ``model`` normalizes with the batch statistics averaged over the process
+    group: the data-parallel step's sync-BN. In the port every BatchNorm is
+    one of JAX's ``bn_axis`` sites: the stage-1 generator's image encoder,
+    pose encoder and translator."""
+    bns = [m for m in model.modules() if isinstance(m, BatchNorm)] if enabled else []
+    for bn in bns:
+        bn.sync = True
+    try:
+        yield
+    finally:
+        for bn in bns:
+            bn.sync = False
 
 
 class ConvBNReLU(nn.Module):

@@ -4,8 +4,10 @@ Copy of kpvid_tpu/ops/batching.py's ``pair_fns`` and ``resolve_pair_mode``:
 'concat' stacks the rows [a_0..a_B, b_0..b_B] (the reference's
 tf.concat), 'interleave' [a_0, b_0, a_1, b_1, ...]. Every consumer is
 row-independent, so both give the same rows. The JAX package picks
-'interleave' under a batch-sharded mesh; the port runs one card, so
-'auto' is 'concat'.
+'interleave' under a batch-sharded mesh, where one pair spans the devices.
+In the port every pair is rank-local (a process of the data-parallel step
+pairs its own rows, as inside JAX's shard_map step, which forces 'concat'),
+so 'auto' is 'concat' on one card and on many.
 """
 
 from __future__ import annotations
@@ -45,8 +47,8 @@ def pair_fns(mode: str):
 
 
 def resolve_pair_mode(mode: str) -> str:
-    """training.pair_batching: 'auto' is 'concat' on the port's one card;
-    explicit modes pass through."""
+    """training.pair_batching: 'auto' is 'concat' (every pair is
+    rank-local); explicit modes pass through."""
     if mode == "auto":
         return "concat"
     pair_fns(mode)  # validate

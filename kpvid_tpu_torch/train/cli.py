@@ -30,6 +30,22 @@ host from ``np.random.default_rng([seed, s])``, is the uninterrupted run's
 (stage 1 draws no noise); the CLI asks cuDNN for its deterministic
 algorithms, so that a resumed stage-1 run repeats the bits too. The trainer
 runs on the card and raises without one (``--device cpu`` runs on the CPU).
+
+Data parallelism, one process per card: launch N copies with the KPVID_*
+environment (``KPVID_COORDINATOR=host:port KPVID_NUM_PROCESSES=N
+KPVID_PROCESS_ID=i``) or under torchrun with ``KPVID_MULTIHOST=auto``
+(parallel/distributed.py). Every process builds the same replica from
+``training.seed`` (or the same ``ckpt-N``, read after a barrier), feeds its
+strided shard of the data, ``batch_size / N`` rows a step, and runs the
+data-parallel step (parallel/dp_step.py: gradients averaged in
+``training.dp_grad_dtype``, stage-1 sync-BN, stage 2's noise drawn for the
+global batch and sliced by rank). ``--mesh-data`` must equal N and
+``--mesh-model`` 1. Only the first process writes the synthetic tree,
+logs, metrics and checkpoints; the others wait at barriers. Image summaries
+are skipped, and every process sweeps the whole test split on its own
+(rank 0 logs it). A process group of one (the KPVID_* environment with
+N = 1) runs the same data-parallel step. With ``training.grad_accum`` K > 1
+the 'fused' step accumulates K micros of the local batch.
 """
 
 from __future__ import annotations
@@ -57,6 +73,12 @@ def build_parser() -> ArgumentParser:
                         help="skip the image summaries at summary_interval")
     parser.add_argument("--device", type=str, default="cuda",
                         help="'cuda' (default) or 'cpu'")
+    parser.add_argument("--mesh-data", type=int, default=None,
+                        help="size of the 'data' axis (overrides parallel.mesh_data; default: "
+                             "every process)")
+    parser.add_argument("--mesh-model", type=int, default=None,
+                        help="size of the 'model' axis (overrides parallel.mesh_model); "
+                             "tensor parallelism is not ported, so only 1")
     return parser
 
 
@@ -84,6 +106,21 @@ def vgg_params(config):
 def main(argv=None) -> dict:
     """Train; returns the trainer and the run's steps, last metrics and seconds."""
     args = build_parser().parse_args(argv)
+    # the process group first, on this rank's card: a no-op unless the
+    # KPVID_* environment asks for it
+    from ..parallel import (
+        barrier,
+        is_primary,
+        local_batch_size,
+        make_dp_reduce_step,
+        make_mesh,
+        maybe_initialize,
+        select_step,
+        world,
+    )
+
+    multiproc = maybe_initialize(args.device)
+    dp = torch.distributed.is_initialized()
     from ..checkpoint import AsyncCheckpointManager, latest_checkpoint, load_checkpoint
     from ..configs import load_config
     from ..data import HostDataPipeline, device_prefetch
@@ -97,14 +134,29 @@ def main(argv=None) -> dict:
     torch.backends.cudnn.deterministic = True
     config = load_config(args.config)
     t_cfg, m_cfg = config.training, config.model
+    p_cfg = config.parallel
+    n_model = args.mesh_model if args.mesh_model is not None else p_cfg.mesh_model
+    n_data = args.mesh_data if args.mesh_data is not None else p_cfg.mesh_data
+    mesh = make_mesh(n_data=n_data, n_model=n_model)
+    bs = t_cfg.batch_size
+    local_bs = local_batch_size(bs)
+    if t_cfg.grad_accum > 1 and local_bs % t_cfg.grad_accum:
+        raise ValueError(
+            f"per-shard batch ({bs}/{mesh.data}={local_bs}) must be divisible by "
+            f"grad_accum ({t_cfg.grad_accum}): accumulation splits each shard's rows"
+        )
+    rank, n_proc = world()
     data_dir = config.paths.data_dir
     stage1 = args.mode == "detector_translator"
     if args.synthetic:
         from ..data import make_synthetic_penn_tree, make_synthetic_pseudo_labels
 
-        make_synthetic_penn_tree(data_dir)
-        if not stage1:
-            make_synthetic_pseudo_labels(data_dir, n_pts=m_cfg.n_pts)
+        if is_primary():  # one writer on a shared filesystem
+            make_synthetic_penn_tree(data_dir)
+            if not stage1:
+                make_synthetic_pseudo_labels(data_dir, n_pts=m_cfg.n_pts)
+        barrier("kpvid_train_synthetic")
+    vgg = None
     if stage1:
         from ..data import ImagePairDataset
         from ..eval.visualize import stage1_summary_images
@@ -113,7 +165,7 @@ def main(argv=None) -> dict:
         train_ds, test_ds = (ImagePairDataset(data_dir, subset, image_size=m_cfg.image_size,
                                               native_ops=config.data.native_ops)
                              for subset in ("train", "test"))
-        trainer = Stage1Trainer(config, vgg_params(config), device=device)
+        vgg = vgg_params(config)
     else:
         from ..data import SequenceDataset
         from ..eval.visualize import stage2_summary_images
@@ -124,28 +176,39 @@ def main(argv=None) -> dict:
                   native_ops=config.data.native_ops)
         train_ds = SequenceDataset(data_dir, "train", **kw)
         test_ds = SequenceDataset(data_dir, "test", **kw)
-        trainer = Stage2Trainer(config, device=device)
+    mode = t_cfg.gan_step_mode
+    if dp:  # a process group, of one process or more: the data-parallel step
+        trainer, step_fn = make_dp_reduce_step(config, 1 if stage1 else 2, mesh, vgg,
+                                               device=device)
+        logger.info("data-parallel step on %d process(es), rank %d on %s, local batch %d, "
+                    "gradient all-reduce in %s", n_proc, rank, device, local_bs,
+                    t_cfg.dp_grad_dtype)
+    else:
+        trainer = (Stage1Trainer(config, vgg, device=device) if stage1
+                   else Stage2Trainer(config, device=device))
+        step_fn = select_step(trainer, mode, t_cfg.grad_accum)
     trainer.load_parameters(trainer.init_parameters(t_cfg.seed))
     ckpt_dir = Path(config.paths.log_dir) / args.mode
     if t_cfg.resume:
+        barrier("kpvid_train_restore")  # every rank reads the same ckpt-N
         latest = latest_checkpoint(ckpt_dir)
         if latest is not None:
             trainer.load_state_arrays(load_checkpoint(latest))
             logger.info("resumed from %s (step %d)", latest, trainer.step)
 
-    metric_logger = MetricLogger(config.paths.log_dir, args.mode)
-    ckpt_manager = AsyncCheckpointManager(config.paths.log_dir, args.mode,
-                                          keep=t_cfg.keep_checkpoints)
+    metric_logger = MetricLogger(config.paths.log_dir, args.mode, enabled=is_primary())
+    ckpt_manager = (AsyncCheckpointManager(config.paths.log_dir, args.mode,
+                                           keep=t_cfg.keep_checkpoints)
+                    if is_primary() else None)
     throughput = Throughput()
     n_steps = args.max_steps if args.max_steps is not None else t_cfg.n_steps
-    two_batch = t_cfg.gan_step_mode == "two_batch"
-    fused_dg = t_cfg.gan_step_mode == "fused_dg"
-    bs = t_cfg.batch_size
+    two_batch = mode == "two_batch"
+    fused_dg = mode == "fused_dg"
     start_step = trainer.step
     train_pipe = HostDataPipeline(
-        train_ds, bs, shuffle=True, repeat=True, num_workers=config.data.num_workers,
-        prefetch=config.data.prefetch, seed=t_cfg.seed,
-        start_sample=start_step * bs * (2 if two_batch else 1),
+        train_ds, local_bs, shuffle=True, repeat=True, num_workers=config.data.num_workers,
+        prefetch=config.data.prefetch, seed=t_cfg.seed, shard_id=rank, num_shards=n_proc,
+        start_sample=start_step * local_bs * (2 if two_batch else 1),
     )
     logger.info("training %s from step %d to %d on %s", args.mode, start_step, n_steps, device)
     colors = get_n_colors(m_cfg.n_pts)
@@ -153,17 +216,13 @@ def main(argv=None) -> dict:
     train_iter = device_prefetch(batches, device, size=config.data.prefetch)
 
     def train_step(step: int, batch: dict) -> dict:
+        step_batches = (batch, next(train_iter)) if two_batch else (batch,)
         if stage1:
-            if two_batch:
-                return trainer.train_step_two_batch(batch, next(train_iter))
-            return trainer.train_step_dg(batch) if fused_dg else trainer.train_step(batch)
-        vae = m_cfg.vae_dim
-        if two_batch or fused_dg:
-            noise_d, noise_g = step_noise(t_cfg.seed, step, 2, bs, vae)
-            if two_batch:
-                return trainer.train_step_two_batch(batch, next(train_iter), noise_d, noise_g)
-            return trainer.train_step_dg(batch, noise_d, noise_g)
-        return trainer.train_step(batch, step_noise(t_cfg.seed, step, 1, bs, vae)[0])
+            return step_fn(*step_batches)
+        # the global batch's noise on every rank; the trainer takes its rows
+        noise = step_noise(t_cfg.seed, step, 2 if two_batch or fused_dg else 1, bs,
+                           m_cfg.vae_dim)
+        return step_fn(*step_batches, *noise)
 
     def summary_images(step: int, batch: dict) -> dict:
         if stage1:
@@ -190,14 +249,19 @@ def main(argv=None) -> dict:
                 throughput.reset()
             if step % t_cfg.summary_interval == 0:
                 metric_logger.log_metrics("train", step, metrics)
-                if not args.no_images:
+                # (several processes: the summary's forward would run on one
+                # rank's rows alone; skipped, the scalars are still logged)
+                if not args.no_images and not multiproc:
                     metric_logger.log_images("train", step, summary_images(step, batch))
-            if step % t_cfg.checkpoint_interval == 0 and step > start_step:
+            if (step % t_cfg.checkpoint_interval == 0 and step > start_step
+                    and ckpt_manager is not None):
                 ckpt_manager.save(step, trainer.state_arrays())
             if step % t_cfg.test_interval == 0:
                 run_test_sweep(trainer, test_ds, config, step, metric_logger, stage1)
-        ckpt_manager.save(n_steps, trainer.state_arrays())
-        ckpt_manager.wait()
+        if ckpt_manager is not None:
+            ckpt_manager.save(n_steps, trainer.state_arrays())
+            ckpt_manager.wait()
+        barrier("kpvid_train_done")  # the checkpoints are on disk for every rank
     finally:
         train_iter.close()
         batches.close()
@@ -213,7 +277,9 @@ def run_test_sweep(trainer, test_ds, config, step: int, metric_logger,
                    stage1: bool = False) -> dict:
     """Eval metrics over the whole test split, weighted by the true example
     count of each batch (the ragged last one included); in stage 2 the noise
-    of batch k is default_rng([seed, step, 1, k])'s."""
+    of batch k is default_rng([seed, step, 1, k])'s. Under data parallelism
+    every process sweeps the whole split with no collective (the
+    single-process numbers), and the metric logger of rank 0 alone writes."""
     from ..data import HostDataPipeline
 
     t_cfg = config.training

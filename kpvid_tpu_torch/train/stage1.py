@@ -23,10 +23,21 @@ statistics move only in the generator's gradient pass (JAX keeps the
 mutated ``batch_stats`` of that pass alone). ``eval_step`` and
 ``visualize`` take moving-average BN or the batch's statistics as
 ``training.bn_eval_mode`` and ``summary_bn_mode`` say, and keep nothing.
+- ``train_step_accum`` ('fused' with ``training.grad_accum`` K > 1): K
+  micros of B/K rows, each generator loss against the discriminator before
+  the update and each discriminator loss against its micro's fake; the
+  summed gradients divided by K, one update each. Each micro normalizes
+  with its own batch statistics and the running statistics take the EMA K
+  times a step (the usual accumulation BN, as in JAX).
+
 Gradients are taken with ``torch.autograd.grad`` over one network's
 parameters. On the card the soft-argmax and the two Gaussian renders of the
-forward run their kernels, and their backwards run theirs. The JAX
-package's ``train_step_multi`` and ``train_step_accum`` are not ported yet.
+forward run their kernels, and their backwards run theirs. With
+``data_parallel`` (parallel/dp_step.py) the gradients and metrics are
+averaged over the process group, and every training forward of the generator
+(not ``eval_step`` or ``visualize``) runs sync-BN: its batch statistics are
+the mean over the ranks', as JAX's ``bn_axis``. The JAX package's
+``train_step_multi`` is not ported.
 
 The generator's arrays are keyed ``stage1.*``, as ``FinalGenerator`` names
 them, so a trainer checkpoint is also a stage-1 parameter file; the
@@ -41,7 +52,12 @@ from torch.utils.checkpoint import checkpoint
 from ..configs import Config
 from ..device import resolve_device, to_device
 from ..losses import discriminator_loss, generator_adv_loss, perceptual_loss, prepare_vgg19
-from ..models import ImageDiscriminator, Stage1Generator, updating_batch_stats
+from ..models import (
+    ImageDiscriminator,
+    Stage1Generator,
+    syncing_batch_stats,
+    updating_batch_stats,
+)
 from ..ops.batching import pair_fns, resolve_pair_mode
 from .state import GANTrainer
 
@@ -55,7 +71,8 @@ class Stage1Trainer(GANTrainer):
     G_PREFIX = "stage1"  # FinalGenerator's name for the stage-1 generator
     D_PREFIX = "image_discriminator"
 
-    def __init__(self, config: Config, vgg_params: dict, device: str | torch.device = "cuda"):
+    def __init__(self, config: Config, vgg_params: dict, device: str | torch.device = "cuda",
+                 data_parallel: bool = False):
         self.config = config
         self.device = resolve_device(device)
         m, t = config.model, config.training
@@ -65,7 +82,8 @@ class Stage1Trainer(GANTrainer):
         self._setup(Stage1Generator(m.n_pts, m.image_size, m.encoder_filters,
                                     m.translator_filters, m.pose_decoder_filters, self.dtype,
                                     m.heatmap_size, m.heatmap_inv_std, self.pair_mode),
-                    ImageDiscriminator(m.discriminator_filters, self.dtype), t.lr, self.device)
+                    ImageDiscriminator(m.discriminator_filters, self.dtype), config, self.device,
+                    data_parallel)
         self.vgg = prepare_vgg19(vgg_params, self.device)
         self.bn_eval_train = t.bn_eval_mode == "train"
         self.summary_train = t.summary_bn_mode == "train"
@@ -89,7 +107,7 @@ class Stage1Trainer(GANTrainer):
         """The generator's loss and its gradients against the discriminator
         as it is, the BN running statistics moved by this pass; returns
         (grads, detached prediction, metrics)."""
-        with updating_batch_stats(self.generator):
+        with updating_batch_stats(self.generator), self._sync_bn():
             out = self.generator(im, future_im, train=True)
         fake = out["final"]
         recon = self._recon(future_im, fake)
@@ -105,6 +123,10 @@ class Stage1Trainer(GANTrainer):
     def _d_logits(self, real: torch.Tensor, fake: torch.Tensor):
         """(real_logit, fake_logit) from one discriminator forward over the pair."""
         return self._unpair(self.discriminator(self._pair(real, fake)))
+
+    def _sync_bn(self):
+        """Sync-BN in the data-parallel step's training forwards."""
+        return syncing_batch_stats(self.generator, self.data_parallel)
 
     def d_grads(self, real: torch.Tensor, fake: torch.Tensor):
         """The discriminator's loss on (real, detached fake) and its gradients."""
@@ -122,9 +144,13 @@ class Stage1Trainer(GANTrainer):
         self._apply(self.d_opt, self._d_params, d_grads)
         return self._finish(d_metrics, g_metrics)
 
+    def train_step_accum(self, batch: dict) -> dict:
+        im, future_im = self._pair_of(batch)
+        return self._accumulate([((i, f), f) for i, f in self._micros(im, future_im)])
+
     def _d_then_g(self, batch_d: dict, batch_g: dict) -> dict:
         im_d, future_d = self._pair_of(batch_d)
-        with torch.no_grad():
+        with torch.no_grad(), self._sync_bn():
             fake_d = self.generator(im_d, future_d, train=True)["final"]
         d_grads, d_metrics = self.d_grads(future_d, fake_d)
         self._apply(self.d_opt, self._d_params, d_grads)

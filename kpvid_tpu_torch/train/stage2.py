@@ -17,13 +17,23 @@ and the CPU, and a resumed run, see the same noise. The GAN step modes:
   generator forward (``noise_d``), then the generator against the updated
   discriminator (``noise_g``);
 - ``train_step_two_batch`` ('two_batch'): as 'fused_dg', each update on a
-  batch of its own.
+  batch of its own;
+- ``train_step_accum`` ('fused' with ``training.grad_accum`` K > 1): the
+  noise is taken for the whole batch and split with it into K micros; each
+  generator loss against the discriminator before the update, each
+  discriminator loss against its micro's fake; the summed gradients divided
+  by K, one update each. With no BN this is the full-batch 'fused' step up
+  to float reassociation.
 
 Gradients are taken with ``torch.autograd.grad`` over one network's
 parameters, so the generator's backward through the discriminator leaves
-nothing in the discriminator's gradients. The JAX package's
-``train_step_multi`` (a scan of steps) and ``train_step_accum`` (gradient
-accumulation) are not ported yet.
+nothing in the discriminator's gradients. With ``data_parallel``
+(parallel/dp_step.py) the gradients and metrics are averaged over the
+process group, and each step's noise is the global batch's: every rank is
+handed the same [global batch, vae_dim] draw and takes rows
+``[rank * b, (rank + 1) * b)`` for its ``b`` local rows, so the pairing of
+noise and rows is the single-process step's. The JAX package's
+``train_step_multi`` (a scan of steps) is not ported.
 """
 
 from __future__ import annotations
@@ -45,7 +55,8 @@ class Stage2Trainer(GANTrainer):
     G_PREFIX = "stage2"
     D_PREFIX = "discriminator"
 
-    def __init__(self, config: Config, device: str | torch.device = "cuda"):
+    def __init__(self, config: Config, device: str | torch.device = "cuda",
+                 data_parallel: bool = False):
         self.config = config
         self.device = resolve_device(device)
         m = config.model
@@ -58,7 +69,7 @@ class Stage2Trainer(GANTrainer):
         self._setup(MotionGenerator(m.n_pts, m.n_action, m.n_future_frames, m.cell_info,
                                     m.vae_dim, self.dtype, encoder=True),
                     SeqDiscriminator(2 * m.n_pts, m.cell_info, self.dtype),
-                    config.training.lr, self.device)
+                    config, self.device, data_parallel)
         self.pair_mode = resolve_pair_mode(config.training.pair_batching)
         self._pair, self._unpair = pair_fns(self.pair_mode)
 
@@ -74,6 +85,14 @@ class Stage2Trainer(GANTrainer):
 
     def _noise(self, noise) -> torch.Tensor:
         return to_device(noise, self.device, torch.float32)
+
+    def _local_noise(self, noise, rows: int) -> torch.Tensor:
+        """This rank's rows of a train step's noise, drawn for the global
+        batch (``rows`` local rows on each of ``world`` ranks)."""
+        if noise.shape[0] != rows * self.world:
+            raise ValueError(f"step noise of {noise.shape[0]} rows for {rows} local rows on "
+                             f"{self.world} process(es): draw it for the global batch")
+        return self._noise(noise[self.rank * rows:(self.rank + 1) * rows])
 
     def g_grads(self, first_pt, real_seq, act, noise):
         """Generator loss and its gradients against the discriminator as it
@@ -103,20 +122,29 @@ class Stage2Trainer(GANTrainer):
     # ----------------------------------------------------------- train steps
     def train_step(self, batch: dict, noise) -> dict:
         first_pt, real_seq, act = self._flatten_batch(batch)
+        noise = self._local_noise(noise, first_pt.shape[0])
         g_grads, pred_seq, g_metrics = self.g_grads(first_pt, real_seq, act, noise)
         d_grads, d_metrics = self.d_grads(real_seq, pred_seq)
         self._apply(self.g_opt, self._g_params, g_grads)
         self._apply(self.d_opt, self._d_params, d_grads)
         return self._finish(d_metrics, g_metrics)
 
+    def train_step_accum(self, batch: dict, noise) -> dict:
+        first_pt, real_seq, act = self._flatten_batch(batch)
+        noise = self._local_noise(noise, first_pt.shape[0])
+        return self._accumulate([((f, r, a, n), r) for f, r, a, n
+                                 in self._micros(first_pt, real_seq, act, noise)])
+
     def _d_then_g(self, batch_d, batch_g, noise_d, noise_g) -> dict:
         first_d, real_d, act_d = self._flatten_batch(batch_d)
         with torch.no_grad():
-            pred_d, _, _ = self.generator(real_d, first_d, act_d, self._noise(noise_d))
+            pred_d, _, _ = self.generator(real_d, first_d, act_d,
+                                          self._local_noise(noise_d, first_d.shape[0]))
         d_grads, d_metrics = self.d_grads(real_d, pred_d)
         self._apply(self.d_opt, self._d_params, d_grads)
         first_g, real_g, act_g = self._flatten_batch(batch_g)
-        g_grads, _, g_metrics = self.g_grads(first_g, real_g, act_g, noise_g)
+        g_grads, _, g_metrics = self.g_grads(first_g, real_g, act_g,
+                                             self._local_noise(noise_g, first_g.shape[0]))
         self._apply(self.g_opt, self._g_params, g_grads)
         return self._finish(d_metrics, g_metrics)
 

@@ -18,7 +18,8 @@ The optimizer state is read and written as flat arrays
 checkpoint, so a resumed run continues with the same bits.
 :class:`GANTrainer` holds what both stages' trainers share: the two
 networks under one ``ModuleDict``, an Adam each, the step, the update with
-the schedule's rate and the checkpoint's arrays.
+the schedule's rate, the checkpoint's arrays, the data-parallel reductions
+(:func:`make_reduce_hooks`) and gradient accumulation.
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ from torch import nn
 
 from ..configs import LRConfig
 from ..models import init_like_jax
+from ..parallel import world
 
 ADAM_BETAS = (0.5, 0.999)
 ADAM_EPS = 1e-8
@@ -91,26 +93,75 @@ def load_optimizer_arrays(opt: torch.optim.Optimizer, names: list[str], prefix: 
         }
 
 
+def make_reduce_hooks(data_parallel: bool, grad_dtype: str):
+    """(reduce_grads, reduce_metrics) of the data-parallel step
+    (parallel/dp_step.py); identities when ``data_parallel`` is False.
+
+    reduce_grads takes one network's gradients (f32, as every parameter),
+    casts them to ``grad_dtype`` in one flat bucket, all-reduces it (sum)
+    over the process group, divides by the world size in that dtype and gives
+    the gradients back as f32 views of one buffer: JAX's
+    ``pmean(g.astype(rdt)).astype(g.dtype)``.
+    'bfloat16' is never done in f32: a backend that cannot sum bf16 fails.
+    reduce_metrics is the f32 mean over the ranks of the local batch means,
+    one all-reduce of the stacked scalars."""
+    if not data_parallel:
+        return (lambda grads: grads), (lambda metrics: metrics)
+    import torch.distributed as dist
+
+    rdt = torch.bfloat16 if grad_dtype == "bfloat16" else torch.float32
+
+    def reduce_grads(grads):
+        # one cast and one cast back for the whole bucket, and views of it
+        # for the gradients: a few host ops a tensor on a host-bound step
+        flat = torch.cat([g.reshape(-1) for g in grads]).to(rdt)
+        dist.all_reduce(flat)
+        flat = (flat / dist.get_world_size()).to(grads[0].dtype)
+        return [v.view_as(g) for v, g in zip(flat.split([g.numel() for g in grads]), grads)]
+
+    def reduce_metrics(metrics):
+        keys = list(metrics)
+        vals = torch.stack([torch.as_tensor(metrics[k]).float() for k in keys])
+        dist.all_reduce(vals)
+        return dict(zip(keys, (vals / dist.get_world_size()).unbind()))
+
+    return reduce_grads, reduce_metrics
+
+
+def _mean_metrics(history: list[dict]) -> dict:
+    return {k: torch.stack([m[k] for m in history]).mean() for k in history[0]}
+
+
 class GANTrainer:
     """A generator and a discriminator keyed ``G_PREFIX.*`` and
     ``D_PREFIX.*`` in ``self.model``, each with its own Adam; subclasses set
-    the prefixes and call :meth:`_setup` from their constructor."""
+    the prefixes and call :meth:`_setup` from their constructor.
+
+    With ``data_parallel`` each update's gradients are averaged over the
+    process group in ``training.dp_grad_dtype``, and the metrics in f32;
+    ``rank`` and ``world`` are this process's place in it."""
 
     G_PREFIX = ""
     D_PREFIX = ""
 
-    def _setup(self, generator: nn.Module, discriminator: nn.Module, lr_cfg: LRConfig,
-               device: torch.device) -> None:
+    def _setup(self, generator: nn.Module, discriminator: nn.Module, config,
+               device: torch.device, data_parallel: bool = False) -> None:
         self.generator = generator
         self.discriminator = discriminator
         self.model = nn.ModuleDict({self.G_PREFIX: generator, self.D_PREFIX: discriminator})
         self.model.to(device)
         self._g_names, self._g_params = map(list, zip(*generator.named_parameters()))
         self._d_names, self._d_params = map(list, zip(*discriminator.named_parameters()))
+        lr_cfg = config.training.lr
         self.g_opt = make_optimizer(self._g_params, lr_cfg)
         self.d_opt = make_optimizer(self._d_params, lr_cfg)
         self.lr_schedule = make_lr_schedule(lr_cfg)
         self.step = 0
+        self.data_parallel = data_parallel
+        self.grad_accum = config.training.grad_accum
+        self.rank, self.world = world() if data_parallel else (0, 1)
+        self._reduce_grads, self._reduce_metrics = make_reduce_hooks(
+            data_parallel, config.training.dp_grad_dtype)
 
     def init_parameters(self, seed: int) -> dict[str, torch.Tensor]:
         """Both networks' parameters (and BN statistics) with the JAX
@@ -137,6 +188,7 @@ class GANTrainer:
         self.step = int(arrays["step"])
 
     def _apply(self, opt, params, grads) -> None:
+        grads = self._reduce_grads(grads)
         lr = self.lr_schedule(self.step)  # optax: the count before this update
         for group in opt.param_groups:
             group["lr"] = lr
@@ -148,4 +200,32 @@ class GANTrainer:
 
     def _finish(self, d_metrics, g_metrics) -> dict:
         self.step += 1
-        return {**d_metrics, **g_metrics, "lr": self.lr_schedule(self.step)}
+        metrics = self._reduce_metrics({**d_metrics, **g_metrics})
+        return {**metrics, "lr": self.lr_schedule(self.step)}
+
+    def _micros(self, *xs: torch.Tensor) -> list[tuple]:
+        """The rows of a batch's arrays split into ``grad_accum`` micros."""
+        b = xs[0].shape[0]
+        if b % self.grad_accum:
+            raise ValueError(f"batch ({b} rows) must be divisible by grad_accum={self.grad_accum}")
+        return list(zip(*(x.split(b // self.grad_accum) for x in xs)))
+
+    def _accumulate(self, micros: list[tuple]) -> dict:
+        """One 'fused' update from micros of ``(generator args, real)``:
+        every micro's generator loss against the discriminator before the
+        update, every discriminator loss against that micro's fake; the
+        gradients summed, divided by the micro count, reduced once, then one
+        Adam update per network. The metrics are the micros' means."""
+        g_sum = d_sum = None
+        g_hist, d_hist = [], []
+        for g_args, real in micros:
+            g_grads, fake, g_metrics = self.g_grads(*g_args)
+            d_grads, d_metrics = self.d_grads(real, fake)
+            g_sum = list(g_grads) if g_sum is None else [a + g for a, g in zip(g_sum, g_grads)]
+            d_sum = list(d_grads) if d_sum is None else [a + g for a, g in zip(d_sum, d_grads)]
+            g_hist.append(g_metrics)
+            d_hist.append(d_metrics)
+        k = len(micros)
+        self._apply(self.g_opt, self._g_params, [a / k for a in g_sum])
+        self._apply(self.d_opt, self._d_params, [a / k for a in d_sum])
+        return self._finish(_mean_metrics(d_hist), _mean_metrics(g_hist))

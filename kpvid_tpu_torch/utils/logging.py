@@ -38,9 +38,13 @@ def _to_scalar(v):
 
 
 class MetricLogger:
-    def __init__(self, log_dir: str | Path, name: str):
+    def __init__(self, log_dir: str | Path, name: str, enabled: bool = True):
+        """enabled=False makes every method a no-op: the processes of a
+        data-parallel run other than the first write no logs."""
+        self.enabled = enabled
         self.root = Path(log_dir) / name
-        self.root.mkdir(parents=True, exist_ok=True)
+        if enabled:
+            self.root.mkdir(parents=True, exist_ok=True)
         self._files = {}
 
     def _jsonl(self, split: str):
@@ -49,6 +53,8 @@ class MetricLogger:
         return self._files[split]
 
     def log_metrics(self, split: str, step: int, metrics: dict) -> None:
+        if not self.enabled:
+            return
         scalars = {k: _to_scalar(v) for k, v in metrics.items()}
         scalars = {k: v for k, v in scalars.items() if v is not None}
         f = self._jsonl(split)
@@ -57,6 +63,8 @@ class MetricLogger:
 
     def log_console(self, step: int, loss_d: float, loss_g: float, examples_per_sec: float,
                     sec_per_batch: float, prefix: str = "") -> None:
+        if not self.enabled:
+            return
         logger.info(
             "%s%s: step %d, loss_D = %.4f, loss_G = %.4f (%.1f examples/sec) %.3f sec/batch",
             prefix, datetime.now(), step, loss_d, loss_g, examples_per_sec, sec_per_batch,
@@ -66,6 +74,8 @@ class MetricLogger:
                    max_outputs: int = 2) -> None:
         """images: name -> [B, H, W, C] float arrays in [-1, 1], [0, 1] or
         [0, 255], saved as PNGs."""
+        if not self.enabled:
+            return
         from PIL import Image
 
         out_dir = self.root / f"{split}_images"

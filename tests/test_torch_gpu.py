@@ -576,3 +576,74 @@ def test_artifact_runs_on_card_through_the_kernels(dev, tmp_path, traced_on):
         assert int(np.abs(got[key].astype(np.int16) - want[key].astype(np.int16)).max()) <= 1, key
     for key in ("current_points", "future_points"):
         np.testing.assert_allclose(got[key], want[key], rtol=1e-5, atol=1e-6, err_msg=key)
+
+
+@pytest.fixture
+def group_of_one(dev):
+    """This process alone in a process group on NCCL and the card, through
+    the KPVID_* contract; torn down after the test."""
+    import socket
+
+    import torch.distributed as dist
+
+    from kpvid_tpu_torch import parallel
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = {"KPVID_COORDINATOR": f"127.0.0.1:{port}", "KPVID_NUM_PROCESSES": "1",
+           "KPVID_PROCESS_ID": "0"}
+    with mock.patch.dict("os.environ", env):
+        assert parallel.maybe_initialize("cuda") is False  # one process
+    assert dist.get_backend() == "nccl"
+    yield
+    dist.destroy_process_group()
+
+
+def test_sync_batchnorm_on_card_matches_cpu(dev, group_of_one):
+    """Sync-BN at world size 1: its forward and its backward through the
+    differentiable all-reduce give the plain train-mode BN's bits on the
+    card, and the CPU's values (f32: rtol 1e-5, atol 1e-6), the moving
+    statistics included."""
+    from kpvid_tpu_torch.models import BatchNorm, syncing_batch_stats, updating_batch_stats
+
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(4, 8, 8, 16, generator=g) * 2 + 0.5
+    w = torch.randn(4, 8, 8, 16, generator=g)
+    state = {"weight": torch.rand(16, generator=g) + 0.5, "bias": torch.randn(16, generator=g),
+             "running_mean": torch.randn(16, generator=g),
+             "running_var": torch.rand(16, generator=g) + 0.5}
+
+    def run(device, sync):
+        bn = BatchNorm(16).to(device)
+        bn.load_state_dict(state)
+        xd = x.to(device).requires_grad_(True)
+        with updating_batch_stats(bn), syncing_batch_stats(bn, sync):
+            y = bn(xd, train=True)
+        gx, gw, gb = torch.autograd.grad((y * w.to(device)).sum(), (xd, bn.weight, bn.bias))
+        return [t.detach().cpu() for t in (y, gx, gw, gb, bn.running_mean, bn.running_var)]
+
+    synced, plain, cpu = run(dev, True), run(dev, False), run(torch.device("cpu"), False)
+    for a, b, c in zip(synced, plain, cpu):
+        assert torch.equal(a, b)
+        torch.testing.assert_close(a, c, rtol=1e-5, atol=1e-6)
+
+
+def test_bf16_bucket_reduce_on_card(dev, group_of_one):
+    """The data-parallel gradient reduction at world size 1 on NCCL: the bf16
+    bucket gives each gradient rounded to bf16 once (the sum over one rank
+    and the division by 1 are exact) and back in f32; the f32 bucket gives
+    the gradients' bits; the metrics come back as they went in."""
+    from kpvid_tpu_torch.train.state import make_reduce_hooks
+
+    g = torch.Generator().manual_seed(5)
+    grads = [torch.randn(shape, generator=g).to(dev) for shape in ((64, 3, 3, 3), (64,), (7, 1000))]
+    reduce16, reduce_metrics = make_reduce_hooks(True, "bfloat16")
+    reduce32, _ = make_reduce_hooks(True, "float32")
+    for got, want in zip(reduce16(grads), grads):
+        assert got.dtype == torch.float32 and got.shape == want.shape
+        assert torch.equal(got, want.to(torch.bfloat16).float())
+    assert all(torch.equal(a, b) for a, b in zip(reduce32(grads), grads))
+    metrics = {"loss_G": torch.tensor(1.25, device=dev), "loss_D": torch.tensor(0.5, device=dev)}
+    assert {k: float(v) for k, v in reduce_metrics(metrics).items()} == {"loss_G": 1.25,
+                                                                        "loss_D": 0.5}
