@@ -147,14 +147,36 @@ imports nothing of JAX or of the JAX package, and:
    the videos each) within 1e-5 of the one-process labels of the same
    checkpoint, one #3 a chunk; evaluate on the two ranks at batch 4 (one
    batch each, 8 / 2 / 1 / 4 launches) writes the one-process tree byte
-   for byte.
+   for byte;
+11. interop: (a) both stages' trainer weights at ``Config()`` from seed 0
+   (the generators with phase 3's randomized parameters, the stage-2
+   encoder and both discriminators the trainers' init), named and laid out
+   as the reference's TF1 checkpoints and written as two TF bundles by
+   ``write_tf_bundle`` below; ``python -m
+   kpvid_tpu_torch.import_tf1_checkpoint`` of each in a process of its own
+   with TensorFlow unimportable (stage 2 at ``--step 1000``): every mapped
+   tensor matched, none missing or mismatched; ``FinalGenerator`` on the two
+   imported checkpoints gives the bits of the seed-0 parameters loaded
+   directly, with 8 / 2 / 1 / 2 launches; 3 stage-2 steps of ``train.main``
+   from the imported ``ckpt-1000`` with finite losses, the first update at
+   ``lr(0)``. (b) 16 stage-1 steps of ``train.main`` with
+   ``data.decode_cache_mb`` 256, ``--profile-dir`` and (where
+   ``torch.utils.tensorboard`` imports) ``--tensorboard``, and the same 16
+   without them: the same bits in every array, 1 / 2 forward and 1 / 2
+   backward #3 / #4 a step; the trace of steps 10-14 holds the four
+   keypoint kernels; then the 16 steps in turns without the cache and with
+   it alone (plain, cached, cached, plain) for their wall times. It prints
+   the import seconds and bundle bytes, the cache's hits, misses and bytes,
+   and the host's seconds per sample without the cache and with it over
+   four blocks of fresh draws.
 
 It exits non-zero on any failed check, and without a CUDA device. The line
 before the last holds the kernels' JSON record (launches per generate, per
 served batch, per labeled chunk, per stage-1 and stage-2 train step and per
-evaluate batch, per artifact batch, per rank of a data-parallel stage-1 step
-and per stage-1 step at grad_accum 2; the backward kernels' ``launches`` are
-per stage-1 step),
+evaluate batch, per artifact batch, per rank of a data-parallel stage-1 step,
+per stage-1 step at grad_accum 2, per generate from the imported checkpoints
+and per stage-1 step with the frame cache; the backward kernels'
+``launches`` are per stage-1 step),
 the last line the device.
 """
 
@@ -194,6 +216,71 @@ def check(cond: bool, msg: str) -> None:
     if not cond:
         raise CheckFailed(msg)
     print(f"ok: {msg}", flush=True)
+
+
+def write_tf_bundle(prefix: str | Path, tensors: dict, big_endian: bool = False) -> int:
+    """A TensorFlow V2 tensor bundle ``prefix.index`` + ``prefix.data-00000-of-00001``
+    of ``tensors`` (name -> float32, float64, float16, int32 or int64 numpy
+    array), as ``tf.train.load_checkpoint`` reads it: the tensors' bytes in
+    one shard, and the index a LevelDB table of one data block (the header
+    under the key "", then each BundleEntryProto under its name), an empty
+    metaindex block and an index block, each with its masked crc32c, and the
+    48-byte footer (kpvid_tpu_torch/utils/tf_bundle.py reads the format).
+    The package reads bundles and never writes them. ``big_endian`` marks
+    the header so (the tensors stay little-endian), for the reader's refusal.
+    Returns the bytes written."""
+    import struct
+
+    from kpvid_tpu_torch.utils.tf_bundle import TABLE_MAGIC, crc32c, mask_crc
+
+    dtypes = {np.dtype("<f4"): 1, np.dtype("<f8"): 2, np.dtype("<i4"): 3, np.dtype("<i8"): 9,
+              np.dtype("<f2"): 19}
+
+    def varint(n: int) -> bytes:
+        out = bytearray()
+        while n >= 0x80:
+            out.append((n & 0x7F) | 0x80)
+            n >>= 7
+        return bytes(out + bytes([n]))
+
+    def f_varint(num: int, v: int) -> bytes:
+        return varint(num << 3) + varint(v)
+
+    def f_bytes(num: int, b: bytes) -> bytes:
+        return varint(num << 3 | 2) + varint(len(b)) + b
+
+    def block(items: list) -> bytes:
+        body = b"".join(varint(0) + varint(len(k)) + varint(len(v)) + k + v for k, v in items)
+        return body + struct.pack("<II", 0, 1)  # one restart point, at 0
+
+    def trailer(b: bytes) -> bytes:
+        return b"\x00" + struct.pack("<I", mask_crc(crc32c(b + b"\x00")))
+
+    prefix = str(prefix)
+    entries, offset = [], 0
+    with open(prefix + ".data-00000-of-00001", "wb") as f:
+        for name in sorted(tensors):
+            a = np.asarray(tensors[name])
+            a = a.astype(a.dtype.newbyteorder("<"), order="C")
+            raw = a.tobytes()
+            shape = b"".join(f_bytes(2, f_varint(1, d)) for d in a.shape)
+            entries.append((name.encode(), f_varint(1, dtypes[a.dtype]) + f_bytes(2, shape)
+                            + f_varint(4, offset) + f_varint(5, len(raw))
+                            + varint(6 << 3 | 5) + struct.pack("<I", mask_crc(crc32c(raw)))))
+            f.write(raw)
+            offset += len(raw)
+    # one shard, the endianness, version producer 1
+    header = f_varint(1, 1) + f_varint(2, int(big_endian)) + f_bytes(3, f_varint(1, 1))
+    data = block([(b"", header)] + sorted(entries))
+    meta = block([])
+    meta_at = len(data) + 5
+    index_at = meta_at + len(meta) + 5
+    index = block([(max(k for k, _ in entries), varint(0) + varint(len(data)))])
+    handles = varint(meta_at) + varint(len(meta)) + varint(index_at) + varint(len(index))
+    table = (data + trailer(data) + meta + trailer(meta) + index + trailer(index)
+             + handles.ljust(40, b"\x00") + struct.pack("<Q", TABLE_MAGIC))
+    Path(prefix + ".index").write_bytes(table)
+    return offset + len(table)
 
 
 def gpu_line() -> str:
@@ -1412,10 +1499,12 @@ EVAL_LAUNCHES = {"conv3x3_affine": 8, "up2_conv3_affine": 2, "pose_head": 1,
                  "gaussian_render": 4, "pose_head_backward": 0, "gaussian_render_backward": 0}
 
 
-def train_config(cfg, root: Path, name: str, log: str, **training) -> Path:
+def train_config(cfg, root: Path, name: str, log: str, data: dict | None = None,
+                 **training) -> Path:
     """A YAML (JSON is YAML) of ``cfg``'s model for the trainers on phase 6's
     tree, batch 16, a checkpoint every 20 steps, one summary and one test
-    sweep (at step 0), and no vgg19.npy (stage 1 synthesizes its weights)."""
+    sweep (at step 0), and no vgg19.npy (stage 1 synthesizes its weights);
+    ``data`` sets keys of the data section."""
     path = root / f"{name}.yaml"
     path.write_text(json.dumps({
         "paths": {"data_dir": str(root / "penn"), "log_dir": str(root / log),
@@ -1424,6 +1513,7 @@ def train_config(cfg, root: Path, name: str, log: str, **training) -> Path:
                      "checkpoint_interval": TRAIN_CKPT, "summary_interval": 1000,
                      "test_interval": 1000, "log_interval": 10, **training},
         "model": dataclasses.asdict(cfg.model),
+        "data": data or {},
     }))
     return path
 
@@ -2466,6 +2556,252 @@ def dp_phase(cfg, card: str, root: Path, base_step_ms: dict) -> dict:
     return rep
 
 
+# phase 11 (interop): what the subprocess that imports a TF1 bundle runs
+# first. TensorFlow is made unimportable (and its presence on the machine
+# printed); the import must not need it.
+NO_TF = ("import importlib.util, runpy, sys\n"
+         "print('tensorflow installed on this machine:', "
+         "importlib.util.find_spec('tensorflow') is not None, flush=True)\n"
+         "sys.modules['tensorflow'] = None\n"
+         "runpy.run_module('kpvid_tpu_torch.import_tf1_checkpoint', run_name='__main__', "
+         "alter_sys=True)\n"
+         "assert sys.modules['tensorflow'] is None\n")
+IMPORT_STEP = 1000
+CACHE_STEPS = 16
+CACHE_MB = 256
+CACHE_BLOCK = 256  # samples: one 16-step run at batch 16
+
+
+def tf1_bundles(cfg, params, root: Path) -> dict:
+    """Both stages' trainer weights from seed 0 at Config() (the generators'
+    parameters, BN statistics included, those of ``params``; the stage-2
+    encoder and both discriminators the trainers' init), named and laid out
+    as the reference's TF1 checkpoints, written as TF bundles. Returns per
+    stage the bundle's prefix, bytes, the mapped counts and the weights."""
+    from kpvid_tpu_torch.bridge import to_flax_layout
+    from kpvid_tpu_torch.losses import synthesize_vgg19_params
+    from kpvid_tpu_torch.train import Stage1Trainer, Stage2Trainer
+    from kpvid_tpu_torch.utils.tf1_import import map_names
+
+    out = {}
+    for stage, trainer in ((1, Stage1Trainer(cfg, synthesize_vgg19_params(max_width=8),
+                                             device="cpu")),
+                           (2, Stage2Trainer(cfg, device="cpu"))):
+        weights = trainer.init_parameters(0)
+        weights.update({k: v for k, v in params.items() if k in weights})
+        tensors, counts = {"global_step": np.asarray(200000, np.int64)}, {}
+        for part, prefix in (("", trainer.G_PREFIX), ("_discr", trainer.D_PREFIX)):
+            names = [k for k in weights if k.startswith(prefix + ".")]
+            mapping = map_names(names, f"stage{stage}{part}")
+            counts[part or "_gen"] = len(mapping)
+            tensors.update({tf: to_flax_layout(weights[k]) for k, tf in mapping.items()})
+        prefix = root / f"tf1_stage{stage}" / "model.ckpt-200000"
+        prefix.parent.mkdir()
+        t0 = time.perf_counter()
+        n_bytes = write_tf_bundle(prefix, tensors)
+        out[stage] = {"prefix": prefix, "bytes": n_bytes, "tensors": len(tensors),
+                      "generator": counts["_gen"], "discriminator": counts["_discr"],
+                      "write_s": time.perf_counter() - t0}
+    return out
+
+
+def import_tf1(stage: int, bundle: dict, conf: Path, log_dir: Path, step: int) -> dict:
+    """``python -m kpvid_tpu_torch.import_tf1_checkpoint`` in a process of
+    its own with TensorFlow unimportable; checks every mapped tensor matched."""
+    import re
+
+    args = ["--config", str(conf), "--stage", str(stage), "--tf-checkpoint",
+            str(bundle["prefix"]), "--log-dir", str(log_dir), "--step", str(step)]
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", NO_TF] + args, capture_output=True, text=True,
+                          timeout=600)
+    seconds = time.perf_counter() - t0
+    out = proc.stdout + proc.stderr
+    if proc.returncode:
+        print(out[-4000:], flush=True)
+    m = re.search(r"transcoded (\d+) generator \+ (\d+) discriminator", out)
+    tf_line = next((ln for ln in out.splitlines() if ln.startswith("tensorflow installed")), "")
+    matched = (int(m.group(1)), int(m.group(2))) if m else None
+    check(proc.returncode == 0 and matched == (bundle["generator"], bundle["discriminator"])
+          and "absent from checkpoint" not in out and "shape mismatch" not in out,
+          f"stage-{stage} TF1 import, TensorFlow unimportable ({tf_line}): matched "
+          f"{matched} of {bundle['generator']} generator + {bundle['discriminator']} "
+          f"discriminator tensors, none missing or mismatched, from a "
+          f"{bundle['bytes'] / 1e6:.1f} MB bundle in {seconds:.2f} s")
+    return {"seconds": seconds, "matched": matched, "missing": 0, "mismatched": 0,
+            "bundle_bytes": bundle["bytes"], "bundle_tensors": bundle["tensors"],
+            "bundle_write_s": bundle["write_s"], "tensorflow_line": tf_line}
+
+
+def sample_seconds(root: Path, image_size: int) -> dict:
+    """The host's seconds per stage-1 sample, one thread, with the cache over
+    four blocks of fresh draws (the hit rate of each), between two blocks
+    without it (before and after: the first block on a process pays for
+    what warms up)."""
+    from kpvid_tpu_torch.data import ImagePairDataset
+
+    def run(ds, block: int) -> float:
+        t0 = time.perf_counter()
+        for i in range(CACHE_BLOCK):
+            ds.sample(0, np.random.default_rng([7, block, i]))
+        return (time.perf_counter() - t0) / CACHE_BLOCK
+
+    plain = ImagePairDataset(str(root / "penn"), "train", image_size=image_size)
+    cached = ImagePairDataset(str(root / "penn"), "train", image_size=image_size,
+                              decode_cache_mb=CACHE_MB)
+    out = {"plain_s": [run(plain, 0)], "blocks": []}
+    for block in range(4):
+        before = cached.cache.stats()
+        secs = run(cached, block)
+        after = cached.cache.stats()
+        hits = after["hits"] - before["hits"]
+        out["blocks"].append({"s_per_sample": secs, "hit_rate": hits / (2 * CACHE_BLOCK)})
+    out["plain_s"].append(run(plain, 3))
+    out["cache"] = cached.cache.stats()
+    out["frames"] = sum(cached._n_frames(rel) for rel, _ in cached.videos)
+    return out
+
+
+def interop_phase(cfg, params, card: str, root: Path) -> dict:
+    """Phase 11: the TF1 import at Config() and stage 1's frame cache,
+    profiler and TensorBoard."""
+    import importlib
+
+    import torch
+
+    from kpvid_tpu_torch import ops
+    from kpvid_tpu_torch.checkpoint import load_checkpoint
+    from kpvid_tpu_torch.eval import FinalGenerator, request_z
+    from kpvid_tpu_torch.serve import load_generator_parameters
+    from kpvid_tpu_torch.train import main as train_main
+    from kpvid_tpu_torch.train.state import GANTrainer, make_lr_schedule
+
+    m = cfg.model
+    rep = {}
+    # (a) TF1 bundles -> the import CLI -> generate, and stage 2 trains on
+    bundles = tf1_bundles(cfg, params, root)
+    conf = train_config(cfg, root, "s2_import", "log_import")
+    for stage, step in ((1, 0), (2, IMPORT_STEP)):
+        rep[f"import_stage{stage}"] = import_tf1(stage, bundles[stage], conf,
+                                                 root / "log_import", step)
+    imported = root / "log_import"
+    gen = FinalGenerator(cfg, device="cuda")
+    gen.load_parameters(load_generator_parameters(
+        gen.model.state_dict(), str(imported / "detector_translator"),
+        str(imported / "motion_generator")))
+    direct = FinalGenerator(cfg, device="cuda")
+    direct.load_parameters(params)
+    rng = np.random.default_rng(4)
+    images = rng.uniform(-1, 1, (BATCH, m.image_size, m.image_size, 3)).astype(np.float32)
+    act = np.eye(m.n_action, dtype=np.float32)[[2, 4, 6, 8]]
+    z = np.stack([request_z(seed, m.vae_dim) for seed in (31, 32, 33, 34)])
+    want = direct.generate(images, act, z)
+    ops.reset_launch_counts()
+    got = gen.generate(images, act, z)
+    counts = ops.launch_counts()
+    same = [k for k in want if torch.equal(got[k], want[k])]
+    check(counts == EXPECTED_LAUNCHES and len(same) == len(want),
+          f"generate from the two imported checkpoints: the bits of the seed-0 parameters "
+          f"loaded directly in {len(same)} of {len(want)} outputs, launches {counts}")
+    rep["generate_launches"] = counts
+
+    rates = []
+    apply = GANTrainer._apply
+
+    def recording_apply(self, opt, params_, grads):
+        apply(self, opt, params_, grads)
+        rates.append(opt.param_groups[0]["lr"])
+
+    with mock.patch.object(GANTrainer, "_apply", recording_apply):
+        run = train_main(["--mode", "motion_generator", "--no-images", "--config", str(conf),
+                          "--max-steps", str(IMPORT_STEP + 3)])
+    lr = make_lr_schedule(cfg.training.lr)
+    arrays = load_checkpoint(imported / "motion_generator" / f"ckpt-{IMPORT_STEP + 3}")
+    check(run["start_step"] == IMPORT_STEP and int(arrays["step"]) == IMPORT_STEP + 3
+          and all(np.isfinite(v) for v in run["metrics"].values())
+          and rates[:2] == [lr(0), lr(0)] and rates[2:] == [lr(1), lr(1), lr(2), lr(2)]
+          and lr(0) != lr(IMPORT_STEP),
+          f"3 stage-2 steps from the imported ckpt-{IMPORT_STEP}: losses finite ("
+          + ", ".join(f"{k} {v:.4g}" for k, v in run["metrics"].items())
+          + f"); the first update's rate {rates[0]:.6g} = lr(0), not lr({IMPORT_STEP}) = "
+          f"{lr(IMPORT_STEP):.6g}")
+    rep["train_after_import"] = {"rates": rates, "metrics": run["metrics"]}
+
+    # (b) 16 stage-1 steps with the frame cache, the profiler and TensorBoard,
+    # and the same 16 without them
+    try:
+        importlib.import_module("torch.utils.tensorboard")
+        tensorboard = True
+    except ImportError as e:
+        tensorboard = False
+        print(f"torch.utils.tensorboard does not import here ({e}): the cached run goes "
+              "without --tensorboard", flush=True)
+    # then the same 16 steps with the cache alone and without it, in turns
+    # (plain, cached, cached, plain), for the wall times
+    runs, launches = {}, {}
+    cache = {"decode_cache_mb": CACHE_MB}
+    for name, data, flags in (
+            ("cached", cache,
+             ["--profile-dir", str(root / "prof")] + (["--tensorboard"] if tensorboard else [])),
+            ("plain", {}, []), ("cache_a", cache, []), ("cache_b", cache, []),
+            ("plain_b", {}, [])):
+        conf1 = train_config(cfg, root, f"s1_{name}", f"log_s1_{name}", data=data)
+        ops.reset_launch_counts()
+        runs[name] = train_main(["--mode", "detector_translator", "--no-images", "--max-steps",
+                                 str(CACHE_STEPS), "--config", str(conf1)] + flags)
+        launches[name] = ops.launch_counts()
+    want_counts = {k: c * CACHE_STEPS for k, c in S1_PER_STEP.items()}
+    want_counts["pose_head"] += 1  # the test sweep at step 0: one batch's forward
+    want_counts["gaussian_render"] += 2
+    a, b = (load_checkpoint(root / f"log_s1_{n}" / "detector_translator" / f"ckpt-{CACHE_STEPS}")
+            for n in ("cached", "plain"))
+    differ = [k for k in b if not np.array_equal(a.get(k), b[k])]
+    check(launches["cached"] == launches["plain"] == want_counts and sorted(a) == sorted(b)
+          and not differ,
+          f"{CACHE_STEPS} stage-1 steps with the frame cache ({CACHE_MB} MB), --profile-dir"
+          f"{' and --tensorboard' if tensorboard else ''} end with the plain run's bits in all "
+          f"{len(b)} arrays; launches {launches['cached']}: 1 / 2 forward and 1 / 2 backward "
+          "#3 / #4 a step, plus the test sweep's forward")
+    trace = runs["cached"]["profile_trace"]
+    events = json.loads(Path(trace).read_text())["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    ours = {k: sum(k in n for n in kernels) for k in
+            ("pose_head_kernel", "gaussian_render_kernel", "pose_head_backward_kernel",
+             "render_backward_kernel")}
+    check(all(ours.values()),
+          f"the profiler trace of steps 10-14 ({Path(trace).stat().st_size / 1e6:.1f} MB, "
+          f"{len(kernels)} kernel events) holds the kpvid kernels: {ours}")
+    tb_files = sorted((root / "log_s1_cached" / "detector_translator").glob("*/events.out*"))
+    if tensorboard:
+        check(len(tb_files) >= 2 and all(f.stat().st_size > 0 for f in tb_files),
+              f"--tensorboard wrote {len(tb_files)} event files (train and test)")
+    cache = runs["cached"]["frame_cache"]
+    walls = {n: runs[n]["seconds"] for n in ("plain", "cache_a", "cache_b", "plain_b")}
+    host = sample_seconds(root, m.image_size)
+    print(f"interop on {card}: imports {rep['import_stage1']['seconds']:.2f} s (stage 1, "
+          f"{bundles[1]['bytes'] / 1e6:.1f} MB) and {rep['import_stage2']['seconds']:.2f} s "
+          f"(stage 2, {bundles[2]['bytes'] / 1e6:.1f} MB); the 16-step cached run's cache: "
+          f"{cache} (hit rate {cache['hits'] / max(cache['hits'] + cache['misses'], 1):.3f}); "
+          f"16 steps (step 0's test sweep included) {runs['cached']['seconds']:.2f} s with the "
+          f"cache, profiler and TensorBoard; in turns "
+          + ", ".join(f"{n} {v:.2f} s" for n, v in walls.items())
+          + "; host s per sample, one thread: plain (before and after) "
+          + " / ".join(f"{1e3 * v:.3f}" for v in host["plain_s"]) + " ms, cached "
+          + ", ".join(f"block {i} {1e3 * blk['s_per_sample']:.3f} ms (hits "
+                      f"{blk['hit_rate']:.3f})" for i, blk in enumerate(host["blocks"]))
+          + f" over {host['frames']} frames; trace {Path(trace).stat().st_size} bytes; "
+          f"TensorBoard {'on' if tensorboard else 'off'}", flush=True)
+    rep.update({"stage1_cached": {"frame_cache": cache, "seconds": runs["cached"]["seconds"],
+                                  "seconds_in_turns": walls,
+                                  "launches_per_step": dict(S1_PER_STEP),
+                                  "trace_bytes": Path(trace).stat().st_size,
+                                  "trace_kernel_events": len(kernels), "trace_ours": ours,
+                                  "tensorboard": tensorboard,
+                                  "tensorboard_files": len(tb_files)},
+                "host_sample": host})
+    return rep
+
+
 KERNEL_META = {
     # the bf16 body the path runs; conv3x3.cu includes it and holds the f32 route
     "conv3x3_affine": ("cuda", "kpvid_tpu_torch/csrc/conv3x3_mma.cuh",
@@ -2524,6 +2860,7 @@ def main() -> int:
         train = train_phase(cfg, card, root)
         evaluation = evaluate_phase(cfg, card, root)
         dp = dp_phase(cfg, card, root, {1: stage1["step_ms"], 2: train["step_ms"]})
+        interop = interop_phase(cfg, params, card, root)
 
     kernels = []
     records.update(stage1.pop("kernels"))
@@ -2549,6 +2886,9 @@ def main() -> int:
                 "train_per_step": train["launches_per_step"][name],
                 "train_stage1_dp_per_step_per_rank": dp["launches_dp_per_step"][name],
                 "train_stage1_accum2_per_step": dp["launches_accum_per_step"][name],
+                "generate_from_imported": interop["generate_launches"][name],
+                "train_stage1_cached_per_step":
+                    interop["stage1_cached"]["launches_per_step"][name],
             },
         })
         if counts[name]:
@@ -2568,7 +2908,7 @@ def main() -> int:
                       "train": train, "evaluate": {k: v for k, v in evaluation.items()
                                                    if k != "render_128"},
                       "dp": {k: v for k, v in dp.items() if not k.startswith("launches_")},
-                      "card": card}))
+                      "interop": interop, "card": card}))
     print(gpu_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,12 +2,14 @@
 
 Counterpart of kpvid_tpu/configs/config.py: ModelConfig, ``paths.data_dir``,
 ``paths.vggnet`` and ``paths.log_dir``, the ``training`` fields of both
-trainers (with ``LRConfig``), the ``data`` fields of the pipelines, and
-``validate``'s checks of them. The YAML schema is the JAX package's: ``model`` and
-``training.lr`` keys are checked strictly; the sections and the ``paths``,
-``training``, ``data`` and ``parallel`` keys that the port does not read
-yet are accepted and left unread. ``validate`` refuses a 'model' mesh axis
-(tensor parallelism is not ported) rather than ignore it.
+trainers (with ``LRConfig``), the ``data`` fields of the pipelines (stage
+1's ``decode_cache_mb`` among them), ``parallel``, and ``validate``'s checks
+of them. The YAML schema is the JAX package's: ``model`` and ``training.lr``
+keys are checked strictly; of the other sections' keys, the one the port
+has no use for (``data.min_image_seq_len``, the reference's pad length,
+which the chunked labeler does not pad to) is accepted and left unread.
+``validate`` refuses a 'model' mesh axis (tensor parallelism is the next
+slice of the port) rather than ignore it.
 """
 
 from __future__ import annotations
@@ -42,6 +44,9 @@ class DataConfig:
     # HostDataPipeline worker threads; None -> min(12, 4 * cpu_count)
     num_workers: int | None = None
     prefetch: int = 2
+    # stage 1's decoded-frame LRU budget in MB (data/cache.py); 0 = off.
+    # Exact: it keeps the decoded RGB pixels
+    decode_cache_mb: float = 0.0
     sequence_len: int = 33
     eval_batch_size: int = 8
 

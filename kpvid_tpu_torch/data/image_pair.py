@@ -13,9 +13,10 @@ Copy of kpvid_tpu/data/image_pair.py: a split file
 - float32 images in [-1, 1].
 
 Every draw comes from the ``rng`` the pipeline passes, in JAX's order, so a
-seed gives the JAX package's bytes. JAX's decoded-frame cache
-(``data.decode_cache_mb``) is not ported: each sample decodes its two
-frames.
+seed gives the JAX package's bytes. With ``decode_cache_mb`` > 0 the
+decoded frames go through one :class:`FrameCache` that the pipeline's
+worker threads share (data/cache.py): the same bytes, with a hit's two
+JPEG decodes saved.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ import numpy as np
 from PIL import Image
 
 from . import augment
+from .cache import FrameCache
 
 
 def read_split(data_dir: str, subset: str) -> list[tuple[str, int]]:
@@ -48,7 +50,7 @@ def load_frame(data_dir: str, rel_path: str, idx: int) -> Image.Image:
 class ImagePairDataset:
     def __init__(self, data_dir: str, subset: str, image_size: int = 128,
                  augment_samples: bool | None = None, random_pairs: bool | None = None,
-                 native_ops: str = "auto"):
+                 decode_cache_mb: float = 0, native_ops: str = "auto"):
         self.data_dir = data_dir
         self.image_size = image_size
         self.videos = read_split(data_dir, subset)
@@ -56,6 +58,7 @@ class ImagePairDataset:
         self.augment_samples = is_train if augment_samples is None else augment_samples
         self.random_pairs = is_train if random_pairs is None else random_pairs
         self.ops = augment.resolve_frame_ops(native_ops)
+        self.cache = FrameCache(decode_cache_mb) if decode_cache_mb > 0 else None
         self._frame_counts: dict[str, int] = {}
         self._fc_lock = threading.Lock()
 
@@ -66,6 +69,11 @@ class ImagePairDataset:
             with self._fc_lock:
                 self._frame_counts[rel] = n
         return n
+
+    def _load(self, rel: str, t: int) -> Image.Image:
+        if self.cache is None:
+            return load_frame(self.data_dir, rel, t).convert("RGB")
+        return self.cache.get((rel, t), lambda: load_frame(self.data_dir, rel, t).convert("RGB"))
 
     def __len__(self) -> int:
         return len(self.videos)
@@ -83,8 +91,8 @@ class ImagePairDataset:
             t, t_future = 0, min(10, n_frames - 1)
 
         ops = self.ops
-        im = ops.prepare(load_frame(self.data_dir, rel, t).convert("RGB"))
-        fim = ops.prepare(load_frame(self.data_dir, rel, t_future).convert("RGB"))
+        im = ops.prepare(self._load(rel, t))
+        fim = ops.prepare(self._load(rel, t_future))
         size = self.image_size
         if self.augment_samples:
             angle = int(rng.integers(-10, 11))

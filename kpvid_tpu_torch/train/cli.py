@@ -30,6 +30,11 @@ host from ``np.random.default_rng([seed, s])``, is the uninterrupted run's
 (stage 1 draws no noise); the CLI asks cuDNN for its deterministic
 algorithms, so that a resumed stage-1 run repeats the bits too. The trainer
 runs on the card and raises without one (``--device cpu`` runs on the CPU).
+Stage 1's train split decodes through the frame cache when
+``data.decode_cache_mb`` > 0 (data/cache.py; the same bytes). As in JAX's
+``train.py``, ``--tensorboard`` also writes TensorBoard event files, and
+``--profile-dir`` a ``torch.profiler`` trace (the host's ops and, on the
+card, the kernels) of loop steps ``start + 10`` to ``start + 14``.
 
 Data parallelism, one process per card: launch N copies with the KPVID_*
 environment (``KPVID_COORDINATOR=host:port KPVID_NUM_PROCESSES=N
@@ -71,6 +76,10 @@ def build_parser() -> ArgumentParser:
                         help="stop after this step (overrides training.n_steps)")
     parser.add_argument("--no-images", action="store_true",
                         help="skip the image summaries at summary_interval")
+    parser.add_argument("--tensorboard", action="store_true",
+                        help="also write TensorBoard event files (JSONL metrics always on)")
+    parser.add_argument("--profile-dir", type=str, default=None,
+                        help="write a torch.profiler trace of steps 10-14 here")
     parser.add_argument("--device", type=str, default="cuda",
                         help="'cuda' (default) or 'cpu'")
     parser.add_argument("--mesh-data", type=int, default=None,
@@ -162,9 +171,11 @@ def main(argv=None) -> dict:
         from ..eval.visualize import stage1_summary_images
         from .stage1 import Stage1Trainer
 
-        train_ds, test_ds = (ImagePairDataset(data_dir, subset, image_size=m_cfg.image_size,
-                                              native_ops=config.data.native_ops)
-                             for subset in ("train", "test"))
+        train_ds = ImagePairDataset(data_dir, "train", image_size=m_cfg.image_size,
+                                    decode_cache_mb=config.data.decode_cache_mb,
+                                    native_ops=config.data.native_ops)
+        test_ds = ImagePairDataset(data_dir, "test", image_size=m_cfg.image_size,
+                                   native_ops=config.data.native_ops)
         vgg = vgg_params(config)
     else:
         from ..data import SequenceDataset
@@ -196,7 +207,8 @@ def main(argv=None) -> dict:
             trainer.load_state_arrays(load_checkpoint(latest))
             logger.info("resumed from %s (step %d)", latest, trainer.step)
 
-    metric_logger = MetricLogger(config.paths.log_dir, args.mode, enabled=is_primary())
+    metric_logger = MetricLogger(config.paths.log_dir, args.mode, tensorboard=args.tensorboard,
+                                 enabled=is_primary())
     ckpt_manager = (AsyncCheckpointManager(config.paths.log_dir, args.mode,
                                            keep=t_cfg.keep_checkpoints)
                     if is_primary() else None)
@@ -232,9 +244,17 @@ def main(argv=None) -> dict:
         return stage2_summary_images(trainer, batch, colors, noise)
 
     metrics = {}
+    profiler = trace = None
     t_start = time.perf_counter()
     try:
         for step in range(start_step, n_steps):
+            # JAX's window: loop steps start + 10 to start + 14
+            if args.profile_dir and step == start_step + 10:
+                profiler = start_profiler(device)
+            elif profiler is not None and step == start_step + 15:
+                trace, profiler = stop_profiler(profiler, device, args.profile_dir, args.mode,
+                                                rank), None
+                logger.info("profiler trace written to %s", args.profile_dir)
             t0 = time.perf_counter()
             batch = next(train_iter)
             metrics = train_step(step, batch)
@@ -263,14 +283,44 @@ def main(argv=None) -> dict:
             ckpt_manager.wait()
         barrier("kpvid_train_done")  # the checkpoints are on disk for every rank
     finally:
+        if profiler is not None:  # the run ended inside the window
+            trace = stop_profiler(profiler, device, args.profile_dir, args.mode, rank)
         train_iter.close()
         batches.close()
         metric_logger.close()
     seconds = time.perf_counter() - t_start
+    frame_cache = train_ds.cache.stats() if getattr(train_ds, "cache", None) else None
+    if frame_cache is not None:
+        logger.info("decoded-frame cache: %s", frame_cache)
     logger.info("done at step %d", n_steps)
     return {"trainer": trainer, "start_step": start_step, "end_step": n_steps,
             "metrics": {k: float(v) for k, v in metrics.items()}, "seconds": seconds,
-            "checkpoint_dir": str(ckpt_dir)}
+            "checkpoint_dir": str(ckpt_dir), "frame_cache": frame_cache, "profile_trace": trace}
+
+
+def start_profiler(device: torch.device):
+    """A running torch.profiler over the host's ops and, on the card, its
+    kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    prof = profile(activities=activities)
+    prof.__enter__()
+    return prof
+
+
+def stop_profiler(prof, device: torch.device, out_dir: str, mode: str, rank: int) -> Path:
+    """Stop ``prof`` once the card has run what it traced, and write its
+    Chrome trace ``{out_dir}/{mode}_rank{rank}.pt.trace.json``."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    prof.__exit__(None, None, None)
+    path = Path(out_dir) / f"{mode}_rank{rank}.pt.trace.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(path))
+    return path
 
 
 def run_test_sweep(trainer, test_ds, config, step: int, metric_logger,

@@ -7,7 +7,11 @@ Counterpart of kpvid_tpu/train/state.py:
   ``warmup_steps`` > 0. It is computed in float32 as optax computes it, so
   each step's rate is optax's value. optax applies ``schedule(count)`` with
   the count of updates made before this one: the first update uses
-  ``start_val * scale``;
+  ``start_val * scale``. That count is the optimizer's own (each
+  parameter's Adam ``step``, kept in the checkpoint), which equals the
+  trainer's ``step`` except after an import that starts a fresh Adam state
+  at a later step (``import_tf1_checkpoint --step``); the logged ``lr`` is
+  the schedule at the step, as JAX logs it;
 - the optimizer is ``torch.optim.Adam(b1=0.5, b2=0.999, eps=1e-8)``, no
   weight decay: m_hat / (sqrt(v_hat) + eps), as optax.adam with no
   ``eps_root``. One optimizer for the generator, one for the discriminator,
@@ -67,13 +71,23 @@ def make_optimizer(params, lr_cfg: LRConfig) -> torch.optim.Adam:
 def optimizer_arrays(opt: torch.optim.Optimizer, names: list[str],
                      prefix: str) -> dict[str, torch.Tensor]:
     """The optimizer's per-parameter state as ``{prefix}.{name}.{key}``
-    tensors (empty before the first update)."""
+    tensors; before the first update, a fresh Adam's (zero moments, step 0)."""
     params = opt.param_groups[0]["params"]
     out = {}
     for name, p in zip(names, params):
-        for key, val in opt.state.get(p, {}).items():
+        state = opt.state.get(p) or {"step": torch.tensor(0.0),
+                                     "exp_avg": torch.zeros_like(p.detach()),
+                                     "exp_avg_sq": torch.zeros_like(p.detach())}
+        for key, val in state.items():
             out[f"{prefix}.{name}.{key}"] = torch.as_tensor(val).detach()
     return out
+
+
+def update_count(opt: torch.optim.Optimizer) -> int:
+    """The updates ``opt`` has made: the step of its first parameter's state
+    (every parameter's is the same), 0 before the first."""
+    state = opt.state.get(opt.param_groups[0]["params"][0])
+    return int(state["step"]) if state else 0
 
 
 def load_optimizer_arrays(opt: torch.optim.Optimizer, names: list[str], prefix: str,
@@ -189,7 +203,10 @@ class GANTrainer:
 
     def _apply(self, opt, params, grads) -> None:
         grads = self._reduce_grads(grads)
-        lr = self.lr_schedule(self.step)  # optax: the count before this update
+        # optax: the schedule at its own count of updates made before this
+        # one, not at the train step; the two part after a TF1 import, which
+        # writes the step with a fresh Adam state
+        lr = self.lr_schedule(update_count(opt))
         for group in opt.param_groups:
             group["lr"] = lr
         for p, g in zip(params, grads):

@@ -3,8 +3,12 @@
 Copies of kpvid_tpu/utils/logging.py: one JSONL file of scalar metrics per
 split (``{log_dir}/{name}/{split}_metrics.jsonl``), image summaries as PNGs
 under ``{log_dir}/{name}/{split}_images/``, and the console line
-``step N, loss_D = x, loss_G = y (E examples/sec) S sec/batch``. The JAX
-package's optional TensorBoard writer is not copied.
+``step N, loss_D = x, loss_G = y (E examples/sec) S sec/batch``. With
+``tensorboard=True`` the scalars and the images also go to TensorBoard
+event files, one ``torch.utils.tensorboard.SummaryWriter`` per split under
+``{log_dir}/{name}/{split}/``; the writer's module is imported when the
+logger is made, so a run that asks for it and cannot import it fails at
+the start.
 """
 
 from __future__ import annotations
@@ -38,19 +42,34 @@ def _to_scalar(v):
 
 
 class MetricLogger:
-    def __init__(self, log_dir: str | Path, name: str, enabled: bool = True):
+    def __init__(self, log_dir: str | Path, name: str, tensorboard: bool = False,
+                 enabled: bool = True):
         """enabled=False makes every method a no-op: the processes of a
-        data-parallel run other than the first write no logs."""
+        data-parallel run other than the first write no logs (and open no
+        TensorBoard writer)."""
         self.enabled = enabled
         self.root = Path(log_dir) / name
         if enabled:
             self.root.mkdir(parents=True, exist_ok=True)
         self._files = {}
+        self._tb = {}
+        self._summary_writer = None
+        if tensorboard and enabled:
+            from torch.utils.tensorboard import SummaryWriter  # heavy: only when asked
+
+            self._summary_writer = SummaryWriter
 
     def _jsonl(self, split: str):
         if split not in self._files:
             self._files[split] = open(self.root / f"{split}_metrics.jsonl", "a")
         return self._files[split]
+
+    def _tb_writer(self, split: str):
+        if self._summary_writer is None:
+            return None
+        if split not in self._tb:
+            self._tb[split] = self._summary_writer(str(self.root / split))
+        return self._tb[split]
 
     def log_metrics(self, split: str, step: int, metrics: dict) -> None:
         if not self.enabled:
@@ -60,6 +79,10 @@ class MetricLogger:
         f = self._jsonl(split)
         f.write(json.dumps({"step": int(step), "time": time.time(), **scalars}) + "\n")
         f.flush()
+        tb = self._tb_writer(split)
+        if tb is not None:
+            for k, v in scalars.items():
+                tb.add_scalar(k, v, int(step))
 
     def log_console(self, step: int, loss_d: float, loss_g: float, examples_per_sec: float,
                     sec_per_batch: float, prefix: str = "") -> None:
@@ -73,13 +96,14 @@ class MetricLogger:
     def log_images(self, split: str, step: int, images: dict[str, np.ndarray],
                    max_outputs: int = 2) -> None:
         """images: name -> [B, H, W, C] float arrays in [-1, 1], [0, 1] or
-        [0, 255], saved as PNGs."""
+        [0, 255], saved as PNGs, and as TensorBoard images when it is on."""
         if not self.enabled:
             return
         from PIL import Image
 
         out_dir = self.root / f"{split}_images"
         out_dir.mkdir(exist_ok=True)
+        tb = self._tb_writer(split)
         for name, arr in images.items():
             arr = np.asarray(arr)[:max_outputs]
             for b in range(arr.shape[0]):
@@ -92,11 +116,17 @@ class MetricLogger:
                 if img.shape[-1] == 1:
                     img = img[..., 0]
                 Image.fromarray(img).save(out_dir / f"{name}_{step:08d}_{b}.png")
+                if tb is not None:
+                    hwc = img if img.ndim == 3 else img[..., None]
+                    tb.add_image(f"{name}/{b}", hwc, int(step), dataformats="HWC")
 
     def close(self) -> None:
         for f in self._files.values():
             f.close()
         self._files = {}
+        for tb in self._tb.values():
+            tb.close()
+        self._tb = {}
 
 
 class Throughput:

@@ -10,8 +10,9 @@ the package's import boundary, on the CPU.
   ``kpvid_tpu.utils.checkpoint.save_checkpoint``: the port's ``generate`` on
   the two files it writes matches the JAX package's at f32 (points atol
   1e-5, images atol 1e-4, the bounds of tests/test_torch_final.py);
-- no module of kpvid_tpu_torch imports JAX or kpvid_tpu, and the converter
-  is the one file outside the tests that imports both packages.
+- no module of kpvid_tpu_torch imports JAX, kpvid_tpu or TensorFlow, and
+  the two converters are the files outside the tests that import both
+  packages.
 """
 
 import ast
@@ -129,16 +130,19 @@ def _roots(names: set[str]) -> set[str]:
 
 def test_package_imports_neither_jax_nor_kpvid_tpu():
     """Every module of kpvid_tpu_torch, and chip_smoke.py: no import of JAX,
-    Flax, Orbax or kpvid_tpu. Outside tests/, the converter is the one file
-    that imports both packages."""
-    banned = {"jax", "jaxlib", "flax", "orbax", "optax", "kpvid_tpu"}
+    Flax, Orbax, kpvid_tpu or TensorFlow (the TF1 import reads bundles with
+    numpy). Outside tests/, the two converters are the files that import
+    both packages."""
+    banned = {"jax", "jaxlib", "flax", "orbax", "optax", "kpvid_tpu", "tensorflow"}
     modules = sorted((REPO / "kpvid_tpu_torch").rglob("*.py"))
     assert len(modules) >= 40
-    for new in ("losses/perceptual.py", "train/stage1.py", "data/image_pair.py"):
+    for new in ("losses/perceptual.py", "train/stage1.py", "data/image_pair.py",
+                "utils/tf_bundle.py", "utils/tf1_import.py", "import_tf1_checkpoint.py",
+                "data/cache.py"):
         assert REPO / "kpvid_tpu_torch" / new in modules
     for path in modules + [REPO / "chip_smoke.py"]:
         assert not _roots(_imports(path)) & banned, path
     scripts = sorted(REPO.glob("*.py")) + sorted((REPO / "tools").glob("*.py")) + modules
     both = [p.relative_to(REPO).as_posix() for p in scripts
             if {"kpvid_tpu", "kpvid_tpu_torch"} <= _roots(_imports(p))]
-    assert both == ["tools/export_torch_params.py"]
+    assert both == ["tools/export_jax_checkpoint.py", "tools/export_torch_params.py"]

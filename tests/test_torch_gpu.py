@@ -18,6 +18,10 @@ round an f32 value once, and where the two marginals' terms cancel the f32
 values differ by more than one step of their small sum); the points'
 gradient from a bf16 cotangent within 1e-4 of its largest magnitude.
 
+The generation parameters at Config() width, written as a TF1 bundle under
+the reference's names, are read onto the card by the port's bundle reader
+to the same bits (and generate the same bits).
+
 Each ``torch.ops.kpvid`` op passes ``torch.library.opcheck`` on CUDA tensors,
 and a serving artifact traced on the CPU or on the card runs on the card
 through the kernels: 8 / 2 / 1 / 2 launches a batch, the live engine's
@@ -326,6 +330,44 @@ def test_generate_on_card_matches_cpu(dev):
     want = cpu.generate(im, act, z)
     for key in ("current_points", "future_points", "pred_im_seq", "mask"):
         torch.testing.assert_close(got[key].cpu(), want[key], rtol=1e-4, atol=1e-4)
+
+
+def test_tf1_bundle_read_at_full_width_onto_the_card(dev, tmp_path):
+    """The generation parameters at Config() width, under the reference's
+    TF1 names and layouts in a bundle of chip_smoke.write_tf_bundle, read by
+    utils/tf_bundle.py (every tensor's crc32c checked) onto the card: every
+    mapped tensor matched, each the original's bits; generate from them
+    gives the directly loaded generator's bits."""
+    from chip_smoke import write_tf_bundle
+    from kpvid_tpu_torch.bridge import to_flax_layout
+    from kpvid_tpu_torch.utils.tf1_import import map_names, transcode_tf1_checkpoint
+
+    cfg = Config().validate()
+    direct = FinalGenerator(cfg, device="cuda")
+    params = direct.init_parameters(0)
+    direct.load_parameters(params)
+    tensors = {}
+    for stage in ("stage1", "stage2"):
+        mapping = map_names([k for k in params if k.startswith(stage + ".")], stage)
+        tensors.update({tf: to_flax_layout(params[k]) for k, tf in mapping.items()})
+    write_tf_bundle(tmp_path / "model.ckpt", tensors)
+    gen = FinalGenerator(cfg, device="cuda")
+    state = gen.model.state_dict()
+    for stage in ("stage1", "stage2"):
+        target = {k: v for k, v in state.items() if k.startswith(stage + ".")}
+        merged, report = transcode_tf1_checkpoint(str(tmp_path / "model.ckpt"), target, stage)
+        assert len(report["matched"]) == len(target)
+        assert not report["missing"] and not report["mismatched"]
+        for k, v in merged.items():
+            assert v.device.type == "cuda" and torch.equal(v.cpu(), params[k]), k
+        state.update(merged)
+    gen.load_parameters(state)
+    rng = np.random.default_rng(2)
+    im = rng.uniform(-1, 1, (2, 128, 128, 3)).astype(np.float32)
+    act = np.eye(cfg.model.n_action, dtype=np.float32)[[3, 5]]
+    z = np.stack([request_z(s, cfg.model.vae_dim) for s in (5, 6)])
+    got, want = gen.generate(im, act, z), direct.generate(im, act, z)
+    assert all(torch.equal(got[k], want[k]) for k in want)
 
 
 def test_generate_bf16_on_card_matches_plain(dev):

@@ -225,9 +225,9 @@ def test_config_copy_matches_jax():
 
 
 def test_config_paths_and_data_match_jax(tmp_path):
-    """paths.data_dir and data.{native_ops, labeler_chunk, synthetic}: the JAX
-    defaults, the same values from the same files, the same refusal of a bad
-    native_ops; keys the port does not read are accepted."""
+    """paths.data_dir and every data field the port reads: the JAX defaults,
+    the same values from the same files, the same refusal of a bad
+    native_ops; a key the port does not read is accepted."""
     from kpvid_tpu.configs.config import Config as JaxConfig
     from kpvid_tpu_torch.configs import DataConfig, PathsConfig
 
@@ -246,8 +246,11 @@ def test_config_paths_and_data_match_jax(tmp_path):
     with pytest.raises(ValueError) as err:
         load_config(bad)
     assert str(err.value) == str(jerr.value) == "data.native_ops must be auto|on|off, got 'maybe'"
-    bad.write_text("data: {native_ops: 'on', labeler_chunk: 64, decode_cache_mb: 8}\n")
-    assert load_config(bad).data == DataConfig(native_ops="on", labeler_chunk=64)
+    # decode_cache_mb is read (stage 1's frame cache); min_image_seq_len is not
+    bad.write_text("data: {native_ops: 'on', labeler_chunk: 64, decode_cache_mb: 8, "
+                   "min_image_seq_len: 99}\n")
+    assert load_config(bad).data == DataConfig(native_ops="on", labeler_chunk=64,
+                                               decode_cache_mb=8)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
