@@ -164,18 +164,42 @@ imports nothing of JAX or of the JAX package, and:
    ``torch.utils.tensorboard`` imports) ``--tensorboard``, and the same 16
    without them: the same bits in every array, 1 / 2 forward and 1 / 2
    backward #3 / #4 a step; the trace of steps 10-14 holds the four
-   keypoint kernels; then the 16 steps in turns without the cache and with
-   it alone (plain, cached, cached, plain) for their wall times. It prints
-   the import seconds and bundle bytes, the cache's hits, misses and bytes,
-   and the host's seconds per sample without the cache and with it over
-   four blocks of fresh draws.
+   keypoint kernels. It prints the import seconds and bundle bytes, the
+   cache's hits, misses and bytes, both 16-step walls, and the host's
+   seconds per sample without the cache and with it over two blocks of
+   fresh draws;
+12. tp_mesh: (a) tensor parallelism, two ranks (``chip_smoke.py
+   --tp-rank-worker``) sharing the card over gloo as a 1x2 mesh, one f32 step
+   of each stage at ``Config()`` on the same 16 rows against one process:
+   losses within rtol 1e-4, stage 2's parameters within 1e-5 (2.05 lr on
+   sign steps, where |g| is below 1e-5 of its tensor's max) and its
+   gradients within 1e-3 of each tensor's max, stage 1's gradients within
+   5% relative L2; both ranks hold the
+   same gathered bits and disjoint halves of the sharded arrays (parameters
+   and Adam moments) that join to the single-process layout; per rank the
+   launches (1 / 2 forward and 1 / 2 backward #3 / #4 in stage 1), the step
+   time against one process, the collectives of a step and the parameter and
+   Adam bytes; (b) ``train.main`` of stage 2 at ``--mesh-model 2`` for 3
+   steps, its full ``ckpt-3`` resumed in one process; (c) one process over
+   several replicas: the engine at batch 32 over the one device and over
+   the default device list (the bits of generate on the default stream)
+   and over two replicas on the card (each replica's rows generate's bits
+   at batch 16, the whole within the bucket bounds of batch 32), 8 / 2 / 1
+   / 2 launches per replica batch, timed; ``python -m
+   kpvid_tpu_torch.bench`` with and without ``--mesh`` (and over two
+   replicas); ``evaluate --mesh`` writes phase 9's tree byte for byte, and
+   over two replicas the same tree with each replica's point images written
+   after a spin kernel on its stream as without; ``serve --mesh`` in a process of its own answers 16
+   requests.
 
-It exits non-zero on any failed check, and without a CUDA device. The line
+It prints the seconds since the start at each phase. It exits non-zero on
+any failed check, and without a CUDA device. The line
 before the last holds the kernels' JSON record (launches per generate, per
 served batch, per labeled chunk, per stage-1 and stage-2 train step and per
 evaluate batch, per artifact batch, per rank of a data-parallel stage-1 step,
-per stage-1 step at grad_accum 2, per generate from the imported checkpoints
-and per stage-1 step with the frame cache; the backward kernels'
+per stage-1 step at grad_accum 2, per generate from the imported checkpoints,
+per stage-1 step with the frame cache, per rank of a 1x2 tensor-parallel
+stage-1 step and per replica batch of the mesh engine; the backward kernels'
 ``launches`` are per stage-1 step),
 the last line the device.
 """
@@ -1141,9 +1165,10 @@ def serve_phase(cfg, params, card: str) -> dict:
     for _ in range(3):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
-        start.record(engine.copy_stream)
-        rb = start_readback(quant, engine.copy_stream)
-        end.record(engine.copy_stream)
+        copy_stream = engine.mesh.replicas[0].copy_stream
+        start.record(copy_stream)
+        rb = start_readback(quant, copy_stream)
+        end.record(copy_stream)
         rb.wait()
         end.synchronize()
         times.append(start.elapsed_time(end))
@@ -1220,12 +1245,9 @@ def artifact_phase(cfg, params, card: str, root: Path) -> dict:
     import multiprocessing
 
     import torch
-    from PIL import Image
 
     from kpvid_tpu_torch import ops
-    from kpvid_tpu_torch.data.augment import resolve_frame_ops
     from kpvid_tpu_torch.eval import InferenceEngine, request_z
-    from kpvid_tpu_torch.eval import server as server_mod
     from kpvid_tpu_torch.eval.export import export_serving, load_serving
 
     m = cfg.model
@@ -1334,14 +1356,33 @@ def artifact_phase(cfg, params, card: str, root: Path) -> dict:
     del art
 
     # the daemon from the CPU-traced file, in a process of its own
+    report["serve"] = serve_daemon(["--artifact", str(paths["cpu"])], "serve --artifact", m,
+                                   ARTIFACT_BUCKETS, root, engine)
+    for path in paths.values():
+        path.unlink()
+    return report
+
+
+def serve_daemon(argv: list, what: str, m, buckets, root: Path, engine) -> dict:
+    """``python -m kpvid_tpu_torch.serve`` with ``argv`` on a free port in a
+    process of its own: /healthz once it is up, ARTIFACT_REQUESTS requests
+    from a spawned client, every npz checked, response 0 against ``engine``
+    at bucket 1; the process stopped before it returns."""
+    from PIL import Image
+
+    from kpvid_tpu_torch.data.augment import resolve_frame_ops
+    from kpvid_tpu_torch.eval import server as server_mod
+    from kpvid_tpu_torch.eval import request_z
+
+    s, t, k = m.image_size, m.n_future_frames, m.n_pts
     port = free_port()
     base = f"http://127.0.0.1:{port}"
-    log = (root / "serve_artifact.log").open("w")
+    log_path = root / f"{what.replace(' ', '_').replace('-', '')}.log"
+    log = log_path.open("w")
     t0 = time.perf_counter()
     daemon = subprocess.Popen(
-        [sys.executable, "-m", "kpvid_tpu_torch.serve", "--artifact", str(paths["cpu"]),
-         "--port", str(port)], cwd=Path(__file__).resolve().parent, stdout=log,
-        stderr=subprocess.STDOUT)
+        [sys.executable, "-m", "kpvid_tpu_torch.serve", *argv, "--port", str(port)],
+        cwd=Path(__file__).resolve().parent, stdout=log, stderr=subprocess.STDOUT)
     try:
         health = None
         while health is None and daemon.poll() is None and time.perf_counter() - t0 < 600:
@@ -1353,10 +1394,10 @@ def artifact_phase(cfg, params, card: str, root: Path) -> dict:
         up_s = time.perf_counter() - t0
         if health is None:
             log.flush()
-            print((root / "serve_artifact.log").read_text()[-4000:], flush=True)
+            print(log_path.read_text()[-4000:], flush=True)
         check(health == {"status": "ok", "image_size": s, "n_action": m.n_action,
-                         "n_future_frames": t, "buckets": list(ARTIFACT_BUCKETS)},
-              f"serve --artifact is up in {up_s:.1f} s (load and warm-up): /healthz {health}")
+                         "n_future_frames": t, "buckets": list(buckets)},
+              f"{what} is up in {up_s:.1f} s (load and warm-up): /healthz {health}")
         reqs = serve_traffic(m)[:ARTIFACT_REQUESTS]
         results, latency, wall = drive(base, reqs)
     finally:
@@ -1368,7 +1409,7 @@ def artifact_phase(cfg, params, card: str, root: Path) -> dict:
             daemon.wait()
         log.close()
     check(all(r is not None and r[0] == 200 for r in results),
-          f"serve --artifact answered all {len(reqs)} requests 200 in {wall:.2f} s")
+          f"{what} answered all {len(reqs)} requests 200 in {wall:.2f} s")
     first = None
     for i, (req, (_, ctype, body)) in enumerate(zip(reqs, results)):
         out = dict(np.load(io.BytesIO(body)))
@@ -1377,7 +1418,7 @@ def artifact_phase(cfg, params, card: str, root: Path) -> dict:
                 and out["mask"].shape == (t, s, s, 1) and out["current_points"].shape == (k, 2)
                 and out["future_points"].shape == (t, k, 2)
                 and np.isfinite(out["future_points"]).all() and int(out["seed"]) == req["seed"]):
-            raise CheckFailed(f"serve --artifact: request {i} has wrong outputs")
+            raise CheckFailed(f"{what}: request {i} has wrong outputs")
         if first is None:
             first = out
     image = server_mod.preprocess_image(Image.open(io.BytesIO(base64.b64decode(reqs[0]["image"]))),
@@ -1385,14 +1426,11 @@ def artifact_phase(cfg, params, card: str, root: Path) -> dict:
     want = engine.run(image[None], np.asarray([reqs[0]["action"]]),
                       request_z(reqs[0]["seed"], m.vae_dim)[None])
     errs = check_bucket_agreement(first, {x: v[0] for x, v in want.items()},
-                                  "serve --artifact response 0 vs InferenceEngine at bucket 1")
-    check(True, f"serve --artifact: every npz holds the contract; response 0 agrees with "
+                                  f"{what} response 0 vs InferenceEngine at bucket 1")
+    check(True, f"{what}: every npz holds the contract; response 0 agrees with "
                 f"InferenceEngine: {errs}")
-    report["serve"] = {"up_s": up_s, "wall_s": wall, "requests": len(reqs),
-                       "requests_per_s": len(reqs) / wall, "response0_vs_engine": errs}
-    for path in paths.values():
-        path.unlink()
-    return report
+    return {"up_s": up_s, "wall_s": wall, "requests": len(reqs),
+            "requests_per_s": len(reqs) / wall, "response0_vs_engine": errs}
 
 
 def label_phase(cfg, params, card: str, root: Path) -> dict:
@@ -2248,9 +2286,10 @@ def dp_rank_worker(job_path: str) -> int:
     return 0
 
 
-def spawn_dp_ranks(job: dict, out: Path, n: int = 2) -> list[dict]:
-    """``chip_smoke.py --dp-rank-worker`` twice through the KPVID_* contract,
-    sharing the card over gloo; both must exit 0 within the time limit."""
+def spawn_ranks(job: dict, out: Path, flag: str, n: int = 2) -> list[dict]:
+    """``chip_smoke.py {flag} job.json`` ``n`` times through the KPVID_*
+    contract, sharing the card over gloo; all must exit 0 within the time
+    limit."""
     import os
 
     out.mkdir(parents=True, exist_ok=True)
@@ -2264,7 +2303,7 @@ def spawn_dp_ranks(job: dict, out: Path, n: int = 2) -> list[dict]:
         logs.append(out / f"rank{pid}.log")
         with logs[-1].open("w") as f:
             procs.append(subprocess.Popen(
-                [sys.executable, str(Path(__file__).resolve()), "--dp-rank-worker",
+                [sys.executable, str(Path(__file__).resolve()), flag,
                  str(out / "job.json")], env=env, stdout=f, stderr=subprocess.STDOUT))
     deadline = time.monotonic() + DP_WORKER_TIMEOUT_S
     try:
@@ -2488,7 +2527,7 @@ def dp_phase(cfg, card: str, root: Path, base_step_ms: dict) -> dict:
                           str(root / "log_s1" / "detector_translator")],
            "evaluate_args": eval_args + ["--save_dir", str(root / "eval_dp2")]}
     t0 = time.perf_counter()
-    infos = spawn_dp_ranks(job, out)
+    infos = spawn_ranks(job, out, "--dp-rank-worker")
     spawn_s = time.perf_counter() - t0
     arrays = dict(np.load(out / "rank0.npz"))
     check([i["rank"] for i in infos] == [0, 1] and all(i["backend"] == "gloo" and i["world"] == 2
@@ -2500,12 +2539,7 @@ def dp_phase(cfg, card: str, root: Path, base_step_ms: dict) -> dict:
     check(all(i["s1_launches"] == S1_PER_STEP and i["s2_launches"] == NO_LAUNCHES for i in infos),
           f"each rank's stage-1 step launched {infos[0]['s1_launches']}")
     for stage in (2, 1):
-        t = (Stage1Trainer(cfg32, vgg, device=dev) if stage == 1
-             else Stage2Trainer(cfg32, device=dev))
-        t.load_parameters(t.init_parameters(1))
-        kept = keep_reduced_grads(t)
-        metrics = t.train_step(*step_args(stage, inputs, slice(0, DP_BATCH), dev))
-        want_g = {**kept[0], **kept[1]}
+        after, want_g, metrics, _ = one_process_step(cfg32, stage, vgg, inputs)
         got_g = {k[len(f"s{stage}_grad/"):]: torch.from_numpy(v) for k, v in arrays.items()
                  if k.startswith(f"s{stage}_grad/")}
         got_p = {k[len(f"s{stage}_after/"):]: torch.from_numpy(v) for k, v in arrays.items()
@@ -2516,15 +2550,13 @@ def dp_phase(cfg, card: str, root: Path, base_step_ms: dict) -> dict:
               f"stage {stage}, f32: 2 ranks x {DP_BATCH // 2} rows against one process at "
               f"{DP_BATCH}: losses within {STEP_LOSS_RTOL} (worst {loss_gap:.3e})")
         if stage == 2:
-            rep["two_ranks_s2"] = s2_params_agree(got_p, params_of(t), want_g, lr,
+            rep["two_ranks_s2"] = s2_params_agree(got_p, after, want_g, lr,
                                                   "stage 2, 2 ranks against one process")
         else:
             rep["two_ranks_s1_grad_l2"] = s1_grads_agree(got_g, want_g,
                                                          "stage 1, 2 ranks (sync-BN) against "
                                                          "one process")
         rep[f"two_ranks_s{stage}_loss_gap"] = loss_gap
-        del t
-        torch.cuda.empty_cache()
     rep["gloo_bf16"] = {w: infos[0][f"gloo_bf16_{w}"] for w in ("cuda", "cpu")}
     print(f"gloo's bf16 all-reduce: on the card {rep['gloo_bf16']['cuda']}; on the host "
           f"{rep['gloo_bf16']['cpu']}", flush=True)
@@ -2570,6 +2602,7 @@ IMPORT_STEP = 1000
 CACHE_STEPS = 16
 CACHE_MB = 256
 CACHE_BLOCK = 256  # samples: one 16-step run at batch 16
+CACHE_BLOCKS = 2  # four gave hit rates of 22 / 50 / 68 / 81% (PERF.md section 6)
 
 
 def tf1_bundles(cfg, params, root: Path) -> dict:
@@ -2635,9 +2668,9 @@ def import_tf1(stage: int, bundle: dict, conf: Path, log_dir: Path, step: int) -
 
 def sample_seconds(root: Path, image_size: int) -> dict:
     """The host's seconds per stage-1 sample, one thread, with the cache over
-    four blocks of fresh draws (the hit rate of each), between two blocks
-    without it (before and after: the first block on a process pays for
-    what warms up)."""
+    CACHE_BLOCKS blocks of fresh draws (the hit rate of each), between two
+    blocks without it (before and after: the first block on a process pays
+    for what warms up)."""
     from kpvid_tpu_torch.data import ImagePairDataset
 
     def run(ds, block: int) -> float:
@@ -2650,13 +2683,13 @@ def sample_seconds(root: Path, image_size: int) -> dict:
     cached = ImagePairDataset(str(root / "penn"), "train", image_size=image_size,
                               decode_cache_mb=CACHE_MB)
     out = {"plain_s": [run(plain, 0)], "blocks": []}
-    for block in range(4):
+    for block in range(CACHE_BLOCKS):
         before = cached.cache.stats()
         secs = run(cached, block)
         after = cached.cache.stats()
         hits = after["hits"] - before["hits"]
         out["blocks"].append({"s_per_sample": secs, "hit_rate": hits / (2 * CACHE_BLOCK)})
-    out["plain_s"].append(run(plain, 3))
+    out["plain_s"].append(run(plain, CACHE_BLOCKS - 1))
     out["cache"] = cached.cache.stats()
     out["frames"] = sum(cached._n_frames(rel) for rel, _ in cached.videos)
     return out
@@ -2736,15 +2769,13 @@ def interop_phase(cfg, params, card: str, root: Path) -> dict:
         tensorboard = False
         print(f"torch.utils.tensorboard does not import here ({e}): the cached run goes "
               "without --tensorboard", flush=True)
-    # then the same 16 steps with the cache alone and without it, in turns
-    # (plain, cached, cached, plain), for the wall times
+    # (the 16 steps with the cache alone and without it in turns showed that
+    # the cache does not move the wall, PERF.md section 6; no longer run)
     runs, launches = {}, {}
-    cache = {"decode_cache_mb": CACHE_MB}
     for name, data, flags in (
-            ("cached", cache,
+            ("cached", {"decode_cache_mb": CACHE_MB},
              ["--profile-dir", str(root / "prof")] + (["--tensorboard"] if tensorboard else [])),
-            ("plain", {}, []), ("cache_a", cache, []), ("cache_b", cache, []),
-            ("plain_b", {}, [])):
+            ("plain", {}, [])):
         conf1 = train_config(cfg, root, f"s1_{name}", f"log_s1_{name}", data=data)
         ops.reset_launch_counts()
         runs[name] = train_main(["--mode", "detector_translator", "--no-images", "--max-steps",
@@ -2776,15 +2807,14 @@ def interop_phase(cfg, params, card: str, root: Path) -> dict:
         check(len(tb_files) >= 2 and all(f.stat().st_size > 0 for f in tb_files),
               f"--tensorboard wrote {len(tb_files)} event files (train and test)")
     cache = runs["cached"]["frame_cache"]
-    walls = {n: runs[n]["seconds"] for n in ("plain", "cache_a", "cache_b", "plain_b")}
+    walls = {n: runs[n]["seconds"] for n in ("cached", "plain")}
     host = sample_seconds(root, m.image_size)
     print(f"interop on {card}: imports {rep['import_stage1']['seconds']:.2f} s (stage 1, "
           f"{bundles[1]['bytes'] / 1e6:.1f} MB) and {rep['import_stage2']['seconds']:.2f} s "
           f"(stage 2, {bundles[2]['bytes'] / 1e6:.1f} MB); the 16-step cached run's cache: "
           f"{cache} (hit rate {cache['hits'] / max(cache['hits'] + cache['misses'], 1):.3f}); "
           f"16 steps (step 0's test sweep included) {runs['cached']['seconds']:.2f} s with the "
-          f"cache, profiler and TensorBoard; in turns "
-          + ", ".join(f"{n} {v:.2f} s" for n, v in walls.items())
+          f"cache, profiler and TensorBoard, {walls['plain']:.2f} s without them"
           + "; host s per sample, one thread: plain (before and after) "
           + " / ".join(f"{1e3 * v:.3f}" for v in host["plain_s"]) + " ms, cached "
           + ", ".join(f"block {i} {1e3 * blk['s_per_sample']:.3f} ms (hits "
@@ -2792,13 +2822,434 @@ def interop_phase(cfg, params, card: str, root: Path) -> dict:
           + f" over {host['frames']} frames; trace {Path(trace).stat().st_size} bytes; "
           f"TensorBoard {'on' if tensorboard else 'off'}", flush=True)
     rep.update({"stage1_cached": {"frame_cache": cache, "seconds": runs["cached"]["seconds"],
-                                  "seconds_in_turns": walls,
+                                  "seconds_plain": walls["plain"],
                                   "launches_per_step": dict(S1_PER_STEP),
                                   "trace_bytes": Path(trace).stat().st_size,
                                   "trace_kernel_events": len(kernels), "trace_ours": ours,
                                   "tensorboard": tensorboard,
                                   "tensorboard_files": len(tb_files)},
                 "host_sample": host})
+    return rep
+
+
+# phase 12 (tp_mesh): tensor parallelism at 1x2 on the card, and one process
+# over several replicas (--mesh)
+TP_STEPS = 3  # the stage-2 CLI's steps at 1x2
+TP_TIMED = 3  # host-clock steps of each stage after the compared one (median)
+MESH_TIMED = 5  # host-clock runs of each engine at batch 32 (median)
+EVAL_DELAY_CYCLES = 200_000_000  # ~0.1 s of spinning on a replica's stream
+# stage 2 at 1x2: a first Adam step may turn over where |g| is below this
+# share of its tensor's max |g| (s2_tp_agree)
+TP_SIGN_STEP_REL = 1e-5
+
+
+def median_ms(fn, n: int) -> float:
+    """The median host-clock ms of ``n`` calls of ``fn``, each synchronised."""
+    import torch
+
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return float(np.median(times))
+
+
+def s2_tp_agree(got_p: dict, want_p: dict, got_g: dict, want_g: dict, lr: float,
+                what: str) -> dict:
+    """Stage 2 at 1x2 against one process: phase 10's rule with a sign-step
+    threshold relative to each tensor's largest gradient. Every parameter
+    within DP_S2_PARAM_ATOL, but where its first-step gradient is below
+    TP_SIGN_STEP_REL of its tensor's max |g|, within 2.05 lr: there the
+    first Adam step (lr * sign(g)) may turn over. The column-parallel LSTM
+    sums each cell step's input gradient from two partial products, so every
+    backward step of the recurrence rounds in another order than one product
+    does, and the encoder's ill-conditioned gradients carry it further than
+    the data-parallel step's one reduction: the turned-over steps lie above
+    phase 10's absolute 1e-6. Each gradient is also held within
+    STEP_GRAD_REL of its tensor's max |g| (phase 8's rule)."""
+    worst_p, beyond, worst_g, flip_g = 0.0, 0, {}, 0.0
+    for k, g in want_g.items():
+        diff = (got_p[k] - want_p[k]).abs()
+        worst_p = max(worst_p, float(diff.max()))
+        out = diff > DP_S2_PARAM_ATOL
+        beyond += int(out.sum())
+        gmax = max(float(g.abs().max()), 1e-30)
+        if bool(out.any()):
+            flip_g = max(flip_g, float(g.abs()[out].max()) / gmax)
+        sign = g.abs() < TP_SIGN_STEP_REL * gmax
+        if bool((out & ~sign).any()) or bool((diff[out] > 2.05 * lr).any()):
+            raise CheckFailed(f"{what}: {k} differs by {float(diff.max()):.3e}, beyond "
+                              f"{DP_S2_PARAM_ATOL} where |g| is not below {TP_SIGN_STEP_REL} of "
+                              "its tensor's max (or beyond 2.05 lr)")
+        worst_g[k] = float((got_g[k] - g).abs().max()) / gmax
+    k_g = max(worst_g, key=worst_g.get)
+    check(worst_g[k_g] <= STEP_GRAD_REL,
+          f"{what}: every parameter within {DP_S2_PARAM_ATOL} (worst {worst_p:.3e}); {beyond} "
+          f"elements beyond it, all sign steps within 2.05 lr at |g| below {TP_SIGN_STEP_REL} of "
+          f"their tensor's max (largest {flip_g:.3e}); each gradient within {STEP_GRAD_REL} of "
+          f"its max (worst {worst_g[k_g]:.3e}, {k_g})")
+    return {"worst": worst_p, "beyond": beyond, "beyond_max_grad_rel": flip_g,
+            "grad_rel": worst_g[k_g]}
+
+
+def tp_rank_worker(job_path: str) -> int:
+    """One rank of phase 12's 1x2 mesh, two ranks sharing the card over
+    gloo. For each stage: one f32 step at Config() on all 16 rows (the two
+    'model' ranks of the data coordinate see the same rows) from
+    ``init_parameters(1)``; each sharded array's local slice against its
+    slice of the gathered arrays; the rank's parameter and Adam bytes;
+    TP_TIMED timed steps and one profiled (the collectives). Then the
+    stage-2 CLI with --mesh-model 2. Rank 0 writes the gathered parameters
+    after the first step and the gathered gradients of its updates
+    (rank0.npz); each rank its record (rank{r}.json)."""
+    import hashlib
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from kpvid_tpu_torch import ops, parallel
+    from kpvid_tpu_torch.configs import Config
+    from kpvid_tpu_torch.losses import synthesize_vgg19_params
+    from kpvid_tpu_torch.train import main as train_main
+    from kpvid_tpu_torch.train.state import optimizer_arrays
+
+    job = json.loads(Path(job_path).read_text())
+    out = Path(job["out"])
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    parallel.maybe_initialize("cuda")
+    rank, world = parallel.world()
+    mesh = parallel.make_mesh(n_model=world)
+    cfg = Config().validate()
+    cfg32 = dataclasses.replace(cfg, training=dataclasses.replace(
+        cfg.training, compute_dtype="float32", batch_size=DP_BATCH))
+    inputs = {1: dict(np.load(job["s1_batch"])), 2: dict(np.load(job["s2_batch"]))}
+    inputs["noise"] = inputs[2].pop("noise")
+    arrays, info = {}, {"rank": rank, "world": world, "coords": [mesh.d, mesh.m]}
+    for stage in (2, 1):
+        vgg = synthesize_vgg19_params() if stage == 1 else None
+        trainer, step = parallel.make_dp_reduce_step(cfg32, stage, mesh, vgg)
+        trainer.load_parameters(trainer.init_parameters(1))
+        kept = keep_reduced_grads(trainer)
+        args = step_args(stage, inputs, slice(0, DP_BATCH), trainer.device)
+        ops.reset_launch_counts()
+        metrics = step(*args)
+        launches = ops.launch_counts()
+        full = {k: v.detach().cpu().clone() for k, v in trainer.state_arrays().items()}
+        grads = parallel.gather_state({**kept[0], **kept[1]}, trainer.param_rules,
+                                      trainer.shard)
+        local = {**trainer.model.state_dict(),
+                 **optimizer_arrays(trainer.g_opt, trainer._g_names, f"g_opt.{trainer.G_PREFIX}"),
+                 **optimizer_arrays(trainer.d_opt, trainer._d_names, f"d_opt.{trainer.D_PREFIX}")}
+        shards = {k: [mesh.m, list(local[k].shape), list(full[k].shape),
+                      bool(torch.equal(trainer.shard.local(full[k], dim), local[k].cpu()))]
+                  for k, dim in trainer.array_rules.items()}
+        names = list(trainer.model.state_dict())
+        moments = [k for k in local if k.endswith((".exp_avg", ".exp_avg_sq"))]
+        rec = {
+            "metrics": {k: float(v) for k, v in metrics.items()}, "launches": launches,
+            "shards": shards, "rules": len(trainer.array_rules),
+            "digest": hashlib.sha256(b"".join(full[k].numpy().tobytes()
+                                              for k in sorted(full))).hexdigest(),
+            "param_bytes": sum(4 * p.numel() for p in trainer.model.parameters()),
+            "adam_bytes": sum(4 * local[k].numel() for k in moments),
+            "param_bytes_full": sum(4 * full[k].numel() for k in names
+                                    if not k.endswith(("running_mean", "running_var"))),
+            "adam_bytes_full": sum(4 * full[k].numel() for k in moments),
+        }
+        rec["step_ms"] = median_ms(lambda: step(*args), TP_TIMED)
+        with profile(activities=[ProfilerActivity.CPU], record_shapes=True) as prof:
+            step(*args)
+            torch.cuda.synchronize()
+        inv = parallel.collective_inventory(prof)
+        rec["inventory"] = {"counts": inv.counts, "bytes": inv.bytes, "dtypes": inv.dtypes}
+        info[f"s{stage}"] = rec
+        if rank == 0:
+            arrays.update({f"s{stage}_after/{k}": full[k].float().numpy() for k in names})
+            arrays.update({f"s{stage}_grad/{k}": v.numpy() for k, v in grads.items()})
+        del trainer, step, kept, full, grads, local
+        torch.cuda.empty_cache()
+    ops.reset_launch_counts()
+    run = train_main(job["cli_args"])
+    info["cli"] = {"start_step": run["start_step"], "end_step": run["end_step"],
+                   "metrics": run["metrics"], "launches": ops.launch_counts(),
+                   "seconds": run["seconds"]}
+    np.savez(out / f"rank{rank}.npz", **arrays)
+    (out / f"rank{rank}.json").write_text(json.dumps(info))
+    return 0
+
+
+def one_process_step(cfg32, stage: int, vgg, inputs: dict, timed: int = 0):
+    """The single-process trainer's f32 step from ``init_parameters(1)`` on
+    the 16 rows: (parameters after it, its reduced gradients, metrics, the
+    median ms of ``timed`` more steps or None)."""
+    import torch
+
+    from kpvid_tpu_torch.train import Stage1Trainer, Stage2Trainer
+
+    dev = torch.device("cuda")
+    t = Stage1Trainer(cfg32, vgg, device=dev) if stage == 1 else Stage2Trainer(cfg32, device=dev)
+    t.load_parameters(t.init_parameters(1))
+    kept = keep_reduced_grads(t)
+    args = step_args(stage, inputs, slice(0, DP_BATCH), dev)
+    metrics = t.train_step(*args)
+    after = params_of(t)
+    ms = median_ms(lambda: t.train_step(*args), timed) if timed else None
+    del t
+    torch.cuda.empty_cache()
+    return after, {**kept[0], **kept[1]}, metrics, ms
+
+
+def tp_mesh_phase(cfg, params, card: str, root: Path) -> dict:
+    """Phase 12: tensor parallelism at 1x2 (two gloo ranks sharing the card)
+    against one process, the stage-2 CLI at 1x2 and its checkpoint resumed
+    in one process; then one process over several replicas: the mesh engine
+    over two replicas on the card and over the default list, bench with and
+    without --mesh, evaluate --mesh and serve --mesh."""
+    import shutil
+
+    import torch
+
+    from kpvid_tpu_torch import bench, evaluate, ops
+    from kpvid_tpu_torch.checkpoint import load_checkpoint
+    from kpvid_tpu_torch.eval import FinalGenerator, InferenceEngine
+    from kpvid_tpu_torch.eval import final as final_mod
+    from kpvid_tpu_torch.eval.server import one_hot, serve_outputs
+    from kpvid_tpu_torch.losses import synthesize_vgg19_params
+    from kpvid_tpu_torch.serve import load_generator_parameters
+    from kpvid_tpu_torch.train import main as train_main
+
+    m = cfg.model
+    lr = cfg.training.lr.start_val * cfg.training.lr.scale
+    rep = {}
+
+    # (a) two ranks at 1x2, one f32 step of each stage against one process
+    inputs = dp_inputs(cfg, root)
+    out = root / "tp_ranks"
+    out.mkdir()
+    np.savez(out / "s1_batch.npz", **inputs[1])
+    np.savez(out / "s2_batch.npz", **inputs[2], noise=inputs["noise"])
+    conf = train_config(cfg, root, "tp_s2", "log_tp")
+    job = {"s1_batch": str(out / "s1_batch.npz"), "s2_batch": str(out / "s2_batch.npz"),
+           "cli_args": ["--mode", "motion_generator", "--max-steps", str(TP_STEPS),
+                        "--no-images", "--mesh-model", "2", "--config", str(conf)]}
+    t0 = time.perf_counter()
+    infos = spawn_ranks(job, out, "--tp-rank-worker")
+    spawn_s = time.perf_counter() - t0
+    arrays = dict(np.load(out / "rank0.npz"))
+    check([i["coords"] for i in infos] == [[0, 0], [0, 1]]
+          and all(infos[0][f"s{st}"]["digest"] == infos[1][f"s{st}"]["digest"] for st in (1, 2)),
+          f"two ranks at 1x2 on the card over gloo ({spawn_s:.1f} s): mesh coordinates (0, 0) "
+          "and (0, 1); both end each step with the same bits in every gathered array")
+    cfg32 = dataclasses.replace(cfg, training=dataclasses.replace(
+        cfg.training, compute_dtype="float32", batch_size=DP_BATCH))
+    vgg = synthesize_vgg19_params()
+    for stage in (2, 1):
+        r0, r1 = (i[f"s{stage}"] for i in infos)
+        sh = {k: (r0["shards"][k], r1["shards"][k]) for k in r0["shards"]}
+        check(len(sh) == r0["rules"] == (12 if stage == 1 else 36)
+              and all(a[0] == 0 and b[0] == 1 and a[3] and b[3] and a[1] == b[1]
+                      and int(np.prod(a[1])) * 2 == int(np.prod(a[2])) for a, b in sh.values()),
+              f"stage {stage}: each rank holds its own half of the {len(sh)} sharded arrays "
+              "(parameters and Adam moments), and the halves join to the single-process layout")
+        want = {1: S1_PER_STEP, 2: NO_LAUNCHES}[stage]
+        check(r0["launches"] == r1["launches"] == want,
+              f"stage {stage}, each rank's step launched {r0['launches']}")
+        after, want_g, metrics, ms1 = one_process_step(cfg32, stage, vgg, inputs, TP_TIMED)
+        got_g = {k[len(f"s{stage}_grad/"):]: torch.from_numpy(v) for k, v in arrays.items()
+                 if k.startswith(f"s{stage}_grad/")}
+        got_p = {k[len(f"s{stage}_after/"):]: torch.from_numpy(v) for k, v in arrays.items()
+                 if k.startswith(f"s{stage}_after/")}
+        loss_gap = max(abs(r0["metrics"][k] - float(v)) / max(abs(float(v)), 1e-12)
+                       for k, v in metrics.items())
+        check(loss_gap <= STEP_LOSS_RTOL and sorted(got_p) == sorted(after),
+              f"stage {stage}, f32, 16 rows at 1x2 against one process: losses within "
+              f"{STEP_LOSS_RTOL} (worst {loss_gap:.3e})")
+        if stage == 2:
+            agree = s2_tp_agree(got_p, after, got_g, want_g, lr,
+                                "stage 2 at 1x2 against one process")
+        else:
+            agree = s1_grads_agree(got_g, want_g, "stage 1 at 1x2 against one process")
+        inv = [i[f"s{stage}"]["inventory"] for i in infos]
+        print(f"stage {stage} at 1x2, f32, batch {DP_BATCH} (host clock, synchronised, median of "
+              f"{TP_TIMED}): {r0['step_ms']:.2f} / {r1['step_ms']:.2f} ms a step on ranks 0 / 1 "
+              f"(gloo, sharing the card) against {ms1:.2f} ms in one process; collectives per "
+              f"step and rank: {inv[0]['counts']}, {sum(inv[0]['bytes'].values()) / 1e6:.3f} MB "
+              f"({inv[0]['bytes']}, dtypes {inv[0]['dtypes']}); a rank holds "
+              f"{r0['param_bytes'] / 1e6:.3f} MB of parameters and {r0['adam_bytes'] / 1e6:.3f} "
+              f"MB of Adam moments, against {r0['param_bytes_full'] / 1e6:.3f} MB and "
+              f"{r0['adam_bytes_full'] / 1e6:.3f} MB whole", flush=True)
+        rep[f"s{stage}"] = {"agree": agree, "loss_gap": loss_gap, "step_ms_ranks":
+                            [r0["step_ms"], r1["step_ms"]], "step_ms_one_process": ms1,
+                            "inventory_per_rank": inv[0], "launches_per_rank": r0["launches"],
+                            **{k: r0[k] for k in ("param_bytes", "adam_bytes", "param_bytes_full",
+                                                  "adam_bytes_full", "rules")}}
+    rep["launches_tp_per_step"] = infos[0]["s1"]["launches"]
+    rep["spawn_s"] = spawn_s
+
+    # (b) the stage-2 CLI at 1x2, its full ckpt-3 resumed in one process
+    cli = [i["cli"] for i in infos]
+    tp_dir = root / "log_tp" / "motion_generator"
+    ck = load_checkpoint(tp_dir / f"ckpt-{TP_STEPS}")
+    ref = load_checkpoint(root / "log_a" / "motion_generator" / f"ckpt-{TRAIN_STEPS}")
+    check(all(c["end_step"] == TP_STEPS and c["launches"] == NO_LAUNCHES
+              and all(np.isfinite(v) for v in c["metrics"].values()) for c in cli)
+          and sorted(ck) == sorted(ref) and all(ck[k].shape == ref[k].shape for k in ref)
+          and int(ck["step"]) == TP_STEPS,
+          f"the stage-2 CLI at 1x2 (--mesh-model 2, bf16, batch {TRAIN_BATCH}): {TP_STEPS} steps, "
+          "losses finite (" + ", ".join(f"{k} {v:.4g}" for k, v in cli[0]["metrics"].items())
+          + f"), no kernel launched on either rank; ckpt-{TP_STEPS} holds all {len(ck)} arrays "
+          f"at their full shapes ({cli[0]['seconds']:.1f} s)")
+    one_dir = root / "log_tp1" / "motion_generator"
+    one_dir.mkdir(parents=True)
+    shutil.copytree(tp_dir / f"ckpt-{TP_STEPS}", one_dir / f"ckpt-{TP_STEPS}")
+    run = train_main(["--mode", "motion_generator", "--max-steps", str(TP_STEPS + 1),
+                      "--no-images", "--config", str(train_config(cfg, root, "tp_s2_one",
+                                                                  "log_tp1"))])
+    after = load_checkpoint(one_dir / f"ckpt-{TP_STEPS + 1}")
+    check(run["start_step"] == TP_STEPS and int(after["step"]) == TP_STEPS + 1
+          and all(np.isfinite(v) for v in run["metrics"].values()),
+          f"the 1x2 ckpt-{TP_STEPS} resumed in one process: step {TP_STEPS} to {TP_STEPS + 1}, "
+          "losses finite")
+    rep["cli"] = {"metrics": cli[0]["metrics"], "seconds": [c["seconds"] for c in cli],
+                  "resumed_metrics": run["metrics"]}
+
+    # (c) one process over several replicas: the mesh engine at batch 32
+    dev = torch.device("cuda", 0)
+    b, half = BATCH_B32, BATCH_B32 // 2
+    rng = np.random.default_rng(6)
+    images = rng.uniform(-1, 1, (b, m.image_size, m.image_size, 3)).astype(np.float32)
+    actions = rng.integers(0, m.n_action, b)
+    z = rng.standard_normal((b, m.vae_dim)).astype(np.float32)
+    gen = FinalGenerator(cfg, device="cuda")
+    gen.load_parameters(params)
+
+    def direct(rows: slice) -> dict:
+        """generate on the default stream, read back there: no engine."""
+        return {k: v.cpu().numpy() for k, v in serve_outputs(gen.generate(
+            images[rows], one_hot(actions[rows], m.n_action), z[rows])).items()}
+
+    want = direct(slice(None))
+    halves = [direct(slice(i * half, (i + 1) * half)) for i in range(2)]
+    del gen
+    engines = {"one_engine": None, "default": final_mod.mesh_devices("cuda"),
+               "two_replicas": [dev, dev]}
+    mesh_rep = {}
+    for name, devices in engines.items():
+        eng = InferenceEngine(cfg, params, devices=devices)
+        eng.run(images, actions, z)  # warm-up: cuDNN's choices on the replicas' streams
+        ops.reset_launch_counts()
+        got = eng.run(images, actions, z)
+        counts = ops.launch_counts()
+        n = eng.n_data
+        where = "the one device" if devices is None else [str(d) for d in devices]
+        check(counts == {k: v * n for k, v in EXPECTED_LAUNCHES.items()},
+              f"engine over {where}: launches {counts}, 8 / 2 / 1 / 2 per replica batch of "
+              f"{b // n}")
+        if n == 1:
+            same = [k for k in want if np.array_equal(got[k], want[k])]
+            check(len(same) == len(want), f"engine over {where} ({n} replica): the bits of "
+                                          "generate on the default stream in "
+                                          f"{len(same)} of {len(want)} outputs")
+        else:
+            same = all(np.array_equal(got[k][i * half:(i + 1) * half], halves[i][k])
+                       for i in range(2) for k in want)
+            check(same, "mesh engine over two replicas on one card: each replica's 16 rows are "
+                        "generate's bits at batch 16")
+            mesh_rep["two_replicas_vs_batch32"] = check_bucket_agreement(
+                got, want, "two replicas against generate at batch 32")
+            check(True, f"two replicas against generate at batch 32 within the bucket bounds: "
+                        f"{mesh_rep['two_replicas_vs_batch32']}")
+        mesh_rep[f"{name}_ms"] = median_ms(lambda: eng.run(images, actions, z), MESH_TIMED)
+        mesh_rep[f"{name}_launches"] = counts
+        del eng
+    print(f"mesh engine, batch {b}, bf16 (host clock, synchronised, median of {MESH_TIMED}) on "
+          f"{card}: one engine {mesh_rep['one_engine_ms']:.2f} ms, mesh over the default list "
+          f"{mesh_rep['default_ms']:.2f} ms, two replicas on one card "
+          f"{mesh_rep['two_replicas_ms']:.2f} ms", flush=True)
+    rep["mesh"] = mesh_rep
+    rep["mesh_launches_per_replica"] = {k: v / 2 for k, v in
+                                        mesh_rep["two_replicas_launches"].items()}
+    del halves
+    torch.cuda.empty_cache()
+
+    # bench with and without --mesh (the default list), and --mesh over two replicas
+    benches = {"single": bench.main([]), "mesh": bench.main(["--mesh"])}
+    with mock.patch.object(final_mod, "mesh_devices", lambda device: [dev, dev]):
+        benches["mesh_two_replicas"] = bench.main(["--mesh"])
+    check(all(r["value"] > 0 and r["batch"] == BATCH_B32 for r in benches.values())
+          and benches["mesh"]["n_data"] == torch.cuda.device_count()
+          and benches["mesh_two_replicas"]["n_data"] == 2,
+          "python -m kpvid_tpu_torch.bench: " + ", ".join(
+              f"{k} {r['value']} frames/s ({r['n_data']} replica(s))" for k, r in benches.items()))
+    rep["bench"] = benches
+
+    # evaluate --mesh (the default list) writes phase 9's tree
+    ck2 = str(root / "log_a" / "motion_generator" / f"ckpt-{TRAIN_STEPS}")
+    s1_dir = str(root / "log_s1" / "detector_translator")
+    ops.reset_launch_counts()
+    stats = evaluate.main(["--config", str(root / "eval.yaml"), "--checkpoint_stage1", s1_dir,
+                           "--checkpoint_stage2", ck2, "--save_dir", str(root / "eval_mesh"),
+                           "--mesh"])
+    counts = ops.launch_counts()
+    got, want = tree_bytes(root / "eval_mesh"), tree_bytes(root / "eval_a")
+    check(stats["batches"] == 1 and counts == EVAL_LAUNCHES and sorted(got) == sorted(want)
+          and all(got[k] == want[k] for k in want),
+          f"evaluate --mesh over the default list writes phase 9's tree byte for byte "
+          f"({len(want)} PNGs), launches {counts}")
+    rep["evaluate_mesh_s"] = stats["seconds"]
+
+    # evaluate --mesh over two replicas on the card, with and without each
+    # replica's point images written after a spin kernel on its stream
+    # (after the host's last wait on that stream, the colors' copy): the
+    # replicas' streams do not wait for the default stream, so the trees
+    # agree only if each readback is queued on its replica's stream. A run
+    # with other latents between the two leaves other values in the blocks
+    # the delayed run's outputs reuse, so a readback that came too early
+    # would differ.
+    render = FinalGenerator.render_point_images
+
+    def delayed(self, *args):
+        out = render(self, *args)
+        torch.cuda._sleep(EVAL_DELAY_CYCLES)
+        return out.clone()
+
+    trees = {}
+    for name, seed, fn in (("eval_mesh2", 0, render), ("eval_mesh2_seed1", 1, render),
+                           ("eval_mesh2_delayed", 0, delayed)):
+        with mock.patch.object(final_mod, "mesh_devices", lambda device: [dev, dev]), \
+                mock.patch.object(FinalGenerator, "render_point_images", fn):
+            ops.reset_launch_counts()
+            stats = evaluate.main(["--config", str(root / "eval.yaml"), "--checkpoint_stage1",
+                                   s1_dir, "--checkpoint_stage2", ck2, "--save_dir",
+                                   str(root / name), "--seed", str(seed), "--mesh"])
+            counts = ops.launch_counts()
+        check(stats["batches"] == 1 and counts == {k: 2 * v for k, v in EVAL_LAUNCHES.items()},
+              f"evaluate --mesh over two replicas ({name}): launches {counts}, 8 / 2 / 1 / 4 per "
+              "replica batch of 4")
+        trees[name] = tree_bytes(root / name)
+    got, want = trees["eval_mesh2_delayed"], trees["eval_mesh2"]
+    other = sum(trees["eval_mesh2_seed1"][k] != want[k] for k in want)
+    check(other > 0 and sorted(got) == sorted(want) and all(got[k] == want[k] for k in want),
+          f"evaluate --mesh over two replicas with the point images written after a spin kernel "
+          f"of {EVAL_DELAY_CYCLES:,} cycles on each replica's stream writes the undelayed tree "
+          f"byte for byte ({len(want)} PNGs; "
+          f"the run with other latents between them differs in {other})")
+
+    # serve --mesh in a process of its own
+    gen = FinalGenerator(cfg, device="cpu")
+    engine = InferenceEngine(cfg, load_generator_parameters(gen.model.state_dict(), s1_dir, ck2),
+                             device="cuda")
+    rep["serve_mesh"] = serve_daemon(
+        ["--config", str(root / "eval.yaml"), "--checkpoint_stage1", s1_dir,
+         "--checkpoint_stage2", ck2, "--mesh", "--buckets", *map(str, ARTIFACT_BUCKETS)],
+        "serve --mesh", m, ARTIFACT_BUCKETS, root, engine)
+    print(f"tp_mesh on {card}: " + json.dumps({k: v for k, v in rep.items()
+                                               if not k.startswith("launches")}), flush=True)
     return rep
 
 
@@ -2826,6 +3277,8 @@ def main() -> int:
 
     if len(sys.argv) == 3 and sys.argv[1] == "--dp-rank-worker":
         return dp_rank_worker(sys.argv[2])
+    if len(sys.argv) == 3 and sys.argv[1] == "--tp-rank-worker":
+        return tp_rank_worker(sys.argv[2])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -2836,6 +3289,11 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     card = gpu_line()
     print(card, flush=True)
+    t_start = time.perf_counter()
+
+    def phase(name: str) -> None:
+        print(f"== {name}: {time.perf_counter() - t_start:.1f} s since the start", flush=True)
+
     build_s = _build.build_all()
     for src, log in _build.build_log.items():
         regs = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
@@ -2844,23 +3302,37 @@ def main() -> int:
     sass_phase()
 
     cfg = Config().validate()
+    phase("2 kernels")
     records = kernel_phase(cfg)
     per_bucket = bucket_kernel_phase(cfg)
     params = randomized_params(cfg, seed=0)
+    phase("3 slice")
     counts = slice_phase(cfg, params)
     f32_path_phase(cfg, params)
+    phase("4 throughput")
     fps = throughput_phase(cfg, params, card)
+    phase("5 serve")
     serve = serve_phase(cfg, params, card)
     with tempfile.TemporaryDirectory(prefix="kpvid_smoke_") as tmp:
         root = Path(tmp)
+        phase("5b artifact")
         artifact = artifact_phase(cfg, params, card, root)
+        phase("6 label")
         label = label_phase(cfg, params, card, root)
+        phase("7 stage 1")
         stage1 = stage1_phase(cfg, card, root)
         relabel = relabel_phase(cfg, root)
+        phase("8 train")
         train = train_phase(cfg, card, root)
+        phase("9 evaluate")
         evaluation = evaluate_phase(cfg, card, root)
+        phase("10 dp")
         dp = dp_phase(cfg, card, root, {1: stage1["step_ms"], 2: train["step_ms"]})
+        phase("11 interop")
         interop = interop_phase(cfg, params, card, root)
+        phase("12 tp_mesh")
+        tp = tp_mesh_phase(cfg, params, card, root)
+        phase("end")
 
     kernels = []
     records.update(stage1.pop("kernels"))
@@ -2889,6 +3361,8 @@ def main() -> int:
                 "generate_from_imported": interop["generate_launches"][name],
                 "train_stage1_cached_per_step":
                     interop["stage1_cached"]["launches_per_step"][name],
+                "train_stage1_tp_per_step_per_rank": tp["launches_tp_per_step"][name],
+                "generate_mesh_per_replica_batch": tp["mesh_launches_per_replica"][name],
             },
         })
         if counts[name]:
@@ -2908,7 +3382,9 @@ def main() -> int:
                       "train": train, "evaluate": {k: v for k, v in evaluation.items()
                                                    if k != "render_128"},
                       "dp": {k: v for k, v in dp.items() if not k.startswith("launches_")},
-                      "interop": interop, "card": card}))
+                      "interop": interop,
+                      "tp_mesh": {k: v for k, v in tp.items() if not k.startswith("launches")},
+                      "card": card, "seconds": time.perf_counter() - t_start}))
     print(gpu_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,8 +8,8 @@ of them. The YAML schema is the JAX package's: ``model`` and ``training.lr``
 keys are checked strictly; of the other sections' keys, the one the port
 has no use for (``data.min_image_seq_len``, the reference's pad length,
 which the chunked labeler does not pad to) is accepted and left unread.
-``validate`` refuses a 'model' mesh axis (tensor parallelism is the next
-slice of the port) rather than ignore it.
+``parallel`` lays the run's processes out as a ('data', 'model') mesh
+(parallel/mesh.py); ``validate`` takes JAX's checks of it.
 """
 
 from __future__ import annotations
@@ -114,9 +114,10 @@ class ModelConfig:
 class ParallelConfig:
     # processes whose gradients are averaged; None = all of them
     mesh_data: int | None = None
-    # tensor parallelism: validate() refuses anything but 1
+    # tensor parallelism: processes that share each data coordinate's rows
+    # and hold the shards of the wide arrays (parallel/sharding.py)
     mesh_model: int = 1
-    # read, and unused until tensor parallelism is ported
+    # narrower arrays stay replicated
     min_shard_dim: int = 1024
 
 
@@ -191,11 +192,6 @@ class Config:
         p = self.parallel
         if p.mesh_model < 1 or (p.mesh_data is not None and p.mesh_data < 1):
             raise ValueError("parallel.mesh_data/mesh_model must be >= 1")
-        if p.mesh_model != 1:
-            raise ValueError(
-                f"parallel.mesh_model={p.mesh_model}: tensor parallelism is not ported "
-                "yet (ROADMAP section 1, 'Multi-GPU, the rest'); the port is pure DP"
-            )
         return self
 
 

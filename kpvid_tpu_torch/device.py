@@ -12,6 +12,9 @@
   handing a result's memory to later work while the copy still reads it.
   The pinned buffers come from PyTorch's caching host allocator, which does
   not reuse a block until the copies that used it are done.
+  Given ``host`` buffers, the copy lands there (a mesh's replicas each
+  into their rows of one batch's buffers: :class:`JoinedReadback`, with no
+  join on the host).
 """
 
 from __future__ import annotations
@@ -65,22 +68,43 @@ class Readback:
         return {k: v.numpy() for k, v in self.host.items()}
 
 
-def start_readback(tensors: dict[str, torch.Tensor],
-                   copy_stream: torch.cuda.Stream | None) -> Readback:
+@dataclasses.dataclass
+class JoinedReadback:
+    """A batch read back in row blocks (one per replica of a mesh), each
+    block copied into its rows of ``host``."""
+
+    host: dict[str, torch.Tensor]
+    parts: list[Readback]
+
+    def wait(self) -> dict[str, np.ndarray]:
+        for p in self.parts:
+            p.wait()
+        return {k: v.numpy() for k, v in self.host.items()}
+
+
+def start_readback(tensors: dict[str, torch.Tensor], copy_stream: torch.cuda.Stream | None,
+                   host: dict[str, torch.Tensor] | None = None) -> Readback:
     """Start copying ``tensors`` to the host on ``copy_stream`` and return
-    without waiting. Tensors on the CPU are returned as they are."""
+    without waiting; into ``host``'s tensors when given (pinned for a card's
+    copy), else into new pinned buffers. Tensors on the CPU are returned as
+    they are, or copied into ``host``."""
     if next(iter(tensors.values())).device.type != "cuda":
-        return Readback({k: v.detach() for k, v in tensors.items()}, None)
+        if host is None:
+            return Readback({k: v.detach() for k, v in tensors.items()}, None)
+        for key, val in tensors.items():
+            host[key].copy_(val)
+        return Readback(host, None)
     queued = torch.cuda.Event()
     queued.record()
     copy_stream.wait_event(queued)
-    host = {}
+    out = {}
     with torch.cuda.stream(copy_stream):
         for key, val in tensors.items():
-            buf = torch.empty(val.shape, dtype=val.dtype, pin_memory=True)
+            buf = (host[key] if host is not None
+                   else torch.empty(val.shape, dtype=val.dtype, pin_memory=True))
             buf.copy_(val, non_blocking=True)
             val.record_stream(copy_stream)
-            host[key] = buf
+            out[key] = buf
         done = torch.cuda.Event(blocking=True)
         done.record(copy_stream)
-    return Readback(host, done)
+    return Readback(out, done)

@@ -16,9 +16,18 @@ resolution (gaussian_render again, at 128^2).
 
 The entry point runs on the card by default and raises where there is none;
 pass ``device="cpu"`` to run the plain versions on the CPU.
+
+:class:`GeneratorMesh` is one process over several devices, the JAX CLIs'
+``--mesh``: a pure 'data' mesh over a device list (``make_mesh(devices=...)``),
+the parameters replicated on each device and a batch's rows split evenly
+between them. The engine, evaluate and bench always generate through one;
+without ``--mesh`` its list is the one device.
 """
 
 from __future__ import annotations
+
+import contextlib
+import dataclasses
 
 import numpy as np
 import torch
@@ -167,3 +176,95 @@ class FinalGenerator:
                                self.config.model.heatmap_inv_std, grid_dtype=mu.dtype,
                                out_dtype=mu.dtype)
         return colorize_point_maps(maps, colors)
+
+
+def mesh_devices(device: str | torch.device = "cuda") -> list[torch.device]:
+    """The devices of one process's mesh, as JAX's ``jax.devices()``: every
+    visible card for 'cuda', the CPU once for 'cpu'."""
+    dev = resolve_device(device)
+    if dev.type == "cpu":
+        return [dev]
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+@dataclasses.dataclass
+class MeshReplica:
+    """One device's :class:`FinalGenerator`, the stream it launches on and
+    the stream its readbacks copy on (None on the CPU)."""
+
+    final: FinalGenerator
+    stream: torch.cuda.Stream | None
+    copy_stream: torch.cuda.Stream | None
+
+    def launching(self):
+        """The context in which this replica's work is queued: its device and
+        stream (nothing on the CPU)."""
+        return torch.cuda.stream(self.stream) if self.stream is not None else contextlib.nullcontext()
+
+
+class GeneratorMesh:
+    """FinalGenerator over a device list in one process: one replica per
+    device (a device may be listed twice: two replicas on one card), every
+    replica with the same parameters, each launching on a stream of its own.
+    ``n_data`` is the replica count: :meth:`map` splits a batch's rows
+    evenly, replica ``i`` taking rows ``[i * n, (i + 1) * n)``, as JAX's
+    ``P('data')`` lays a batch out, and returns the replicas' results in row
+    order. Each row of the output depends only on its own input row, so the
+    rows are the ones a replica computes at its share of the batch."""
+
+    def __init__(self, config: Config, params: dict, devices: list):
+        if not devices:
+            raise ValueError("a mesh needs at least one device")
+        self.replicas = []
+        for device in devices:
+            final = FinalGenerator(config, device=device)
+            final.load_parameters(params)
+            cuda = final.device.type == "cuda"
+            if cuda:  # the parameters are on the device before another stream reads them
+                torch.cuda.synchronize(final.device)
+            self.replicas.append(MeshReplica(
+                final, torch.cuda.Stream(final.device) if cuda else None,
+                torch.cuda.Stream(final.device) if cuda else None))
+        self.n_data = len(self.replicas)
+
+    def map(self, fn, *arrays) -> list:
+        """``fn(replica, *rows)`` for each replica on its rows of ``arrays``
+        (host or device arrays with the batch first), queued on its device
+        and stream; the results in row order. Raises if the rows do not split
+        evenly. The replicas' streams do not wait for the default stream nor
+        it for them: read the results on the replica's stream
+        (:meth:`run`, or ``start_readback`` inside ``replica.launching()``)."""
+        b = arrays[0].shape[0]
+        if b % self.n_data:
+            raise ValueError(f"a batch of {b} rows does not split over {self.n_data} replicas")
+        return self._map(self.replicas, fn, arrays)
+
+    def run(self, fn, *arrays) -> dict[str, np.ndarray]:
+        """:meth:`map` of ``fn``, which returns a dict of tensors, each
+        replica's tensors then read back as f32 numpy arrays on its own
+        stream, after the work queued there, and joined in row order. A batch
+        whose rows do not split evenly (evaluate's ragged last batch) runs
+        whole on the first replica, as JAX replicates it."""
+        replicas = self.replicas if arrays[0].shape[0] % self.n_data == 0 else self.replicas[:1]
+        parts = []
+        for rep, out in zip(replicas, self._map(replicas, fn, arrays)):
+            with rep.launching():
+                parts.append({k: v.float().cpu().numpy() for k, v in out.items()})
+        if len(parts) == 1:
+            return parts[0]
+        return {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
+
+    @staticmethod
+    def _map(replicas: list, fn, arrays) -> list:
+        n = arrays[0].shape[0] // len(replicas)
+        out = []
+        for i, rep in enumerate(replicas):
+            with rep.launching():
+                out.append(fn(rep, *(a[i * n:(i + 1) * n] for a in arrays)))
+        return out
+
+    def synchronize(self) -> None:
+        """Wait for all work on every replica's card (``torch.cuda.synchronize``)."""
+        for dev in dict.fromkeys(rep.final.device for rep in self.replicas):
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)

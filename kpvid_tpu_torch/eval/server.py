@@ -4,7 +4,7 @@ Counterpart of kpvid_tpu/eval/server.py (``preprocess_image``,
 ``request_z``, ``to_uint8``, ``device_quantize``, ``encode_gif``, the npz
 body as ``encode_npz``, ``InferenceEngine``, ``MicroBatcher``, the HTTP handler and
 ``make_server``, and ``ArtifactEngine``, the daemon's engine over a
-one-file serving artifact, eval/export.py); mesh serving is not ported.
+one-file serving artifact, eval/export.py).
 
 - ``InferenceEngine`` maps a host batch (images, actions, z) to host
   outputs. A request's motion latent comes from its seed on the host
@@ -14,6 +14,11 @@ one-file serving artifact, eval/export.py); mesh serving is not ported.
   ``dispatch`` launches the whole generation from Python (PyTorch has no
   compiled program to enqueue) and starts the readback on a second stream
   (device.py::start_readback); ``fetch`` waits for that batch's copy alone.
+  It holds one replica per device of a list (eval/final.py::GeneratorMesh;
+  ``devices``, ``serve --mesh``; else the one device): a batch's rows are
+  split evenly, and each replica launches its rows on its own device and
+  stream and reads them back into its rows of the batch's pinned host
+  buffers.
 - ``ArtifactEngine`` is the same engine over a loaded serving artifact: no
   model code, config or checkpoint on the serving host; its buckets are the
   artifact's batch sizes.
@@ -25,7 +30,8 @@ one-file serving artifact, eval/export.py); mesh serving is not ported.
   batch N before it waits for batch N-1's readback, so N's launches and
   kernels overlap N-1's copy and the completion of its futures; an idle
   queue drains the batch in flight at once. Outputs are the same either
-  way.
+  way. Its buckets are rounded up to multiples of the engine's ``n_data``,
+  so that every padded batch splits evenly over a mesh's replicas.
 - HTTP: stdlib ``ThreadingHTTPServer``. Handler threads decode and
   preprocess the PNG/JPEG and encode the response while the dispatcher
   launches kernels.
@@ -61,7 +67,7 @@ import numpy as np
 import torch
 
 from ..data import augment
-from ..device import Readback, start_readback
+from ..device import JoinedReadback, Readback, start_readback
 
 if TYPE_CHECKING:
     from ..configs import Config
@@ -135,15 +141,20 @@ def one_hot(actions: np.ndarray, n_action: int) -> np.ndarray:
     return act
 
 
-def start_serve_readback(out: dict, copy_stream) -> Readback:
+def serve_outputs(out: dict) -> dict:
     """The engines' epilogue: the image-valued outputs quantized to uint8 on
-    the device, the points in f32, and their readback started."""
-    return start_readback({
+    the device, the points in f32."""
+    return {
         "pred_im_seq": device_quantize(out["pred_im_seq"]),
         "mask": device_quantize(out["mask"], rescale=False),
         "current_points": out["current_points"].float(),
         "future_points": out["future_points"].float(),
-    }, copy_stream)
+    }
+
+
+def start_serve_readback(out: dict, copy_stream) -> Readback:
+    """:func:`serve_outputs` of a generate's outputs, their readback started."""
+    return start_readback(serve_outputs(out), copy_stream)
 
 
 class InferenceEngine:
@@ -152,30 +163,47 @@ class InferenceEngine:
 
     OUTPUT_KEYS = ("pred_im_seq", "mask", "current_points", "future_points")
 
-    def __init__(self, config: Config, params: dict, device: str | torch.device = "cuda"):
+    def __init__(self, config: Config, params: dict, device: str | torch.device = "cuda",
+                 devices: list | None = None):
         """params: from ``FinalGenerator.init_parameters``, ``bridge.from_jax``
-        or ``checkpoint.load_parameters``."""
-        from .final import FinalGenerator
+        or ``checkpoint.load_parameters``. ``devices``: the mesh form, one
+        replica on each device of the list (``final.mesh_devices(device)``:
+        every visible card); ``n_data`` is their count. Without it the mesh
+        is ``device`` alone."""
+        from .final import GeneratorMesh
 
         self.config = config
-        self.final = FinalGenerator(config, device=device)
-        self.final.load_parameters(params)
+        self.mesh = GeneratorMesh(config, params, [device] if devices is None else devices)
+        self.final = self.mesh.replicas[0].final
+        self.n_data = self.mesh.n_data
         self.device = self.final.device
-        self.copy_stream = (torch.cuda.Stream(self.device) if self.device.type == "cuda"
-                            else None)
         self.vae_dim = config.model.vae_dim
         self.image_size = config.model.image_size
         self.n_action = config.model.n_action
         self.n_future_frames = config.model.n_future_frames
 
-    def dispatch(self, images: np.ndarray, actions: np.ndarray, z: np.ndarray) -> Readback:
-        """Launch the batch on the current stream and start its readback;
-        returns without waiting for the device. Pair with :meth:`fetch`."""
-        out = self.final.generate(images, one_hot(actions, self.n_action), z)
-        return start_serve_readback(out, self.copy_stream)
+    def dispatch(self, images: np.ndarray, actions: np.ndarray, z: np.ndarray) -> JoinedReadback:
+        """Launch each replica's rows on its own stream and start their
+        readback into the batch's pinned buffers; returns without waiting for
+        the device. Pair with :meth:`fetch`."""
+        act = one_hot(actions, self.n_action)
+        b, host, parts = images.shape[0], {}, []
+
+        def launch(rep, im, a, zz):
+            out = serve_outputs(rep.final.generate(im, a, zz))
+            if not host:  # the batch's buffers, once the first block's shapes are known
+                host.update({k: torch.empty((b,) + tuple(v.shape[1:]), dtype=v.dtype,
+                                            pin_memory=rep.stream is not None)
+                             for k, v in out.items()})
+            n, i = im.shape[0], len(parts)
+            parts.append(start_readback(out, rep.copy_stream,
+                                        {k: v[i * n:(i + 1) * n] for k, v in host.items()}))
+
+        self.mesh.map(launch, images, act, z)
+        return JoinedReadback(host, parts)
 
     @staticmethod
-    def fetch(out: Readback) -> dict:
+    def fetch(out: Readback | JoinedReadback) -> dict:
         """Wait for a dispatched batch's readback; host numpy outputs."""
         return out.wait()
 
@@ -243,7 +271,10 @@ class MicroBatcher:
             raise ValueError(f"buckets must be positive, got {buckets}")
         self.engine = engine
         self.pipeline = pipeline
-        self.buckets = tuple(sorted(set(buckets)))
+        # a mesh engine splits each batch over its replicas: every bucket up
+        # to a multiple of their count (pad rows are computed and discarded)
+        n_data = getattr(engine, "n_data", 1)
+        self.buckets = tuple(sorted({-(-b // n_data) * n_data for b in buckets}))
         self.max_batch = self.buckets[-1]
         self.max_wait = max_wait_ms / 1000.0
         self._q: queue.Queue[_Pending | None] = queue.Queue(maxsize=max_queue)

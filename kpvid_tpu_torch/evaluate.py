@@ -28,8 +28,14 @@ card each: each generates and writes the batches ``i, i + N, ...`` of the
 one-process run (a 'batch'-granularity shard of the pipeline), with the
 latents of those global batch indices, so the tree is the one-process
 tree byte for byte; the first process writes the synthetic data while the
-others wait, and all wait at the end. The JAX CLI's ``--mesh`` (one process
-over several devices) is not ported.
+others wait, and all wait at the end.
+
+Generation runs through eval/final.py::GeneratorMesh, over the one device,
+or with ``--mesh`` over every visible card from one process: each batch's
+rows split evenly between the cards' replicas, generate and the point
+images on each, read back on each replica's stream; a batch whose rows do
+not split (the ragged last one) runs whole on the first card, as JAX
+replicates it. ``--mesh`` refuses several processes, as JAX's does.
 """
 
 from __future__ import annotations
@@ -61,6 +67,10 @@ def build_parser() -> ArgumentParser:
                         help="PNG encoding threads (default: min(8, 2 x cores))")
     parser.add_argument("--device", type=str, default="cuda",
                         help="'cuda' (default) or 'cpu' for the plain versions")
+    parser.add_argument("--mesh", action="store_true",
+                        help="generate batch-parallel over every visible card from one "
+                             "process (one replica per card, each batch's rows split evenly; "
+                             "a ragged last batch runs on the first card)")
     return parser
 
 
@@ -75,11 +85,19 @@ def main(argv=None) -> dict:
     from .parallel import barrier, is_primary, maybe_initialize, world
 
     multiproc = maybe_initialize(args.device)
+    if args.mesh and multiproc:
+        # the two scaling modes are redundant: each process already keeps its
+        # own card busy on its batch shard
+        raise ValueError(
+            "--mesh shards one batch over a global mesh; under "
+            "multi-process execution use the per-host batch sharding "
+            "instead (drop --mesh)"
+        )
     rank, n_proc = world()
     from .configs import load_config
     from .data import HostDataPipeline, SequenceDataset
     from .device import resolve_device
-    from .eval import FinalGenerator
+    from .eval.final import FinalGenerator, GeneratorMesh, mesh_devices
     from .serve import load_generator_parameters
     from .utils import get_n_colors, logger, setup_console_logging, touch_dir
 
@@ -97,10 +115,20 @@ def main(argv=None) -> dict:
             make_synthetic_pseudo_labels(data_dir, n_pts=m.n_pts)
         barrier("kpvid_eval_synthetic")
 
-    final = FinalGenerator(config, device=device)
-    final.load_parameters(load_generator_parameters(
-        final.model.state_dict(), args.checkpoint_stage1, args.checkpoint_stage2))
+    params = load_generator_parameters(FinalGenerator(config, device="cpu").model.state_dict(),
+                                       args.checkpoint_stage1, args.checkpoint_stage2)
+    mesh = GeneratorMesh(config, params, mesh_devices(device) if args.mesh else [device])
+    if args.mesh:
+        logger.info("generating over a %d-device 'data' mesh", mesh.n_data)
     colors = get_n_colors(m.n_pts)
+
+    def launch(rep, images, actions, z):
+        """generate and the point images of a batch, queued on ``rep``'s card and stream."""
+        out = rep.final.generate(images, actions, z)
+        return dict(out, current_points_im=rep.final.render_point_images(
+            out["current_points"], colors), future_points_im=rep.final.render_point_images(
+            out["future_points"].reshape(-1, m.n_pts, 2), colors))
+
     test_ds = SequenceDataset(data_dir, "test", n_pts=m.n_pts, n_action=m.n_action,
                               sequence_len=config.data.sequence_len, image_size=m.image_size,
                               with_image_seq=True, native_ops=config.data.native_ops)
@@ -133,14 +161,11 @@ def main(argv=None) -> dict:
                 break
             bs = batch["image"].shape[0]
             t0 = time.perf_counter()
-            out = final.generate(batch["image"], batch["action_code"],
-                                 batch_z(args.seed, b, bs, m.vae_dim))
-            cur = final.render_point_images(out["current_points"], colors)
-            fut = final.render_point_images(out["future_points"].reshape(-1, m.n_pts, 2), colors)
-            out = {k: v.float().cpu().numpy() for k, v in out.items()}
-            cur = cur.float().cpu().numpy()
-            fut = fut.float().cpu().numpy().reshape(bs, m.n_future_frames, m.image_size,
-                                                    m.image_size, 3)
+            inputs = (batch["image"], batch["action_code"], batch_z(args.seed, b, bs, m.vae_dim))
+            out = mesh.run(launch, *inputs)
+            cur = out["current_points_im"]
+            fut = out["future_points_im"].reshape(bs, m.n_future_frames, m.image_size,
+                                                  m.image_size, 3)
             generate_s += time.perf_counter() - t0
             n_batches += 1
             for i in range(bs):

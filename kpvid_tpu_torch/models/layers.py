@@ -18,7 +18,7 @@ they are. Parity points:
   ``0.999 old + 0.001 batch`` with that same biased variance (torch's
   ``F.batch_norm`` would update with the unbiased one); inside
   :func:`syncing_batch_stats` the batch statistics ``[E[x], E[x^2]]`` are
-  averaged over the process group first, differentiably (Flax's
+  averaged over the 'data' group first, differentiably (Flax's
   ``axis_name``: sync-BN for the data-parallel step);
 - the LSTM gate order is i, j, f, o with ``sigmoid(f + 1.0)`` and an f32
   cell state: not ``nn.LSTM``'s layout. Its gates are computed as JAX's
@@ -33,6 +33,16 @@ they are. Parity points:
   not use it;
 - ``Dense(relu=True)`` keeps the reference's default-ReLU quirk, and
   ``Dense(tanh=True)`` is the ``to_coord`` head.
+
+Tensor parallelism (parallel/sharding.py::shard_modules): a layer may hold
+only its 'model' rank's slice of an array, ``shard`` then being that
+rank's place and ``sharded`` the names and dims of its slices. A ``Conv``,
+``Dense`` or LSTM whose kernel is sliced runs column-parallel (its output
+channels, outputs or gate columns on the local slice, then joined; the
+input's gradient summed over the 'model' group: parallel/tensor.py); a
+``BatchNorm`` joins its sliced affine and statistics at use and moves only
+its slice of the running statistics. The joined values are the full
+arrays' bits, so the forward is the unsharded layer's.
 """
 
 from __future__ import annotations
@@ -45,6 +55,7 @@ from torch import nn
 
 from ..ops.resize import upsample2x
 from ..parallel.distributed import all_reduce_mean
+from ..parallel.tensor import copy_to_model, join
 
 
 def _same_pads(size: int, kernel: int, stride: int) -> tuple[int, int]:
@@ -65,9 +76,13 @@ class Conv(nn.Module):
         self.pad = pad
         self.weight = nn.Parameter(torch.zeros(out_ch, in_ch, kernel, kernel))
         self.bias = nn.Parameter(torch.zeros(out_ch)) if use_bias else None
+        self.shard, self.sharded = None, {}
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.to(self.dtype).permute(0, 3, 1, 2)
+        col = "weight" in self.sharded  # column-parallel: this rank's output channels
+        if col:
+            x = copy_to_model(x, self.shard)
         if self.pad:
             x = F.pad(x, (self.pad,) * 4)
         k = self.weight.shape[-1]
@@ -77,7 +92,8 @@ class Conv(nn.Module):
         else:
             y = F.conv2d(F.pad(x, (l, r, t, b)), self.weight.to(self.dtype), stride=self.stride)
         y = y.permute(0, 2, 3, 1)
-        return y if self.bias is None else y + self.bias.to(self.dtype)
+        y = y if self.bias is None else y + self.bias.to(self.dtype)
+        return join(y, -1, self.shard) if col else y
 
 
 class BatchNorm(nn.Module):
@@ -91,11 +107,17 @@ class BatchNorm(nn.Module):
         super().__init__()
         self.eps = eps
         self.update_stats = False  # set by updating_batch_stats
-        self.sync = False  # set by syncing_batch_stats
+        self.sync = False  # set by syncing_batch_stats, with the group to sync over
+        self.sync_group = None
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
+        self.shard, self.sharded = None, {}
+
+    def _full(self, name: str) -> torch.Tensor:
+        t = getattr(self, name)
+        return join(t, 0, self.shard) if name in self.sharded else t
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         if train:
@@ -103,17 +125,23 @@ class BatchNorm(nn.Module):
             mean = xf.mean(dim=(0, 1, 2))
             mean_sq = torch.square(xf).mean(dim=(0, 1, 2))
             if self.sync:
-                mean, mean_sq = all_reduce_mean(torch.stack([mean, mean_sq])).unbind(0)
+                mean, mean_sq = all_reduce_mean(torch.stack([mean, mean_sq]),
+                                                self.sync_group).unbind(0)
             var = torch.clamp(mean_sq - torch.square(mean), min=0.0)
             if self.update_stats:
                 with torch.no_grad():
                     m = self.MOMENTUM
-                    self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
-                    self.running_var.copy_(m * self.running_var + (1 - m) * var)
+                    for name, batch in (("running_mean", mean), ("running_var", var)):
+                        if name in self.sharded:  # this rank's channels only
+                            batch = self.shard.local(batch, 0)
+                        run = getattr(self, name)
+                        run.copy_(m * run + (1 - m) * batch)
         else:
-            xf, mean, var = x.float(), self.running_mean, self.running_var
-        mul = self.weight * torch.rsqrt(var + self.eps)
-        y = (xf - mean) * mul + self.bias
+            with torch.no_grad():
+                mean, var = self._full("running_mean"), self._full("running_var")
+            xf = x.float()
+        mul = self._full("weight") * torch.rsqrt(var + self.eps)
+        y = (xf - mean) * mul + self._full("bias")
         return y.to(x.dtype)
 
 
@@ -133,20 +161,20 @@ def updating_batch_stats(model: nn.Module):
 
 
 @contextlib.contextmanager
-def syncing_batch_stats(model: nn.Module, enabled: bool = True):
+def syncing_batch_stats(model: nn.Module, enabled: bool = True, group=None):
     """Within the block (when ``enabled``), every train-mode BatchNorm of
-    ``model`` normalizes with the batch statistics averaged over the process
-    group: the data-parallel step's sync-BN. In the port every BatchNorm is
-    one of JAX's ``bn_axis`` sites: the stage-1 generator's image encoder,
-    pose encoder and translator."""
+    ``model`` normalizes with the batch statistics averaged over ``group``
+    (the 'data' axis; None: every process): the data-parallel step's
+    sync-BN. In the port every BatchNorm is one of JAX's ``bn_axis`` sites:
+    the stage-1 generator's image encoder, pose encoder and translator."""
     bns = [m for m in model.modules() if isinstance(m, BatchNorm)] if enabled else []
     for bn in bns:
-        bn.sync = True
+        bn.sync, bn.sync_group = True, group
     try:
         yield
     finally:
         for bn in bns:
-            bn.sync = False
+            bn.sync, bn.sync_group = False, None
 
 
 class ConvBNReLU(nn.Module):
@@ -183,6 +211,7 @@ class StackedLSTM(nn.Module):
         for i, (d, h) in enumerate(zip(dims, self.features)):
             self.register_parameter(f"lstm_{i}_kernel", nn.Parameter(torch.zeros(d + h, 4 * h)))
             self.register_parameter(f"lstm_{i}_bias", nn.Parameter(torch.zeros(4 * h)))
+        self.shard, self.sharded = None, {}
 
     def forward(self, xs: torch.Tensor) -> torch.Tensor:
         b, t = xs.shape[:2]
@@ -191,6 +220,8 @@ class StackedLSTM(nn.Module):
         kernels = [getattr(self, f"lstm_{i}_kernel").to(self.dtype).float()
                    for i in range(len(self.features))]
         biases = [getattr(self, f"lstm_{i}_bias") for i in range(len(self.features))]
+        # column-parallel layers: this rank's gate columns, then all four joined
+        cols = [f"lstm_{i}_kernel" in self.sharded for i in range(len(self.features))]
         state = [
             (xs.new_zeros((b, h), dtype=torch.float32), xs.new_zeros((b, h), dtype=torch.float32))
             for h in self.features
@@ -200,7 +231,11 @@ class StackedLSTM(nn.Module):
             inp = xs[:, step]
             for li, (c, h) in enumerate(state):
                 z = torch.cat([inp.to(self.dtype), h.to(self.dtype)], dim=-1)
+                if cols[li]:
+                    z = copy_to_model(z, self.shard)
                 gates = torch.matmul(z.float(), kernels[li]) + biases[li]
+                if cols[li]:
+                    gates = join(gates, -1, self.shard)
                 i, j, f, o = torch.chunk(gates, 4, dim=-1)
                 c = torch.sigmoid(f + 1.0) * c + torch.sigmoid(i) * torch.tanh(j)
                 h = torch.sigmoid(o) * torch.tanh(c)
@@ -222,9 +257,16 @@ class Dense(nn.Module):
         self.dtype = dtype
         self.weight = nn.Parameter(torch.zeros(in_dim, out_dim))
         self.bias = nn.Parameter(torch.zeros(out_dim))
+        self.shard, self.sharded = None, {}
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = torch.matmul(x.to(self.dtype), self.weight.to(self.dtype)) + self.bias.to(self.dtype)
+        x = x.to(self.dtype)
+        col = "weight" in self.sharded  # column-parallel: this rank's outputs
+        if col:
+            x = copy_to_model(x, self.shard)
+        y = torch.matmul(x, self.weight.to(self.dtype)) + self.bias.to(self.dtype)
+        if col:
+            y = join(y, -1, self.shard)
         if self.tanh:
             return torch.tanh(y)
         if self.relu:
@@ -232,16 +274,19 @@ class Dense(nn.Module):
         return y
 
 
-def init_like_jax(model: nn.Module, seed: int) -> dict[str, torch.Tensor]:
+def init_like_jax(model: nn.Module, seed: int,
+                  shapes: dict | None = None) -> dict[str, torch.Tensor]:
     """Parameters of ``model`` with the JAX package's init laws, drawn on the
     CPU from ``seed`` in the order of ``named_modules``: Xavier-uniform conv,
     LSTM and Dense kernels, normal(0.02) for a tanh ``to_coord`` head, zero
     biases, BN scale 1 / bias 0 / mean 0 / var 1. Keyed like the model's
-    ``state_dict``."""
+    ``state_dict``; ``shapes`` (name -> full shape) gives the full arrays of
+    a model that holds shards."""
     import math
 
     gen = torch.Generator().manual_seed(seed)
-    params = {k: torch.zeros_like(v, device="cpu") for k, v in model.state_dict().items()}
+    shapes = shapes or {k: v.shape for k, v in model.state_dict().items()}
+    params = {k: torch.zeros(s) for k, s in shapes.items()}
 
     def xavier(key, fan_in, fan_out):
         a = math.sqrt(6.0 / (fan_in + fan_out))
@@ -250,7 +295,7 @@ def init_like_jax(model: nn.Module, seed: int) -> dict[str, torch.Tensor]:
     for name, mod in model.named_modules():
         p = f"{name}." if name else ""
         if isinstance(mod, Conv):
-            o, i, kh, kw = mod.weight.shape
+            o, i, kh, kw = params[p + "weight"].shape
             xavier(p + "weight", i * kh * kw, o * kh * kw)
         elif isinstance(mod, BatchNorm):
             params[p + "weight"].fill_(1.0)

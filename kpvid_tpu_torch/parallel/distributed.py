@@ -1,4 +1,4 @@
-"""Multi-process data parallelism: one process per card, through torch.distributed.
+"""Multi-process runs: one process per card, through torch.distributed.
 
 Counterpart of kpvid_tpu/parallel/distributed.py, with the same contract:
 
@@ -13,7 +13,8 @@ Counterpart of kpvid_tpu/parallel/distributed.py, with the same contract:
   ``KPVID_DIST_BACKEND=gloo`` lets several ranks share one card, which NCCL
   refuses. A rank's card is ``cuda:{LOCAL_RANK or process id} % device_count``;
 - each process feeds its own rows: the data pipeline takes a strided shard
-  of every epoch (data/base.py, ``shard_id``/``num_shards``) and
+  of every epoch (data/base.py, ``shard_id``/``num_shards``: the process's
+  data coordinate of the mesh, parallel/mesh.py) and
   :func:`local_batch_size` rows a step. There is no ``put_batch``: no global
   array is assembled, and no compile's skew can trip a rendezvous, so
   ``synced_compile`` has no counterpart either;
@@ -101,14 +102,15 @@ def is_primary() -> bool:
     return world()[0] == 0
 
 
-def local_batch_size(global_batch_size: int) -> int:
-    """This process's share of a global batch (the global size when
+def local_batch_size(global_batch_size: int, n_data: int | None = None) -> int:
+    """This process's share of a global batch over ``n_data`` data
+    coordinates (default: every process, pure DP; the global size when
     single-process). Raises if the global batch does not split evenly."""
-    n = world()[1]
+    n = world()[1] if n_data is None else n_data
     if global_batch_size % n:
+        what = "the process count" if n_data is None else "the 'data' mesh axis"
         raise ValueError(
-            f"global batch_size {global_batch_size} must be divisible by "
-            f"the process count ({n})"
+            f"global batch_size {global_batch_size} must be divisible by {what} ({n})"
         )
     return global_batch_size // n
 
@@ -127,23 +129,24 @@ def barrier(name: str) -> None:
 
 
 class _AllReduceMean(torch.autograd.Function):
-    """pmean: the sum over ranks divided by the world size; its backward is
-    the same mean of the cotangents (the transpose of ``lax.pmean``)."""
+    """pmean: the sum over a group's ranks divided by its size; its backward
+    is the same mean of the cotangents (the transpose of ``lax.pmean``)."""
 
     @staticmethod
-    def forward(ctx, x: torch.Tensor) -> torch.Tensor:
+    def forward(ctx, x: torch.Tensor, group) -> torch.Tensor:
+        ctx.group = group
         y = x.detach().clone()
-        dist.all_reduce(y)
-        return y / dist.get_world_size()
+        dist.all_reduce(y, group=group)
+        return y / dist.get_world_size(group)
 
     @staticmethod
-    def backward(ctx, g: torch.Tensor) -> torch.Tensor:
+    def backward(ctx, g: torch.Tensor):
         g = g.contiguous().clone()
-        dist.all_reduce(g)
-        return g / dist.get_world_size()
+        dist.all_reduce(g, group=ctx.group)
+        return g / dist.get_world_size(ctx.group), None
 
 
-def all_reduce_mean(x: torch.Tensor) -> torch.Tensor:
-    """The mean of ``x`` over every rank, differentiable (sync-BN's
-    statistics)."""
-    return _AllReduceMean.apply(x)
+def all_reduce_mean(x: torch.Tensor, group=None) -> torch.Tensor:
+    """The mean of ``x`` over the ranks of ``group`` (default: every rank),
+    differentiable (sync-BN's statistics, over the 'data' axis)."""
+    return _AllReduceMean.apply(x, group)

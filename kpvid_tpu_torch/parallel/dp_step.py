@@ -1,9 +1,11 @@
-"""The data-parallel train step: explicit gradient all-reduce in f32 or bf16.
+"""The multi-process train step: explicit gradient all-reduce in f32 or bf16,
+and tensor parallelism over a 'model' axis.
 
-Counterpart of kpvid_tpu/parallel/dp_step.py. Each process holds its local
-rows and a full replica of both networks and both Adams, and runs the
-trainers' unchanged step functions with the reductions switched on
-(``data_parallel=True``):
+Counterpart of kpvid_tpu/parallel/dp_step.py, and of the jitted step on a
+('data', 'model') mesh that kpvid_tpu/train.py runs with
+``shard_state``. Each process holds its local rows and both networks and
+both Adams, whole on a pure-DP mesh, and runs the trainers' unchanged step
+functions with the reductions switched on (the trainers' ``mesh``):
 
 - gradients: after each ``torch.autograd.grad``, one flat bucket per network
   cast to ``training.dp_grad_dtype``, all-reduced (sum), divided by the
@@ -16,6 +18,12 @@ trainers' unchanged step functions with the reductions switched on
 - stage-2 VAE noise: drawn for the global batch by every rank and sliced
   by rank (Stage2Trainer), the stream of the single-process step;
 - metrics: an f32 mean over the ranks of the local batch means.
+
+With a 'model' axis of M > 1 every reduction above runs over the 'data'
+axis only, and the M processes of one data coordinate, which feed the same
+rows, hold the shards of the arrays that ``parallel.min_shard_dim`` selects
+(train/state.py; column-parallel layers, parallel/tensor.py).
+``dp_grad_dtype='bfloat16'`` stays pure-DP, as in JAX.
 
 ``DistributedDataParallel`` is not used: the trainers take
 ``torch.autograd.grad`` over one network's parameters, and DDP's reducer
@@ -47,17 +55,16 @@ def select_step(trainer, mode: str, grad_accum: int):
 def make_dp_reduce_step(config, stage: int, mesh: Mesh | None = None,
                         vgg_params: dict | None = None, mode: str | None = None,
                         device="cuda"):
-    """Build the data-parallel trainer of ``stage`` (1 or 2) in the current
-    process group and return ``(trainer, step)``, ``step`` with the
-    signature of the trainer's step of ``mode`` (default
-    ``training.gan_step_mode``). The gradient reduction dtype is
+    """Build the multi-process trainer of ``stage`` (1 or 2) on ``mesh``
+    (default: every process on the 'data' axis) and return ``(trainer,
+    step)``, ``step`` with the signature of the trainer's step of ``mode``
+    (default ``training.gan_step_mode``). The gradient reduction dtype is
     ``training.dp_grad_dtype``."""
-    mesh = mesh or make_mesh()
-    if mesh.model != 1:
+    mesh = mesh or make_mesh(config.parallel.mesh_data, config.parallel.mesh_model)
+    if mesh.model != 1 and config.training.dp_grad_dtype == "bfloat16":
         raise ValueError(
-            "make_dp_reduce_step is pure-DP only: mesh has a 'model' axis "
-            f"of size {mesh.model} (params must be replicated "
-            "for the per-shard optimizer update to stay consistent)"
+            "make_dp_reduce_step with dp_grad_dtype='bfloat16' is pure-DP only: mesh has "
+            f"a 'model' axis of size {mesh.model}"
         )
     mode = mode or config.training.gan_step_mode
     if mode not in MODES:
@@ -75,11 +82,11 @@ def make_dp_reduce_step(config, stage: int, mesh: Mesh | None = None,
 
         if vgg_params is None:
             raise ValueError("stage 1 needs vgg_params")
-        trainer = Stage1Trainer(config, vgg_params, device=device, data_parallel=True)
+        trainer = Stage1Trainer(config, vgg_params, device=device, mesh=mesh)
     elif stage == 2:
         from ..train.stage2 import Stage2Trainer
 
-        trainer = Stage2Trainer(config, device=device, data_parallel=True)
+        trainer = Stage2Trainer(config, device=device, mesh=mesh)
     else:
         raise ValueError(f"stage must be 1 or 2, got {stage!r}")
     return trainer, select_step(trainer, mode, config.training.grad_accum)

@@ -30,7 +30,10 @@ the plain versions on the CPU). Then:
     open("pred.gif", "wb").write(r.read())
     EOF
 
-The JAX CLI's ``--mesh`` is not ported.
+``--mesh`` serves from one process over every visible card: one replica of
+the parameters per card, each batch's rows split evenly between them
+(eval/final.py::GeneratorMesh); the buckets round up to multiples of the
+card count. It does not apply to ``--artifact``.
 """
 
 from __future__ import annotations
@@ -73,6 +76,11 @@ def build_parser() -> ArgumentParser:
                         help="log one line per HTTP request")
     parser.add_argument("--device", type=str, default="cuda",
                         help="'cuda' (default) or 'cpu' for the plain versions")
+    parser.add_argument("--mesh", action="store_true",
+                        help="serve batch-parallel over every visible card from one process "
+                             "(one replica of the parameters per card, each micro-batch's rows "
+                             "split evenly); bucket sizes round up to multiples of the card "
+                             "count")
     return parser
 
 
@@ -80,12 +88,17 @@ def load_engine(args):
     """The engine of the parsed arguments, with both parameter files merged."""
     from .configs import load_config
     from .eval import InferenceEngine
-    from .eval.final import FinalGenerator
+    from .eval.final import FinalGenerator, mesh_devices
+    from .utils import logger
 
     config = load_config(args.config)
     target = FinalGenerator(config, device="cpu").model.state_dict()
     params = load_generator_parameters(target, args.checkpoint_stage1, args.checkpoint_stage2)
-    return InferenceEngine(config, params, device=args.device)
+    devices = mesh_devices(args.device) if getattr(args, "mesh", False) else None
+    if devices is not None:
+        logger.info("serving over a %d-device 'data' mesh: %s", len(devices),
+                    [str(d) for d in devices])
+    return InferenceEngine(config, params, device=args.device, devices=devices)
 
 
 def load_generator_parameters(target: dict, stage1: str, stage2: str) -> dict:
@@ -113,6 +126,9 @@ def main(argv=None):
         if args.config or args.checkpoint_stage1 or args.checkpoint_stage2:
             raise SystemExit("--artifact replaces --config/--checkpoint_stage1/"
                              "--checkpoint_stage2; pass one or the other")
+        if args.mesh:
+            raise SystemExit("--mesh does not apply to --artifact (artifact "
+                             "graphs are single-device programs)")
     elif not (args.config and args.checkpoint_stage1 and args.checkpoint_stage2):
         raise SystemExit("pass --config + --checkpoint_stage1 + "
                          "--checkpoint_stage2 (or --artifact)")

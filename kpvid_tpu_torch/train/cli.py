@@ -44,13 +44,24 @@ KPVID_PROCESS_ID=i``) or under torchrun with ``KPVID_MULTIHOST=auto``
 strided shard of the data, ``batch_size / N`` rows a step, and runs the
 data-parallel step (parallel/dp_step.py: gradients averaged in
 ``training.dp_grad_dtype``, stage-1 sync-BN, stage 2's noise drawn for the
-global batch and sliced by rank). ``--mesh-data`` must equal N and
-``--mesh-model`` 1. Only the first process writes the synthetic tree,
-logs, metrics and checkpoints; the others wait at barriers. Image summaries
-are skipped, and every process sweeps the whole test split on its own
-(rank 0 logs it). A process group of one (the KPVID_* environment with
-N = 1) runs the same data-parallel step. With ``training.grad_accum`` K > 1
-the 'fused' step accumulates K micros of the local batch.
+global batch and sliced by rank). A process group of one (the KPVID_*
+environment with N = 1) runs the same data-parallel step. With
+``training.grad_accum`` K > 1 the 'fused' step accumulates K micros of the
+local batch.
+
+Tensor parallelism: ``--mesh-model M`` (or ``parallel.mesh_model``) lays
+the N = D x M processes out as a ('data', 'model') mesh, rank ``r`` at
+``(r // M, r % M)`` (parallel/mesh.py). The M processes of a data
+coordinate read the same shard of the data (``d`` of ``D``), ``batch_size
+/ D`` rows a step, and hold only their shards of the arrays that
+``parallel.min_shard_dim`` selects (train/state.py): the reductions run
+over the 'data' axis. ``--mesh-data`` must be N / M. The checkpoints hold
+full arrays, so a run resumes on any mesh or in one process; a save joins
+the shards, a collective that every process enters.
+
+Only the first process writes the synthetic tree, logs, metrics and
+checkpoints; the others wait at barriers. Image summaries are skipped, and
+every process sweeps the whole test split on its own (rank 0 logs it).
 """
 
 from __future__ import annotations
@@ -86,8 +97,8 @@ def build_parser() -> ArgumentParser:
                         help="size of the 'data' axis (overrides parallel.mesh_data; default: "
                              "every process)")
     parser.add_argument("--mesh-model", type=int, default=None,
-                        help="size of the 'model' axis (overrides parallel.mesh_model); "
-                             "tensor parallelism is not ported, so only 1")
+                        help="size of the 'model' (tensor-parallel) axis (overrides "
+                             "parallel.mesh_model)")
     return parser
 
 
@@ -119,6 +130,7 @@ def main(argv=None) -> dict:
     # KPVID_* environment asks for it
     from ..parallel import (
         barrier,
+        batch_shard,
         is_primary,
         local_batch_size,
         make_dp_reduce_step,
@@ -148,7 +160,7 @@ def main(argv=None) -> dict:
     n_data = args.mesh_data if args.mesh_data is not None else p_cfg.mesh_data
     mesh = make_mesh(n_data=n_data, n_model=n_model)
     bs = t_cfg.batch_size
-    local_bs = local_batch_size(bs)
+    local_bs = local_batch_size(bs, mesh.data)
     if t_cfg.grad_accum > 1 and local_bs % t_cfg.grad_accum:
         raise ValueError(
             f"per-shard batch ({bs}/{mesh.data}={local_bs}) must be divisible by "
@@ -191,9 +203,10 @@ def main(argv=None) -> dict:
     if dp:  # a process group, of one process or more: the data-parallel step
         trainer, step_fn = make_dp_reduce_step(config, 1 if stage1 else 2, mesh, vgg,
                                                device=device)
-        logger.info("data-parallel step on %d process(es), rank %d on %s, local batch %d, "
-                    "gradient all-reduce in %s", n_proc, rank, device, local_bs,
-                    t_cfg.dp_grad_dtype)
+        logger.info("multi-process step on %d process(es), mesh %dx%d (data x model), rank %d "
+                    "at (%d, %d) on %s, local batch %d, gradient all-reduce in %s, %d arrays "
+                    "sharded", n_proc, mesh.data, mesh.model, rank, mesh.d, mesh.m, device,
+                    local_bs, t_cfg.dp_grad_dtype, len(trainer.array_rules))
     else:
         trainer = (Stage1Trainer(config, vgg, device=device) if stage1
                    else Stage2Trainer(config, device=device))
@@ -217,10 +230,11 @@ def main(argv=None) -> dict:
     two_batch = mode == "two_batch"
     fused_dg = mode == "fused_dg"
     start_step = trainer.step
+    shard_id, num_shards = batch_shard(mesh)  # the 'model' ranks of a coordinate: one shard
     train_pipe = HostDataPipeline(
         train_ds, local_bs, shuffle=True, repeat=True, num_workers=config.data.num_workers,
-        prefetch=config.data.prefetch, seed=t_cfg.seed, shard_id=rank, num_shards=n_proc,
-        start_sample=start_step * local_bs * (2 if two_batch else 1),
+        prefetch=config.data.prefetch, seed=t_cfg.seed, shard_id=shard_id,
+        num_shards=num_shards, start_sample=start_step * local_bs * (2 if two_batch else 1),
     )
     logger.info("training %s from step %d to %d on %s", args.mode, start_step, n_steps, device)
     colors = get_n_colors(m_cfg.n_pts)
@@ -242,6 +256,12 @@ def main(argv=None) -> dict:
         noise = np.random.default_rng([t_cfg.seed, step, 2]).standard_normal(
             (min(2, bs), m_cfg.vae_dim), dtype=np.float32)
         return stage2_summary_images(trainer, batch, colors, noise)
+
+    def save(step: int) -> None:
+        # every rank: joining the shards is a collective; the first writes
+        arrays = trainer.state_arrays()
+        if ckpt_manager is not None:
+            ckpt_manager.save(step, arrays)
 
     metrics = {}
     profiler = trace = None
@@ -273,13 +293,12 @@ def main(argv=None) -> dict:
                 # rank's rows alone; skipped, the scalars are still logged)
                 if not args.no_images and not multiproc:
                     metric_logger.log_images("train", step, summary_images(step, batch))
-            if (step % t_cfg.checkpoint_interval == 0 and step > start_step
-                    and ckpt_manager is not None):
-                ckpt_manager.save(step, trainer.state_arrays())
+            if step % t_cfg.checkpoint_interval == 0 and step > start_step:
+                save(step)
             if step % t_cfg.test_interval == 0:
                 run_test_sweep(trainer, test_ds, config, step, metric_logger, stage1)
+        save(n_steps)
         if ckpt_manager is not None:
-            ckpt_manager.save(n_steps, trainer.state_arrays())
             ckpt_manager.wait()
         barrier("kpvid_train_done")  # the checkpoints are on disk for every rank
     finally:

@@ -32,12 +32,14 @@ mutated ``batch_stats`` of that pass alone). ``eval_step`` and
 
 Gradients are taken with ``torch.autograd.grad`` over one network's
 parameters. On the card the soft-argmax and the two Gaussian renders of the
-forward run their kernels, and their backwards run theirs. With
-``data_parallel`` (parallel/dp_step.py) the gradients and metrics are
-averaged over the process group, and every training forward of the generator
-(not ``eval_step`` or ``visualize``) runs sync-BN: its batch statistics are
-the mean over the ranks', as JAX's ``bn_axis``. The JAX package's
-``train_step_multi`` is not ported.
+forward run their kernels, and their backwards run theirs. With a ``mesh``
+(parallel/dp_step.py) the gradients and metrics are averaged over its
+'data' axis, and every training forward of the generator (not
+``eval_step`` or ``visualize``) runs sync-BN: its batch statistics are the
+mean over the 'data' ranks', as JAX's ``bn_axis`` (not over the 'model'
+ranks, which hold the same rows). A 'model' axis shards the wide arrays
+(train/state.py); at ``Config()`` the PatchGAN's ``conv4`` and ``conv5``.
+The JAX package's ``train_step_multi`` is not ported.
 
 The generator's arrays are keyed ``stage1.*``, as ``FinalGenerator`` names
 them, so a trainer checkpoint is also a stage-1 parameter file; the
@@ -72,7 +74,7 @@ class Stage1Trainer(GANTrainer):
     D_PREFIX = "image_discriminator"
 
     def __init__(self, config: Config, vgg_params: dict, device: str | torch.device = "cuda",
-                 data_parallel: bool = False):
+                 mesh=None):
         self.config = config
         self.device = resolve_device(device)
         m, t = config.model, config.training
@@ -83,7 +85,7 @@ class Stage1Trainer(GANTrainer):
                                     m.translator_filters, m.pose_decoder_filters, self.dtype,
                                     m.heatmap_size, m.heatmap_inv_std, self.pair_mode),
                     ImageDiscriminator(m.discriminator_filters, self.dtype), config, self.device,
-                    data_parallel)
+                    mesh)
         self.vgg = prepare_vgg19(vgg_params, self.device)
         self.bn_eval_train = t.bn_eval_mode == "train"
         self.summary_train = t.summary_bn_mode == "train"
@@ -126,7 +128,8 @@ class Stage1Trainer(GANTrainer):
 
     def _sync_bn(self):
         """Sync-BN in the data-parallel step's training forwards."""
-        return syncing_batch_stats(self.generator, self.data_parallel)
+        return syncing_batch_stats(self.generator, self.data_parallel,
+                                   self.mesh.data_group if self.mesh is not None else None)
 
     def d_grads(self, real: torch.Tensor, fake: torch.Tensor):
         """The discriminator's loss on (real, detached fake) and its gradients."""

@@ -27,12 +27,14 @@ and the CPU, and a resumed run, see the same noise. The GAN step modes:
 
 Gradients are taken with ``torch.autograd.grad`` over one network's
 parameters, so the generator's backward through the discriminator leaves
-nothing in the discriminator's gradients. With ``data_parallel``
-(parallel/dp_step.py) the gradients and metrics are averaged over the
-process group, and each step's noise is the global batch's: every rank is
+nothing in the discriminator's gradients. With a ``mesh``
+(parallel/dp_step.py) the gradients and metrics are averaged over its
+'data' axis, and each step's noise is the global batch's: every rank is
 handed the same [global batch, vae_dim] draw and takes rows
-``[rank * b, (rank + 1) * b)`` for its ``b`` local rows, so the pairing of
-noise and rows is the single-process step's. The JAX package's
+``[d * b, (d + 1) * b)`` for its ``b`` local rows at data coordinate ``d``,
+so the pairing of noise and rows is the single-process step's. A 'model'
+axis shards the wide arrays (train/state.py); at ``Config()`` the six LSTM
+layers' kernels and biases, whose gate GEMMs then run column-parallel. The JAX package's
 ``train_step_multi`` (a scan of steps) is not ported.
 """
 
@@ -56,7 +58,7 @@ class Stage2Trainer(GANTrainer):
     D_PREFIX = "discriminator"
 
     def __init__(self, config: Config, device: str | torch.device = "cuda",
-                 data_parallel: bool = False):
+                 mesh=None):
         self.config = config
         self.device = resolve_device(device)
         m = config.model
@@ -69,7 +71,7 @@ class Stage2Trainer(GANTrainer):
         self._setup(MotionGenerator(m.n_pts, m.n_action, m.n_future_frames, m.cell_info,
                                     m.vae_dim, self.dtype, encoder=True),
                     SeqDiscriminator(2 * m.n_pts, m.cell_info, self.dtype),
-                    config, self.device, data_parallel)
+                    config, self.device, mesh)
         self.pair_mode = resolve_pair_mode(config.training.pair_batching)
         self._pair, self._unpair = pair_fns(self.pair_mode)
 
@@ -88,11 +90,11 @@ class Stage2Trainer(GANTrainer):
 
     def _local_noise(self, noise, rows: int) -> torch.Tensor:
         """This rank's rows of a train step's noise, drawn for the global
-        batch (``rows`` local rows on each of ``world`` ranks)."""
-        if noise.shape[0] != rows * self.world:
+        batch (``rows`` local rows at each of ``data_size`` data coordinates)."""
+        if noise.shape[0] != rows * self.data_size:
             raise ValueError(f"step noise of {noise.shape[0]} rows for {rows} local rows on "
-                             f"{self.world} process(es): draw it for the global batch")
-        return self._noise(noise[self.rank * rows:(self.rank + 1) * rows])
+                             f"{self.data_size} data coordinate(s): draw it for the global batch")
+        return self._noise(noise[self.data_index * rows:(self.data_index + 1) * rows])
 
     def g_grads(self, first_pt, real_seq, act, noise):
         """Generator loss and its gradients against the discriminator as it

@@ -24,6 +24,17 @@ checkpoint, so a resumed run continues with the same bits.
 networks under one ``ModuleDict``, an Adam each, the step, the update with
 the schedule's rate, the checkpoint's arrays, the data-parallel reductions
 (:func:`make_reduce_hooks`) and gradient accumulation.
+
+On a mesh with a 'model' axis (tensor parallelism) each process holds only
+its shards of the arrays that parallel/sharding.py's rule shards, and Adam
+runs on them: Adam is elementwise, so a shard's update is the slice of the
+full update. The gradients of a shard, and of a replicated parameter, are
+complete on every 'model' rank (parallel/tensor.py), so only the 'data'
+axis reduces them. :meth:`GANTrainer.init_parameters` and the checkpoint's
+arrays are full: :meth:`~GANTrainer.load_parameters` and
+:meth:`~GANTrainer.load_state_arrays` cut them, and
+:meth:`~GANTrainer.state_arrays` joins the shards (a collective of the
+'model' group, which every rank calls).
 """
 
 from __future__ import annotations
@@ -36,7 +47,7 @@ from torch import nn
 
 from ..configs import LRConfig
 from ..models import init_like_jax
-from ..parallel import world
+from ..parallel.sharding import gather_state, shard_modules, shard_state
 
 ADAM_BETAS = (0.5, 0.999)
 ADAM_EPS = 1e-8
@@ -107,13 +118,14 @@ def load_optimizer_arrays(opt: torch.optim.Optimizer, names: list[str], prefix: 
         }
 
 
-def make_reduce_hooks(data_parallel: bool, grad_dtype: str):
+def make_reduce_hooks(data_parallel: bool, grad_dtype: str, group=None):
     """(reduce_grads, reduce_metrics) of the data-parallel step
     (parallel/dp_step.py); identities when ``data_parallel`` is False.
 
     reduce_grads takes one network's gradients (f32, as every parameter),
     casts them to ``grad_dtype`` in one flat bucket, all-reduces it (sum)
-    over the process group, divides by the world size in that dtype and gives
+    over ``group`` (the 'data' axis; None: every process), divides by the
+    group's size in that dtype and gives
     the gradients back as f32 views of one buffer: JAX's
     ``pmean(g.astype(rdt)).astype(g.dtype)``.
     'bfloat16' is never done in f32: a backend that cannot sum bf16 fails.
@@ -125,19 +137,21 @@ def make_reduce_hooks(data_parallel: bool, grad_dtype: str):
 
     rdt = torch.bfloat16 if grad_dtype == "bfloat16" else torch.float32
 
+    n = dist.get_world_size(group)
+
     def reduce_grads(grads):
         # one cast and one cast back for the whole bucket, and views of it
         # for the gradients: a few host ops a tensor on a host-bound step
         flat = torch.cat([g.reshape(-1) for g in grads]).to(rdt)
-        dist.all_reduce(flat)
-        flat = (flat / dist.get_world_size()).to(grads[0].dtype)
+        dist.all_reduce(flat, group=group)
+        flat = (flat / n).to(grads[0].dtype)
         return [v.view_as(g) for v, g in zip(flat.split([g.numel() for g in grads]), grads)]
 
     def reduce_metrics(metrics):
         keys = list(metrics)
         vals = torch.stack([torch.as_tensor(metrics[k]).float() for k in keys])
-        dist.all_reduce(vals)
-        return dict(zip(keys, (vals / dist.get_world_size()).unbind()))
+        dist.all_reduce(vals, group=group)
+        return dict(zip(keys, (vals / n).unbind()))
 
     return reduce_grads, reduce_metrics
 
@@ -151,18 +165,25 @@ class GANTrainer:
     ``D_PREFIX.*`` in ``self.model``, each with its own Adam; subclasses set
     the prefixes and call :meth:`_setup` from their constructor.
 
-    With ``data_parallel`` each update's gradients are averaged over the
-    process group in ``training.dp_grad_dtype``, and the metrics in f32;
-    ``rank`` and ``world`` are this process's place in it."""
+    With a ``mesh`` (parallel/mesh.py) each update's gradients are averaged
+    over its 'data' axis in ``training.dp_grad_dtype``, and the metrics in
+    f32; ``data_index`` and ``data_size`` are this process's place on that
+    axis. With a 'model' axis too, the arrays that ``parallel.min_shard_dim``
+    selects are sharded (the module docstring)."""
 
     G_PREFIX = ""
     D_PREFIX = ""
 
     def _setup(self, generator: nn.Module, discriminator: nn.Module, config,
-               device: torch.device, data_parallel: bool = False) -> None:
+               device: torch.device, mesh=None) -> None:
         self.generator = generator
         self.discriminator = discriminator
         self.model = nn.ModuleDict({self.G_PREFIX: generator, self.D_PREFIX: discriminator})
+        self.mesh = mesh
+        self.shard = mesh.shard if mesh is not None else None
+        self._full_shapes = {k: tuple(v.shape) for k, v in self.model.state_dict().items()}
+        self.param_rules = (shard_modules(self.model, self.shard, config.parallel.min_shard_dim)
+                            if self.shard is not None else {})
         self.model.to(device)
         self._g_names, self._g_params = map(list, zip(*generator.named_parameters()))
         self._d_names, self._d_params = map(list, zip(*discriminator.named_parameters()))
@@ -171,32 +192,48 @@ class GANTrainer:
         self.d_opt = make_optimizer(self._d_params, lr_cfg)
         self.lr_schedule = make_lr_schedule(lr_cfg)
         self.step = 0
-        self.data_parallel = data_parallel
+        self.data_parallel = mesh is not None
         self.grad_accum = config.training.grad_accum
-        self.rank, self.world = world() if data_parallel else (0, 1)
+        self.data_index, self.data_size = (mesh.d, mesh.data) if mesh is not None else (0, 1)
         self._reduce_grads, self._reduce_metrics = make_reduce_hooks(
-            data_parallel, config.training.dp_grad_dtype)
+            self.data_parallel, config.training.dp_grad_dtype,
+            mesh.data_group if mesh is not None else None)
+        # the checkpoint's sharded arrays: the parameters' and their moments'
+        self.array_rules = dict(self.param_rules)
+        for opt, prefix, names in (("g_opt", self.G_PREFIX, self._g_names),
+                                   ("d_opt", self.D_PREFIX, self._d_names)):
+            for name in names:
+                dim = self.param_rules.get(f"{prefix}.{name}")
+                if dim is not None:
+                    for key in ("exp_avg", "exp_avg_sq"):
+                        self.array_rules[f"{opt}.{prefix}.{name}.{key}"] = dim
 
     def init_parameters(self, seed: int) -> dict[str, torch.Tensor]:
-        """Both networks' parameters (and BN statistics) with the JAX
+        """Both networks' full parameters (and BN statistics) with the JAX
         package's init laws, drawn on the CPU from ``seed``."""
-        return init_like_jax(self.model, seed)
+        return init_like_jax(self.model, seed, self._full_shapes)
 
     def load_parameters(self, params: dict) -> None:
-        self.model.load_state_dict({k: torch.as_tensor(v) for k, v in params.items()},
-                                   strict=True)
+        """Load full parameters (this rank keeps its shards)."""
+        params = shard_state({k: torch.as_tensor(v) for k, v in params.items()},
+                             self.param_rules, self.shard)
+        self.model.load_state_dict(params, strict=True)
 
     def state_arrays(self) -> dict[str, torch.Tensor]:
         """Everything a resumed run needs: the step, both networks (with any
-        BN statistics) and both Adam states (the trainer checkpoint's arrays)."""
+        BN statistics) and both Adam states (the trainer checkpoint's
+        arrays), full: under tensor parallelism a collective of the 'model'
+        group that every rank must call."""
         out = {"step": torch.tensor(self.step, dtype=torch.int64)}
         out.update({k: v.detach() for k, v in self.model.state_dict().items()})
         out.update(optimizer_arrays(self.g_opt, self._g_names, f"g_opt.{self.G_PREFIX}"))
         out.update(optimizer_arrays(self.d_opt, self._d_names, f"d_opt.{self.D_PREFIX}"))
-        return out
+        return gather_state(out, self.array_rules, self.shard)
 
     def load_state_arrays(self, arrays) -> None:
+        """Restore full arrays (:meth:`state_arrays`', a checkpoint's)."""
         self.load_parameters({k: arrays[k] for k in self.model.state_dict()})
+        arrays = shard_state(arrays, self.array_rules, self.shard)
         load_optimizer_arrays(self.g_opt, self._g_names, f"g_opt.{self.G_PREFIX}", arrays)
         load_optimizer_arrays(self.d_opt, self._d_names, f"d_opt.{self.D_PREFIX}", arrays)
         self.step = int(arrays["step"])

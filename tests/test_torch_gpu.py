@@ -689,3 +689,116 @@ def test_bf16_bucket_reduce_on_card(dev, group_of_one):
     metrics = {"loss_G": torch.tensor(1.25, device=dev), "loss_D": torch.tensor(0.5, device=dev)}
     assert {k: float(v) for k, v in reduce_metrics(metrics).items()} == {"loss_G": 1.25,
                                                                         "loss_D": 0.5}
+
+
+def test_mesh_engine_two_replicas_on_card(dev):
+    """The engine over two replicas on one card (each on its own streams,
+    each reading back into its rows of the batch's pinned buffers): each
+    replica's rows are one replica's bits on those rows alone; the engine
+    over the default device list (every visible card) and over the one
+    device give the bits of generate on the default stream, read back
+    there."""
+    from kpvid_tpu_torch.eval.final import mesh_devices
+    from kpvid_tpu_torch.eval.server import one_hot, serve_outputs
+
+    cfg = load_config("kpvid_tpu_torch/configs/smoke.yaml")
+    cfg.training.compute_dtype = "bfloat16"
+    params = _randomized(FinalGenerator(cfg, device="cpu"), 3)
+    one = InferenceEngine(cfg, params, device="cuda")
+    two = InferenceEngine(cfg, params, devices=[dev, dev])
+    rng = np.random.default_rng(4)
+    images = rng.uniform(-1, 1, (4, 32, 32, 3)).astype(np.float32)
+    actions = np.arange(4) % cfg.model.n_action
+    z = np.stack([request_z(300 + i, cfg.model.vae_dim) for i in range(4)])
+    got = two.run(images, actions, z)
+    for i in range(2):
+        alone = one.run(images[2 * i:2 * i + 2], actions[2 * i:2 * i + 2], z[2 * i:2 * i + 2])
+        for key in one.OUTPUT_KEYS:
+            np.testing.assert_array_equal(got[key][2 * i:2 * i + 2], alone[key])
+    gen = FinalGenerator(cfg, device="cuda")
+    gen.load_parameters(params)
+    want = {k: v.cpu().numpy() for k, v in serve_outputs(
+        gen.generate(images, one_hot(actions, cfg.model.n_action), z)).items()}
+    default = InferenceEngine(cfg, params, devices=mesh_devices("cuda"))
+    for engine in (default, one):
+        whole = engine.run(images, actions, z)
+        for key in one.OUTPUT_KEYS:
+            np.testing.assert_array_equal(whole[key], want[key])
+
+
+def test_evaluate_two_replicas_read_back_on_their_streams(dev, tmp_path):
+    """evaluate --mesh over two replicas on one card, with each replica's
+    point images written after a spin kernel on its stream: the replicas'
+    streams do not wait for the default stream, so only a readback queued
+    on the replica's own stream reads the finished outputs. The tree is the
+    tree without the delay, byte for byte, after a run with other latents
+    has left other values in the blocks the outputs reuse."""
+    import dataclasses
+    import json
+
+    from kpvid_tpu_torch import evaluate
+    from kpvid_tpu_torch.checkpoint import save_parameters
+    from kpvid_tpu_torch.data import make_synthetic_penn_tree, make_synthetic_pseudo_labels
+    from kpvid_tpu_torch.eval import final as final_mod
+
+    cfg = load_config("kpvid_tpu_torch/configs/smoke.yaml")
+    save_parameters(tmp_path / "p.npz", _randomized(FinalGenerator(cfg, device="cpu"), 5))
+    make_synthetic_penn_tree(tmp_path / "penn", n_train=1, n_test=4)
+    make_synthetic_pseudo_labels(tmp_path / "penn", n_pts=cfg.model.n_pts)
+    (tmp_path / "eval.yaml").write_text(json.dumps({
+        "paths": {"data_dir": str(tmp_path / "penn")},
+        "training": {"compute_dtype": "bfloat16"}, "model": dataclasses.asdict(cfg.model),
+        "data": {"num_workers": 1, "eval_batch_size": 4,
+                 "sequence_len": cfg.model.n_future_frames + 1}}))
+    render = FinalGenerator.render_point_images
+
+    def delayed(self, *args):
+        # the point images written after ~0.1 s of spinning on the replica's
+        # stream, after the host's last wait on it (the colors' copy)
+        out = render(self, *args)
+        torch.cuda._sleep(200_000_000)
+        return out.clone()
+
+    def tree(name, seed, render_fn):
+        with mock.patch.object(final_mod, "mesh_devices", lambda device: [dev, dev]), \
+                mock.patch.object(FinalGenerator, "render_point_images", render_fn):
+            stats = evaluate.main(["--config", str(tmp_path / "eval.yaml"), "--checkpoint_stage1",
+                                   str(tmp_path / "p.npz"), "--checkpoint_stage2",
+                                   str(tmp_path / "p.npz"), "--save_dir", str(tmp_path / name),
+                                   "--seed", str(seed), "--png-workers", "2", "--mesh"])
+        assert stats["batches"] == 1 and stats["samples"] == 4
+        return {p.relative_to(tmp_path / name).as_posix(): p.read_bytes()
+                for p in sorted((tmp_path / name).rglob("*.png"))}
+
+    want = tree("plain", 0, render)
+    # other latents: other values in the blocks the delayed run's outputs reuse
+    other = tree("other", 1, render)
+    got = tree("delayed", 0, delayed)
+    assert sorted(got) == sorted(want) and len(want) == 4 * (2 + 5 * cfg.model.n_future_frames)
+    assert any(other[k] != want[k] for k in want)
+    assert [k for k in want if got[k] != want[k]] == []
+
+
+def test_model_axis_join_on_card_is_exact(dev, group_of_one):
+    """The tensor-parallel join (parallel/tensor.py) on NCCL and the card,
+    in a process group of one (NCCL takes one rank per card, and this
+    machine may have one): the uint8 all-reduce returns each element's bits,
+    -0.0 and NaN included, in f32 and bf16, and the join and copy_to_model
+    pass the cotangent through. With one rank the all-reduce is a copy and
+    both backwards are identities, so this cannot catch a wrong offset or a
+    backward that sums: the join across ranks is tested on gloo
+    (tests/test_torch_tensor_parallel.py, and chip_smoke.py phase 12 on the
+    card)."""
+    from kpvid_tpu_torch.parallel import ModelShard
+    from kpvid_tpu_torch.parallel.tensor import copy_to_model, join
+
+    shard = ModelShard(0, 1)
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.tensor([[-0.0, float("nan"), 1.5, -3.25]], dtype=dtype, device=dev)
+        y = shard.join_(x, -1)
+        assert torch.equal(y.view(torch.int16 if dtype == torch.bfloat16 else torch.int32),
+                           x.view(torch.int16 if dtype == torch.bfloat16 else torch.int32))
+    x = torch.randn(3, 4, device=dev, requires_grad=True)
+    g = torch.randn(3, 4, device=dev)
+    (gx,) = torch.autograd.grad((join(copy_to_model(x, shard), -1, shard) * g).sum(), x)
+    assert torch.equal(gx, g)

@@ -105,11 +105,12 @@ def free_port() -> int:
 
 
 class Spawn:
-    """2 coordinated worker processes on a job; ``result()`` waits for them
-    (at most SPAWN_TIMEOUT_S from the start, then kills both) and asserts
-    that both exited 0."""
+    """``n`` coordinated worker processes (``worker``, default
+    tests/torch_dp_worker.py) on a job; ``result()`` waits for them (at most
+    SPAWN_TIMEOUT_S from the start, then kills them all) and asserts that
+    each exited 0."""
 
-    def __init__(self, job: dict, out: Path, n: int = 2):
+    def __init__(self, job: dict, out: Path, n: int = 2, worker: Path = WORKER):
         out.mkdir(parents=True, exist_ok=True)
         job_path = out / "job.json"
         job_path.write_text(json.dumps(dict(job, out=str(out))))
@@ -123,7 +124,7 @@ class Spawn:
             log = out / f"rank{pid}.log"
             self.logs.append(log)
             with log.open("w") as f:  # logs to files: a full pipe would block a rank
-                self.procs.append(subprocess.Popen([sys.executable, str(WORKER), str(job_path)],
+                self.procs.append(subprocess.Popen([sys.executable, str(worker), str(job_path)],
                                                    cwd=REPO, env=env, stdout=f,
                                                    stderr=subprocess.STDOUT))
         self._codes = None
@@ -621,7 +622,7 @@ def test_config_refusals_carry_jax_messages(tmp_path, case):
 
 def test_config_reads_the_parallel_fields(tmp_path):
     """grad_accum, dp_grad_dtype, mesh_data and min_shard_dim as JAX reads
-    them; a 'model' axis, which JAX takes, the port refuses."""
+    them; a 'model' axis as JAX takes it."""
     path = tmp_path / "c.yaml"
     path.write_text("training: {batch_size: 8, grad_accum: 2, dp_grad_dtype: bfloat16}\n"
                     "parallel: {mesh_data: 4, min_shard_dim: 512}\n")
@@ -631,15 +632,14 @@ def test_config_reads_the_parallel_fields(tmp_path):
         assert getattr(got.training, f) == getattr(want.training, f)
     path.write_text("parallel: {mesh_model: 2}\n")
     assert jax_load_config(path).parallel.mesh_model == 2
-    with pytest.raises(ValueError, match="tensor parallelism is not ported"):
-        tcfgs.load_config(path)
+    assert tcfgs.load_config(path).parallel.mesh_model == 2
 
 
 def test_single_process_defaults_and_refusals(monkeypatch):
     """Without the KPVID_* environment nothing is joined: rank 0 of 1, the
-    whole batch, barriers pass; the mesh refuses a 'model' axis and a size
-    other than the process count; the DP step refuses what JAX's refuses,
-    and needs a process group."""
+    whole batch, barriers pass; the mesh refuses a shape that the process
+    count does not fill; the DP step refuses what JAX's refuses (the bf16
+    reduce with a 'model' axis), and needs a process group."""
     for var in ("KPVID_COORDINATOR", "KPVID_MULTIHOST"):
         monkeypatch.delenv(var, raising=False)
     assert parallel.maybe_initialize("cpu") is False
@@ -647,13 +647,14 @@ def test_single_process_defaults_and_refusals(monkeypatch):
     assert parallel.local_batch_size(6) == 6
     parallel.barrier("single")
     assert parallel.make_mesh().shape == {"data": 1, "model": 1}
-    with pytest.raises(ValueError, match="tensor parallelism is not ported"):
+    with pytest.raises(ValueError, match="1 processes not divisible by n_model=2"):
         parallel.make_mesh(n_model=2)
     with pytest.raises(ValueError, match="mesh 2x1 != 1 processes"):
         parallel.make_mesh(n_data=2)
     cfg = s1_port_config()
     with pytest.raises(ValueError, match="pure-DP"):
-        parallel.make_dp_reduce_step(cfg, 2, mesh=parallel.Mesh(1, 2))
+        parallel.make_dp_reduce_step(s1_port_config(dp_grad_dtype="bfloat16"), 2,
+                                     mesh=parallel.Mesh(1, 2))
     with pytest.raises(ValueError, match="unknown gan_step_mode"):
         parallel.make_dp_reduce_step(cfg, 2, mode="alternate")
     with pytest.raises(RuntimeError, match="needs a process group"):

@@ -278,14 +278,19 @@ def test_lr_schedule_matches_optax(warmup):
 
 
 def test_config_refuses_knobs_of_later_slices():
-    """grad_accum, the bf16 gradient all-reduce and a 'data' mesh axis are
-    ported (tests/test_torch_parallel.py); tensor parallelism is not."""
+    """grad_accum, the bf16 gradient all-reduce, a 'data' mesh axis and a
+    'model' one are ported (tests/test_torch_parallel.py,
+    tests/test_torch_tensor_parallel.py); what is left refused is JAX's
+    refusal, the bf16 all-reduce with a 'model' axis."""
     assert port_config(grad_accum=2).training.grad_accum == 2
     assert port_config(dp_grad_dtype="bfloat16").training.dp_grad_dtype == "bfloat16"
     assert dataclasses.replace(port_config(), parallel=tcfgs.ParallelConfig(
         mesh_data=4)).validate().parallel.mesh_data == 4
-    with pytest.raises(ValueError, match="'Multi-GPU, the rest'"):
-        dataclasses.replace(port_config(), parallel=tcfgs.ParallelConfig(mesh_model=2)).validate()
+    assert dataclasses.replace(port_config(), parallel=tcfgs.ParallelConfig(
+        mesh_model=2)).validate().parallel.mesh_model == 2
+    with pytest.raises(ValueError, match="is pure-DP only"):
+        dataclasses.replace(port_config(dp_grad_dtype="bfloat16"),
+                            parallel=tcfgs.ParallelConfig(mesh_model=2)).validate()
 
 
 # --------------------------------------------------------------- data path
