@@ -79,8 +79,12 @@ imports nothing of JAX or of the JAX package, and:
    (points [16, 40, 2] from [16, 32^2, 40] maps) against the plain versions'
    torch autograd, f32 and bf16 (f32 within 1e-5 of each tensor's max; bf16
    maps' gradients within one bf16 step or that bound; the points' gradient
-   from bf16 cotangents within 1e-4 of its max), the same bits twice, and
-   their times both ways with bound and plain; then ``python -m
+   from bf16 cotangents within 1e-4 of its max), the same bits twice, the
+   same checks at one image or frame and at 33, 30^2, K = 40 and K = 6 (the
+   element-wise path), and their times both ways with bound, plain and the
+   launch floor (empty kernels in the same graph measurement), #3's also
+   after a 64 MB write between launches and beside ``zero_()`` of the same
+   bytes; then ``python -m
    kpvid_tpu_torch.train --mode detector_translator``'s ``main`` at
    ``Config()`` in bf16, batch 16, on phase 6's tree with synthesized VGG19
    weights for 40 fused steps (a checkpoint at step 20, one test sweep, one
@@ -189,8 +193,13 @@ imports nothing of JAX or of the JAX package, and:
    kpvid_tpu_torch.bench`` with and without ``--mesh`` (and over two
    replicas); ``evaluate --mesh`` writes phase 9's tree byte for byte, and
    over two replicas the same tree with each replica's point images written
-   after a spin kernel on its stream as without; ``serve --mesh`` in a process of its own answers 16
-   requests.
+   after a spin kernel on its stream as without; evaluate's launch over two
+   replicas returns to the host in under half a spin queued first on
+   replica 0's stream, with that stream still busy (at 4 future frames,
+   which keep the launches behind the spin within a stream's queue; it
+   prints the device operations one replica queues at 4 and at 32 frames
+   and the host's time for 500 and 1,500 launches behind a spin);
+   ``serve --mesh`` in a process of its own answers 16 requests.
 
 It prints the seconds since the start at each phase. It exits non-zero on
 any failed check, and without a CUDA device. The line
@@ -1599,87 +1608,146 @@ def rel_gap(got, want) -> float:
     return float((got - want).abs().max()) / max(float(want.abs().max()), 1e-30)
 
 
-def backward_kernel_phase(m) -> dict:
+# the backwards' edge shapes besides the path's: one image or frame and 33
+# at 30^2 (rows that split unevenly over an image's blocks, a cluster's last
+# band short), with K = 40 and with K = 6, which takes the element-wise path
+BWD_EDGE = [(n, 30, k) for n in (1, 33) for k in (40, 6)]
+
+
+def check_pose_backward(gen, shape, dtype) -> tuple[float, tuple]:
+    """#3's backward on random [B, H, W, K] maps against the plain soft-argmax's
+    torch autograd: f32 within BWD_F32_REL of the max; bf16 within one bf16
+    step of each element or that bound, where the two marginals' terms
+    cancel. The same bits twice, and the training form's points are the
+    inference form's. Returns the max abs error and the inputs."""
+    import torch
+
+    from kpvid_tpu_torch import ops
+
+    b, _, _, k = shape
+    raw = (3 * torch.randn(shape, generator=gen, device="cuda")).to(dtype)
+    ct = torch.randn((b, k, 2), generator=gen, device="cuda")
+    pts, p, q = torch.ops.kpvid.pose_head_train(raw)
+    got = ops.pose_head_backward(ct, pts, p, q, dtype)
+    again = ops.pose_head_backward(ct, pts, p, q, dtype)
+    torch.cuda.synchronize()
+    raw_req = raw.clone().requires_grad_()
+    (want,) = torch.autograd.grad(ops.heatmaps_to_keypoints(raw_req), raw_req, ct)
+    err = float((got.float() - want.float()).abs().max())
+    scale = float(want.float().abs().max())
+    if dtype == torch.float32:
+        ok = err <= BWD_F32_REL * scale
+    else:
+        g32, w32 = got.float(), want.float()
+        step = 2.0**-7 * torch.maximum(g32.abs(), w32.abs())
+        ok = bool(((g32 - w32).abs() <= torch.clamp(step, min=BWD_F32_REL * scale)).all())
+    check(ok and torch.equal(got, again) and torch.equal(pts, ops.pose_head(raw)),
+          f"pose_head_backward {tuple(shape)} {dtype}: max abs err {err:.3e} of max "
+          f"{scale:.3e} against plain autograd; the same bits twice; the training form's "
+          "points are the inference form's")
+    return err, (raw, ct, pts, p, q)
+
+
+def check_render_backward(gen, n, hs, k, inv_std, od) -> tuple[float, tuple]:
+    """#4's backward from a random [N, hs, hs, K] cotangent in ``od`` against the
+    plain render's torch autograd (f32 within BWD_F32_REL, bf16 within
+    BWD_POINTS_BF16_REL of the max), the same bits twice. Returns the max abs
+    error and the inputs."""
+    import torch
+
+    from kpvid_tpu_torch import ops
+
+    mu = torch.rand((n, k, 2), generator=gen, device="cuda") * 2 - 1
+    ct = torch.randn((n, hs, hs, k), generator=gen, device="cuda").to(od)
+    got = ops.gaussian_render_backward(ct, mu, inv_std)
+    again = ops.gaussian_render_backward(ct, mu, inv_std)
+    torch.cuda.synchronize()
+    mu_req = mu.clone().requires_grad_()
+    maps = ops.render_gaussian_maps(mu_req, hs, hs, inv_std, out_dtype=od)
+    (want,) = torch.autograd.grad(maps, mu_req, ct, retain_graph=True)
+    gap = rel_gap(got, want)
+    err = float((got - want).abs().max())
+    bound = BWD_F32_REL if od == torch.float32 else BWD_POINTS_BF16_REL
+    check(gap <= bound and torch.equal(got, again),
+          f"gaussian_render_backward {tuple(ct.shape)} {od} -> {tuple(mu.shape)}: max abs err "
+          f"{err:.3e}, {gap:.2e} of the max (bound {bound}); the same bits twice")
+    return err, (ct, mu, mu_req, maps)
+
+
+def backward_kernel_phase(m, card: str) -> dict:
     """#3's and #4's backwards against the plain versions' torch autograd at
-    stage 1's training shapes, f32 and bf16, and their times."""
+    stage 1's training shapes and at BWD_EDGE, f32 and bf16, and their times
+    at the training shapes beside the bound and the launch floor (an empty
+    kernel's device time in the same graph measurement)."""
     import torch
 
     from kpvid_tpu_torch import ops
 
     gen = torch.Generator(device="cuda").manual_seed(3)
     b, s, k = 2 * S1_BATCH, m.image_size, m.n_pts
-    rec = dict(library_ms=None, max_abs_err=0.0, max_abs_err_f32=0.0)
+    hs, n = m.heatmap_size, S1_BATCH
+    for en, ehw, ek in BWD_EDGE:
+        for dtype in (torch.float32, torch.bfloat16):
+            check_pose_backward(gen, (en, ehw, ehw, ek), dtype)
+            check_render_backward(gen, en, ehw, ek, m.heatmap_inv_std, dtype)
+    print(f"pose_head_backward and gaussian_render_backward at {BWD_EDGE} (N, H = W, K), f32 "
+          "and bf16: within their bounds of plain autograd, the same bits twice", flush=True)
+    floor = device_ms(lambda: torch.cuda._sleep(0), reps=50)
+
+    rec = dict(library_ms=None, launch_floor_ms=floor)
     for dtype in (torch.float32, torch.bfloat16):
-        raw = (3 * torch.randn((b, s, s, k), generator=gen, device="cuda")).to(dtype)
-        ct = torch.randn((b, k, 2), generator=gen, device="cuda")
-        pts, p, q = torch.ops.kpvid.pose_head_train(raw)
-        got = ops.pose_head_backward(ct, pts, p, q, dtype)
-        again = ops.pose_head_backward(ct, pts, p, q, dtype)
-        torch.cuda.synchronize()
-        raw_req = raw.clone().requires_grad_()
-        plain_pts = ops.heatmaps_to_keypoints(raw_req)
-        (want,) = torch.autograd.grad(plain_pts, raw_req, ct, retain_graph=True)
-        err = float((got.float() - want.float()).abs().max())
-        scale = float(want.float().abs().max())
-        if dtype == torch.float32:
-            ok = err <= BWD_F32_REL * scale
-            rec["max_abs_err_f32"] = err
-        else:  # one bf16 step of each element, or the f32 bound where terms cancel
-            g32, w32 = got.float(), want.float()
-            step = 2.0**-7 * torch.maximum(g32.abs(), w32.abs())
-            ok = bool(((g32 - w32).abs() <= torch.clamp(step, min=BWD_F32_REL * scale)).all())
-            rec["max_abs_err"] = err
-        check(ok and torch.equal(got, again) and torch.equal(pts, ops.pose_head(raw)),
-              f"pose_head_backward {tuple(raw.shape)} {dtype}: max abs err {err:.3e} of max "
-              f"{scale:.3e} against plain autograd; the same bits twice; the training form's "
-              "points are the inference form's")
-        if dtype == torch.bfloat16:  # the path's dtype
-            rec["ms"] = device_ms(lambda: ops.pose_head_backward(ct, pts, p, q, dtype), reps=20)
-            rec["host_loop_ms"] = time_ms(lambda: ops.pose_head_backward(ct, pts, p, q, dtype))
-            rec["plain_ms"] = time_ms(
-                lambda: torch.autograd.grad(plain_pts, raw_req, ct, retain_graph=True))
-            n_bytes = got.numel() * 2 + 4.0 * b * k * (2 * s) + 4.0 * 2 * b * k * 2
-            rec["bound_ms"], rec["bound_by"] = bound_ms(n_bytes, 3.0 * got.numel(), "float32")
-            fwd_train = device_ms(lambda: torch.ops.kpvid.pose_head_train(raw), reps=20)
-            fwd_inf = device_ms(lambda: ops.pose_head(raw), reps=20)
-    print(f"pose_head_backward bf16 [{b}, {s}, {s}, {k}] per stage-1 step: device "
+        err, (raw, ct, pts, p, q) = check_pose_backward(gen, (b, s, s, k), dtype)
+        rec["max_abs_err_f32" if dtype == torch.float32 else "max_abs_err"] = err
+    # the path's dtype: bf16
+    bwd = lambda: ops.pose_head_backward(ct, pts, p, q, torch.bfloat16)  # noqa: E731
+    rec["ms"] = device_ms(bwd, reps=20)
+    rec["host_loop_ms"] = time_ms(bwd)
+    # the 41.9 MB output fits the 50 MB L2: the same launches with a 64 MB
+    # write between them, less that write alone, say what a cold L2 costs
+    scratch = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    rec["ms_after_64mb_write"] = (device_ms(lambda: (scratch.fill_(1), bwd()), reps=20)
+                                  - device_ms(lambda: scratch.fill_(1), reps=20))
+    del scratch
+    # the card's practical write rate: the same bytes written by zero_()
+    grad = torch.empty((b, s, s, k), dtype=torch.bfloat16, device="cuda")
+    rec["zero_fill_ms"] = device_ms(lambda: grad.zero_(), reps=20)
+    del grad
+    raw_req = raw.clone().requires_grad_()
+    plain_pts = ops.heatmaps_to_keypoints(raw_req)
+    rec["plain_ms"] = time_ms(
+        lambda: torch.autograd.grad(plain_pts, raw_req, ct, retain_graph=True))
+    n_bytes = b * s * s * k * 2 + 4.0 * b * k * (2 * s) + 4.0 * 2 * b * k * 2
+    rec["bound_ms"], rec["bound_by"] = bound_ms(n_bytes, 3.0 * b * s * s * k, "float32")
+    fwd_train = device_ms(lambda: torch.ops.kpvid.pose_head_train(raw), reps=20)
+    fwd_inf = device_ms(lambda: ops.pose_head(raw), reps=20)
+    print(f"pose_head_backward bf16 [{b}, {s}, {s}, {k}] per stage-1 step on {card}: device "
           f"{rec['ms']:.4f} ms ({100 * rec['bound_ms'] / rec['ms']:.1f}% of the bound "
-          f"{rec['bound_ms']:.4f} ms, {rec['bound_by']}), host loop {rec['host_loop_ms']:.4f} ms, "
-          f"plain autograd {rec['plain_ms']:.4f} ms; the forward's training form {fwd_train:.4f} ms "
-          f"against its inference form {fwd_inf:.4f} ms", flush=True)
+          f"{rec['bound_ms']:.4f} ms, {rec['bound_by']}; launch floor {floor:.4f} ms; the same "
+          f"bytes by zero_() {rec['zero_fill_ms']:.4f} ms), after a 64 MB write "
+          f"{rec['ms_after_64mb_write']:.4f} ms, host loop "
+          f"{rec['host_loop_ms']:.4f} ms, plain autograd {rec['plain_ms']:.4f} ms; the "
+          f"forward's training form {fwd_train:.4f} ms against its inference form "
+          f"{fwd_inf:.4f} ms", flush=True)
     records = {"pose_head_backward": dict(rec, forward_train_ms=fwd_train,
                                           forward_inference_ms=fwd_inf)}
 
-    hs, n = m.heatmap_size, S1_BATCH
-    rec = dict(library_ms=None, max_abs_err=0.0, max_abs_err_f32=0.0)
+    rec = dict(library_ms=None, launch_floor_ms=2 * floor)
     for od in (torch.float32, torch.bfloat16):
-        mu = torch.rand((n, k, 2), generator=gen, device="cuda") * 2 - 1
-        ct = torch.randn((n, hs, hs, k), generator=gen, device="cuda").to(od)
-        got = ops.gaussian_render_backward(ct, mu, m.heatmap_inv_std)
-        again = ops.gaussian_render_backward(ct, mu, m.heatmap_inv_std)
-        torch.cuda.synchronize()
-        mu_req = mu.clone().requires_grad_()
-        maps = ops.render_gaussian_maps(mu_req, hs, hs, m.heatmap_inv_std, out_dtype=od)
-        (want,) = torch.autograd.grad(maps, mu_req, ct, retain_graph=True)
-        gap = rel_gap(got, want)
-        err = float((got - want).abs().max())
-        bound = BWD_F32_REL if od == torch.float32 else BWD_POINTS_BF16_REL
+        err, (ct, mu, mu_req, maps) = check_render_backward(gen, n, hs, k, m.heatmap_inv_std, od)
         rec["max_abs_err_f32" if od == torch.float32 else "max_abs_err"] = err
-        check(gap <= bound and torch.equal(got, again),
-              f"gaussian_render_backward {tuple(ct.shape)} {od} -> {tuple(mu.shape)}: max abs err "
-              f"{err:.3e}, {gap:.2e} of the max (bound {bound}); the same bits twice")
-        if od == torch.bfloat16:  # two launches a step, each at this shape
-            args = (ct, mu, m.heatmap_inv_std)
-            rec["ms"] = 2 * device_ms(lambda: ops.gaussian_render_backward(*args), reps=50)
-            rec["host_loop_ms"] = 2 * time_ms(lambda: ops.gaussian_render_backward(*args))
-            rec["plain_ms"] = 2 * time_ms(
-                lambda: torch.autograd.grad(maps, mu_req, ct, retain_graph=True))
-            n_bytes = 2 * (ct.numel() * 2 + 4.0 * n * k * 2 * 2)
-            rec["bound_ms"], rec["bound_by"] = bound_ms(n_bytes, 2 * 8.0 * ct.numel(), "float32")
-    print(f"gaussian_render_backward bf16 2 x [{n}, {hs}, {hs}, {k}] per stage-1 step: device "
-          f"{rec['ms']:.4f} ms ({100 * rec['bound_ms'] / rec['ms']:.1f}% of the bound "
-          f"{rec['bound_ms']:.4f} ms, {rec['bound_by']}), host loop {rec['host_loop_ms']:.4f} ms, "
-          f"plain autograd {rec['plain_ms']:.4f} ms", flush=True)
+    # two launches a step, each at this shape, in bf16
+    args = (ct, mu, m.heatmap_inv_std)
+    rec["ms"] = 2 * device_ms(lambda: ops.gaussian_render_backward(*args), reps=50)
+    rec["host_loop_ms"] = 2 * time_ms(lambda: ops.gaussian_render_backward(*args))
+    rec["plain_ms"] = 2 * time_ms(
+        lambda: torch.autograd.grad(maps, mu_req, ct, retain_graph=True))
+    n_bytes = 2 * (ct.numel() * 2 + 4.0 * n * k * 2 * 2)
+    rec["bound_ms"], rec["bound_by"] = bound_ms(n_bytes, 2 * 8.0 * ct.numel(), "float32")
+    print(f"gaussian_render_backward bf16 2 x [{n}, {hs}, {hs}, {k}] per stage-1 step on {card}: "
+          f"device {rec['ms']:.4f} ms ({100 * rec['bound_ms'] / rec['ms']:.1f}% of the bound "
+          f"{rec['bound_ms']:.4f} ms, {rec['bound_by']}; launch floor {2 * floor:.4f} ms), host "
+          f"loop {rec['host_loop_ms']:.4f} ms, plain autograd {rec['plain_ms']:.4f} ms",
+          flush=True)
     records["gaussian_render_backward"] = rec
     return records
 
@@ -1723,7 +1791,7 @@ def stage1_phase(cfg, card: str, root: Path) -> dict:
     from kpvid_tpu_torch.train import main as train_main
 
     m = cfg.model
-    kernels = backward_kernel_phase(m)
+    kernels = backward_kernel_phase(m, card)
     args = ["--mode", "detector_translator", "--max-steps", str(S1_STEPS)]
     ops.reset_launch_counts()
     run = train_main(args + ["--config", str(train_config(cfg, root, "s1_a", "log_s1"))])
@@ -2838,6 +2906,8 @@ TP_STEPS = 3  # the stage-2 CLI's steps at 1x2
 TP_TIMED = 3  # host-clock steps of each stage after the compared one (median)
 MESH_TIMED = 5  # host-clock runs of each engine at batch 32 (median)
 EVAL_DELAY_CYCLES = 200_000_000  # ~0.1 s of spinning on a replica's stream
+F1_SPIN_CYCLES = 1_000_000_000  # ~0.5 s: well above two replicas' host time at Config()
+F1_FRAMES = 4  # future frames of the F1 check's generate
 # stage 2 at 1x2: a first Adam step may turn over where |g| is below this
 # share of its tensor's max |g| (s2_tp_agree)
 TP_SIGN_STEP_REL = 1e-5
@@ -3002,6 +3072,76 @@ def one_process_step(cfg32, stage: int, vgg, inputs: dict, timed: int = 0):
     del t
     torch.cuda.empty_cache()
     return after, {**kept[0], **kept[1]}, metrics, ms
+
+
+def evaluate_launch_check(cfg, params, card: str) -> dict:
+    """evaluate's launch over two replicas on the card queues its work with no
+    wait on the host: with a spin kernel queued first on replica 0's stream,
+    map() returns while that stream still runs (a host array copied to the
+    card inside the launch would wait for it, and the replicas would run one
+    after another). Four future frames keep the launches queued behind the
+    spin below the CUDA queue of pending launches on a stream, past which
+    any launch waits on the host."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from kpvid_tpu_torch import evaluate
+    from kpvid_tpu_torch.eval.final import GeneratorMesh
+    from kpvid_tpu_torch.utils import get_n_colors
+
+    dev = torch.device("cuda", 0)
+    m = dataclasses.replace(cfg.model, n_future_frames=F1_FRAMES)
+    mesh = GeneratorMesh(dataclasses.replace(cfg, model=m), params, [dev, dev])
+    launch = evaluate.make_launch(get_n_colors(m.n_pts))
+    rng = np.random.default_rng(12)
+    rows = (rng.uniform(-1, 1, (BATCH, m.image_size, m.image_size, 3)).astype(np.float32),
+            np.eye(m.n_action, dtype=np.float32)[np.arange(BATCH) % m.n_action],
+            rng.standard_normal((BATCH, m.vae_dim)).astype(np.float32))
+    mesh.map(launch, *rows)
+    mesh.synchronize()
+    stream = mesh.replicas[0].stream
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with torch.cuda.stream(stream):
+        start.record()
+        torch.cuda._sleep(F1_SPIN_CYCLES)
+        end.record()
+    t0 = time.perf_counter()
+    mesh.map(launch, *rows)
+    host_ms = 1e3 * (time.perf_counter() - t0)
+    busy = not stream.query()
+    mesh.synchronize()
+    spin_ms = start.elapsed_time(end)
+    check(busy and host_ms < 0.5 * spin_ms,
+          f"evaluate's launch over two replicas at batch {BATCH}, {F1_FRAMES} future frames, on "
+          f"{card}: map() returned in {host_ms:.2f} ms with replica 0's stream still busy "
+          f"({busy}) behind a spin of {spin_ms:.2f} ms queued first")
+    rec = {"evaluate_launch_host_ms": host_ms, "evaluate_launch_spin_ms": spin_ms}
+    # why four frames: the device work one replica's launch queues, at four
+    # frames and at Config()'s, and the host's time for n launches queued on a
+    # stream behind the same spin
+    for frames in (F1_FRAMES, cfg.model.n_future_frames):
+        one = GeneratorMesh(dataclasses.replace(
+            cfg, model=dataclasses.replace(cfg.model, n_future_frames=frames)), params, [dev])
+        one.map(launch, *rows)
+        one.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            one.map(launch, *rows)
+            one.synchronize()
+        rec[f"device_ops_{frames}_frames"] = sum(
+            e.count for e in prof.key_averages() if e.device_type.name == "CUDA")
+        del one
+    x = torch.zeros(1, device=dev)
+    side = torch.cuda.Stream()
+    for n in (500, 1500):
+        with torch.cuda.stream(side):
+            torch.cuda._sleep(F1_SPIN_CYCLES)
+            t0 = time.perf_counter()
+            for _ in range(n):
+                x.add_(1)
+            rec[f"host_ms_{n}_launches_behind_spin"] = 1e3 * (time.perf_counter() - t0)
+        torch.cuda.synchronize()
+    print(f"evaluate's launch on {card}: {json.dumps(rec)}", flush=True)
+    return rec
 
 
 def tp_mesh_phase(cfg, params, card: str, root: Path) -> dict:
@@ -3240,6 +3380,8 @@ def tp_mesh_phase(cfg, params, card: str, root: Path) -> dict:
           f"byte for byte ({len(want)} PNGs; "
           f"the run with other latents between them differs in {other})")
 
+    rep.update(evaluate_launch_check(cfg, params, card))
+
     # serve --mesh in a process of its own
     gen = FinalGenerator(cfg, device="cpu")
     engine = InferenceEngine(cfg, load_generator_parameters(gen.model.state_dict(), s1_dir, ck2),
@@ -3368,7 +3510,9 @@ def main() -> int:
         if counts[name]:
             kernels[-1]["max_abs_err_per_bucket"] = {b: e[name] for b, e in per_bucket.items()}
         else:
-            kernels[-1]["forward_train_ms"] = r.get("forward_train_ms")
+            kernels[-1].update({k: r[k] for k in ("forward_train_ms", "launch_floor_ms",
+                                                  "zero_fill_ms", "ms_after_64mb_write")
+                                if k in r})
         if "b32" in r:
             kernels[-1]["batch32"] = r["b32"]
         if name == "pose_head":

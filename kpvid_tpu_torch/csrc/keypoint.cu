@@ -56,18 +56,52 @@
 // / H + g_y q_h (gy_h - y) / W, in f32, rounded once to the maps' dtype (what
 // the VJP of JAX's raw.astype(f32) does). The forward's training form writes
 // p [B, K, W] and q [B, K, H] in f32 (1.3 MB at batch 32), so the backward
-// reads no map: it is the render's separable write with a sum in place of the
-// product. Bound: the gradient's bytes, written once (41.9 MB in bf16 at
-// [32, 128, 128, 40], 12.5 us at 3.35 TB/s). Same bands of rows per block.
-//
+// reads no map: it is a separable write, cy[h, k] + cx[w, k]. Bound: the
+// gradient's bytes, written once (41.9 MB in bf16 at [32, 128, 128, 40],
+// 12.5 us at 3.35 TB/s). The design is paid for by the write alone:
+//   - one wave of blocks: G = SMs / B blocks an image (4 at batch 32 on 132
+//     SMs: 128 blocks), block j taking the rows j, j + G, ..., so that the G
+//     blocks of an image write neighbouring rows at the same time; a thread
+//     for each (column, 16-byte channel group) of a row (640 at 128 x 40
+//     bf16, at most 1,024, which then take the columns in chunks), so a
+//     block's prologue is paid against many rows;
+//   - the prologue is one round trip: each thread loads the W-marginal's term
+//     of its own column and channels, cx[w, k0:k0+V], into registers, and
+//     while those loads are in flight the block stages cy [rows, K] from q
+//     with coalesced loads (lanes along the rows of q[b, k, :], four channels
+//     a thread) written transposed into shared memory, rows padded to an odd
+//     count of 16-byte units so that the stores hit distinct banks;
+//   - the write loop has no division: a thread walks down its column, adds
+//     the row's cy (a broadcast read of shared memory) to the cx it holds and
+//     stores 16 bytes (4 f32 or 8 bf16 channels, or one channel where K is
+//     not a multiple of the vector); a warp's stores cover 512 contiguous
+//     bytes of a row. The stores carry the evict-first hint, so that L2
+//     writes the 41.9 MB back to HBM as it arrives instead of holding it
+//     dirty until later lines push it out.
+
 // gaussian_render_backward: d mu_x[n, k] = 2 c2 sum_{h,w} G ey_h ex_w (gx_w -
 // mu_x), d mu_y likewise with (gy_h - mu_y), from the maps' cotangent G in
-// the maps' dtype, widened to f32. One block takes one frame: it recomputes ey
-// and ex into shared memory, each thread owns one 16-byte channel group (4 f32
-// or 8 bf16 channels) and a fixed stride of pixels, and the threads' partial
-// sums are added in a fixed order, with no atomics, so a rerun gives the same
-// bits. Bound: one read of G (1.3 MB in bf16 at [16, 32, 32, 40]); with one
-// block a frame it is latency-bound at the training shape.
+// the maps' dtype, widened to f32. Bound: one read of G (1.3 MB in bf16 at
+// [16, 32, 32, 40], 0.4 us at 3.35 TB/s), which no launch reaches: the kernel
+// is bound by latency, and its design cuts the chain of dependent steps:
+//   - a cluster of 8 blocks a frame (128 blocks at N = 16), block r a band of
+//     ceil(H / 8) rows (4 rows, 10 KB at 32^2 bf16; bands may be short or
+//     empty);
+//   - each thread owns one column w and one 16-byte channel group and loads
+//     its band's rows of that slot with 16-byte loads (coalesced across the
+//     threads of a row), issued before the prologue computes ey and
+//     ey (gy - my) of the band into shared memory, so both latencies overlap;
+//     it sums G ey and G ey (gy - my) over the rows in registers, then
+//     multiplies by its column's ex (gx - mx) and ex: the sum is separable, so
+//     a thread takes only V exponentials of its own;
+//   - the threads' partials are summed in shared memory in a fixed order, and
+//     each block writes its sum of every output into the shared memory of
+//     the rank that finishes it (map_shared_rank), once a barrier begun at
+//     the kernel's start says every block runs; after cluster.sync() block r
+//     sums its share of the 2K outputs over the 8 ranks in rank order from
+//     its own shared memory. No block reads another's shared memory, so none
+//     waits at a last barrier before it exits. No atomics: a rerun gives the
+//     same bits.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -88,21 +122,22 @@ constexpr int NSTAGE = 2;            // staging buffers: NSTAGE - 1 copies in fl
 constexpr size_t MAX_SMEM = 232448;  // a block's shared memory on an H100
 constexpr int GR_THREADS = 256;
 constexpr int GR_BLOCKS_PER_SM = 4;
-constexpr int RB_THREADS = 512;
+constexpr int PB_THREADS = 1024;  // the soft-argmax's backward: threads a block, at most
+constexpr int PB_ROWS = 64;       // rows of cy it stages at once, at most
+constexpr int RB_THREADS = 256;  // the render's backward: threads a block
+constexpr int RB_RC = 4;         // rows of one column slot a thread loads at once
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 
-// V f32 values from 16 bytes of shared memory (4 f32 or 8 bf16)
-__device__ __forceinline__ void load_vec(const float* p, float* v) {
-  const float4 q = *reinterpret_cast<const float4*>(p);
-  v[0] = q.x;
-  v[1] = q.y;
-  v[2] = q.z;
-  v[3] = q.w;
+// the f32 values of 16 bytes held in registers: 4 f32 or 8 bf16
+__device__ __forceinline__ void widen16(const uint4& q, float* v, const float*) {
+  v[0] = __uint_as_float(q.x);
+  v[1] = __uint_as_float(q.y);
+  v[2] = __uint_as_float(q.z);
+  v[3] = __uint_as_float(q.w);
 }
-__device__ __forceinline__ void load_vec(const __nv_bfloat16* p, float* v) {
-  const uint4 q = *reinterpret_cast<const uint4*>(p);
+__device__ __forceinline__ void widen16(const uint4& q, float* v, const __nv_bfloat16*) {
   const uint32_t w[4] = {q.x, q.y, q.z, q.w};
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
@@ -111,6 +146,46 @@ __device__ __forceinline__ void load_vec(const __nv_bfloat16* p, float* v) {
     v[2 * j + 1] = f.y;
   }
 }
+
+// V f32 values from 16 bytes of shared memory (4 f32 or 8 bf16)
+template <typename T>
+__device__ __forceinline__ void load_vec(const T* p, float* v) {
+  widen16(*reinterpret_cast<const uint4*>(p), v, p);
+}
+
+// V f32 values from 16-byte aligned shared memory: 16-byte loads where V is a
+// multiple of 4, else one at a time
+template <int V>
+__device__ __forceinline__ void load_f32v(const float* s, float* v) {
+  if constexpr (V % 4 == 0) {
+#pragma unroll
+    for (int j = 0; j < V; j += 4) {
+      const float4 q = *reinterpret_cast<const float4*>(s + j);
+      v[j] = q.x;
+      v[j + 1] = q.y;
+      v[j + 2] = q.z;
+      v[j + 3] = q.w;
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < V; ++j) v[j] = s[j];
+  }
+}
+
+// one 16-byte vector of T (VEC) or one element, loaded from device memory now
+// and widened to f32 when it is used
+template <typename T, bool VEC>
+struct Raw {
+  uint4 q;
+  __device__ __forceinline__ void load(const T* p) { q = __ldg(reinterpret_cast<const uint4*>(p)); }
+  __device__ __forceinline__ void widen(float* v) const { widen16(q, v, static_cast<const T*>(nullptr)); }
+};
+template <typename T>
+struct Raw<T, false> {
+  T x;
+  __device__ __forceinline__ void load(const T* p) { x = *p; }
+  __device__ __forceinline__ void widen(float* v) const { v[0] = to_f32(x); }
+};
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
@@ -398,64 +473,75 @@ pose_head_kernel(const T* __restrict__ raw, const float* __restrict__ gx,
   }
 }
 
-template <typename T, bool VEC>
-cudaError_t launch_pose_head(const void* raw, const float* gx, const float* gy, float* out,
-                             float* p, float* q, int B, int H, int W, int K,
-                             cudaStream_t stream) {
-  auto kern = pose_head_kernel<T, VEC>;
-  const PoseLayout L = pose_layout(H, W, K, (int)sizeof(T), VEC);
-  if (L.total > MAX_SMEM) return cudaErrorInvalidValue;
+// a launch of `clusters` clusters of CLUSTER blocks of `threads` threads and
+// `smem` bytes of shared memory each. The first launch at a larger `smem`
+// than `checked` (the largest so far) raises the kernel's shared memory
+// limit and checks that a cluster can be resident: one that cannot is
+// refused with an error, and nothing else is launched in its place.
+template <typename... Params, typename... Args>
+cudaError_t launch_clusters(void (*kern)(Params...), size_t smem, size_t& checked,
+                            unsigned clusters, int threads, cudaStream_t stream, Args... args) {
+  if (smem > MAX_SMEM) return cudaErrorInvalidValue;
   cudaLaunchConfig_t cfg = {};
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = CLUSTER;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
-  cfg.gridDim = dim3((unsigned)(B * CLUSTER));
-  cfg.blockDim = dim3(PH_THREADS);
-  cfg.dynamicSmemBytes = L.total;
+  cfg.gridDim = dim3(clusters * CLUSTER);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  // the largest shared memory this instantiation has been set up and checked
-  // for: a cluster whose blocks cannot be resident together is refused here
-  static size_t checked = 0;
-  if (L.total > checked) {
+  if (smem > checked) {
     cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)L.total);
+                                         (int)smem);
     if (e != cudaSuccess) return e;
-    int clusters = 0;
-    e = cudaOccupancyMaxActiveClusters(&clusters, kern, &cfg);
+    int resident = 0;
+    e = cudaOccupancyMaxActiveClusters(&resident, kern, &cfg);
     if (e != cudaSuccess) return e;
-    if (clusters < 1) return cudaErrorLaunchOutOfResources;
-    checked = L.total;
+    if (resident < 1) return cudaErrorLaunchOutOfResources;
+    checked = smem;
   }
-  cudaLaunchKernelEx(&cfg, kern, static_cast<const T*>(raw), gx, gy, out, p, q, H, W, K);
+  cudaLaunchKernelEx(&cfg, kern, args...);
   return cudaGetLastError();
+}
+
+template <typename T, bool VEC>
+cudaError_t launch_pose_head(const void* raw, const float* gx, const float* gy, float* out,
+                             float* p, float* q, int B, int H, int W, int K,
+                             cudaStream_t stream) {
+  static size_t checked = 0;
+  return launch_clusters(pose_head_kernel<T, VEC>,
+                         pose_layout(H, W, K, (int)sizeof(T), VEC).total, checked, (unsigned)B,
+                         PH_THREADS, stream, static_cast<const T*>(raw), gx, gy, out, p, q, H,
+                         W, K);
 }
 
 __device__ __forceinline__ void store_vec(float* o, const float* v) {
   *reinterpret_cast<float4*>(o) = make_float4(v[0], v[1], v[2], v[3]);
 }
-__device__ __forceinline__ void store_vec(__nv_bfloat16* o, const float* v) {
-  uint4 q;
-  __nv_bfloat162 h[4];
+// 8 f32 values rounded to bf16, as 16 bytes
+__device__ __forceinline__ uint4 pack_bf16x8(const float* v) {
+  uint32_t w[4];
 #pragma unroll
-  for (int j = 0; j < 4; ++j) h[j] = __floats2bfloat162_rn(v[2 * j], v[2 * j + 1]);
-  q.x = *reinterpret_cast<uint32_t*>(&h[0]);
-  q.y = *reinterpret_cast<uint32_t*>(&h[1]);
-  q.z = *reinterpret_cast<uint32_t*>(&h[2]);
-  q.w = *reinterpret_cast<uint32_t*>(&h[3]);
-  *reinterpret_cast<uint4*>(o) = q;
+  for (int j = 0; j < 4; ++j) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * j], v[2 * j + 1]);
+    w[j] = *reinterpret_cast<const uint32_t*>(&h);
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+__device__ __forceinline__ void store_vec(__nv_bfloat16* o, const float* v) {
+  *reinterpret_cast<uint4*>(o) = pack_bf16x8(v);
 }
 __device__ __forceinline__ void store_one(float* o, float v) { *o = v; }
 __device__ __forceinline__ void store_one(__nv_bfloat16* o, float v) { *o = __float2bfloat16_rn(v); }
 
-// rows [nr, W, K] of a separable function of (row, column): out = a[r, k] *
-// c[w, k] (the render) or a[r, k] + c[w, k] (the soft-argmax's gradient), f32
-// arithmetic rounded once to T, along the contiguous NHWC rows in 16-byte
+// rows [nr, W, K] of the render's separable product out = a[r, k] * c[w, k],
+// f32 arithmetic rounded once to T, along the contiguous NHWC rows in 16-byte
 // vectors (VEC) or one element at a time
-template <typename T, bool VEC, bool SUM>
+template <typename T, bool VEC>
 __device__ __forceinline__ void write_separable(T* o, const float* a_rows, const float* c_cols,
                                                 int nr, int W, int K) {
   const int tid = threadIdx.x;
@@ -474,10 +560,10 @@ __device__ __forceinline__ void write_separable(T* o, const float* a_rows, const
       for (int j = 0; j < V; j += 4) {
         const float4 qa = *reinterpret_cast<const float4*>(a + j);
         const float4 qc = *reinterpret_cast<const float4*>(c + j);
-        v[j] = SUM ? qa.x + qc.x : qa.x * qc.x;
-        v[j + 1] = SUM ? qa.y + qc.y : qa.y * qc.y;
-        v[j + 2] = SUM ? qa.z + qc.z : qa.z * qc.z;
-        v[j + 3] = SUM ? qa.w + qc.w : qa.w * qc.w;
+        v[j] = qa.x * qc.x;
+        v[j + 1] = qa.y * qc.y;
+        v[j + 2] = qa.z * qc.z;
+        v[j + 3] = qa.w * qc.w;
       }
       store_vec(o + (size_t)p * K + k0, v);
     }
@@ -488,7 +574,7 @@ __device__ __forceinline__ void write_separable(T* o, const float* a_rows, const
       const int r = p / W;
       const float a = a_rows[r * K + k];
       const float c = c_cols[(p - r * W) * K + k];
-      store_one(o + i, SUM ? a + c : a * c);
+      store_one(o + i, a * c);
     }
   }
 }
@@ -515,43 +601,148 @@ gaussian_render_kernel(const float* __restrict__ mu, const float* __restrict__ g
     ex[i] = expf(-(d * d) * c2);
   }
   __syncthreads();
-  write_separable<T, VEC, false>(out + ((size_t)n * H + h0) * W * K, ey, ex, nr, W, K);
+  write_separable<T, VEC>(out + ((size_t)n * H + h0) * W * K, ey, ex, nr, W, K);
+}
+
+// the row pitch, in floats, of the soft-argmax backward's staged terms: K
+// rounded up to 4, an odd count of 16-byte units, so that 8 lanes storing 16
+// bytes each at consecutive rows hit 8 distinct groups of banks
+__host__ __device__ inline int pb_pitch(int K) {
+  const int kp = (K + 3) / 4 * 4;
+  return (kp / 4) % 2 ? kp : kp + 4;
+}
+
+// the H-marginal's terms of n rows, cy[i, k] = gp[2 k] q[k, i step] (grid[i step] -
+// pt[2 k]) / div for i < n (q's rows at stride `ld`), into [n, KP], zero in
+// the padding channels: a thread takes 4 channels of one row, lanes run along
+// the rows over q, and the 16-byte stores transpose them
+__device__ __forceinline__ void stage_row_terms(float* dst, int KP, const float* m, long ld,
+                                                int step, int n, const float* grid,
+                                                const float* gp, const float* pt, int K,
+                                                float div) {
+  const int nq = (K + 3) / 4;
+  for (int t = threadIdx.x; t < nq * n; t += blockDim.x) {
+    const int kq = t / n;
+    const int r = t - kq * n;
+    const int i = r * step;
+    float v[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int k = 4 * kq + j;
+      v[j] = k < K ? gp[2 * k] * m[k * ld + i] * (grid[i] - pt[2 * k]) / div : 0.f;
+    }
+    *reinterpret_cast<float4*>(dst + (size_t)r * KP + 4 * kq) = make_float4(v[0], v[1], v[2], v[3]);
+  }
+}
+
+// 16 bytes (4 f32 or 8 bf16) or one element, stored with the evict-first
+// (streaming) hint, so that L2 writes the lines back as they come
+__device__ __forceinline__ void store_vec_cs(float* o, const float* v) {
+  __stcs(reinterpret_cast<float4*>(o), make_float4(v[0], v[1], v[2], v[3]));
+}
+__device__ __forceinline__ void store_vec_cs(__nv_bfloat16* o, const float* v) {
+  __stcs(reinterpret_cast<uint4*>(o), pack_bf16x8(v));
+}
+__device__ __forceinline__ void store_one_cs(float* o, float v) { __stcs(o, v); }
+__device__ __forceinline__ void store_one_cs(__nv_bfloat16* o, float v) {
+  __stcs(reinterpret_cast<unsigned short*>(o), __bfloat16_as_ushort(__float2bfloat16_rn(v)));
 }
 
 // g [B, K, 2] the points' cotangent, pts [B, K, 2] the forward's points, p
-// [B, K, W] and q [B, K, H] its softmaxes -> the maps' gradient, a band of rb
-// rows of one image per block
+// [B, K, W] and q [B, K, H] its softmaxes -> the maps' gradient; block (b, j)
+// of the G blocks of image b writes its rows j, j + G, j + 2 G, ...
 template <typename T, bool VEC>
-__global__ void __launch_bounds__(GR_THREADS)
+__global__ void __launch_bounds__(PB_THREADS, 1)
 pose_head_backward_kernel(const float* __restrict__ g, const float* __restrict__ pts,
                           const float* __restrict__ p, const float* __restrict__ q,
                           const float* __restrict__ gy, const float* __restrict__ gx,
-                          T* __restrict__ out, int H, int W, int K, int rb, int bands) {
+                          T* __restrict__ out, int H, int W, int K, int G) {
+  constexpr int V = VEC ? 16 / sizeof(T) : 1;
   extern __shared__ __align__(16) float gsm[];
-  const int b = blockIdx.x / bands;
-  const int h0 = (blockIdx.x - b * bands) * rb;
-  const int nr = min(rb, H - h0);
+  const int KP = pb_pitch(K);
+  float* cy = gsm;  // [PB_ROWS, KP]: the H-marginal's term of each row
   const int tid = threadIdx.x;
-  float* cy = gsm;           // [rb, K]: the H-marginal's term of each row
-  float* cx = gsm + rb * K;  // [W, K]: the W-marginal's term of each column
+  const int kv = K / V;              // channel groups of a pixel
+  const int cols = blockDim.x / kv;  // columns the threads take at once
+  const int k0 = (tid % kv) * V;
+  const int wc = tid / kv;
+  const int b = blockIdx.x / G;
+  const int j = blockIdx.x - b * G;
+  const int n = (H - j + G - 1) / G;  // this block's rows
   const float* gb = g + (size_t)b * K * 2;
   const float* pb = pts + (size_t)b * K * 2;
-  for (int i = tid; i < nr * K; i += GR_THREADS) {
-    const int r = i / K;
-    const int k = i - r * K;
-    const int h = h0 + r;
-    cy[i] = gb[2 * k + 1] * q[((size_t)b * K + k) * H + h] * (gy[h] - pb[2 * k + 1]) / (float)W;
+  const float* pk = p + ((size_t)b * K + k0) * W;
+  const size_t row_step = (size_t)G * W * K;  // elements from one of its rows to the next
+  for (int i0 = 0; i0 < n; i0 += PB_ROWS) {
+    const int nr = min(PB_ROWS, n - i0);
+    const int h0 = j + G * i0;
+    for (int c0 = 0; c0 < W; c0 += cols) {
+      const int w = c0 + wc;
+      const bool has = wc < cols && w < W;
+      // this thread's column term, its loads in flight while cy is staged
+      float pv[V], gv[V], tv[V], gw = 0.f;
+      if (has) {
+        gw = gx[w];
+#pragma unroll
+        for (int c = 0; c < V; ++c) {
+          pv[c] = pk[(size_t)c * W + w];
+          gv[c] = gb[2 * (k0 + c)];
+          tv[c] = pb[2 * (k0 + c)];
+        }
+      }
+      if (c0 == 0) {
+        __syncthreads();  // the previous rows' reads of cy are done
+        stage_row_terms(cy, KP, q + (size_t)b * K * H + h0, H, G, nr, gy + h0, gb + 1, pb + 1, K,
+                        (float)W);
+        __syncthreads();
+      }
+      if (has) {
+        float cx[V];
+#pragma unroll
+        for (int c = 0; c < V; ++c) cx[c] = gv[c] * pv[c] * (gw - tv[c]) / (float)H;
+        T* o = out + (((size_t)b * H + h0) * W + w) * K + k0;
+#pragma unroll 4
+        for (int r = 0; r < nr; ++r) {
+          float v[V];
+          load_f32v<V>(cy + r * KP + k0, v);
+#pragma unroll
+          for (int c = 0; c < V; ++c) v[c] += cx[c];
+          if constexpr (VEC)
+            store_vec_cs(o + r * row_step, v);
+          else
+            store_one_cs(o + r * row_step, v[0]);
+        }
+      }
+    }
   }
-  for (int i = tid; i < W * K; i += GR_THREADS) {
-    const int w = i / K;
-    const int k = i - w * K;
-    cx[i] = gb[2 * k] * p[((size_t)b * K + k) * W + w] * (gx[w] - pb[2 * k]) / (float)H;
-  }
-  __syncthreads();
-  write_separable<T, VEC, true>(out + ((size_t)b * H + h0) * W * K, cy, cx, nr, W, K);
 }
 
-// one block a frame: dmaps [N, H, W, K] -> dmu [N, K, 2]
+// The render's backward shared memory, in floats: ey and ey (gy - my) of the
+// band's rows [band, K] each, the threads' partials [wl, K, 2], and the sums
+// of this block's share of the outputs that each rank sends it [CLUSTER,
+// per]; total in bytes
+struct RbLayout {
+  int band;  // rows a block takes
+  int kv;    // channel groups of a pixel
+  int wl;    // columns the threads take at once
+  int per;   // outputs a rank finishes
+  size_t eyd, part, recv, total;
+};
+
+__host__ __device__ inline RbLayout rb_layout(int H, int W, int K, int V) {
+  RbLayout L;
+  L.band = (H + CLUSTER - 1) / CLUSTER;
+  L.kv = K / V;
+  L.wl = RB_THREADS / L.kv < W ? RB_THREADS / L.kv : W;
+  L.per = (2 * K + CLUSTER - 1) / CLUSTER;
+  L.eyd = (size_t)L.band * K;
+  L.part = L.eyd + (size_t)L.band * K;
+  L.recv = L.part + (size_t)L.wl * K * 2;
+  L.total = (L.recv + (size_t)CLUSTER * L.per) * sizeof(float);
+  return L;
+}
+
+// a cluster of CLUSTER blocks a frame: dmaps [N, H, W, K] -> dmu [N, K, 2]
 template <typename T, bool VEC>
 __global__ void __launch_bounds__(RB_THREADS)
 render_backward_kernel(const T* __restrict__ dmaps, const float* __restrict__ mu,
@@ -559,70 +750,114 @@ render_backward_kernel(const T* __restrict__ dmaps, const float* __restrict__ mu
                        float* __restrict__ dmu, int H, int W, int K, float c2) {
   constexpr int V = VEC ? 16 / sizeof(T) : 1;
   extern __shared__ __align__(16) float rsm[];
-  const int n = blockIdx.x;
+  cg::cluster_group cluster = cg::this_cluster();
+  // the first half of the barrier that makes sure every block of the cluster
+  // runs before any writes to its shared memory (the wait comes later)
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+  const RbLayout L = rb_layout(H, W, K, V);
+  const int rank = (int)cluster.block_rank();
+  const int n = blockIdx.x / CLUSTER;
   const int tid = threadIdx.x;
-  const int kv = K / V;            // channel groups of a pixel
-  const int ng = RB_THREADS / kv;  // threads that share a channel group
-  float* ey = rsm;                 // [H, K]
-  float* ex = ey + H * K;          // [W, K]
-  float* part = ex + W * K;        // [ng, K, 2]: each thread's sums
+  const int row0 = rank * L.band;
+  const int rows = max(0, min(L.band, H - row0));
+  float* ey = rsm;
+  float* eyd = rsm + L.eyd;
+  float* part = rsm + L.part;
+  float* recv = rsm + L.recv;
   const float* m = mu + (size_t)n * K * 2;
-  for (int i = tid; i < H * K; i += RB_THREADS) {
-    const float d = gy[i / K] - m[2 * (i % K) + 1];
-    ey[i] = expf(-(d * d) * c2);
+  // thread (w0, group): channels [k0, k0 + V) of the columns w0, w0 + wl, ...
+  const bool active = tid < L.wl * L.kv;
+  const int k0 = (tid % L.kv) * V;
+  const int w0 = tid / L.kv;
+  const size_t row_elems = (size_t)W * K;
+  const T* src = dmaps + ((size_t)n * H + row0) * row_elems + k0;
+  Raw<T, VEC> x[RB_RC];
+  auto fetch = [&](int w, int r0) {
+#pragma unroll
+    for (int j = 0; j < RB_RC; ++j)
+      if (r0 + j < rows) x[j].load(src + (size_t)(r0 + j) * row_elems + (size_t)w * K);
+  };
+  // the first slot's rows, the points' x and the first column's grid value
+  // are in flight while the prologue runs
+  float mx[V], gw0 = 0.f;
+  if (active) {
+    fetch(w0, 0);
+#pragma unroll
+    for (int j = 0; j < V; ++j) mx[j] = m[2 * (k0 + j)];
+    gw0 = gx[w0];
   }
-  for (int i = tid; i < W * K; i += RB_THREADS) {
-    const float d = gx[i / K] - m[2 * (i % K)];
-    ex[i] = expf(-(d * d) * c2);
+  for (int i = tid; i < rows * K; i += RB_THREADS) {
+    const int r = i / K;
+    const int k = i - r * K;
+    const float d = gy[row0 + r] - m[2 * k + 1];
+    const float e = expf(-(d * d) * c2);
+    ey[i] = e;
+    eyd[i] = e * d;
   }
   __syncthreads();
-  if (tid < ng * kv) {
-    const int k0 = (tid % kv) * V;
-    const int g0 = tid / kv;
-    float mx[V], my[V], ax[V], ay[V];
+  if (active) {
+    float px[V], py[V];
 #pragma unroll
-    for (int j = 0; j < V; ++j) {
-      mx[j] = m[2 * (k0 + j)];
-      my[j] = m[2 * (k0 + j) + 1];
-      ax[j] = 0.f;
-      ay[j] = 0.f;
-    }
-    const T* src = dmaps + (size_t)n * H * W * K + k0;
-    for (int pix = g0; pix < H * W; pix += ng) {
-      const int h = pix / W;
-      const int w = pix - h * W;
-      float v[V];
-      if constexpr (VEC)
-        load_vec(src + (size_t)pix * K, v);
-      else
-        v[0] = to_f32(src[(size_t)pix * K]);
-      const float* a = ey + h * K + k0;
-      const float* c = ex + w * K + k0;
-      const float dy = gy[h];
-      const float dx = gx[w];
+    for (int j = 0; j < V; ++j) px[j] = py[j] = 0.f;
+    for (int w = w0; w < W; w += L.wl) {
+      float a[V], ad[V];  // sum over the band's rows of G ey and of G ey (gy - my)
+#pragma unroll
+      for (int j = 0; j < V; ++j) a[j] = ad[j] = 0.f;
+      for (int r0 = 0; r0 < rows; r0 += RB_RC) {
+        if (w != w0 || r0 != 0) fetch(w, r0);
+#pragma unroll
+        for (int i = 0; i < RB_RC; ++i) {
+          if (r0 + i < rows) {
+            float v[V], e[V], ed[V];
+            x[i].widen(v);
+            load_f32v<V>(ey + (r0 + i) * K + k0, e);
+            load_f32v<V>(eyd + (r0 + i) * K + k0, ed);
+#pragma unroll
+            for (int j = 0; j < V; ++j) {
+              a[j] += v[j] * e[j];
+              ad[j] += v[j] * ed[j];
+            }
+          }
+        }
+      }
+      const float gw = w == w0 ? gw0 : gx[w];
 #pragma unroll
       for (int j = 0; j < V; ++j) {
-        const float t = v[j] * a[j] * c[j];
-        ax[j] += t * (dx - mx[j]);
-        ay[j] += t * (dy - my[j]);
+        const float d = gw - mx[j];
+        const float e = expf(-(d * d) * c2);
+        px[j] += e * d * a[j];
+        py[j] += e * ad[j];
       }
     }
 #pragma unroll
     for (int j = 0; j < V; ++j) {
-      part[(g0 * K + k0 + j) * 2] = ax[j];
-      part[(g0 * K + k0 + j) * 2 + 1] = ay[j];
+      part[(w0 * K + k0 + j) * 2] = px[j];
+      part[(w0 * K + k0 + j) * 2 + 1] = py[j];
     }
   }
   __syncthreads();
-  for (int i = tid; i < 2 * K; i += RB_THREADS) {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+  // rank r finishes the outputs [r per, (r + 1) per): this block's sum of
+  // each output goes to its rank's shared memory, in the row of this rank
+  for (int o = tid; o < 2 * K; o += RB_THREADS) {
     float s = 0.f;
-    for (int j = 0; j < ng; ++j) s += part[j * 2 * K + i];
-    dmu[(size_t)n * 2 * K + i] = 2.f * c2 * s;
+    for (int j = 0; j < L.wl; ++j) s += part[j * 2 * K + o];
+    const int owner = o / L.per;
+    cluster.map_shared_rank(recv, owner)[rank * L.per + o - owner * L.per] = s;
+  }
+  // every rank's sums have arrived; no block touches another's shared memory
+  // after this barrier, so a block may exit as soon as it is done
+  cluster.sync();
+  for (int i = tid; i < L.per && rank * L.per + i < 2 * K; i += RB_THREADS) {
+    float s = 0.f;
+#pragma unroll
+    for (int r = 0; r < CLUSTER; ++r) s += recv[r * L.per + i];
+    dmu[(size_t)n * 2 * K + rank * L.per + i] = 2.f * c2 * s;
   }
 }
 
-// rows a block of the band kernels takes: about GR_BLOCKS_PER_SM blocks a SM
-cudaError_t band_rows(long frames, int H, int* rb, int* bands) {
+// the card's SM count, read once
+cudaError_t sm_count(int* out) {
   static int sms = 0;
   if (sms == 0) {
     int dev = 0;
@@ -630,6 +865,15 @@ cudaError_t band_rows(long frames, int H, int* rb, int* bands) {
     if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (e != cudaSuccess) return e;
   }
+  *out = sms;
+  return cudaSuccess;
+}
+
+// rows a block of the render takes: about GR_BLOCKS_PER_SM blocks a SM
+cudaError_t band_rows(long frames, int H, int* rb, int* bands) {
+  int sms = 0;
+  cudaError_t e = sm_count(&sms);
+  if (e != cudaSuccess) return e;
   const long rows = frames * H;
   const long target = (long)GR_BLOCKS_PER_SM * sms;
   int r = (int)((rows + target - 1) / target);
@@ -675,15 +919,25 @@ cudaError_t launch_pose_head_backward(const float* g, const float* pts, const fl
                                       void* out, int B, int H, int W, int K,
                                       cudaStream_t stream) {
   auto kern = pose_head_backward_kernel<T, VEC>;
-  int rb = 0, bands = 0;
-  cudaError_t e = band_rows(B, H, &rb, &bands);
+  constexpr int V = VEC ? 16 / sizeof(T) : 1;
+  const int kv = K / V;
+  if (kv > PB_THREADS) return cudaErrorInvalidValue;
+  int sms = 0;
+  cudaError_t e = sm_count(&sms);
   if (e != cudaSuccess) return e;
-  const size_t smem = (size_t)(rb + W) * K * sizeof(float);
+  // a thread for each (column, channel group) of a row, up to PB_THREADS
+  const long slots = ((long)W * kv + 31) / 32 * 32;
+  const int threads = slots < PB_THREADS ? (int)slots : PB_THREADS;
+  // G blocks an image, at most a block a SM in all (a block an image past that)
+  const int fit = B < sms ? sms / B : 1;
+  const int G = fit < H ? fit : H;
+  const int per = (H + G - 1) / G;
+  const size_t smem = (size_t)(per < PB_ROWS ? per : PB_ROWS) * pb_pitch(K) * sizeof(float);
   static size_t attr_bytes = 48 * 1024;
   e = allow_smem(kern, smem, attr_bytes);
   if (e != cudaSuccess) return e;
-  kern<<<(unsigned)((long)B * bands), GR_THREADS, smem, stream>>>(
-      g, pts, p, q, gy, gx, static_cast<T*>(out), H, W, K, rb, bands);
+  kern<<<(unsigned)((long)B * G), threads, smem, stream>>>(g, pts, p, q, gy, gx,
+                                                           static_cast<T*>(out), H, W, K, G);
   return cudaGetLastError();
 }
 
@@ -691,18 +945,12 @@ template <typename T, bool VEC>
 cudaError_t launch_render_backward(const void* dmaps, const float* mu, const float* gy,
                                    const float* gx, float* dmu, int N, int H, int W, int K,
                                    float c2, cudaStream_t stream) {
-  auto kern = render_backward_kernel<T, VEC>;
   constexpr int V = VEC ? 16 / sizeof(T) : 1;
-  const int kv = K / V;
-  if (kv < 1 || kv > RB_THREADS) return cudaErrorInvalidValue;
-  const int ng = RB_THREADS / kv;
-  const size_t smem = ((size_t)(H + W) * K + (size_t)ng * K * 2) * sizeof(float);
-  static size_t attr_bytes = 48 * 1024;
-  cudaError_t e = allow_smem(kern, smem, attr_bytes);
-  if (e != cudaSuccess) return e;
-  kern<<<(unsigned)N, RB_THREADS, smem, stream>>>(static_cast<const T*>(dmaps), mu, gy, gx, dmu,
-                                                 H, W, K, c2);
-  return cudaGetLastError();
+  if (K / V > RB_THREADS) return cudaErrorInvalidValue;
+  static size_t checked = 0;
+  return launch_clusters(render_backward_kernel<T, VEC>, rb_layout(H, W, K, V).total, checked,
+                         (unsigned)N, RB_THREADS, stream, static_cast<const T*>(dmaps), mu, gy,
+                         gx, dmu, H, W, K, c2);
 }
 
 }  // namespace

@@ -170,7 +170,9 @@ class FinalGenerator:
         """Colorized keypoint images [N, S, S, 3] of points [N, K, 2] at full
         resolution. As in JAX, the maps are rendered on the grid of the
         points' dtype and tinted in it: f32 for the detected points, the
-        compute dtype for the decoded ones."""
+        compute dtype for the decoded ones. ``colors`` [K, 3] is a host array
+        or a tensor on the points' device (no host copy then:
+        :meth:`MeshReplica.constant`)."""
         size = size or self.config.model.image_size
         maps = gaussian_render(mu.float().contiguous(), size, size,
                                self.config.model.heatmap_inv_std, grid_dtype=mu.dtype,
@@ -195,6 +197,19 @@ class MeshReplica:
     final: FinalGenerator
     stream: torch.cuda.Stream | None
     copy_stream: torch.cuda.Stream | None
+    constants: dict = dataclasses.field(default_factory=dict)
+
+    def constant(self, name: str, value, dtype: torch.dtype) -> torch.Tensor:
+        """``value`` (a host array) as a ``dtype`` tensor on this replica's
+        device, copied once: the first call for (``name``, ``dtype``) queues
+        a copy from pinned memory on the current stream (this replica's,
+        inside :meth:`launching`) with no wait on the host; later calls
+        return the same tensor. Kept per replica, not per device, so that
+        each replica's stream orders its own copy before its reads."""
+        key = (name, dtype)
+        if key not in self.constants:
+            self.constants[key] = to_device(value, self.final.device, dtype)
+        return self.constants[key]
 
     def launching(self):
         """The context in which this replica's work is queued: its device and

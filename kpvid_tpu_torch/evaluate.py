@@ -79,6 +79,26 @@ def batch_z(seed: int, b: int, rows: int, vae_dim: int) -> np.ndarray:
     return np.random.default_rng([seed, b]).standard_normal((rows, vae_dim), dtype=np.float32)
 
 
+def make_launch(colors: np.ndarray):
+    """evaluate's work on one replica's rows: generate and both point
+    images, queued on the replica's card and stream (``GeneratorMesh.map``)
+    with no wait on the host, so the next replica's work is queued while
+    this one runs. The colors [K, 3] go to each replica's device once per
+    dtype (``MeshReplica.constant``)."""
+
+    def launch(rep, images, actions, z):
+        out = rep.final.generate(images, actions, z)
+        cur, fut = out["current_points"], out["future_points"]
+        return dict(
+            out,
+            current_points_im=rep.final.render_point_images(
+                cur, rep.constant("colors", colors, cur.dtype)),
+            future_points_im=rep.final.render_point_images(
+                fut.reshape(-1, *fut.shape[-2:]), rep.constant("colors", colors, fut.dtype)))
+
+    return launch
+
+
 def main(argv=None) -> dict:
     """Write the PNG tree; returns the run's counts and seconds."""
     args = build_parser().parse_args(argv)
@@ -120,15 +140,7 @@ def main(argv=None) -> dict:
     mesh = GeneratorMesh(config, params, mesh_devices(device) if args.mesh else [device])
     if args.mesh:
         logger.info("generating over a %d-device 'data' mesh", mesh.n_data)
-    colors = get_n_colors(m.n_pts)
-
-    def launch(rep, images, actions, z):
-        """generate and the point images of a batch, queued on ``rep``'s card and stream."""
-        out = rep.final.generate(images, actions, z)
-        return dict(out, current_points_im=rep.final.render_point_images(
-            out["current_points"], colors), future_points_im=rep.final.render_point_images(
-            out["future_points"].reshape(-1, m.n_pts, 2), colors))
-
+    launch = make_launch(get_n_colors(m.n_pts))
     test_ds = SequenceDataset(data_dir, "test", n_pts=m.n_pts, n_action=m.n_action,
                               sequence_len=config.data.sequence_len, image_size=m.image_size,
                               with_image_seq=True, native_ops=config.data.native_ops)

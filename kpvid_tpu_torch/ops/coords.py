@@ -89,6 +89,9 @@ def colorize_point_maps(maps: torch.Tensor, colors) -> torch.Tensor:
     """Tint each keypoint map with its color and take the max over the
     keypoints: maps [..., H, W, K], colors [K, 3] -> [..., H, W, 3], in the
     maps' dtype (the colors rounded to it, as JAX does). One channel at a
-    time, so no [..., H, W, K, 3] product is held."""
+    time, so no [..., H, W, K, 3] product is held. ``colors`` is a host
+    array, copied to the maps' device with a wait on the host, or a tensor
+    already there in any float dtype, which takes no host copy and no wait
+    (the colors are the same bytes either way)."""
     colors = torch.as_tensor(colors).to(device=maps.device, dtype=maps.dtype)
     return torch.stack([(maps * colors[:, c]).amax(dim=-1) for c in range(3)], dim=-1)

@@ -25,9 +25,12 @@ All four are in ``csrc/keypoint.cu`` (CUDA C++ for sm_90a, built by ``_build``):
   a gradient, ``pose_head`` launches the forward's training form, which also
   writes both softmaxes (p [B, K, W], q [B, K, H], f32), and its backward
   writes the maps' gradient from them in the maps' dtype without reading the
-  maps; ``gaussian_render``'s backward reduces the maps' cotangent to the
-  points' gradient [N, K, 2] f32, one block a frame, in a fixed order. Both
-  are ``torch.autograd.Function`` s.
+  maps (one wave of blocks, a few an image, each block's threads holding
+  their columns' terms in registers and walking down the rows with 16-byte
+  evict-first stores); ``gaussian_render``'s
+  backward reduces the maps' cotangent to the points' gradient [N, K, 2]
+  f32, a cluster of 8 blocks a frame summing through distributed shared
+  memory in a fixed order. Both are ``torch.autograd.Function`` s.
 
 The plain PyTorch versions are ops/coords.py::heatmaps_to_keypoints and
 ::render_gaussian_maps, and here the backwards' closed forms. Each wrapper

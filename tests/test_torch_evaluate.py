@@ -2,7 +2,8 @@
 
 - ``get_n_colors``, ``colorize_point_maps`` and ``render_point_images``
   against JAX's (f32 to 1e-5; bf16 within the bf16 render's known gap,
-  ROADMAP section 3);
+  ROADMAP section 3), with the colors as a host array or as a tensor on the
+  maps' device (the same bytes);
 - ``python -m kpvid_tpu_torch.evaluate``'s PNG tree against one composed
   from the JAX package: its ``SequenceDataset``/``HostDataPipeline`` batch,
   ``FinalGenerator.generate`` on the same explicit z and
@@ -91,6 +92,47 @@ def test_render_point_images_matches_jax(dtype, atol):
     got = gen.render_point_images(torch.from_numpy(np.asarray(jmu.astype(jnp.float32)))
                                   .to(getattr(torch, dtype)), colors)
     assert got.dtype == getattr(torch, dtype) and got.shape == (5, 32, 32, 3)
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=0, atol=atol)
+
+
+def _same_bytes(got: torch.Tensor, want: torch.Tensor) -> bool:
+    return got.dtype == want.dtype and torch.equal(got.view(torch.uint8), want.view(torch.uint8))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_colorize_point_maps_takes_colors_on_the_maps_device(dtype):
+    """Colors given as a tensor on the maps' device, in f32 or already in the
+    maps' dtype (as MeshReplica.constant holds them), tint the maps to the
+    bytes the host colors give, which are JAX's."""
+    rng = np.random.default_rng(2)
+    maps = rng.uniform(0, 1, (3, 16, 16, 40)).astype(np.float32)
+    colors = get_n_colors(40)
+    tdt = getattr(torch, dtype)
+    tmaps = torch.from_numpy(maps).to(tdt)
+    want = colorize_point_maps(tmaps, colors)
+    for tcolors in (torch.from_numpy(colors), torch.from_numpy(colors).to(tdt)):
+        assert _same_bytes(colorize_point_maps(tmaps, tcolors), want)
+    jax_want = np.asarray(jax_colorize(jnp.asarray(maps, getattr(jnp, dtype)), colors), np.float32)
+    assert np.array_equal(want.float().numpy(), jax_want)
+
+
+@pytest.mark.parametrize("dtype,atol", [("float32", 1e-5), ("bfloat16", 0.008)])
+def test_render_point_images_takes_colors_on_the_points_device(dtype, atol):
+    """render_point_images with the colors as a tensor in the points' dtype
+    on their device: the bytes of the host colors' images, and JAX's images
+    within test_render_point_images_matches_jax's bounds."""
+    cfg, tcfg, jgen, _, _, _ = setup("float32")
+    from kpvid_tpu_torch.eval import FinalGenerator
+
+    gen = FinalGenerator(tcfg, device="cpu")
+    rng = np.random.default_rng(3)
+    mu = rng.uniform(-1, 1, (5, SMOKE["n_pts"], 2)).astype(np.float32)
+    colors = get_n_colors(SMOKE["n_pts"])
+    jmu = jnp.asarray(mu, getattr(jnp, dtype))
+    tmu = torch.from_numpy(np.asarray(jmu.astype(jnp.float32))).to(getattr(torch, dtype))
+    got = gen.render_point_images(tmu, torch.from_numpy(colors).to(tmu.dtype))
+    assert _same_bytes(got, gen.render_point_images(tmu, colors))
+    want = np.asarray(jax.jit(lambda m: jgen.render_point_images(m, colors))(jmu), np.float32)
     np.testing.assert_allclose(got.float().numpy(), want, rtol=0, atol=atol)
 
 

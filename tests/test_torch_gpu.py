@@ -18,6 +18,13 @@ round an f32 value once, and where the two marginals' terms cancel the f32
 values differ by more than one step of their small sum); the points'
 gradient from a bf16 cotangent within 1e-4 of its largest magnitude.
 
+The backwards run at stage 1's shapes and at edge shapes (one image or frame
+and 33, 30^2, K = 40 and K = 6 for the element-wise path) and give the same
+bits twice; the render's backward, a cluster of 8 blocks a frame, refuses a
+frame whose blocks it cannot hold rather than run anything else. evaluate's
+launch over two replicas returns to the host while a spin kernel runs on the
+first replica's stream (it copies no host array to the card).
+
 The generation parameters at Config() width, written as a TF1 bundle under
 the reference's names, are read onto the card by the port's bundle reader
 to the same bits (and generate the same bits).
@@ -34,6 +41,7 @@ bf16 kernel's element-wise loader.
 """
 
 import contextlib
+import time
 from unittest import mock
 
 import numpy as np
@@ -196,8 +204,11 @@ def _max_gap(got, want) -> float:
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize(
     "shape",
-    # stage 1's training shape; the smoke widths; H = 37; K = 5 (scalar stores)
-    [(32, 128, 128, 40), (2, 32, 32, 8), (2, 37, 24, 40), (3, 16, 20, 5)],
+    # stage 1's training shape; the smoke widths; H = 37; K = 5 (scalar stores);
+    # one image and 33 (a block's rows across two images) at 30^2, K = 40 and
+    # K = 6 (scalar stores)
+    [(32, 128, 128, 40), (2, 32, 32, 8), (2, 37, 24, 40), (3, 16, 20, 5), (1, 30, 30, 40),
+     (33, 30, 30, 40), (1, 30, 30, 6), (33, 30, 30, 6)],
 )
 def test_pose_head_backward_kernel_matches_plain(dev, dtype, shape):
     g = torch.Generator().manual_seed(6)
@@ -219,13 +230,17 @@ def test_pose_head_backward_kernel_matches_plain(dev, dtype, shape):
         step = 2.0**-7 * torch.maximum(g32.abs(), w32.abs())
         assert bool(((g32 - w32).abs() <= torch.clamp(step, min=1e-5 * float(w32.abs().max()))).all())
     torch.testing.assert_close(pts.detach(), heatmaps_to_keypoints(raw), rtol=1e-4, atol=1e-5)
+    _, p, q = torch.ops.kpvid.pose_head_train(raw)
+    assert torch.equal(pose_head_backward(ct, pts.detach(), p, q, dtype), got)  # the same bits
 
 
 @pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("n,hw,k", [(16, 32, 40), (3, 8, 5), (2, 128, 40), (5, 16, 8)])
+@pytest.mark.parametrize("n,hw,k", [(16, 32, 40), (3, 8, 5), (2, 128, 40), (5, 16, 8),
+                                    (1, 30, 40), (33, 30, 40), (1, 30, 6), (33, 30, 6)])
 def test_render_backward_kernel_matches_plain(dev, out_dtype, n, hw, k):
     """Stage 1's render at [16, 32^2, 40] (the f32 grid), small and odd K,
-    and 128^2; the maps' cotangent in the maps' dtype."""
+    128^2, and one and 33 frames at 30^2 (a short last band) with K = 40 and
+    K = 6 (element loads); the maps' cotangent in the maps' dtype."""
     g = torch.Generator().manual_seed(7)
     mu = (torch.rand(n, k, 2, generator=g) * 2 - 1).to(dev)
     ct = torch.randn(n, hw, hw, k, generator=g).to(dev, out_dtype)
@@ -241,6 +256,21 @@ def test_render_backward_kernel_matches_plain(dev, out_dtype, n, hw, k):
     assert _max_gap(got, want) <= (1e-5 if out_dtype == torch.float32 else 1e-4)
     again = gaussian_render_backward(ct.contiguous(), mu, 14.3)
     assert torch.equal(again, gaussian_render_backward(ct.contiguous(), mu, 14.3))
+
+
+def test_render_backward_refuses_a_cluster_it_cannot_hold(dev):
+    """#4's backward runs as clusters of 8 blocks a frame. Where a block's
+    shared memory (the band's exponentials, 2 x ceil(H / 8) x K floats) is
+    more than a block of the card can hold, the launch is refused with an
+    error, and nothing runs in its place: no launch is counted and no plain
+    version answers."""
+    ct = torch.zeros(1, 8 * 3700, 1, 8, device=dev, dtype=torch.bfloat16)
+    mu = torch.zeros(1, 8, 2, device=dev)
+    reset_launch_counts()
+    with pytest.raises(RuntimeError, match="gaussian_render_backward kernel launch failed"):
+        gaussian_render_backward(ct, mu, 14.3)
+    torch.cuda.synchronize()
+    assert launch_counts()["gaussian_render_backward"] == 0
 
 
 def test_stage1_step_on_card_launches_and_matches_cpu(dev):
@@ -777,6 +807,47 @@ def test_evaluate_two_replicas_read_back_on_their_streams(dev, tmp_path):
     assert sorted(got) == sorted(want) and len(want) == 4 * (2 + 5 * cfg.model.n_future_frames)
     assert any(other[k] != want[k] for k in want)
     assert [k for k in want if got[k] != want[k]] == []
+
+
+def test_evaluate_launch_returns_while_a_replica_is_busy(dev):
+    """evaluate --mesh's launch (generate and both point images) over two
+    replicas on one card queues its work with no wait on the host: with a
+    spin kernel of ~0.5 s queued first on replica 0's stream, ``map``
+    returns while that stream is still busy, in well under the spin's time.
+    A host array of colors copied to the card inside the launch waits for
+    the replica's stream, so the replicas ran one after another. Four
+    future frames keep the launches queued behind the spin below the
+    CUDA queue of pending launches on a stream, past which any launch
+    waits on the host."""
+    from kpvid_tpu_torch.eval.final import GeneratorMesh
+    from kpvid_tpu_torch.evaluate import make_launch
+    from kpvid_tpu_torch.utils import get_n_colors
+
+    cfg = load_config("kpvid_tpu_torch/configs/smoke.yaml")
+    cfg.training.compute_dtype = "bfloat16"
+    cfg.model.n_future_frames = 4
+    m = cfg.model
+    mesh = GeneratorMesh(cfg, _randomized(FinalGenerator(cfg, device="cpu"), 5), [dev, dev])
+    launch = make_launch(get_n_colors(m.n_pts))
+    rng = np.random.default_rng(8)
+    rows = (rng.uniform(-1, 1, (4, m.image_size, m.image_size, 3)).astype(np.float32),
+            np.eye(m.n_action, dtype=np.float32)[np.arange(4) % m.n_action],
+            rng.standard_normal((4, m.vae_dim)).astype(np.float32))
+    mesh.map(launch, *rows)  # builds the kernels and fills every cache
+    mesh.synchronize()
+    stream = mesh.replicas[0].stream
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with torch.cuda.stream(stream):
+        start.record()
+        torch.cuda._sleep(1_000_000_000)
+        end.record()
+    t0 = time.perf_counter()
+    mesh.map(launch, *rows)
+    host_s = time.perf_counter() - t0
+    busy = not stream.query()
+    mesh.synchronize()
+    spin_s = start.elapsed_time(end) / 1e3
+    assert busy and host_s < 0.5 * spin_s, (busy, host_s, spin_s)
 
 
 def test_model_axis_join_on_card_is_exact(dev, group_of_one):

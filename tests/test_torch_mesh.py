@@ -16,12 +16,14 @@ drawn at random:
   replica count (tests/test_server.py::test_mesh_engine_matches_single_device);
 - ``serve --mesh --artifact`` and ``evaluate --mesh`` under several
   processes refused with JAX's messages; ``evaluate --mesh`` over two
-  replicas writes the one-replica tree (pixels within one uint8 step);
+  replicas writes the one-replica tree (pixels within one uint8 step), and
+  its launch copies the colors to each replica once per dtype;
 - ``python -m kpvid_tpu_torch.bench --device cpu --batch 2`` (at the smoke
   widths: the test swaps its ``Config()``) prints one JSON line without
   ``vs_baseline``, with and without ``--mesh``.
 """
 
+import copy
 import json
 from unittest import mock
 
@@ -39,6 +41,7 @@ from kpvid_tpu_torch.data import make_synthetic_penn_tree, make_synthetic_pseudo
 from kpvid_tpu_torch.eval import InferenceEngine, MicroBatcher, request_z
 from kpvid_tpu_torch.eval import final as final_mod
 from kpvid_tpu_torch.eval.final import FinalGenerator, GeneratorMesh
+from kpvid_tpu_torch.utils import get_n_colors
 from test_torch_final import SMOKE, _setup
 
 CPU2 = ["cpu", "cpu"]
@@ -227,6 +230,36 @@ def test_evaluate_mesh_writes_the_one_replica_tree(eval_tree, monkeypatch):
     worst = max(int(np.abs(np.asarray(Image.open(got2[k]), np.int16)
                            - np.asarray(Image.open(want[k]), np.int16)).max()) for k in want)
     assert worst <= 1
+
+
+def test_evaluate_launch_copies_the_colors_once_per_replica(setup):
+    """evaluate's launch (generate and both point images) over two replicas
+    in bf16 copies the colors to each replica once per dtype (f32 for the
+    detected points, bf16 for the decoded ones) and reuses the same tensors
+    for the next batch; its point images are the bytes of
+    ``render_point_images`` with the host colors."""
+    _, tcfg, _, _, _, params = setup
+    cfg = copy.deepcopy(tcfg)
+    cfg.training.compute_dtype = "bfloat16"
+    colors = get_n_colors(SMOKE["n_pts"])
+    gm = GeneratorMesh(cfg, params, CPU2)
+    launch = evaluate.make_launch(colors)
+    rows = inputs(4)
+    first = gm.map(launch, *rows)
+    held = [dict(rep.constants) for rep in gm.replicas]
+    second = gm.map(launch, *rows)
+    for rep, before, out, again in zip(gm.replicas, held, first, second):
+        assert set(rep.constants) == {("colors", torch.float32), ("colors", torch.bfloat16)}
+        assert all(rep.constants[k] is v for k, v in before.items())
+        assert out["future_points"].dtype == torch.bfloat16
+        fut = out["future_points"].reshape(-1, SMOKE["n_pts"], 2)
+        for key, want in (("current_points_im", rep.final.render_point_images(
+                out["current_points"], colors)),
+                ("future_points_im", rep.final.render_point_images(fut, colors))):
+            for got in (out[key], again[key]):
+                assert got.dtype == want.dtype
+                assert torch.equal(got.view(torch.uint8), want.view(torch.uint8)), key
+    assert held[0][("colors", torch.float32)] is not held[1][("colors", torch.float32)]
 
 
 @pytest.mark.parametrize("mesh", [False, True], ids=["single", "mesh"])
