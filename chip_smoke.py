@@ -199,7 +199,27 @@ imports nothing of JAX or of the JAX package, and:
    which keep the launches behind the spin within a stream's queue; it
    prints the device operations one replica queues at 4 and at 32 frames
    and the host's time for 500 and 1,500 launches behind a spin);
-   ``serve --mesh`` in a process of its own answers 16 requests.
+   ``serve --mesh`` in a process of its own answers 16 requests;
+13. multistep: ``train_step_multi`` of both trainers, one step captured as
+   a CUDA graph and replayed K times. At ``Config()``, f32, batch 16, K = 3,
+   from one state against 3 eager ``train_step``s: stage 2's losses rtol
+   1e-5 and parameters within 1e-5 (2.05 lr where the first |g| is below
+   1e-5 of its tensor's max: capturable Adam's f32 bias correction against
+   the eager one's f64, turned over by a sign step); stage 1's first losses
+   rtol 1e-5, later ones 1e-4, parameters within JAX's multi envelope (3 lr
+   a step), BN statistics 1e-5. The same graph run again from the same
+   state gives the same bits; after a call the step is K and Adam's step
+   count a host tensor, and ``state_arrays`` in a fresh trainer steps on to
+   the original's bits; ``load_state_arrays`` drops the graph and the next
+   call recaptures it; one replay (``torch.profiler``) launches #3 once, #4
+   twice, #3' once and #4' twice in stage 1, none of them in stage 2. In
+   bf16 at batch 16 the eager step and the graphed one at K = 1, 4 and 16:
+   ms a step (host clock), device ms a step, capture seconds, peak memory.
+   Then ``python -m kpvid_tpu_torch.bench_train --iters 5`` (its JSON line),
+   ``bench_host_pipeline --batches 4`` on the card's host, and
+   ``verify_reference_parity`` on phase 11's two TF1 bundles over phase 6's
+   tree: its renders are the evaluate tree of phase 11's imports byte for
+   byte, and against that tree it passes at 0.000 dB.
 
 It prints the seconds since the start at each phase. It exits non-zero on
 any failed check, and without a CUDA device. The line
@@ -208,8 +228,9 @@ served batch, per labeled chunk, per stage-1 and stage-2 train step and per
 evaluate batch, per artifact batch, per rank of a data-parallel stage-1 step,
 per stage-1 step at grad_accum 2, per generate from the imported checkpoints,
 per stage-1 step with the frame cache, per rank of a 1x2 tensor-parallel
-stage-1 step and per replica batch of the mesh engine; the backward kernels'
-``launches`` are per stage-1 step),
+stage-1 step, per replica batch of the mesh engine and per replay of the
+graphed stage-1 step; the backward kernels' ``launches`` are per stage-1
+step),
 the last line the device.
 """
 
@@ -375,6 +396,34 @@ def device_ms(fn, reps: int = 10, budget_s: float = 0.3) -> float:
     ms = start.elapsed_time(end) / (n * reps)
     del graph
     return ms
+
+
+# the kernels' symbols in a profiler trace, by wrapper (#1 and #2 share theirs)
+KERNEL_SYMBOLS = {"conv3x3": "conv3x3_", "pose_head": "pose_head_kernel",
+                  "gaussian_render": "gaussian_render_kernel",
+                  "pose_head_backward": "pose_head_backward_kernel",
+                  "gaussian_render_backward": "render_backward_kernel"}
+
+
+REPLAY_SYMBOL = {"conv3x3_affine": "conv3x3", "up2_conv3_affine": "conv3x3"}
+
+
+def replay_kernels(graph) -> dict:
+    """One replay of a captured CUDA graph under ``torch.profiler``: the
+    device operations it ran, their device ms, and each kernel's launches
+    (the wrappers' counters count the capture, not the replays)."""
+    import torch
+    from torch.profiler import DeviceType, ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        graph.replay()
+        torch.cuda.synchronize()
+    ops = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    return {"kernels": sum(e.count for e in ops),
+            "device_ms": sum(e.self_device_time_total for e in ops) / 1e3,
+            "launches": {name: sum(e.count for e in ops if sym in e.key)
+                         for name, sym in KERNEL_SYMBOLS.items()}}
 
 
 def bound_ms(n_bytes: float, n_ops: float, dtype: str) -> tuple[float, str]:
@@ -3395,6 +3444,315 @@ def tp_mesh_phase(cfg, params, card: str, root: Path) -> dict:
     return rep
 
 
+# phase 13 (multistep): train_step_multi as one CUDA graph of a step
+MULTI_K = 3
+MULTI_TIMING_KS = (1, 4, 16)
+MULTI_LOSS_RTOL = 1e-5  # stage 1's later steps: STEP_LOSS_RTOL
+MULTI_PARAM_ATOL = 1e-5
+MULTI_SIGN_REL = 1e-5  # first |g| below this share of its tensor's max: a sign step
+MULTI_SIGN_LR = 2.05
+MULTI_S1_ENVELOPE = 3.0  # lr a step: JAX's own multi-vs-sequential bound
+MULTI_STATS_ATOL = 1e-5
+
+
+def restore_in_place(trainer, arrays: dict) -> None:
+    """Put ``arrays`` (``state_arrays()``'s, on the host) back into the
+    trainer's own tensors, rebinding none of them (a captured step graph
+    stays valid); the step and Adam's host step counts as well."""
+    for name, v in trainer.model.state_dict().items():
+        v.copy_(arrays[name])
+    for opt, prefix, names in ((trainer.g_opt, f"g_opt.{trainer.G_PREFIX}", trainer._g_names),
+                               (trainer.d_opt, f"d_opt.{trainer.D_PREFIX}", trainer._d_names)):
+        for name, p in zip(names, opt.param_groups[0]["params"]):
+            for key in ("exp_avg", "exp_avg_sq"):
+                opt.state[p][key].copy_(arrays[f"{prefix}.{name}.{key}"])
+            opt.state[p]["step"] = arrays[f"{prefix}.{name}.step"].clone()
+    trainer.step = int(arrays["step"])
+
+
+def host_arrays(trainer) -> dict:
+    return {k: v.detach().cpu().clone() for k, v in trainer.state_arrays().items()}
+
+
+def multi_inputs(m, stage: int, k: int, seed: int) -> dict:
+    """k stacked batches on the card at ``Config()`` shapes, batch
+    TRAIN_BATCH: stage 1's frame pairs, stage 2's sequences and step noise,
+    uniform and normal draws from ``seed``."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    b = TRAIN_BATCH
+    if stage == 1:
+        host = {n: rng.uniform(-1, 1, (k, b, m.image_size, m.image_size, 3)).astype(np.float32)
+                for n in ("image", "future_image")}
+    else:
+        host = {"keypoints": rng.uniform(-1, 1, (k, b, m.n_pts, 2)).astype(np.float32),
+                "real_seq": rng.uniform(-1, 1, (k, b, m.n_future_frames, m.n_pts, 2)
+                                        ).astype(np.float32),
+                "action_code": np.eye(m.n_action, dtype=np.float32)[
+                    rng.integers(0, m.n_action, (k, b))],
+                "noise": rng.standard_normal((k, b, m.vae_dim)).astype(np.float32)}
+    return {n: torch.from_numpy(v).cuda() for n, v in host.items()}
+
+
+def multi_fns(stage: int, stacked: dict):
+    """(the graphed multi over the first ``n`` slices, one eager step on slice i)."""
+    def multi(t, n):
+        s = {k: v[:n] for k, v in stacked.items()}
+        return t.train_step_multi(s) if stage == 1 else t.train_step_multi(s, s["noise"])
+
+    def single(t, i):
+        b = {k: v[i] for k, v in stacked.items()}
+        return t.train_step(b) if stage == 1 else t.train_step(b, b["noise"])
+
+    return multi, single
+
+
+def multi_correctness(cfg, stage: int, vgg) -> dict:
+    """Phase 13 (a)/(b) for one stage at ``Config()``, f32, batch 16, K = 3:
+    the graphed multi against K eager steps from one state, the same bits on
+    a second run of the graph, the bookkeeping, a recapture after
+    load_state_arrays, and the kernels of one replay."""
+    import torch
+
+    from kpvid_tpu_torch.train import Stage1Trainer, Stage2Trainer
+
+    cfg32 = dataclasses.replace(cfg, training=dataclasses.replace(
+        cfg.training, compute_dtype="float32", batch_size=TRAIN_BATCH))
+
+    def make():
+        t = Stage1Trainer(cfg32, vgg, device="cuda") if stage == 1 else Stage2Trainer(
+            cfg32, device="cuda")
+        t.load_parameters(t.init_parameters(1))
+        return t
+
+    stacked = multi_inputs(cfg.model, stage, MULTI_K + 1, 13 + stage)
+    multi, single = multi_fns(stage, stacked)
+    a, b = make(), make()
+    before = host_arrays(a)
+    first_grads = {}
+    names = {id(p): n for n, p in b.model.named_parameters()}
+    apply = b._apply
+
+    def recording(opt, params, grads):
+        for p, g in zip(params, grads):
+            first_grads.setdefault(names[id(p)], g.detach().clone())
+        apply(opt, params, grads)
+
+    b._apply = recording
+    t0 = time.perf_counter()
+    got = multi(a, MULTI_K)
+    torch.cuda.synchronize()
+    first_call_s = time.perf_counter() - t0
+    want = [single(b, i) for i in range(MULTI_K)]
+    lr = a.lr_schedule(0)
+    loss_gaps = []
+    for i, w in enumerate(want):
+        gaps = {k: abs(float(got[k][i]) - float(w[k])) / max(abs(float(w[k])), 1e-12)
+                for k in w}
+        loss_gaps.append(max(gaps.values()))
+    rtol = [MULTI_LOSS_RTOL] + [MULTI_LOSS_RTOL if stage == 2 else STEP_LOSS_RTOL] * (MULTI_K - 1)
+    pa, pb = a.model.state_dict(), b.model.state_dict()
+    worst, beyond, sign_steps = 0.0, [], 0
+    for name, va in pa.items():
+        diff = (va - pb[name]).abs()
+        if "running_" in name:
+            bound = torch.full_like(diff, MULTI_STATS_ATOL)
+        elif stage == 1:
+            bound = torch.full_like(diff, MULTI_S1_ENVELOPE * lr * MULTI_K)
+        else:
+            g = first_grads[name].abs()
+            sign = g < MULTI_SIGN_REL * float(g.max())
+            sign_steps += int((sign & (diff > MULTI_PARAM_ATOL)).sum())
+            bound = torch.where(sign, torch.full_like(diff, MULTI_SIGN_LR * lr),
+                                torch.full_like(diff, MULTI_PARAM_ATOL))
+        worst = max(worst, float(diff.max()))
+        if not bool((diff <= bound).all()):
+            beyond.append(name)
+    param_rule = ("parameters within 1e-5, or 2.05 lr where the first |g| is below 1e-5 of its "
+                  "tensor's max" if stage == 2 else
+                  f"parameters within {MULTI_S1_ENVELOPE:g} lr a step (JAX's multi envelope), "
+                  "BN statistics within 1e-5")
+    check(all(g <= r for g, r in zip(loss_gaps, rtol)) and not beyond,
+          f"stage {stage}, Config() f32 batch {TRAIN_BATCH}: the graphed train_step_multi "
+          f"(K = {MULTI_K}) against {MULTI_K} eager train_steps from one state: losses within "
+          f"rtol {rtol} (worst per step {', '.join(f'{g:.3e}' for g in loss_gaps)}); "
+          f"{param_rule} (worst |diff| {worst:.3e}"
+          + (f", {sign_steps} sign-step elements past 1e-5" if stage == 2 else "")
+          + f"); beyond: {beyond[:5]}")
+    state = next(iter(a.g_opt.state.values()))["step"]
+    check(a.step == MULTI_K and state.device.type == "cpu" and state.dtype == torch.float32
+          and int(state) == MULTI_K and not a.g_opt.param_groups[0]["capturable"],
+          f"stage {stage}: after the graphed call the step is {a.step} and Adam's step count a "
+          f"host f32 tensor of {int(state)}, Adam eager again")
+
+    first, graph = host_arrays(a), next(iter(a._graphs.values()))
+    restore_in_place(a, before)
+    multi(a, MULTI_K)
+    again = host_arrays(a)
+    differ = [k for k in first if not torch.equal(first[k], again[k])]
+    check(next(iter(a._graphs.values())) is graph and not differ,
+          f"stage {stage}: the same graph run again from the same state gives the same bits in "
+          f"all {len(first)} arrays")
+
+    c = make()
+    c.load_state_arrays(host_arrays(a))
+    for t in (a, c):
+        single(t, MULTI_K)
+    sa, sc = host_arrays(a), host_arrays(c)
+    differ = [k for k in sa if not torch.equal(sa[k], sc[k])]
+    check(c.step == a.step == MULTI_K + 1 and not differ,
+          f"stage {stage}: state_arrays after the graphed call, loaded by a fresh trainer: its "
+          f"next eager step gives the original's bits in all {len(sa)} arrays")
+
+    a.load_state_arrays(before)
+    dropped = not a._graphs and not graph.valid(a)
+    multi(a, MULTI_K)
+    again = host_arrays(a)
+    differ = [k for k in first if not torch.equal(first[k], again[k])]
+    check(dropped and next(iter(a._graphs.values())) is not graph and not differ,
+          f"stage {stage}: load_state_arrays drops the graph; the next call captures anew and "
+          f"repeats the first call's bits")
+
+    rec = replay_kernels(next(iter(a._graphs.values())).graph)
+    want_launches = ({"conv3x3": 0, "pose_head": 1, "gaussian_render": 2,
+                      "pose_head_backward": 1, "gaussian_render_backward": 2} if stage == 1
+                     else {name: 0 for name in KERNEL_SYMBOLS})
+    check(rec["kernels"] > 0 and rec["launches"] == want_launches,
+          f"stage {stage}: one replay of the step graph (torch.profiler) runs "
+          f"{rec['kernels']} device operations, launches {rec['launches']}")
+    return {"loss_gaps": loss_gaps, "worst_param_diff": worst, "sign_step_elements": sign_steps,
+            "first_call_s": first_call_s, "replay_ops": rec["kernels"],
+            "replay_device_ms": rec["device_ms"], "replay_launches": rec["launches"]}
+
+
+def multi_timing(cfg, stage: int, vgg) -> dict:
+    """Phase 13 (c) for one stage at ``Config()``, bf16, batch 16: the eager
+    step and the graphed multi at each K of MULTI_TIMING_KS, ms a step on
+    the host clock (synchronised), device ms a step (torch.profiler), the
+    capture seconds (the first call less its K steps at the measured rate)
+    and each form's peak memory."""
+    import torch
+
+    from kpvid_tpu_torch.bench_train import device_profile
+    from kpvid_tpu_torch.train import Stage1Trainer, Stage2Trainer
+
+    def device_ms(fn) -> tuple[float, int]:
+        return device_profile(fn, torch.device("cuda"))
+
+    kmax = max(MULTI_TIMING_KS)
+    stacked = multi_inputs(cfg.model, stage, kmax, 23 + stage)
+    multi, single = multi_fns(stage, stacked)
+    t = Stage1Trainer(cfg, vgg, device="cuda") if stage == 1 else Stage2Trainer(cfg, device="cuda")
+    t.load_parameters(t.init_parameters(1))
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(3):
+        single(t, i)
+    torch.cuda.synchronize()
+    times = []
+    for i in range(10):
+        t0 = time.perf_counter()
+        single(t, i)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    eager_dev, eager_ops = device_ms(lambda: single(t, 0))
+    rep = {"eager_ms": float(np.median(times)), "eager_ms_all": times,
+           "eager_device_ms": eager_dev, "eager_device_ops": eager_ops,
+           "eager_peak_gib": torch.cuda.max_memory_allocated() / 2**30, "graphed": {}}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    first_s = None
+    for k in MULTI_TIMING_KS:
+        t0 = time.perf_counter()
+        multi(t, k)
+        torch.cuda.synchronize()
+        first_s = first_s if first_s is not None else (time.perf_counter() - t0, k)
+        calls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            multi(t, k)
+            torch.cuda.synchronize()
+            calls.append(1e3 * (time.perf_counter() - t0) / k)
+        dev, n_ops = device_ms(lambda: multi(t, k))
+        rep["graphed"][k] = {"ms": float(np.median(calls)), "ms_all": calls,
+                             "device_ms": dev / k, "device_ops": n_ops / k}
+    k0 = first_s[1]
+    rep["capture_s"] = first_s[0] - k0 * rep["graphed"][k0]["ms"] / 1e3
+    rep["graphed_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    del t
+    torch.cuda.empty_cache()
+    return rep
+
+
+def multistep_phase(cfg, card: str, root: Path) -> dict:
+    """Phase 13: the graphed train_step_multi of both trainers against the
+    eager steps, its bookkeeping and kernels, its timings at K = 1, 4, 16,
+    and the three tools on the card (bench_train, bench_host_pipeline, and
+    verify_reference_parity on phase 11's bundles)."""
+    import torch
+
+    from kpvid_tpu_torch import bench_host_pipeline, bench_train, evaluate
+    from kpvid_tpu_torch import verify_reference_parity
+    from kpvid_tpu_torch.losses import synthesize_vgg19_params
+
+    rep = {}
+    vgg = synthesize_vgg19_params()
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True  # as the train CLI: replays repeat their bits
+    try:
+        for stage in (2, 1):
+            rep[f"stage{stage}_check"] = multi_correctness(cfg, stage, vgg)
+            torch.cuda.empty_cache()
+        for stage in (1, 2):
+            r = rep[f"stage{stage}_timing"] = multi_timing(cfg, stage, vgg)
+            print(f"multistep stage {stage} on {card}, bf16 batch {TRAIN_BATCH}: eager "
+                  f"{r['eager_ms']:.2f} ms a step (median of 10; device {r['eager_device_ms']:.3f}"
+                  f" ms over {r['eager_device_ops']} operations), peak {r['eager_peak_gib']:.2f} "
+                  f"GiB; graphed: " + "; ".join(
+                      f"K = {k}: {g['ms']:.2f} ms a step (device {g['device_ms']:.3f} ms, "
+                      f"{g['device_ops']:.0f} operations)" for k, g in r["graphed"].items())
+                  + f"; capture {r['capture_s']:.2f} s, peak {r['graphed_peak_gib']:.2f} GiB",
+                  flush=True)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+    t0 = time.perf_counter()
+    rep["bench_train"] = bench_train.main(["--iters", "5"])
+    rep["bench_train_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rep["host_pipeline"] = bench_host_pipeline.main(["--root", str(root / "hostbench"),
+                                                     "--batches", "4"])
+    rep["host_pipeline_s"] = time.perf_counter() - t0
+
+    # the parity harness on phase 11's two TF1 bundles over phase 6's tree,
+    # against the evaluate tree of phase 11's imports (their own checkpoints:
+    # phase 11 trained stage 2 on from its import)
+    imported = root / "log_import"
+    evaluate.main(["--config", str(root / "eval.yaml"), "--checkpoint_stage1",
+                   str(imported / "detector_translator" / "ckpt-0"), "--checkpoint_stage2",
+                   str(imported / "motion_generator" / f"ckpt-{IMPORT_STEP}"),
+                   "--save_dir", str(root / "eval_imported")])
+    t0 = time.perf_counter()
+    out = io.StringIO()
+    with mock.patch("sys.stdout", out):
+        rc = verify_reference_parity.main([
+            "--config", str(root / "eval.yaml"),
+            "--tf-checkpoint-stage1", str(root / "tf1_stage1" / "model.ckpt-200000"),
+            "--tf-checkpoint-stage2", str(root / "tf1_stage2" / "model.ckpt-200000"),
+            "--work-dir", str(root / "parity"), "--reference-outputs",
+            str(root / "eval_imported")])
+    rep["parity_s"] = time.perf_counter() - t0
+    text = out.getvalue()
+    print(text, flush=True)
+    got, want = tree_bytes(root / "parity" / "renders"), tree_bytes(root / "eval_imported")
+    check(rc == 0 and "PASS: |ours - reference| = 0.000 dB" in text and sorted(got) == sorted(want)
+          and all(got[k] == want[k] for k in want) and len(want) > 0,
+          f"verify_reference_parity on phase 11's TF1 bundles: its renders are the evaluate "
+          f"tree of phase 11's imports byte for byte ({len(want)} PNGs) and PASS at 0.000 dB")
+    rep["parity_line"] = next(ln for ln in text.splitlines() if ln.startswith("pred-vs-real"))
+    return rep
+
+
 KERNEL_META = {
     # the bf16 body the path runs; conv3x3.cu includes it and holds the f32 route
     "conv3x3_affine": ("cuda", "kpvid_tpu_torch/csrc/conv3x3_mma.cuh",
@@ -3474,6 +3832,8 @@ def main() -> int:
         interop = interop_phase(cfg, params, card, root)
         phase("12 tp_mesh")
         tp = tp_mesh_phase(cfg, params, card, root)
+        phase("13 multistep")
+        multistep = multistep_phase(cfg, card, root)
         phase("end")
 
     kernels = []
@@ -3505,6 +3865,9 @@ def main() -> int:
                     interop["stage1_cached"]["launches_per_step"][name],
                 "train_stage1_tp_per_step_per_rank": tp["launches_tp_per_step"][name],
                 "generate_mesh_per_replica_batch": tp["mesh_launches_per_replica"][name],
+                # from a trace: the counters count a graph's capture, not its replays
+                "train_stage1_graphed_per_replay":
+                    multistep["stage1_check"]["replay_launches"][REPLAY_SYMBOL.get(name, name)],
             },
         })
         if counts[name]:
@@ -3528,7 +3891,7 @@ def main() -> int:
                       "dp": {k: v for k, v in dp.items() if not k.startswith("launches_")},
                       "interop": interop,
                       "tp_mesh": {k: v for k, v in tp.items() if not k.startswith("launches")},
-                      "card": card, "seconds": time.perf_counter() - t_start}))
+                      "multistep": multistep, "card": card, "seconds": time.perf_counter() - t_start}))
     print(gpu_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -20,6 +20,8 @@ from the same ``default_rng`` stream for runs without ``vgg19.npy``.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -91,13 +93,19 @@ def prepare_vgg19(params: dict, device) -> dict[str, tuple[torch.Tensor, torch.T
     return out
 
 
+@functools.lru_cache(maxsize=None)
+def _vgg_mean(device: torch.device) -> torch.Tensor:
+    """The BGR mean on ``device``, made once: no host copy in a step (which a
+    CUDA graph could not capture). Callers must not write to it."""
+    return torch.tensor(_VGG_MEAN_BGR, dtype=torch.float32, device=device)
+
+
 def vgg19_features(weights: dict, rgb_0_255: torch.Tensor,
                    dtype: torch.dtype = torch.float32) -> list[torch.Tensor]:
     """The five tap activations (NCHW, ``dtype``) of images [N, H, W, 3] in
     [0, 255]; ``weights`` from :func:`prepare_vgg19`."""
     x = rgb_0_255.float()
-    mean = torch.tensor(_VGG_MEAN_BGR, dtype=torch.float32, device=x.device)
-    x = (x.flip(-1) - mean).to(dtype).permute(0, 3, 1, 2)
+    x = (x.flip(-1) - _vgg_mean(x.device)).to(dtype).permute(0, 3, 1, 2)
     taps = []
     for name, _, pool in VGG19_LAYOUT:
         k, b = weights[name]

@@ -39,7 +39,9 @@ forward run their kernels, and their backwards run theirs. With a ``mesh``
 mean over the 'data' ranks', as JAX's ``bn_axis`` (not over the 'model'
 ranks, which hold the same rows). A 'model' axis shards the wide arrays
 (train/state.py); at ``Config()`` the PatchGAN's ``conv4`` and ``conv5``.
-The JAX package's ``train_step_multi`` is not ported.
+``train_step_multi`` is JAX's scan of K 'fused' steps over stacked batches;
+on the card one step captured as a CUDA graph (the six keypoint kernels
+and the BN statistics' updates in it) and replayed K times (train/state.py).
 
 The generator's arrays are keyed ``stage1.*``, as ``FinalGenerator`` names
 them, so a trainer checkpoint is also a stage-1 parameter file; the
@@ -102,7 +104,9 @@ class Stage1Trainer(GANTrainer):
                                    self.pair_mode)
 
         if self.remat_vgg:
-            return checkpoint(loss, gt, pred, use_reentrant=False)
+            # the loss draws no random numbers; restoring the RNG state in the
+            # recompute would also stop a CUDA graph's capture of the step
+            return checkpoint(loss, gt, pred, use_reentrant=False, preserve_rng_state=False)
         return loss(gt, pred)
 
     def g_grads(self, im: torch.Tensor, future_im: torch.Tensor):
@@ -146,6 +150,15 @@ class Stage1Trainer(GANTrainer):
         self._apply(self.g_opt, self._g_params, g_grads)
         self._apply(self.d_opt, self._d_params, d_grads)
         return self._finish(d_metrics, g_metrics)
+
+    def train_step_multi(self, batches: dict) -> dict:
+        """K 'fused' steps: ``image`` and ``future_image`` of ``batches`` are
+        [K, B, H, W, 3]; the metrics come back stacked [K] (JAX's
+        ``train_step_multi``)."""
+        return self._multi({k: batches[k] for k in ("image", "future_image")})
+
+    def _one_step(self, inputs: dict) -> dict:
+        return self.train_step(inputs)
 
     def train_step_accum(self, batch: dict) -> dict:
         im, future_im = self._pair_of(batch)

@@ -34,8 +34,10 @@ handed the same [global batch, vae_dim] draw and takes rows
 ``[d * b, (d + 1) * b)`` for its ``b`` local rows at data coordinate ``d``,
 so the pairing of noise and rows is the single-process step's. A 'model'
 axis shards the wide arrays (train/state.py); at ``Config()`` the six LSTM
-layers' kernels and biases, whose gate GEMMs then run column-parallel. The JAX package's
-``train_step_multi`` (a scan of steps) is not ported.
+layers' kernels and biases, whose gate GEMMs then run column-parallel.
+``train_step_multi`` is JAX's scan of K 'fused' steps over stacked batches
+and K noise draws; on the card one step captured as a CUDA graph and
+replayed K times (train/state.py).
 """
 
 from __future__ import annotations
@@ -130,6 +132,16 @@ class Stage2Trainer(GANTrainer):
         self._apply(self.g_opt, self._g_params, g_grads)
         self._apply(self.d_opt, self._d_params, d_grads)
         return self._finish(d_metrics, g_metrics)
+
+    def train_step_multi(self, batches: dict, noises) -> dict:
+        """K 'fused' steps: every array of ``batches`` is [K, B, ...] and
+        ``noises`` [K, global batch, vae_dim] (the K draws the CLI would
+        make); the metrics come back stacked [K] (JAX's ``train_step_multi``)."""
+        stacked = {k: batches[k] for k in ("keypoints", "real_seq", "action_code")}
+        return self._multi(dict(stacked, noise=noises))
+
+    def _one_step(self, inputs: dict) -> dict:
+        return self.train_step(inputs, inputs["noise"])
 
     def train_step_accum(self, batch: dict, noise) -> dict:
         first_pt, real_seq, act = self._flatten_batch(batch)

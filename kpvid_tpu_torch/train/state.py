@@ -23,7 +23,16 @@ checkpoint, so a resumed run continues with the same bits.
 :class:`GANTrainer` holds what both stages' trainers share: the two
 networks under one ``ModuleDict``, an Adam each, the step, the update with
 the schedule's rate, the checkpoint's arrays, the data-parallel reductions
-(:func:`make_reduce_hooks`) and gradient accumulation.
+(:func:`make_reduce_hooks`), gradient accumulation and ``train_step_multi``.
+
+``train_step_multi`` is JAX's: K 'fused' ``train_step``s over the K leading
+slices of stacked arrays, the metrics stacked [K] and ``lr`` [K], the step
+advanced by K (whatever ``grad_accum`` says, as JAX's scans ``train_step``).
+On the CPU it is the loop of K eager steps. On the card it is one step
+captured once as a CUDA graph (:class:`StepGraph`) and replayed K times:
+a handful of launches a step where the eager step makes thousands. JAX's
+has no data-parallel form, and gloo's collectives cannot be captured, so a
+trainer on a mesh refuses it.
 
 On a mesh with a 'model' axis (tensor parallelism) each process holds only
 its shards of the arrays that parallel/sharding.py's rule shards, and Adam
@@ -39,6 +48,9 @@ arrays are full: :meth:`~GANTrainer.load_parameters` and
 
 from __future__ import annotations
 
+import contextlib
+import gc
+import warnings
 from collections.abc import Callable, Mapping
 
 import numpy as np
@@ -46,6 +58,7 @@ import torch
 from torch import nn
 
 from ..configs import LRConfig
+from ..device import to_device
 from ..models import init_like_jax
 from ..parallel.sharding import gather_state, shard_modules, shard_state
 
@@ -160,6 +173,154 @@ def _mean_metrics(history: list[dict]) -> dict:
     return {k: torch.stack([m[k] for m in history]).mean() for k in history[0]}
 
 
+class StepGraph:
+    """One 'fused' train step of a trainer on the card, captured as a CUDA
+    graph, with its inputs, both optimizers' learning rates and its metrics
+    in fixed device buffers; :meth:`run` replays it once a step.
+
+    The graph holds the addresses of every tensor the step touches: the
+    parameters, the BN statistics, the Adam moments and step counts, the
+    buffers here. So nothing of these may be rebound while it lives
+    (:meth:`valid` checks that the parameters, statistics and moments are
+    the tensors captured; values copied in place are fine). Adam runs
+    ``capturable`` in the graph: its step count a device tensor, its rate a
+    device tensor copied in before each replay, its bias correction on the
+    device in f32 (the eager step's is on the host in f64, so the two may
+    differ by an ulp of the step size). Between calls Adam is eager again,
+    with its step count a host tensor as the checkpoint code reads it.
+
+    Capture needs eager warm-up steps first (cuDNN's plans, cuBLAS's
+    workspace, Adam's moments, the cached grids of ops/coords.py); they move
+    the parameters, statistics and moments, which are put back in place
+    before the capture. The launch counters of the kernel wrappers count
+    the warm-up and the capture, not the replays.
+
+    It holds no reference to the trainer (which holds it), so it goes, and
+    its graph with it, when the trainer does: a graph destroyed while
+    another is being captured (by the garbage collector, breaking a cycle)
+    would end that capture with an error. The collector is paused during
+    the capture for the same reason."""
+
+    WARMUP = 2
+
+    def __init__(self, trainer: GANTrainer, example: dict[str, torch.Tensor]):
+        self.device = trainer.device
+        self.opts = (trainer.g_opt, trainer.d_opt)
+        self.inputs = {n: v.clone() for n, v in example.items()}
+        self.rates = torch.zeros(len(self.opts), device=self.device)
+        self.steps: dict = {}  # parameter -> its Adam step count on the card
+        step0 = trainer.step
+        collecting = gc.isenabled()
+        try:
+            with self._capturable(trainer):
+                saved = self._snapshot(trainer)
+                side = torch.cuda.Stream(self.device)
+                side.wait_stream(torch.cuda.current_stream(self.device))
+                with torch.cuda.stream(side), warnings.catch_warnings():
+                    warnings.filterwarnings("ignore", "This instance was constructed with "
+                                            "capturable=True")
+                    for _ in range(self.WARMUP):
+                        trainer._one_step(self.inputs)
+                torch.cuda.current_stream(self.device).wait_stream(side)
+                self._restore(trainer, saved)
+                del saved
+                torch.cuda.synchronize(self.device)
+                torch.cuda.empty_cache()  # the graph's own pool takes what the warm-up held
+                self.graph = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(self.graph):
+                    gc.disable()
+                    out = trainer._one_step(self.inputs)
+                    self.keys = [k for k in out if k != "lr"]
+                    self.metrics = torch.stack([out[k].float() for k in self.keys])
+        finally:
+            if collecting:
+                gc.enable()
+            trainer.step = step0
+        self.captured = self._tensors(trainer)
+
+    def _tensors(self, trainer: GANTrainer) -> list:
+        model = trainer.model.state_dict(keep_vars=True)
+        out = list(model.values())
+        for opt in self.opts:
+            for p in opt.param_groups[0]["params"]:
+                state = opt.state.get(p, {})
+                out += [state.get("exp_avg"), state.get("exp_avg_sq")]
+        return out
+
+    def valid(self, trainer: GANTrainer) -> bool:
+        """The captured tensors are still the trainer's (none was rebound)."""
+        now = self._tensors(trainer)
+        return len(now) == len(self.captured) and all(a is b for a, b in zip(now, self.captured))
+
+    @contextlib.contextmanager
+    def _capturable(self, trainer: GANTrainer):
+        """Adam in its capturable form within the block: the step counts on
+        the card (the captured tensors), the rate in ``self.rates``; the
+        trainer's ``_apply`` leaves the rate alone."""
+        trainer._graphing = True
+        for i, opt in enumerate(self.opts):
+            for group in opt.param_groups:
+                group["capturable"], group["lr"] = True, self.rates[i]
+            for p, state in opt.state.items():
+                step = self.steps.setdefault(p, torch.zeros((), device=p.device))
+                step.copy_(state["step"])
+                state["step"] = step
+        try:
+            yield
+        finally:
+            trainer._graphing = False
+            for opt in self.opts:
+                for p, state in opt.state.items():
+                    self.steps[p] = state["step"]
+                    state["step"] = state["step"].to("cpu", torch.float32)
+                lr = trainer.lr_schedule(update_count(opt))
+                for group in opt.param_groups:
+                    group["capturable"], group["lr"] = False, lr
+
+    def _snapshot(self, trainer: GANTrainer) -> tuple:
+        model = {k: v.clone() for k, v in trainer.model.state_dict().items()}
+        opts = [{p: {k: v.clone() for k, v in st.items()} for p, st in opt.state.items()}
+                for opt in self.opts]
+        return model, opts
+
+    def _restore(self, trainer: GANTrainer, saved: tuple) -> None:
+        """Put back what the warm-up moved, in place; Adam state that the
+        warm-up created becomes a fresh optimizer's (zeros, step 0), which
+        gives the first update's bits."""
+        model, opts = saved
+        for k, v in trainer.model.state_dict().items():
+            v.copy_(model[k])
+        for opt, before in zip(self.opts, opts):
+            for p, state in opt.state.items():
+                for k, v in state.items():
+                    if p in before:
+                        v.copy_(before[p][k])
+                    else:
+                        v.zero_()
+
+    def run(self, t: GANTrainer, stacked: dict[str, torch.Tensor], k: int) -> dict:
+        """K replays over the leading axis of ``stacked`` (device tensors)
+        for the trainer ``t`` it was captured from; the metrics [K] on the
+        card."""
+        # optax's rate at its own count of updates, computed on the host as
+        # the eager step computes it (never on the card: powf and numpy's
+        # f32 power need not agree to the bit)
+        rates = torch.tensor([[t.lr_schedule(update_count(opt) + i) for opt in self.opts]
+                              for i in range(k)], dtype=torch.float32).to(self.device)
+        logged = torch.tensor([t.lr_schedule(t.step + i + 1) for i in range(k)],
+                              dtype=torch.float32)
+        out = torch.empty(k, len(self.keys), device=self.device)
+        with self._capturable(t):
+            for i in range(k):
+                for name, buf in self.inputs.items():
+                    buf.copy_(stacked[name][i])
+                self.rates.copy_(rates[i])
+                self.graph.replay()
+                out[i].copy_(self.metrics)
+                t.step += 1
+        return {**dict(zip(self.keys, out.unbind(1))), "lr": logged.to(self.device)}
+
+
 class GANTrainer:
     """A generator and a discriminator keyed ``G_PREFIX.*`` and
     ``D_PREFIX.*`` in ``self.model``, each with its own Adam; subclasses set
@@ -192,6 +353,8 @@ class GANTrainer:
         self.d_opt = make_optimizer(self._d_params, lr_cfg)
         self.lr_schedule = make_lr_schedule(lr_cfg)
         self.step = 0
+        self._graphs: dict = {}  # input shapes -> StepGraph (train_step_multi on the card)
+        self._graphing = False
         self.data_parallel = mesh is not None
         self.grad_accum = config.training.grad_accum
         self.data_index, self.data_size = (mesh.d, mesh.data) if mesh is not None else (0, 1)
@@ -231,7 +394,9 @@ class GANTrainer:
         return gather_state(out, self.array_rules, self.shard)
 
     def load_state_arrays(self, arrays) -> None:
-        """Restore full arrays (:meth:`state_arrays`', a checkpoint's)."""
+        """Restore full arrays (:meth:`state_arrays`', a checkpoint's). Adam's
+        state is new tensors, so a captured step graph is dropped."""
+        self._graphs.clear()
         self.load_parameters({k: arrays[k] for k in self.model.state_dict()})
         arrays = shard_state(arrays, self.array_rules, self.shard)
         load_optimizer_arrays(self.g_opt, self._g_names, f"g_opt.{self.G_PREFIX}", arrays)
@@ -240,12 +405,13 @@ class GANTrainer:
 
     def _apply(self, opt, params, grads) -> None:
         grads = self._reduce_grads(grads)
-        # optax: the schedule at its own count of updates made before this
-        # one, not at the train step; the two part after a TF1 import, which
-        # writes the step with a fresh Adam state
-        lr = self.lr_schedule(update_count(opt))
-        for group in opt.param_groups:
-            group["lr"] = lr
+        if not self._graphing:  # the step graph copies each update's rate in (StepGraph)
+            # optax: the schedule at its own count of updates made before this
+            # one, not at the train step; the two part after a TF1 import, which
+            # writes the step with a fresh Adam state
+            lr = self.lr_schedule(update_count(opt))
+            for group in opt.param_groups:
+                group["lr"] = lr
         for p, g in zip(params, grads):
             p.grad = g
         opt.step()
@@ -283,3 +449,31 @@ class GANTrainer:
         self._apply(self.g_opt, self._g_params, [a / k for a in g_sum])
         self._apply(self.d_opt, self._d_params, [a / k for a in d_sum])
         return self._finish(_mean_metrics(d_hist), _mean_metrics(g_hist))
+
+    def _one_step(self, inputs: dict) -> dict:
+        """One 'fused' ``train_step`` on one slice of :meth:`_multi`'s arrays."""
+        raise NotImplementedError
+
+    def _multi(self, stacked: dict) -> dict:
+        """JAX's ``train_step_multi``: :meth:`_one_step` over the K leading
+        slices of every array of ``stacked``; the metrics stacked [K]."""
+        if self.mesh is not None:
+            raise ValueError("train_step_multi has no data-parallel form (JAX's neither, and "
+                             "gloo's collectives cannot be captured): run train_step on a mesh")
+        ks = {len(v) for v in stacked.values()}
+        if len(ks) != 1:
+            raise ValueError(f"stacked arrays of different step counts: {sorted(ks)}")
+        (k,) = ks
+        if self.device.type != "cuda":
+            history = [self._one_step({n: v[i] for n, v in stacked.items()}) for i in range(k)]
+            return {key: torch.stack([torch.as_tensor(h[key], dtype=torch.float32)
+                                      for h in history]) for key in history[0]}
+        # on the card before the first replay: a host copy inside the graph
+        # would replay from a stale pinned buffer
+        stacked = {n: to_device(v, self.device, torch.float32) for n, v in stacked.items()}
+        key = tuple((n, tuple(v.shape[1:])) for n, v in sorted(stacked.items()))
+        graph = self._graphs.get(key)
+        if graph is None or not graph.valid(self):
+            self._graphs.pop(key, None)  # its pool goes before the new capture
+            graph = self._graphs[key] = StepGraph(self, {n: v[0] for n, v in stacked.items()})
+        return graph.run(self, stacked, k)

@@ -41,7 +41,10 @@ bf16 kernel's element-wise loader.
 """
 
 import contextlib
+import sys
 import time
+import weakref
+from pathlib import Path
 from unittest import mock
 
 import numpy as np
@@ -65,6 +68,9 @@ from kpvid_tpu_torch.ops import (
     up2_conv3_affine,
     up2_conv3_affine_plain,
 )
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+from chip_smoke import host_arrays, multi_fns, replay_kernels, restore_in_place  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -873,3 +879,220 @@ def test_model_axis_join_on_card_is_exact(dev, group_of_one):
     g = torch.randn(3, 4, device=dev)
     (gx,) = torch.autograd.grad((join(copy_to_model(x, shard), -1, shard) * g).sum(), x)
     assert torch.equal(gx, g)
+
+
+# --------------------------------------------------- train_step_multi, graphed
+S1_SMOKE = dict(n_pts=8, image_size=32, heatmap_size=8, encoder_filters=8, translator_filters=16,
+                pose_decoder_filters=16, discriminator_filters=8)
+S2_SMOKE = dict(n_pts=8, cell_info=(64, 64), vae_dim=16, n_future_frames=8, image_size=32,
+                heatmap_size=8)
+MULTI_K = 3
+
+
+@pytest.fixture
+def deterministic(dev):
+    """cuDNN's deterministic algorithms, as the train CLI asks for them."""
+    before = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    yield dev
+    torch.backends.cudnn.deterministic = before
+
+
+def _multi_setup(stage: int, dev, remat_vgg: bool = False):
+    """(a fresh trainer on ``dev`` from seed 3, the stacked inputs of K + 1
+    steps, the graphed multi over the first K, one eager step i)."""
+    import dataclasses
+
+    from kpvid_tpu_torch.configs import ModelConfig, TrainingConfig
+    from kpvid_tpu_torch.losses import synthesize_vgg19_params
+    from kpvid_tpu_torch.train import Stage1Trainer, Stage2Trainer
+
+    rng = np.random.default_rng(stage)
+    k = MULTI_K + 1
+    if stage == 1:
+        cfg = dataclasses.replace(Config(), model=ModelConfig(**S1_SMOKE), training=TrainingConfig(
+            compute_dtype="float32", batch_size=2, remat_vgg=remat_vgg)).validate()
+        vgg = synthesize_vgg19_params(max_width=16)
+        stacked = {n: rng.uniform(-1, 1, (k, 2, 32, 32, 3)).astype(np.float32)
+                   for n in ("image", "future_image")}
+    else:
+        cfg = dataclasses.replace(Config(), model=ModelConfig(**S2_SMOKE), training=TrainingConfig(
+            compute_dtype="float32", batch_size=4)).validate()
+        stacked = {"keypoints": rng.uniform(-1, 1, (k, 4, 8, 2)).astype(np.float32),
+                   "real_seq": rng.uniform(-1, 1, (k, 4, 8, 8, 2)).astype(np.float32),
+                   "action_code": np.eye(9, dtype=np.float32)[rng.integers(0, 9, (k, 4))],
+                   "noise": rng.standard_normal((k, 4, 16)).astype(np.float32)}
+
+    def make():
+        t = (Stage1Trainer(cfg, vgg, device=dev) if stage == 1
+             else Stage2Trainer(cfg, device=dev))
+        t.load_parameters(t.init_parameters(3))
+        return t
+
+    multi, single = multi_fns(stage, stacked)
+    return make, stacked, lambda t: multi(t, MULTI_K), single
+
+
+def _first_grads(trainer) -> dict:
+    """Wrap ``trainer._apply`` to keep each parameter's first gradient, by name."""
+    names = {id(p): n for n, p in trainer.model.named_parameters()}
+    out = {}
+    apply = trainer._apply
+
+    def recording(opt, params, grads):
+        for p, g in zip(params, grads):
+            out.setdefault(names[id(p)], g.detach().clone())
+        apply(opt, params, grads)
+
+    trainer._apply = recording
+    return out
+
+
+@pytest.mark.parametrize("stage,start,remat", [(1, 0, False), (1, 0, True), (2, 0, False),
+                                               (2, 7, False)])
+def test_graphed_multi_matches_eager_steps(deterministic, stage, start, remat):
+    """The graphed ``train_step_multi`` (one step captured as a CUDA graph,
+    replayed K = 3 times) against 3 eager ``train_step``s on the card from
+    the same state, f32 with TF32 off, cuDNN's deterministic algorithms on
+    both sides (as the train CLI; else a free choice of algorithms, which
+    may differ between the two, adds its own rounding to the step's
+    sensitivity at batch 2). Stage 2: losses rtol 1e-5 each step,
+    parameters within 1e-5, or 2.05 lr where the first gradient is below
+    1e-5 of its tensor's max (capturable Adam's bias correction is f32 on
+    the card, the eager one's f64 on the host: an ulp of the step, which a
+    sign step turns over); from step 7 with a fresh optimizer (an import's
+    state) too, which the rates at the optimizer's count must follow.
+    Stage 1 (with and without the VGG recompute): the first step's losses
+    rtol 1e-5 (both sides step from the same state), parameters within
+    JAX's multi envelope 3 lr a step, BN statistics 1e-5; the later steps'
+    losses finite only: at batch 2 they take one of two values some 1.5e-4
+    apart, eager and graphed alike, as the process's state (the algorithms
+    cuDNN and cuBLAS pick) turns a first Adam sign step one way or the
+    other (chip_smoke.py phase 13 holds them to 1e-4 at Config()'s batch
+    16). Afterwards Adam's step count is a host f32 tensor of K again and
+    the step advanced by K."""
+    make, _, multi, single = _multi_setup(stage, deterministic, remat)
+    a, b = make(), make()
+    for t in (a, b):
+        t.step = start
+    grads = _first_grads(b)
+    got = multi(a)
+    want = [single(b, i) for i in range(MULTI_K)]
+    assert a.step == b.step == start + MULTI_K and len(a._graphs) == 1
+    state = next(iter(a.g_opt.state.values()))
+    assert state["step"].device.type == "cpu" and int(state["step"]) == MULTI_K
+    assert not a.g_opt.param_groups[0]["capturable"]
+    lr = a.lr_schedule(0)
+    for key in want[0]:
+        assert got[key].shape == (MULTI_K,), key
+        for i, w in enumerate(want):
+            if stage == 2 or i == 0 or key == "lr":
+                assert float(got[key][i]) == pytest.approx(float(w[key]), rel=1e-5), (key, i)
+            assert np.isfinite(float(got[key][i])), (key, i)
+    pa, pb = a.model.state_dict(), b.model.state_dict()
+    for name, va in pa.items():
+        diff = (va - pb[name]).abs()
+        if "running_" in name:
+            assert float(diff.max()) <= 1e-5, name
+        elif stage == 1:
+            assert float(diff.max()) <= 3 * lr * MULTI_K, name
+        else:
+            g = grads[name].abs()
+            sign = g < 1e-5 * float(g.max())
+            bound = torch.where(sign, torch.full_like(diff, 2.05 * lr), torch.full_like(diff, 1e-5))
+            assert bool((diff <= bound).all()), (name, float(diff.max()))
+
+
+@pytest.mark.parametrize("stage", [1, 2])
+def test_graphed_multi_replays_the_same_bits(deterministic, stage):
+    """The captured graph replayed from the same state (copied back in
+    place, so the graph stays valid) gives the same bits, and goes with its
+    trainer; one replay of the
+    stage-1 graph launches #3 once, #4 twice, #3' once and #4' twice (read
+    from a torch.profiler trace, as the counters count only the capture),
+    stage 2's none of them."""
+    make, _, multi, _ = _multi_setup(stage, deterministic)
+    t = make()
+    before = host_arrays(t)
+    multi(t)
+    first = host_arrays(t)
+    graph = next(iter(t._graphs.values()))
+    restore_in_place(t, before)
+    multi(t)
+    assert next(iter(t._graphs.values())) is graph
+    second = host_arrays(t)
+    differ = {k: float((first[k].double() - second[k].double()).abs().max()) for k in first
+              if not torch.equal(first[k], second[k])}
+    assert not differ, differ
+    rec = replay_kernels(graph.graph)
+    want = ({"conv3x3": 0, "pose_head": 1, "gaussian_render": 2, "pose_head_backward": 1,
+             "gaussian_render_backward": 2} if stage == 1
+            else {"conv3x3": 0, "pose_head": 0, "gaussian_render": 0, "pose_head_backward": 0,
+                  "gaussian_render_backward": 0})
+    assert rec["kernels"] > 0 and rec["launches"] == want, rec
+    # the graph holds no reference to its trainer: both go with the trainer's
+    # last reference, not with a later pass of the garbage collector (which
+    # could destroy a graph while another is being captured, ending it)
+    refs = weakref.ref(t), weakref.ref(graph)
+    del t, graph
+    assert all(r() is None for r in refs)
+
+
+@pytest.mark.parametrize("stage", [1, 2])
+def test_load_state_arrays_forces_a_recapture(deterministic, stage):
+    """``load_state_arrays`` gives Adam new tensors: the graph is dropped and
+    the next call captures anew, and from the reloaded state the new graph
+    repeats the first call's bits."""
+    make, _, multi, _ = _multi_setup(stage, deterministic)
+    t = make()
+    before = host_arrays(t)
+    multi(t)
+    first, graph = host_arrays(t), next(iter(t._graphs.values()))
+    t.load_state_arrays(before)
+    assert not t._graphs and not graph.valid(t)
+    multi(t)
+    assert next(iter(t._graphs.values())) is not graph
+    second = host_arrays(t)
+    assert all(torch.equal(first[k], second[k]) for k in first)
+
+
+def test_graphed_multi_after_eager_steps_and_state_round_trip(deterministic):
+    """Eager steps, then the graphed multi, then state_arrays into a fresh
+    trainer: its next eager step gives the bits of one more eager step on
+    the original (stage 2)."""
+    make, stacked, multi, single = _multi_setup(2, deterministic)
+    a = make()
+    single(a, 0)
+    multi(a)
+    b = make()
+    b.load_state_arrays(host_arrays(a))
+    for t in (a, b):
+        single(t, MULTI_K)
+    assert a.step == b.step == MULTI_K + 2
+    sa, sb = host_arrays(a), host_arrays(b)
+    assert all(torch.equal(sa[k], sb[k]) for k in sa)
+
+
+def test_a_capture_that_syncs_raises(dev):
+    """A host read inside the captured step (a loss as a Python float) stops
+    the capture with an error, not a quiet eager loop; the trainer is left
+    as it was (step, Adam's host step count, eager mode) and steps on."""
+    make, _, multi, single = _multi_setup(2, dev)
+    t = make()
+    one = t._one_step
+
+    def syncing(inputs):
+        out = one(inputs)
+        float(out["loss_G"])
+        return out
+
+    t._one_step = syncing
+    with pytest.raises(RuntimeError):
+        multi(t)
+    assert t.step == 0 and not t._graphs and not t._graphing
+    assert all(not g["capturable"] and isinstance(g["lr"], float)
+               for opt in (t.g_opt, t.d_opt) for g in opt.param_groups)
+    assert all(s["step"].device.type == "cpu" for s in t.g_opt.state.values())
+    t._one_step = one
+    single(t, 0)
+    assert t.step == 1

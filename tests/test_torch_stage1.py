@@ -338,16 +338,10 @@ def _run_jax(mode, jax_state, batches, n_steps):
 
 
 def _run_port(mode, jax_state, batches, n_steps):
+    from test_torch_train import record_updates
+
     trainer = port_trainer(jax_state, mode)
-    first_grads = {}
-    apply = trainer._apply
-
-    def recording_apply(opt, params, grads):  # keep the first update's gradients
-        for p, g in zip(params, grads):
-            first_grads.setdefault(id(p), g.clone())
-        apply(opt, params, grads)
-
-    trainer._apply = recording_apply
+    first_grads, _ = record_updates(trainer)
     history = []
     for i in range(n_steps):
         if mode == "two_batch":
@@ -375,6 +369,14 @@ def test_train_steps_match_jax(jax_init, mode, n_steps):
         assert sorted(got) == sorted(want)
         for k in want:
             np.testing.assert_allclose(got[k], want[k], rtol=METRIC_RTOL, err_msg=k)
+    assert_state_matches_jax(trainer, want_state, grads, n_steps, jax_init)
+
+
+def assert_state_matches_jax(trainer, want_state, grads, n_steps, jax_init):
+    """Both networks' parameters and the BN statistics against JAX's state
+    after ``n_steps`` (module docstring's tolerances; ``grads`` the first
+    update's, by name); every statistic and every parameter the losses
+    reach moved from ``jax_init``, the unread octave did not."""
     want = port_params(want_state)
     init = port_params(jax_init)
     state = trainer.model.state_dict()

@@ -212,17 +212,25 @@ def _run_jax(mode, jax_state, batches, keys):
     return jax.device_get(state), history
 
 
-def _run_port(mode, jax_state, batches, keys):
-    trainer = port_trainer(jax_state, mode)
-    first_grads = {}
+def record_updates(trainer) -> tuple[dict, list]:
+    """Wrap ``trainer._apply``: each parameter's first update's gradient
+    (by ``id``), and the rate of every update in order."""
+    first_grads, rates = {}, []
     apply = trainer._apply
 
-    def recording_apply(opt, params, grads):  # keep the first update's gradients
+    def recording_apply(opt, params, grads):
         for p, g in zip(params, grads):
             first_grads.setdefault(id(p), g.clone())
         apply(opt, params, grads)
+        rates.append(opt.param_groups[0]["lr"])
 
     trainer._apply = recording_apply
+    return first_grads, rates
+
+
+def _run_port(mode, jax_state, batches, keys):
+    trainer = port_trainer(jax_state, mode)
+    first_grads, _ = record_updates(trainer)
     history = []
     for i, key in enumerate(keys):
         noise = noise_of(key, mode)
@@ -251,6 +259,13 @@ def test_train_steps_match_jax(jax_init, mode, n_steps):
         assert sorted(got) == sorted(want)
         for k in want:
             np.testing.assert_allclose(got[k], want[k], rtol=METRIC_RTOL, err_msg=k)
+    assert_params_match_jax(trainer, want_state, grads, n_steps, jax_init)
+
+
+def assert_params_match_jax(trainer, want_state, grads, n_steps, jax_init):
+    """Both networks' parameters against JAX's state after ``n_steps``
+    (module docstring's tolerance; ``grads`` the first update's, by name);
+    every parameter moved from ``jax_init``."""
     want = bridge.stage2_trainer_from_jax(want_state.g_params, want_state.d_params)
     moved = 0
     for name, p in trainer.model.named_parameters():
