@@ -219,7 +219,27 @@ imports nothing of JAX or of the JAX package, and:
    ``bench_host_pipeline --batches 4`` on the card's host, and
    ``verify_reference_parity`` on phase 11's two TF1 bundles over phase 6's
    tree: its renders are the evaluate tree of phase 11's imports byte for
-   byte, and against that tree it passes at 0.000 dB.
+   byte, and against that tree it passes at 0.000 dB;
+14. learn: ``train.main`` of stage 1 on ``kpvid_tpu_torch/configs/penn_synth.yaml``
+   (``Config()`` widths, bf16, batch 16) and its ``--synthetic`` tree for
+   250 steps, as ``--quality`` runs it, with a test sweep after step 0 and
+   after step 250: 1 / 2 forward and 1 / 2 backward #3 / #4 a step and one
+   forward a sweep, and the test PSNR rises by at least 1.0 dB (the
+   ``--quality`` run's rise by then was 1.748 dB).
+
+    python3 chip_smoke.py --quality
+
+runs only the training chain, each CLI in a process of its own on the card:
+``python -m kpvid_tpu_torch.train --mode detector_translator --synthetic``
+on a copy of ``penn_synth.yaml`` whose paths lie in a temporary directory
+and whose ``test_interval`` is 250, for 2,250 steps; the labeler on its
+checkpoint; stage 2 on those labels for 2,000 steps; evaluate. It prints
+each stage's wall seconds and every sweep's test PSNR and reconstruction
+(stage 1) and test KL and reconstruction (stage 2), and holds the curves to
+JAX's record (docs/PERF.md:566-571): stage 1's test PSNR within 1.5 dB of
+JAX's at steps 500, 1,000, 1,500 and 2,250 and at least 22.0 dB at 2,250,
+stage 2's test KL at 2,000 at most a tenth of its first sweep's, and
+evaluate's whole PNG tree. It takes about 15 minutes on the H100.
 
 It prints the seconds since the start at each phase. It exits non-zero on
 any failed check, and without a CUDA device. The line
@@ -228,9 +248,9 @@ served batch, per labeled chunk, per stage-1 and stage-2 train step and per
 evaluate batch, per artifact batch, per rank of a data-parallel stage-1 step,
 per stage-1 step at grad_accum 2, per generate from the imported checkpoints,
 per stage-1 step with the frame cache, per rank of a 1x2 tensor-parallel
-stage-1 step, per replica batch of the mesh engine and per replay of the
-graphed stage-1 step; the backward kernels' ``launches`` are per stage-1
-step),
+stage-1 step, per replica batch of the mesh engine, per replay of the
+graphed stage-1 step and per step of the learn phase; the backward kernels'
+``launches`` are per stage-1 step),
 the last line the device.
 """
 
@@ -2183,11 +2203,7 @@ def evaluate_phase(cfg, card: str, root: Path) -> dict:
         files = {p.relative_to(root / name).as_posix(): p.read_bytes()
                  for p in sorted((root / name).rglob("*.png"))}
         for i in range(8):
-            d = root / name / f"{i:04d}"
-            ok = ((d / "input_im.png").is_file() and (d / "current_points.png").is_file()
-                  and all(len(list((d / sub).glob("*.png"))) == m.n_future_frames
-                          for sub in ("real_seq", "pred_seq", "mask", "crude", "pred_points")))
-            if not ok:
+            if not png_tree_complete(root / name / f"{i:04d}", m.n_future_frames):
                 raise CheckFailed(f"sample {i}: incomplete PNG tree")
         check(len(files) == 8 * (2 + 5 * m.n_future_frames),
               f"{name}: each sample has 2 PNGs and 5 directories of {m.n_future_frames} PNGs")
@@ -3753,6 +3769,226 @@ def multistep_phase(cfg, card: str, root: Path) -> dict:
     return rep
 
 
+# ------------------------------------------------------- the training chain
+# JAX's record of stage 1's test PSNR (dB) on its synthetic tree at Config()
+# widths, batch 16, bf16, 'tf1' upsample (docs/PERF.md:566-571); the step
+# noise and the z draws differ from JAX's by design, so the port is held to
+# the curve, not the bits
+JAX_S1_PSNR = {500: 19.68, 1000: 22.41, 1500: 23.49, 2250: 23.61}
+QUALITY_S1_STEPS = 2250
+QUALITY_S2_STEPS = 2000
+QUALITY_SWEEP = 250
+QUALITY_CONFIG = "kpvid_tpu_torch/configs/penn_synth.yaml"
+S1_PSNR_BAND = 1.5  # dB either side of JAX's at each of its steps
+S1_PSNR_FLOOR = 22.0  # dB at the last step
+S2_KL_DROP = 0.1  # stage 2's test KL at the last sweep over its first sweep's
+QUALITY_STAGE_TIMEOUT_S = 2400
+REPO = Path(__file__).resolve().parent
+
+
+def quality_config(src: str | Path, root: Path, test_interval: int,
+                   vggnet: str | Path | None = None) -> Path:
+    """A copy of the YAML ``src`` with ``data_dir`` and ``log_dir`` under
+    ``root`` and ``training.test_interval`` set; ``paths.vggnet`` is
+    ``vggnet``, by default a file that does not exist (stage 1 then
+    synthesizes its VGG19 weights, as JAX's record did)."""
+    import yaml
+
+    raw = yaml.safe_load(Path(src).read_text())
+    raw.setdefault("paths", {}).update(
+        data_dir=str(root / "penn"), log_dir=str(root / "log"),
+        vggnet=str(vggnet if vggnet is not None else root / "no_vgg19.npy"))
+    raw.setdefault("training", {})["test_interval"] = test_interval
+    path = root / "quality.yaml"
+    path.write_text(yaml.safe_dump(raw, sort_keys=False))
+    return path
+
+
+def quality_chain(conf: Path, root: Path, s1_steps: int, s2_steps: int,
+                  device: str | None = None) -> list[tuple[str, list[str]]]:
+    """The four CLIs of the training chain, as (stage, argv): stage 1 on the
+    ``--synthetic`` tree, the labeler on its checkpoint, stage 2 on those
+    labels (not ``--synthetic``, which would write random-walk labels) and
+    evaluate. A CLI runs loop steps 0 .. max_steps - 1 and sweeps the test
+    split after the update of each loop step that ``test_interval`` divides,
+    so a sweep at step N takes ``--max-steps N + 1``."""
+    py, log = [sys.executable, "-m"], root / "log"
+    dev = ["--device", device] if device else []
+    cfg = ["--config", str(conf)]
+    return [
+        ("stage 1", py + ["kpvid_tpu_torch.train", "--mode", "detector_translator", *cfg,
+                          "--synthetic", "--no-images", "--max-steps", str(s1_steps + 1), *dev]),
+        ("label", py + ["kpvid_tpu_torch.make_pseudo_labels", *cfg, "--checkpoint",
+                        str(log / "detector_translator"), *dev]),
+        ("stage 2", py + ["kpvid_tpu_torch.train", "--mode", "motion_generator", *cfg,
+                          "--no-images", "--max-steps", str(s2_steps + 1), *dev]),
+        ("evaluate", py + ["kpvid_tpu_torch.evaluate", *cfg, "--checkpoint_stage1",
+                           str(log / "detector_translator"), "--checkpoint_stage2",
+                           str(log / "motion_generator"), "--save_dir", str(root / "eval"),
+                           *dev]),
+    ]
+
+
+def run_chain(chain: list, root: Path) -> dict:
+    """Run each command from the repo root, its output in ``root/<stage>.log``;
+    returns each stage's wall seconds. A command that fails or outlasts
+    QUALITY_STAGE_TIMEOUT_S (it is killed) fails the check with its log's
+    tail."""
+    seconds = {}
+    for name, argv in chain:
+        log = root / f"{name.replace(' ', '_')}.log"
+        t0 = time.perf_counter()
+        with open(log, "w") as out:
+            try:
+                rc = subprocess.run(argv, cwd=REPO, stdout=out, stderr=subprocess.STDOUT,
+                                    timeout=QUALITY_STAGE_TIMEOUT_S).returncode
+            except subprocess.TimeoutExpired:
+                rc = "killed at its time limit"
+        seconds[name] = time.perf_counter() - t0
+        if rc != 0:
+            raise CheckFailed(f"{name}: {' '.join(argv[2:])} exited {rc} after "
+                              f"{seconds[name]:.1f} s:\n{log.read_text()[-4000:]}")
+    return seconds
+
+
+def read_sweeps(path: Path) -> dict[int, dict]:
+    """A CLI's test_metrics.jsonl as {step: metrics}."""
+    rows = [json.loads(ln) for ln in Path(path).read_text().splitlines() if ln.strip()]
+    return {int(r["step"]): r for r in rows}
+
+
+def png_tree_complete(sample_dir: Path, n_frames: int) -> bool:
+    """One evaluate sample: 2 PNGs and 5 directories of ``n_frames`` PNGs."""
+    return ((sample_dir / "input_im.png").is_file()
+            and (sample_dir / "current_points.png").is_file()
+            and all(len(list((sample_dir / sub).glob("*.png"))) == n_frames
+                    for sub in ("real_seq", "pred_seq", "mask", "crude", "pred_points")))
+
+
+def quality_misses(s1_psnr: dict, s2_kl: dict, s1_last: int, tree_ok: bool) -> list[str]:
+    """The bounds that the chain's curves miss (PERF.md §2): stage 1's test
+    PSNR within S1_PSNR_BAND of JAX's at each step of JAX's record and at
+    least S1_PSNR_FLOOR at ``s1_last``; stage 2's test KL at its last sweep
+    at most S2_KL_DROP of its first; evaluate's full PNG tree."""
+    misses = []
+    for step, want in JAX_S1_PSNR.items():
+        got = s1_psnr.get(step)
+        if got is None or not abs(got - want) <= S1_PSNR_BAND:
+            misses.append(f"stage 1 test PSNR at step {step}: {got} dB, JAX's {want} dB "
+                          f"(bound: within {S1_PSNR_BAND} dB)")
+    if not s1_psnr.get(s1_last, -np.inf) >= S1_PSNR_FLOOR:
+        misses.append(f"stage 1 test PSNR at step {s1_last}: {s1_psnr.get(s1_last)} dB "
+                      f"(bound: >= {S1_PSNR_FLOOR} dB)")
+    if len(s2_kl) < 2:
+        misses.append(f"stage 2: {len(s2_kl)} test sweep(s), need the first and the last")
+    else:
+        first, last = s2_kl[min(s2_kl)], s2_kl[max(s2_kl)]
+        if not last <= S2_KL_DROP * first:
+            misses.append(f"stage 2 test KL at step {max(s2_kl)}: {last}, first sweep "
+                          f"{first} (bound: <= {S2_KL_DROP} x the first)")
+    if not tree_ok:
+        misses.append("evaluate: the PNG tree is incomplete")
+    return misses
+
+
+def quality_run(src: str | Path, root: Path, s1_steps: int, s2_steps: int, interval: int,
+                device: str | None = None, vggnet: str | Path | None = None) -> dict:
+    """The training chain on ``src``'s configuration under ``root``: the
+    commands, each stage's seconds, stage 1's test PSNR and reconstruction
+    and stage 2's test KL and reconstruction at every sweep, and whether
+    evaluate wrote its whole tree."""
+    from kpvid_tpu_torch.configs import load_config
+
+    conf = quality_config(src, root, interval, vggnet)
+    chain = quality_chain(conf, root, s1_steps, s2_steps, device)
+    seconds = run_chain(chain, root)
+    log = root / "log"
+    s1 = read_sweeps(log / "detector_translator" / "test_metrics.jsonl")
+    s2 = read_sweeps(log / "motion_generator" / "test_metrics.jsonl")
+    samples = sorted(p for p in (root / "eval").iterdir() if p.is_dir())
+    n_frames = load_config(conf).model.n_future_frames
+    return {"commands": [" ".join(argv[2:]) for _, argv in chain], "seconds": seconds,
+            "stage1": {s: {"psnr": r["psnr"], "reconstruction_metric": r["reconstruction_metric"]}
+                       for s, r in s1.items()},
+            "stage2": {s: {"kl_loss": r["kl_loss"], "recon_loss": r["recon_loss"]}
+                       for s, r in s2.items()},
+            "eval_samples": len(samples),
+            "tree_ok": bool(samples) and all(png_tree_complete(p, n_frames) for p in samples)}
+
+
+# the learn phase: the --quality run's stage 1 cut to its first sweep after
+# step 0. On the H100 that run's test PSNR rose 1.748 dB by step 250 (16.228
+# -> 17.976, PERF.md §6); the bound leaves a 0.748 dB margin
+LEARN_STEPS = 250
+LEARN_MIN_RISE_DB = 1.0
+
+
+def learn_phase(card: str, root: Path) -> dict:
+    """``train.main`` of stage 1 on ``penn_synth.yaml`` at Config() and its
+    ``--synthetic`` tree, as ``--quality`` runs it, for LEARN_STEPS steps
+    with a test sweep after step 0 and after step LEARN_STEPS: the test PSNR
+    rises by at least LEARN_MIN_RISE_DB; 1 / 2 forward and 1 / 2 backward
+    #3 / #4 a step and one forward per sweep."""
+    from kpvid_tpu_torch import ops
+    from kpvid_tpu_torch.data import ImagePairDataset
+    from kpvid_tpu_torch.train import main as train_main
+
+    (root / "learn").mkdir()
+    conf = quality_config(REPO / QUALITY_CONFIG, root / "learn", LEARN_STEPS)
+    ops.reset_launch_counts()
+    run = train_main(["--mode", "detector_translator", "--config", str(conf), "--synthetic",
+                      "--no-images", "--max-steps", str(LEARN_STEPS + 1)])
+    counts = ops.launch_counts()
+    steps = LEARN_STEPS + 1
+    m = run["trainer"].config.model
+    n_test = len(ImagePairDataset(str(root / "learn" / "penn"), "test", image_size=m.image_size))
+    batches = -(-n_test // run["trainer"].config.training.batch_size)
+    sweep_fwd = {name: 2 * batches * S1_PER_STEP[name] if name in ("pose_head",
+                                                                   "gaussian_render") else 0
+                 for name in S1_PER_STEP}
+    want = {name: c * steps + sweep_fwd[name] for name, c in S1_PER_STEP.items()}
+    check(counts == want, f"learn: {steps} steps launched {counts}: 1 / 2 forward and 1 / 2 "
+                          "backward #3 / #4 a step (+ two sweeps' forwards), no #1 / #2")
+    sweeps = read_sweeps(root / "learn" / "log" / "detector_translator" / "test_metrics.jsonl")
+    first, last = sweeps[0]["psnr"], sweeps[LEARN_STEPS]["psnr"]
+    print(f"learn on {card}: test PSNR {first!r} dB at step 0, {last!r} dB at step "
+          f"{LEARN_STEPS}; {steps} steps in {run['seconds']:.1f} s", flush=True)
+    check(sorted(sweeps) == [0, LEARN_STEPS] and last - first >= LEARN_MIN_RISE_DB,
+          f"learn: the test PSNR rose {last - first:.3f} dB in {LEARN_STEPS} stage-1 steps "
+          f"(bound: >= {LEARN_MIN_RISE_DB} dB)")
+    return {"psnr": {0: first, LEARN_STEPS: last}, "rise_db": last - first,
+            "seconds": run["seconds"],
+            "launches_per_step": {k: (v - sweep_fwd[k]) / steps for k, v in counts.items()}}
+
+
+def quality_phase(card: str) -> dict:
+    """``--quality``: the chain at ``penn_synth.yaml``'s Config() widths,
+    2,250 stage-1 and 2,000 stage-2 steps with test sweeps every 250, held
+    to JAX's learning curve."""
+    with tempfile.TemporaryDirectory(prefix="kpvid_quality_") as tmp:
+        run = quality_run(REPO / QUALITY_CONFIG, Path(tmp), QUALITY_S1_STEPS, QUALITY_S2_STEPS,
+                          QUALITY_SWEEP)
+    for name, s in run["seconds"].items():
+        print(f"quality {name}: {s:.1f} s wall on {card}", flush=True)
+    for step, r in sorted(run["stage1"].items()):
+        want = f", JAX {JAX_S1_PSNR[step]:.2f}" if step in JAX_S1_PSNR else ""
+        print(f"quality stage 1 step {step}: test PSNR {r['psnr']!r} dB{want}, "
+              f"reconstruction {r['reconstruction_metric']!r}", flush=True)
+    for step, r in sorted(run["stage2"].items()):
+        print(f"quality stage 2 step {step}: test KL {r['kl_loss']!r}, reconstruction "
+              f"{r['recon_loss']!r}", flush=True)
+    print(f"quality evaluate: {run['eval_samples']} samples, tree complete: {run['tree_ok']}",
+          flush=True)
+    run["misses"] = quality_misses({s: r["psnr"] for s, r in run["stage1"].items()},
+                                   {s: r["kl_loss"] for s, r in run["stage2"].items()},
+                                   QUALITY_S1_STEPS, run["tree_ok"])
+    run["card"] = card
+    print(json.dumps(run), flush=True)
+    check(not run["misses"], "the training chain meets every bound of PERF.md §2"
+          + "".join(f"\n  missed: {m}" for m in run["misses"]))
+    return run
+
+
 KERNEL_META = {
     # the bf16 body the path runs; conv3x3.cu includes it and holds the f32 route
     "conv3x3_affine": ("cuda", "kpvid_tpu_torch/csrc/conv3x3_mma.cuh",
@@ -3790,6 +4026,14 @@ def main() -> int:
     card = gpu_line()
     print(card, flush=True)
     t_start = time.perf_counter()
+    if sys.argv[1:] == ["--quality"]:
+        quality_phase(card)
+        print(f"quality: {time.perf_counter() - t_start:.1f} s", flush=True)
+        print(gpu_line(), flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
 
     def phase(name: str) -> None:
         print(f"== {name}: {time.perf_counter() - t_start:.1f} s since the start", flush=True)
@@ -3834,6 +4078,8 @@ def main() -> int:
         tp = tp_mesh_phase(cfg, params, card, root)
         phase("13 multistep")
         multistep = multistep_phase(cfg, card, root)
+        phase("14 learn")
+        learn = learn_phase(card, root)
         phase("end")
 
     kernels = []
@@ -3868,6 +4114,7 @@ def main() -> int:
                 # from a trace: the counters count a graph's capture, not its replays
                 "train_stage1_graphed_per_replay":
                     multistep["stage1_check"]["replay_launches"][REPLAY_SYMBOL.get(name, name)],
+                "train_stage1_learn_per_step": learn["launches_per_step"][name],
             },
         })
         if counts[name]:
@@ -3891,7 +4138,8 @@ def main() -> int:
                       "dp": {k: v for k, v in dp.items() if not k.startswith("launches_")},
                       "interop": interop,
                       "tp_mesh": {k: v for k, v in tp.items() if not k.startswith("launches")},
-                      "multistep": multistep, "card": card, "seconds": time.perf_counter() - t_start}))
+                      "multistep": multistep, "learn": learn, "card": card,
+                      "seconds": time.perf_counter() - t_start}))
     print(gpu_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,6 @@
 """End-to-end generation over the test split, written as a tree of PNGs.
 
-    python -m kpvid_tpu_torch.evaluate --config kpvid_tpu/configs/penn.yaml \
+    python -m kpvid_tpu_torch.evaluate --config kpvid_tpu_torch/configs/penn.yaml \
         --checkpoint_stage1 stage1.npz --checkpoint_stage2 results/motion_generator \
         --save_dir results/eval
 

@@ -1,6 +1,6 @@
 """Write the one-file serving artifact: the generation graph with the weights in it.
 
-    python -m kpvid_tpu_torch.export_serving --config kpvid_tpu/configs/penn.yaml \
+    python -m kpvid_tpu_torch.export_serving --config kpvid_tpu_torch/configs/penn.yaml \
         --checkpoint_stage1 stage1.npz --checkpoint_stage2 stage2.npz \
         --out serving.npz [--batch-sizes 1,32] [--device cuda]
 

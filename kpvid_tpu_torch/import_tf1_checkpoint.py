@@ -1,6 +1,6 @@
 """Convert a reference TF1 checkpoint into a trainer checkpoint of the port.
 
-    python -m kpvid_tpu_torch.import_tf1_checkpoint --config kpvid_tpu/configs/penn.yaml \
+    python -m kpvid_tpu_torch.import_tf1_checkpoint --config kpvid_tpu_torch/configs/penn.yaml \
         --stage 1 --tf-checkpoint /path/to/model.ckpt-200000 [--log-dir results/]
 
 Counterpart of the JAX package's ``import_tf1_checkpoint.py``, with no

@@ -1,6 +1,6 @@
 """Per-frame keypoint pseudo-labels from a stage-1 pose encoder.
 
-    python -m kpvid_tpu_torch.make_pseudo_labels --config kpvid_tpu/configs/penn.yaml \
+    python -m kpvid_tpu_torch.make_pseudo_labels --config kpvid_tpu_torch/configs/penn.yaml \
         --checkpoint stage1.npz
 
 Counterpart of the JAX package's ``make_pseudo_labels.py``.

@@ -1,6 +1,6 @@
 """Serving daemon: micro-batched image + action -> video generation over HTTP.
 
-    python -m kpvid_tpu_torch.serve --config kpvid_tpu/configs/penn.yaml \
+    python -m kpvid_tpu_torch.serve --config kpvid_tpu_torch/configs/penn.yaml \
         --checkpoint_stage1 stage1.npz --checkpoint_stage2 stage2.npz --port 8000
 
 Counterpart of the JAX package's ``serve.py``. Each checkpoint is the

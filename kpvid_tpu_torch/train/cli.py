@@ -2,9 +2,9 @@
 motion generator).
 
     python -m kpvid_tpu_torch.train --mode detector_translator \
-        --config kpvid_tpu/configs/penn.yaml
+        --config kpvid_tpu_torch/configs/penn.yaml
     python -m kpvid_tpu_torch.train --mode motion_generator \
-        --config kpvid_tpu/configs/penn.yaml
+        --config kpvid_tpu_torch/configs/penn.yaml
 
 (``main`` here; ``train/__main__.py`` runs it.) Counterpart of the JAX
 package's ``train.py``. Stage 1 trains on frame pairs of the Penn-Action tree

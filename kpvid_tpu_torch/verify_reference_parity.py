@@ -1,7 +1,7 @@
 """One-command fidelity harness against a pretrained reference.
 
     python -m kpvid_tpu_torch.verify_reference_parity \
-        --config kpvid_tpu/configs/penn.yaml \
+        --config kpvid_tpu_torch/configs/penn.yaml \
         --tf-checkpoint-stage1 /path/to/s1/model.ckpt-200000 \
         --tf-checkpoint-stage2 /path/to/s2/model.ckpt-100000 \
         [--reference-outputs /path/to/reference_eval_dir] \
