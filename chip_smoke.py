@@ -54,17 +54,18 @@ imports nothing of JAX or of the JAX package, and:
    handlers' host time goes (npz and GIF encoding apart from the socket
    write), one response's encoding alone, and the batch-32 readback time;
 5b. artifact: exports the serving artifact (``eval/export.py``) at
-   ``Config()`` in bf16 with phase 3's random weights, buckets 1, 4 and 32,
-   traced once on the card and once on the CPU, and prints each file's bytes
-   and export time; loads each in a fresh spawned process that imports the
-   loader and the engine only (it checks that no model, config, checkpoint
-   or JAX module was imported) and runs each bucket's batch through
+   ``Config()`` in bf16 with phase 3's random weights, bucket 1 traced on
+   the card and bucket 32 on the CPU, and prints each file's bytes and
+   export time; loads each, once written, in a fresh spawned process that
+   imports the loader and the engine only (it checks that no model, config,
+   checkpoint or JAX module was imported) and runs each bucket's batch through
    ``ArtifactEngine``: launches 8 / 2 / 1 / 2 per batch, and the outputs
    against ``InferenceEngine.run`` on the same batch (uint8 within one step,
    points within 1e-5; it says whether the bits are the same); times the
    batch-32 generate of the CPU-traced artifact against the live one, host
-   loop and device time, in turns (live, artifact, artifact, live); then
-   starts ``python -m kpvid_tpu_torch.serve --artifact`` on a free port,
+   loop and device time, in turns (live, artifact, artifact, live); it
+   starts ``python -m kpvid_tpu_torch.serve --artifact`` on a free port
+   once the CPU-traced file is written, and then
    sends it 16 requests from a spawned client process, and checks
    ``/healthz`` and every npz, and response 0 against ``InferenceEngine``;
 6. label: writes a synthetic Penn-Action tree (32 videos, about 1,400
@@ -151,7 +152,7 @@ imports nothing of JAX or of the JAX package, and:
    the videos each) within 1e-5 of the one-process labels of the same
    checkpoint, one #3 a chunk; evaluate on the two ranks at batch 4 (one
    batch each, 8 / 2 / 1 / 4 launches) writes the one-process tree byte
-   for byte;
+   for byte. Phase 11's two TF1 imports run beside the ranks;
 11. interop: (a) both stages' trainer weights at ``Config()`` from seed 0
    (the generators with phase 3's randomized parameters, the stage-2
    encoder and both discriminators the trainers' init), named and laid out
@@ -191,15 +192,17 @@ imports nothing of JAX or of the JAX package, and:
    at batch 16, the whole within the bucket bounds of batch 32), 8 / 2 / 1
    / 2 launches per replica batch, timed; ``python -m
    kpvid_tpu_torch.bench`` with and without ``--mesh`` (and over two
-   replicas); ``evaluate --mesh`` writes phase 9's tree byte for byte, and
-   over two replicas the same tree with each replica's point images written
-   after a spin kernel on its stream as without; evaluate's launch over two
+   replicas); evaluate's launch over two
    replicas returns to the host in under half a spin queued first on
    replica 0's stream, with that stream still busy (at 4 future frames,
    which keep the launches behind the spin within a stream's queue; it
    prints the device operations one replica queues at 4 and at 32 frames
    and the host's time for 500 and 1,500 launches behind a spin);
-   ``serve --mesh`` in a process of its own answers 16 requests;
+   ``serve --mesh`` starts in a process of its own, and while it warms up
+   ``evaluate --mesh`` writes phase 9's tree byte for byte, and over two
+   replicas the same tree with each replica's point images written after a
+   spin kernel on its stream as without; then the daemon answers 16
+   requests;
 13. multistep: ``train_step_multi`` of both trainers, one step captured as
    a CUDA graph and replayed K times. At ``Config()``, f32, batch 16, K = 3,
    from one state against 3 eager ``train_step``s: stage 2's losses rtol
@@ -214,8 +217,9 @@ imports nothing of JAX or of the JAX package, and:
    call recaptures it; one replay (``torch.profiler``) launches #3 once, #4
    twice, #3' once and #4' twice in stage 1, none of them in stage 2. In
    bf16 at batch 16 the eager step and the graphed one at K = 1, 4 and 16:
-   ms a step (host clock), device ms a step, capture seconds, peak memory.
-   Then ``python -m kpvid_tpu_torch.bench_train --iters 5`` (its JSON line),
+   ms a step (host clock), device ms a step (at K = 1 and 4), capture
+   seconds, peak memory. Then ``python -m kpvid_tpu_torch.bench_train
+   --iters 2 --k 4`` (its JSON line),
    ``bench_host_pipeline --batches 4`` on the card's host, and
    ``verify_reference_parity`` on phase 11's two TF1 bundles over phase 6's
    tree: its renders are the evaluate tree of phase 11's imports byte for
@@ -225,7 +229,18 @@ imports nothing of JAX or of the JAX package, and:
    250 steps, as ``--quality`` runs it, with a test sweep after step 0 and
    after step 250: 1 / 2 forward and 1 / 2 backward #3 / #4 a step and one
    forward a sweep, and the test PSNR rises by at least 1.0 dB (the
-   ``--quality`` run's rise by then was 1.748 dB).
+   ``--quality`` run's rise by then was 1.748 dB);
+15. prng: the port's JAX streams (``kpvid_tpu_torch/utils/jax_random.py``)
+   on the card's host against JAX's answers recorded in
+   ``tests/data/jax_random_kat.json`` (a CPU test writes it with JAX and
+   holds it to JAX): keys, splits, fold-ins, bits and uniforms bit for bit,
+   normals within 4 ulp with at least 90% of them equal, evaluate's latents
+   of batches 0 and 1 at seed 3 within 4 ulp, and Random123's published
+   threefry2x32_20 vectors. Then ``init_parameters`` of ``FinalGenerator``
+   and of both trainers at ``Config()`` width, each timed, their trees'
+   keys those of the file: every leaf's float64 sum (``leaf_sum``, in
+   Flax's layout) equal to JAX's, exactly for Xavier, zero and one leaves,
+   within 1e-6 relative for the normal(0.02) head.
 
     python3 chip_smoke.py --quality
 
@@ -268,6 +283,7 @@ import threading
 import time
 import urllib.error
 import urllib.request
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from unittest import mock
 
@@ -286,10 +302,15 @@ class CheckFailed(Exception):
     pass
 
 
+T_START = time.perf_counter()
+
+
 def check(cond: bool, msg: str) -> None:
+    """Raise CheckFailed with ``msg`` unless ``cond``; else print it with the
+    seconds since the process started."""
     if not cond:
         raise CheckFailed(msg)
-    print(f"ok: {msg}", flush=True)
+    print(f"ok: {msg} [{time.perf_counter() - T_START:.1f} s]", flush=True)
 
 
 def write_tf_bundle(prefix: str | Path, tensors: dict, big_endian: bool = False) -> int:
@@ -433,17 +454,27 @@ def replay_kernels(graph) -> dict:
     device operations it ran, their device ms, and each kernel's launches
     (the wrappers' counters count the capture, not the replays)."""
     import torch
-    from torch.profiler import DeviceType, ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         graph.replay()
         torch.cuda.synchronize()
-    ops = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    return {"kernels": sum(e.count for e in ops),
-            "device_ms": sum(e.self_device_time_total for e in ops) / 1e3,
-            "launches": {name: sum(e.count for e in ops if sym in e.key)
+    ops = device_records(prof)
+    return {"kernels": sum(n for _, n, _ in ops),
+            "device_ms": sum(us for _, _, us in ops) / 1e3,
+            "launches": {name: sum(n for key, n, _ in ops if sym in key)
                          for name, sym in KERNEL_SYMBOLS.items()}}
+
+
+def device_records(prof) -> list:
+    """(name, count, µs) of each device operation a finished
+    ``torch.profiler.profile`` recorded, from its raw records
+    (``bench_train.profile_totals``)."""
+    from kpvid_tpu_torch.bench_train import profile_totals
+
+    device, _ = profile_totals(prof)
+    return [(name, n, us) for name, (n, us) in device.items()]
 
 
 def bound_ms(n_bytes: float, n_ops: float, dtype: str) -> tuple[float, str]:
@@ -741,8 +772,9 @@ def sass_phase() -> None:
 
 
 def randomized_params(cfg, seed: int) -> dict:
-    """init_parameters(seed) with the BN statistics, BN affine and biases drawn
-    at random too, so that a mistake in any of them shows."""
+    """init_parameters(seed) (JAX's init_variables(PRNGKey(seed))) with the BN
+    statistics, BN affine and biases drawn at random too, so that a mistake in
+    any of them shows."""
     import torch
 
     from kpvid_tpu_torch.eval import FinalGenerator
@@ -1275,7 +1307,10 @@ def serve_phase(cfg, params, card: str) -> dict:
     return report
 
 
-ARTIFACT_BUCKETS = (1, 4, 32)
+# the CPU-traced file's bucket (the daemon's and the batch-32 timing's); the
+# card traces the single request's
+ARTIFACT_BUCKETS = (32,)
+CARD_TRACE_BUCKETS = (1,)
 ARTIFACT_REQUESTS = 16
 # modules a process that only loads and serves an artifact must not import
 NOT_FOR_ARTIFACTS = ("kpvid_tpu_torch.models", "kpvid_tpu_torch.configs",
@@ -1315,11 +1350,22 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
+def join_process(proc, timeout: float = 600) -> int:
+    """Wait for a multiprocessing child, killed past ``timeout``; its exit
+    code."""
+    proc.join(timeout=timeout)
+    if proc.is_alive():
+        proc.kill()
+        proc.join()
+    return proc.exitcode
+
+
 def artifact_phase(cfg, params, card: str, root: Path) -> dict:
-    """The serving artifact at Config() in bf16: exported on the card and on
-    the CPU, each loaded by a fresh process onto the card and held against
-    InferenceEngine, the batch-32 generate timed against the live one, and
-    the daemon served from the CPU-traced file."""
+    """The serving artifact at Config() in bf16: traced on the card and on
+    the CPU, each loaded by a fresh process onto the card (started once its
+    file is written) and held against InferenceEngine, the batch-32 generate
+    timed against the live one, and the daemon served from the CPU-traced
+    file."""
     import multiprocessing
 
     import torch
@@ -1328,33 +1374,17 @@ def artifact_phase(cfg, params, card: str, root: Path) -> dict:
     from kpvid_tpu_torch.eval import InferenceEngine, request_z
     from kpvid_tpu_torch.eval.export import export_serving, load_serving
 
+    spawn = multiprocessing.get_context("spawn")
     m = cfg.model
     t, s, k = m.n_future_frames, m.image_size, m.n_pts
     engine = InferenceEngine(cfg, params, device="cuda")
     report = {"files": {}, "children": {}}
-    paths = {}
-    for traced_on in ("cuda", "cpu"):
-        paths[traced_on] = root / f"serving_{traced_on}.npz"
-        ops.reset_launch_counts()
-        t0 = time.perf_counter()
-        meta = export_serving(engine.final, paths[traced_on], batch_sizes=ARTIFACT_BUCKETS,
-                              device=traced_on)
-        export_s = time.perf_counter() - t0
-        n_bytes = paths[traced_on].stat().st_size
-        check(meta["device"] == traced_on and meta["batch_sizes"] == list(ARTIFACT_BUCKETS)
-              and sum(ops.launch_counts().values()) == 0,
-              f"artifact traced on {traced_on}: buckets {meta['batch_sizes']}, {n_bytes} bytes "
-              f"in {export_s:.1f} s, no kernel launched while tracing")
-        report["files"][traced_on] = {"bytes": n_bytes, "export_s": export_s,
-                                      "outputs": meta["outputs"],
-                                      "torch_version": meta["torch_version"]}
-    with np.load(paths["cpu"]) as data:
-        report["bytes_per_program"] = {b: int(data[f"graph_b{b}"].size) for b in ARTIFACT_BUCKETS}
-    print(f"artifact bytes per bucket program: {report['bytes_per_program']}", flush=True)
+    buckets = {"cuda": CARD_TRACE_BUCKETS, "cpu": ARTIFACT_BUCKETS}
+    paths = {dev: root / f"serving_{dev}.npz" for dev in buckets}
 
     rng = np.random.default_rng(5)
     batches = {}
-    for b in ARTIFACT_BUCKETS:
+    for b in sorted(CARD_TRACE_BUCKETS + ARTIFACT_BUCKETS):
         batches[b] = (rng.uniform(-1, 1, (b, s, s, 3)).astype(np.float32),
                       rng.integers(0, m.n_action, b),
                       np.stack([request_z(500 + i, m.vae_dim) for i in range(b)]))
@@ -1363,89 +1393,133 @@ def artifact_phase(cfg, params, card: str, root: Path) -> dict:
         for name, arr in zip(("images", "actions", "z"), args)})
     live = {b: engine.run(*args) for b, args in batches.items()}
 
-    # one fresh process per file, both at once
-    procs = {}
-    t0 = time.perf_counter()
-    for traced_on, path in paths.items():
+    # each file traced here in turn and loaded by a fresh process of its own
+    # once written (the first while the second is traced); the daemon from
+    # the CPU-traced file starts with the second's loader and warms up while
+    # this process loads that file too
+    procs, t_load = {}, {}
+    for traced_on in ("cuda", "cpu"):
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        meta = export_serving(engine.final, paths[traced_on], batch_sizes=buckets[traced_on],
+                              device=traced_on)
+        export_s = time.perf_counter() - t0
+        n_bytes = paths[traced_on].stat().st_size
+        check(meta["device"] == traced_on and meta["batch_sizes"] == list(buckets[traced_on])
+              and sum(ops.launch_counts().values()) == 0,
+              f"artifact traced on {traced_on}: buckets {meta['batch_sizes']}, {n_bytes} bytes "
+              f"in {export_s:.1f} s, no kernel launched while tracing")
+        report["files"][traced_on] = {"bytes": n_bytes, "export_s": export_s,
+                                      "outputs": meta["outputs"],
+                                      "torch_version": meta["torch_version"]}
         out_dir = root / f"artifact_child_{traced_on}"
         out_dir.mkdir()
-        procs[traced_on] = multiprocessing.get_context("spawn").Process(
-            target=artifact_child, args=(str(path), str(root / "artifact_inputs.npz"),
-                                         str(out_dir)))
+        t_load[traced_on] = time.perf_counter()
+        procs[traced_on] = spawn.Process(target=artifact_child, args=(
+            str(paths[traced_on]), str(root / "artifact_inputs.npz"), str(out_dir)))
         procs[traced_on].start()
-    for proc in procs.values():
-        proc.join(timeout=600)
-        if proc.is_alive():
-            proc.kill()
-            proc.join()
-    for traced_on, proc in procs.items():
-        out_dir = root / f"artifact_child_{traced_on}"
-        check(proc.exitcode == 0, f"a fresh process loaded the {traced_on}-traced artifact "
-                                  f"and ran every bucket ({time.perf_counter() - t0:.1f} s for "
-                                  "both processes)")
-        child = json.loads((out_dir / "report.json").read_text())
-        check(child["modules"] == [], f"loading and serving the {traced_on}-traced artifact "
-                                      "imported no models, configs, checkpoint or JAX")
-        worst, identical = {}, True
-        for b in ARTIFACT_BUCKETS:
-            counts = child["launches"][str(b)]
-            check(counts == EXPECTED_LAUNCHES,
-                  f"{traced_on}-traced artifact, bucket {b}: launches {counts} are 8 / 2 / 1 / 2")
-            with np.load(out_dir / f"out_{b}.npz") as got:
-                for key in engine.OUTPUT_KEYS:
-                    a, w = got[key], live[b][key]
-                    identical &= bool(np.array_equal(a, w))
-                    if a.dtype == np.uint8:
-                        err = int(np.abs(a.astype(np.int16) - w.astype(np.int16)).max())
-                        bound = 1
-                    else:
-                        err = float(np.abs(a - w).max())
-                        bound = 1e-5
-                    worst[key] = max(worst.get(key, 0), err)
-                    if err > bound:
-                        raise CheckFailed(f"{traced_on}-traced artifact, bucket {b}: {key} "
-                                          f"differs from InferenceEngine by {err} (bound {bound})")
-        check(True, f"{traced_on}-traced artifact on the card agrees with InferenceEngine at "
-                    f"buckets {ARTIFACT_BUCKETS}: {worst}; the same bits: {identical}")
-        report["children"][traced_on] = {"load_s": child["load_s"], "worst": worst,
-                                         "identical": identical,
-                                         "launches_per_batch": child["launches"]["32"]}
+    with np.load(paths["cpu"]) as data:
+        report["bytes_per_program"] = {b: int(data[f"graph_b{b}"].size) for b in ARTIFACT_BUCKETS}
+    print(f"artifact bytes per bucket program: {report['bytes_per_program']}", flush=True)
+    daemon = start_daemon(["--artifact", str(paths["cpu"])], "serve --artifact", root)
+    try:
+        art = load_serving(paths["cpu"], device="cuda")
+        for traced_on, proc in procs.items():
+            out_dir = root / f"artifact_child_{traced_on}"
+            code = join_process(proc)
+            check(code == 0, f"a fresh process loaded the {traced_on}-traced artifact and ran "
+                             f"every bucket ({time.perf_counter() - t_load[traced_on]:.1f} s from "
+                             "its start)")
+            child = json.loads((out_dir / "report.json").read_text())
+            check(child["modules"] == [], f"loading and serving the {traced_on}-traced artifact "
+                                          "imported no models, configs, checkpoint or JAX")
+            worst, identical = {}, True
+            for b in buckets[traced_on]:
+                counts = child["launches"][str(b)]
+                check(counts == EXPECTED_LAUNCHES,
+                      f"{traced_on}-traced artifact, bucket {b}: launches {counts} are 8 / 2 / 1 / 2")
+                with np.load(out_dir / f"out_{b}.npz") as got:
+                    for key in engine.OUTPUT_KEYS:
+                        a, w = got[key], live[b][key]
+                        identical &= bool(np.array_equal(a, w))
+                        if a.dtype == np.uint8:
+                            err = int(np.abs(a.astype(np.int16) - w.astype(np.int16)).max())
+                            bound = 1
+                        else:
+                            err = float(np.abs(a - w).max())
+                            bound = 1e-5
+                        worst[key] = max(worst.get(key, 0), err)
+                        if err > bound:
+                            raise CheckFailed(f"{traced_on}-traced artifact, bucket {b}: {key} "
+                                              f"differs from InferenceEngine by {err} (bound "
+                                              f"{bound})")
+            check(True, f"{traced_on}-traced artifact on the card agrees with InferenceEngine at "
+                        f"buckets {buckets[traced_on]}: {worst}; the same bits: {identical}")
+            report["children"][traced_on] = {"load_s": child["load_s"], "worst": worst,
+                                             "identical": identical,
+                                             "launches_per_batch":
+                                                 child["launches"][str(max(buckets[traced_on]))]}
 
-    # batch 32: the artifact's generate against the live one, on cuda inputs
-    art = load_serving(paths["cpu"], device="cuda")
-    im, actions, z = batches[32]
-    args = (torch.as_tensor(im, device="cuda"),
-            torch.as_tensor(np.eye(m.n_action, dtype=np.float32)[actions], device="cuda"),
-            torch.as_tensor(z, device="cuda"))
-    timing = {}
-    with torch.no_grad():
-        for name, fn in (("live", lambda: engine.final.generate(*args)),
-                         ("artifact", lambda: art.generate(*args)),
-                         ("artifact again", lambda: art.generate(*args)),
-                         ("live again", lambda: engine.final.generate(*args))):
-            timing[name] = {"host_loop_ms": time_ms(fn, 1.0), "device_ms": device_ms(fn, 1, 1.0)}
-    frames = 32 * t
-    for name, r in timing.items():
-        r["frames_per_s"] = frames / r["host_loop_ms"] * 1e3
-        print(f"generate batch 32 bf16, {name}: host loop {r['host_loop_ms']:.2f} ms "
-              f"({r['frames_per_s']:.1f} frames/s), device {r['device_ms']:.2f} ms on {card}",
-              flush=True)
-    report["b32"] = timing
-    del art
-
-    # the daemon from the CPU-traced file, in a process of its own
-    report["serve"] = serve_daemon(["--artifact", str(paths["cpu"])], "serve --artifact", m,
-                                   ARTIFACT_BUCKETS, root, engine)
+        # batch 32: the artifact's generate against the live one, on cuda inputs
+        im, actions, z = batches[32]
+        args = (torch.as_tensor(im, device="cuda"),
+                torch.as_tensor(np.eye(m.n_action, dtype=np.float32)[actions], device="cuda"),
+                torch.as_tensor(z, device="cuda"))
+        timing = {}
+        with torch.no_grad():
+            for name, fn in (("live", lambda: engine.final.generate(*args)),
+                             ("artifact", lambda: art.generate(*args)),
+                             ("artifact again", lambda: art.generate(*args)),
+                             ("live again", lambda: engine.final.generate(*args))):
+                timing[name] = {"host_loop_ms": time_ms(fn, 1.0),
+                                "device_ms": device_ms(fn, 1, 1.0)}
+        frames = 32 * t
+        for name, r in timing.items():
+            r["frames_per_s"] = frames / r["host_loop_ms"] * 1e3
+            print(f"generate batch 32 bf16, {name}: host loop {r['host_loop_ms']:.2f} ms "
+                  f"({r['frames_per_s']:.1f} frames/s), device {r['device_ms']:.2f} ms on {card}",
+                  flush=True)
+        report["b32"] = timing
+        del art
+        report["serve"] = finish_daemon(daemon, m, ARTIFACT_BUCKETS, engine)
+    finally:
+        stop_daemon(daemon)
     for path in paths.values():
         path.unlink()
     return report
 
 
-def serve_daemon(argv: list, what: str, m, buckets, root: Path, engine) -> dict:
+def start_daemon(argv: list, what: str, root: Path) -> dict:
     """``python -m kpvid_tpu_torch.serve`` with ``argv`` on a free port in a
-    process of its own: /healthz once it is up, ARTIFACT_REQUESTS requests
+    process of its own, its output in a log under ``root``; returns the
+    handle :func:`finish_daemon` and :func:`stop_daemon` take."""
+    port = free_port()
+    log_path = root / f"{what.replace(' ', '_').replace('-', '')}.log"
+    log = log_path.open("w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "kpvid_tpu_torch.serve", *argv, "--port", str(port)],
+        cwd=Path(__file__).resolve().parent, stdout=log, stderr=subprocess.STDOUT)
+    return {"proc": proc, "log": log, "log_path": log_path, "what": what,
+            "base": f"http://127.0.0.1:{port}", "t0": time.perf_counter()}
+
+
+def stop_daemon(daemon: dict) -> None:
+    proc = daemon["proc"]
+    if proc.poll() is None:
+        proc.terminate()
+        try:
+            proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+    daemon["log"].close()
+
+
+def finish_daemon(daemon: dict, m, buckets, engine) -> dict:
+    """/healthz once the daemon of :func:`start_daemon` is up (``up_s``: the
+    seconds from its start, load and warm-up), ARTIFACT_REQUESTS requests
     from a spawned client, every npz checked, response 0 against ``engine``
-    at bucket 1; the process stopped before it returns."""
+    at bucket 1; the daemon stopped before it returns."""
     from PIL import Image
 
     from kpvid_tpu_torch.data.augment import resolve_frame_ops
@@ -1453,39 +1527,27 @@ def serve_daemon(argv: list, what: str, m, buckets, root: Path, engine) -> dict:
     from kpvid_tpu_torch.eval import request_z
 
     s, t, k = m.image_size, m.n_future_frames, m.n_pts
-    port = free_port()
-    base = f"http://127.0.0.1:{port}"
-    log_path = root / f"{what.replace(' ', '_').replace('-', '')}.log"
-    log = log_path.open("w")
-    t0 = time.perf_counter()
-    daemon = subprocess.Popen(
-        [sys.executable, "-m", "kpvid_tpu_torch.serve", *argv, "--port", str(port)],
-        cwd=Path(__file__).resolve().parent, stdout=log, stderr=subprocess.STDOUT)
+    what, base, proc = daemon["what"], daemon["base"], daemon["proc"]
     try:
         health = None
-        while health is None and daemon.poll() is None and time.perf_counter() - t0 < 600:
+        while health is None and proc.poll() is None and time.perf_counter() - daemon["t0"] < 600:
             try:
                 with urllib.request.urlopen(f"{base}/healthz", timeout=5) as r:
                     health = json.loads(r.read())
             except OSError:
                 time.sleep(0.5)
-        up_s = time.perf_counter() - t0
+        up_s = time.perf_counter() - daemon["t0"]
         if health is None:
-            log.flush()
-            print(log_path.read_text()[-4000:], flush=True)
+            daemon["log"].flush()
+            print(daemon["log_path"].read_text()[-4000:], flush=True)
         check(health == {"status": "ok", "image_size": s, "n_action": m.n_action,
                          "n_future_frames": t, "buckets": list(buckets)},
-              f"{what} is up in {up_s:.1f} s (load and warm-up): /healthz {health}")
+              f"{what} is up {up_s:.1f} s after its start (load and warm-up; polled from "
+              f"then on): /healthz {health}")
         reqs = serve_traffic(m)[:ARTIFACT_REQUESTS]
         results, latency, wall = drive(base, reqs)
     finally:
-        daemon.terminate()
-        try:
-            daemon.wait(timeout=60)
-        except subprocess.TimeoutExpired:
-            daemon.kill()
-            daemon.wait()
-        log.close()
+        stop_daemon(daemon)
     check(all(r is not None and r[0] == 200 for r in results),
           f"{what} answered all {len(reqs)} requests 200 in {wall:.2f} s")
     first = None
@@ -1639,8 +1701,10 @@ def moved_and_finite(run: dict, what: str) -> None:
     tensor differs from its initial value."""
     import torch
 
+    from kpvid_tpu_torch.train.cli import init_key
+
     trainer = run["trainer"]
-    init = trainer.init_parameters(trainer.config.training.seed)
+    init = trainer.init_parameters(init_key(trainer.config.training.seed))  # the CLI's
     still = [k for k, v in trainer.model.state_dict().items()
              if torch.equal(v.detach().cpu(), init[k])]
     check(all(np.isfinite(v) for v in run["metrics"].values()) and not still,
@@ -1829,8 +1893,10 @@ def stage1_moved_and_finite(run: dict, what: str) -> None:
     gave exact zeros every step)."""
     import torch
 
+    from kpvid_tpu_torch.train.cli import init_key
+
     trainer = run["trainer"]
-    init = trainer.init_parameters(trainer.config.training.seed)
+    init = trainer.init_parameters(init_key(trainer.config.training.seed))  # the CLI's
     still = {k for k, v in trainer.model.state_dict().items()
              if torch.equal(v.detach().cpu(), init[k])}
     unused = {k for k in init if k.startswith(S1_UNUSED) and "running_" not in k}
@@ -2005,12 +2071,20 @@ def stage1_phase(cfg, card: str, root: Path) -> dict:
         trainer.train_step(dev[0])
         torch.cuda.synchronize()
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    kerns = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    device_step_ms = sum(e.self_device_time_total for e in kerns) / 1e3
-    n_kernels = sum(e.count for e in kerns)
-    top = sorted(kerns, key=lambda e: -e.self_device_time_total)[:6]
-    ours = {e.key: e.self_device_time_total / 1e3 for e in kerns if "keypoint" in e.key
-            or "render" in e.key or "pose_head" in e.key}
+    kerns = device_records(prof)
+    device_step_ms = sum(us for _, _, us in kerns) / 1e3
+    n_kernels = sum(n for _, n, _ in kerns)
+    top = sorted(kerns, key=lambda r: -r[2])[:6]
+    ours = {key: us / 1e3 for key, _, us in kerns if "keypoint" in key
+            or "render" in key or "pose_head" in key}
+    # the raw records against key_averages() on this one step (every other
+    # profile of the smoke reads the records alone)
+    averaged = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    avg_ms = sum(e.self_device_time_total for e in averaged) / 1e3
+    check(sum(e.count for e in averaged) == n_kernels
+          and abs(avg_ms - device_step_ms) <= 1e-6 * avg_ms + 1e-6,
+          f"the profile's raw records give key_averages()'s device operations and time: "
+          f"{n_kernels} operations, {device_step_ms:.6f} ms (key_averages() {avg_ms:.6f} ms)")
     rep = {"step_ms": step_ms, "step_ms_all": times, "examples_per_s": S1_BATCH / step_ms * 1e3,
            "device_step_ms": device_step_ms if n_kernels else None, "kernels_per_step": n_kernels,
            "peak_gib": peak_gib, "seconds_40_steps": run["seconds"], "f32_loss_gap": loss_gap,
@@ -2029,8 +2103,8 @@ def stage1_phase(cfg, card: str, root: Path) -> dict:
         print(f"stage-1 step device time (torch.profiler, sum of its {n_kernels} kernels): "
               f"{device_step_ms:.3f} ms, {100 * device_step_ms / step_ms:.1f}% of the step; "
               f"keypoint kernels {ours}; top: "
-              + "; ".join(f"{e.key[:50]} x{e.count} {e.self_device_time_total / 1e3:.3f} ms"
-                          for e in top), flush=True)
+              + "; ".join(f"{key[:50]} x{n} {us / 1e3:.3f} ms" for key, n, us in top),
+              flush=True)
     else:
         print("stage-1 step device time: not measured, torch.profiler (CUPTI) recorded no "
               "kernel on the card", flush=True)
@@ -2063,7 +2137,7 @@ def train_phase(cfg, card: str, root: Path) -> dict:
     """Stage 2 at Config() in bf16 on phase 6's tree and the labels of the
     stage-1 checkpoint."""
     import torch
-    from torch.profiler import DeviceType, ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile
 
     from kpvid_tpu_torch import ops
     from kpvid_tpu_torch.checkpoint import list_checkpoint_steps, load_checkpoint
@@ -2072,6 +2146,7 @@ def train_phase(cfg, card: str, root: Path) -> dict:
     from kpvid_tpu_torch.train import Stage2Trainer
     from kpvid_tpu_torch.train import main as train_main
     from kpvid_tpu_torch.train.cli import step_noise
+    from kpvid_tpu_torch.utils import jax_random
 
     m = cfg.model
     args = ["--mode", "motion_generator", "--max-steps", str(TRAIN_STEPS)]
@@ -2111,7 +2186,7 @@ def train_phase(cfg, card: str, root: Path) -> dict:
         cfg.training, compute_dtype="float32", batch_size=TRAIN_BATCH))
     ds = SequenceDataset(str(root / "penn"), "train", m.n_pts, m.n_action, image_size=m.image_size)
     batch = next(HostDataPipeline(ds, TRAIN_BATCH, shuffle=True, repeat=True, seed=0).batches())
-    noise = step_noise(0, 0, 1, TRAIN_BATCH, m.vae_dim)[0]
+    noise = step_noise(jax_random.PRNGKey(0), 1, TRAIN_BATCH, m.vae_dim)[0]
     steps = {}
     for dev in ("cuda", "cpu"):
         t = Stage2Trainer(cfg32, device=dev)
@@ -2152,10 +2227,10 @@ def train_phase(cfg, card: str, root: Path) -> dict:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         trainer.train_step(dev_batch, dev_noise)
         torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    device_step_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    n_kernels = sum(e.count for e in kernels)
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]
+    kernels = device_records(prof)
+    device_step_ms = sum(us for _, _, us in kernels) / 1e3
+    n_kernels = sum(n for _, n, _ in kernels)
+    top = sorted(kernels, key=lambda r: -r[2])[:5]
     rep = {"step_ms": step_ms, "step_ms_all": times, "examples_per_s": TRAIN_BATCH / step_ms * 1e3,
            "device_step_ms": device_step_ms if n_kernels else None, "kernels_per_step": n_kernels,
            "seconds_40_steps": run["seconds"], "f32_loss_gap": loss_gap,
@@ -2168,8 +2243,7 @@ def train_phase(cfg, card: str, root: Path) -> dict:
     if n_kernels:
         print(f"train step device time (torch.profiler, sum of its {n_kernels} kernels): "
               f"{device_step_ms:.3f} ms, {100 * device_step_ms / step_ms:.1f}% of the step; top: "
-              + "; ".join(f"{e.key[:50]} x{e.count} {e.self_device_time_total / 1e3:.3f} ms"
-                          for e in top),
+              + "; ".join(f"{key[:50]} x{n} {us / 1e3:.3f} ms" for key, n, us in top),
               flush=True)
     else:
         print("train step device time: not measured, torch.profiler (CUPTI) recorded no "
@@ -2329,6 +2403,7 @@ def dp_inputs(cfg, root: Path) -> dict:
     """A global batch of each stage from phase 6's tree (and step 0's noise)."""
     from kpvid_tpu_torch.data import HostDataPipeline, ImagePairDataset, SequenceDataset
     from kpvid_tpu_torch.train.cli import step_noise
+    from kpvid_tpu_torch.utils import jax_random
 
     m = cfg.model
     out = {}
@@ -2338,7 +2413,7 @@ def dp_inputs(cfg, root: Path) -> dict:
         batches = HostDataPipeline(ds, DP_BATCH, shuffle=True, repeat=True, seed=9).batches()
         out[stage] = next(batches)
         batches.close()
-    out["noise"] = step_noise(0, 0, 1, DP_BATCH, m.vae_dim)[0]
+    out["noise"] = step_noise(jax_random.PRNGKey(0), 1, DP_BATCH, m.vae_dim)[0]
     return out
 
 
@@ -2456,17 +2531,19 @@ def spawn_ranks(job: dict, out: Path, flag: str, n: int = 2) -> list[dict]:
 
 
 def dp_phase(cfg, card: str, root: Path, base_step_ms: dict) -> dict:
-    """Phase 10: data parallelism through the KPVID_* contract. World size 1
-    on NCCL in this process; two ranks sharing the card over gloo; grad_accum;
-    the collectives of a step. ``base_step_ms``: the single-process step ms of
+    """Phase 10 (a), (e), (c): data parallelism through the KPVID_* contract
+    at world size 1 on NCCL in this process; the collectives of a step;
+    grad_accum (:func:`dp_ranks_phase` runs the two ranks). ``base_step_ms``:
+    the single-process step ms of
     phases 7 and 8 (keyed by stage), printed beside the data-parallel step's."""
     import os
 
     import torch
     import torch.distributed as dist
-    from torch.profiler import DeviceType, ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile
 
-    from kpvid_tpu_torch import evaluate, ops, parallel
+    from kpvid_tpu_torch import ops, parallel
+    from kpvid_tpu_torch.bench_train import profile_totals
     from kpvid_tpu_torch.checkpoint import load_checkpoint
     from kpvid_tpu_torch.losses import synthesize_vgg19_params
     from kpvid_tpu_torch.train import Stage1Trainer, Stage2Trainer
@@ -2553,15 +2630,16 @@ def dp_phase(cfg, card: str, root: Path, base_step_ms: dict) -> dict:
                     step(*args)
                     torch.cuda.synchronize()
                 inv = parallel.collective_inventory(prof)
-                events = prof.key_averages()
-                kerns = [e for e in events if e.device_type == DeviceType.CUDA]
+                kerns, host = profile_totals(prof)
                 profiles[dt] = {
-                    "device_ms": sum(e.self_device_time_total for e in kerns) / 1e3,
-                    "kernels": sum(e.count for e in kerns),
-                    "collective_host_ms": sum(e.cpu_time_total for e in events
-                                              if e.key.startswith(("nccl:", "gloo:"))) / 1e3,
-                    "cpu_ops": sum(e.count for e in events if e.device_type == DeviceType.CPU
-                                   and e.key.startswith("aten::"))}
+                    "device_ms": sum(us for _, us in kerns.values()) / 1e3,
+                    "kernels": sum(n for n, _ in kerns.values()),
+                    "collective_host_ms": sum(us for key, (_, us) in host.items()
+                                              if key.startswith(("nccl:", "gloo:"))) / 1e3,
+                    # each record: a same-name record nested in another
+                    # counts too (key_averages() folds it)
+                    "cpu_ops": sum(n for key, (n, _) in host.items()
+                                   if key.startswith("aten::"))}
                 steps[dt] = (after, inv, sum(p.numel() for p in trainer.model.parameters()),
                              float(np.median(times[1:])))
                 del trainer, step
@@ -2643,8 +2721,24 @@ def dp_phase(cfg, card: str, root: Path, base_step_ms: dict) -> dict:
         del t
         torch.cuda.empty_cache()
     rep["s1_peak_gib"] = peaks
+    return rep
 
-    # (b) + (d): two ranks sharing the card over gloo
+
+def dp_ranks_phase(cfg, card: str, root: Path, rep: dict) -> dict:
+    """Phase 10 (b) + (d): two ranks sharing the card over gloo, against one
+    process; the labeler and evaluate on two ranks. Adds to ``rep``, phase
+    10's record, and prints it."""
+    import torch
+
+    from kpvid_tpu_torch import evaluate, ops
+    from kpvid_tpu_torch.losses import synthesize_vgg19_params
+
+    m = cfg.model
+    lr = cfg.training.lr.start_val * cfg.training.lr.scale
+    inputs = dp_inputs(cfg, root)
+    vgg = synthesize_vgg19_params()
+    cfg32 = dataclasses.replace(cfg, training=dataclasses.replace(
+        cfg.training, compute_dtype="float32", batch_size=DP_BATCH))
     out = root / "dp_ranks"
     out.mkdir()
     np.savez(out / "s1_batch.npz", **inputs[1])
@@ -2828,9 +2922,26 @@ def sample_seconds(root: Path, image_size: int) -> dict:
     return out
 
 
-def interop_phase(cfg, params, card: str, root: Path) -> dict:
-    """Phase 11: the TF1 import at Config() and stage 1's frame cache,
-    profiler and TensorBoard."""
+def start_tf1_imports(cfg, params, root: Path) -> dict:
+    """Phase 11 (a)'s start, on threads of this process: both TF1 bundles
+    written, then both imports at once, each in a process of its own (and
+    its own checkpoint directory); :func:`interop_phase` collects them."""
+    conf = train_config(cfg, root, "s2_import", "log_import")
+    pool = ThreadPoolExecutor(3)
+    bundles = pool.submit(tf1_bundles, cfg, params, root)
+
+    def run(stage: int, step: int) -> dict:
+        return import_tf1(stage, bundles.result()[stage], conf, root / "log_import", step)
+
+    futures = {stage: pool.submit(run, stage, step) for stage, step in ((1, 0), (2, IMPORT_STEP))}
+    pool.shutdown(wait=False)
+    return {"bundles": bundles, "conf": conf, "futures": futures}
+
+
+def interop_phase(cfg, params, card: str, root: Path, imports: dict) -> dict:
+    """Phase 11: the TF1 import at Config() (``imports``: from
+    :func:`start_tf1_imports`) and stage 1's frame cache, profiler and
+    TensorBoard."""
     import importlib
 
     import torch
@@ -2845,11 +2956,9 @@ def interop_phase(cfg, params, card: str, root: Path) -> dict:
     m = cfg.model
     rep = {}
     # (a) TF1 bundles -> the import CLI -> generate, and stage 2 trains on
-    bundles = tf1_bundles(cfg, params, root)
-    conf = train_config(cfg, root, "s2_import", "log_import")
-    for stage, step in ((1, 0), (2, IMPORT_STEP)):
-        rep[f"import_stage{stage}"] = import_tf1(stage, bundles[stage], conf,
-                                                 root / "log_import", step)
+    bundles, conf = imports["bundles"].result(), imports["conf"]
+    for stage, done in imports["futures"].items():
+        rep[f"import_stage{stage}"] = done.result()
     imported = root / "log_import"
     gen = FinalGenerator(cfg, device="cuda")
     gen.load_parameters(load_generator_parameters(
@@ -3193,7 +3302,7 @@ def evaluate_launch_check(cfg, params, card: str) -> dict:
             one.map(launch, *rows)
             one.synchronize()
         rec[f"device_ops_{frames}_frames"] = sum(
-            e.count for e in prof.key_averages() if e.device_type.name == "CUDA")
+            n for _, n, _ in device_records(prof))
         del one
     x = torch.zeros(1, device=dev)
     side = torch.cuda.Stream()
@@ -3219,7 +3328,7 @@ def tp_mesh_phase(cfg, params, card: str, root: Path) -> dict:
 
     import torch
 
-    from kpvid_tpu_torch import bench, evaluate, ops
+    from kpvid_tpu_torch import bench, ops
     from kpvid_tpu_torch.checkpoint import load_checkpoint
     from kpvid_tpu_torch.eval import FinalGenerator, InferenceEngine
     from kpvid_tpu_torch.eval import final as final_mod
@@ -3392,10 +3501,39 @@ def tp_mesh_phase(cfg, params, card: str, root: Path) -> dict:
           "python -m kpvid_tpu_torch.bench: " + ", ".join(
               f"{k} {r['value']} frames/s ({r['n_data']} replica(s))" for k, r in benches.items()))
     rep["bench"] = benches
+    rep.update(evaluate_launch_check(cfg, params, card))
 
-    # evaluate --mesh (the default list) writes phase 9's tree
+    # serve --mesh in a process of its own, warming up while evaluate --mesh
+    # (the default list) writes phase 9's tree
     ck2 = str(root / "log_a" / "motion_generator" / f"ckpt-{TRAIN_STEPS}")
     s1_dir = str(root / "log_s1" / "detector_translator")
+    daemon = start_daemon(["--config", str(root / "eval.yaml"), "--checkpoint_stage1", s1_dir,
+                           "--checkpoint_stage2", ck2, "--mesh", "--buckets",
+                           *map(str, ARTIFACT_BUCKETS)], "serve --mesh", root)
+    try:
+        rep.update(evaluate_mesh_checks(root, s1_dir, ck2))
+        gen = FinalGenerator(cfg, device="cpu")
+        engine = InferenceEngine(cfg, load_generator_parameters(gen.model.state_dict(), s1_dir,
+                                                                ck2), device="cuda")
+        rep["serve_mesh"] = finish_daemon(daemon, m, ARTIFACT_BUCKETS, engine)
+    finally:
+        stop_daemon(daemon)
+    print(f"tp_mesh on {card}: " + json.dumps({k: v for k, v in rep.items()
+                                               if not k.startswith("launches")}), flush=True)
+    return rep
+
+
+def evaluate_mesh_checks(root: Path, s1_dir: str, ck2: str) -> dict:
+    """evaluate --mesh over the default list writes phase 9's tree; over two
+    replicas on the card its readbacks wait for each replica's stream."""
+    import torch
+
+    from kpvid_tpu_torch import evaluate, ops
+    from kpvid_tpu_torch.eval import FinalGenerator
+    from kpvid_tpu_torch.eval import final as final_mod
+
+    dev = torch.device("cuda", 0)
+    rep = {}
     ops.reset_launch_counts()
     stats = evaluate.main(["--config", str(root / "eval.yaml"), "--checkpoint_stage1", s1_dir,
                            "--checkpoint_stage2", ck2, "--save_dir", str(root / "eval_mesh"),
@@ -3444,25 +3582,18 @@ def tp_mesh_phase(cfg, params, card: str, root: Path) -> dict:
           f"of {EVAL_DELAY_CYCLES:,} cycles on each replica's stream writes the undelayed tree "
           f"byte for byte ({len(want)} PNGs; "
           f"the run with other latents between them differs in {other})")
-
-    rep.update(evaluate_launch_check(cfg, params, card))
-
-    # serve --mesh in a process of its own
-    gen = FinalGenerator(cfg, device="cpu")
-    engine = InferenceEngine(cfg, load_generator_parameters(gen.model.state_dict(), s1_dir, ck2),
-                             device="cuda")
-    rep["serve_mesh"] = serve_daemon(
-        ["--config", str(root / "eval.yaml"), "--checkpoint_stage1", s1_dir,
-         "--checkpoint_stage2", ck2, "--mesh", "--buckets", *map(str, ARTIFACT_BUCKETS)],
-        "serve --mesh", m, ARTIFACT_BUCKETS, root, engine)
-    print(f"tp_mesh on {card}: " + json.dumps({k: v for k, v in rep.items()
-                                               if not k.startswith("launches")}), flush=True)
     return rep
 
 
 # phase 13 (multistep): train_step_multi as one CUDA graph of a step
 MULTI_K = 3
 MULTI_TIMING_KS = (1, 4, 16)
+# the Ks whose call is profiled for device time: a trace of 16 replays holds
+# up to 160,000 device operations, seconds to read, for a number that K = 4's
+# already gives within 1%
+MULTI_PROFILED_KS = (1, 4)
+# bench_train's depth here: windows of 2 steps, K = 4 (its defaults: 20, 8)
+BENCH_TRAIN_ARGS = ("--iters", "2", "--k", "4")
 MULTI_LOSS_RTOL = 1e-5  # stage 1's later steps: STEP_LOSS_RTOL
 MULTI_PARAM_ATOL = 1e-5
 MULTI_SIGN_REL = 1e-5  # first |g| below this share of its tensor's max: a sign step
@@ -3656,6 +3787,7 @@ def multi_timing(cfg, stage: int, vgg) -> dict:
     def device_ms(fn) -> tuple[float, int]:
         return device_profile(fn, torch.device("cuda"))
 
+    t_start = time.perf_counter()
     kmax = max(MULTI_TIMING_KS)
     stacked = multi_inputs(cfg.model, stage, kmax, 23 + stage)
     multi, single = multi_fns(stage, stacked)
@@ -3689,20 +3821,22 @@ def multi_timing(cfg, stage: int, vgg) -> dict:
             multi(t, k)
             torch.cuda.synchronize()
             calls.append(1e3 * (time.perf_counter() - t0) / k)
-        dev, n_ops = device_ms(lambda: multi(t, k))
-        rep["graphed"][k] = {"ms": float(np.median(calls)), "ms_all": calls,
-                             "device_ms": dev / k, "device_ops": n_ops / k}
+        rep["graphed"][k] = {"ms": float(np.median(calls)), "ms_all": calls}
+        if k in MULTI_PROFILED_KS:
+            dev, n_ops = device_ms(lambda: multi(t, k))
+            rep["graphed"][k].update(device_ms=dev / k, device_ops=n_ops / k)
     k0 = first_s[1]
     rep["capture_s"] = first_s[0] - k0 * rep["graphed"][k0]["ms"] / 1e3
     rep["graphed_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
     del t
     torch.cuda.empty_cache()
+    rep["seconds"] = time.perf_counter() - t_start
     return rep
 
 
 def multistep_phase(cfg, card: str, root: Path) -> dict:
     """Phase 13: the graphed train_step_multi of both trainers against the
-    eager steps, its bookkeeping and kernels, its timings at K = 1, 4, 16,
+    eager steps, its bookkeeping and kernels, its timings at MULTI_TIMING_KS,
     and the three tools on the card (bench_train, bench_host_pipeline, and
     verify_reference_parity on phase 11's bundles)."""
     import torch
@@ -3725,15 +3859,16 @@ def multistep_phase(cfg, card: str, root: Path) -> dict:
                   f"{r['eager_ms']:.2f} ms a step (median of 10; device {r['eager_device_ms']:.3f}"
                   f" ms over {r['eager_device_ops']} operations), peak {r['eager_peak_gib']:.2f} "
                   f"GiB; graphed: " + "; ".join(
-                      f"K = {k}: {g['ms']:.2f} ms a step (device {g['device_ms']:.3f} ms, "
-                      f"{g['device_ops']:.0f} operations)" for k, g in r["graphed"].items())
-                  + f"; capture {r['capture_s']:.2f} s, peak {r['graphed_peak_gib']:.2f} GiB",
-                  flush=True)
+                      f"K = {k}: {g['ms']:.2f} ms a step" + (
+                          f" (device {g['device_ms']:.3f} ms, {g['device_ops']:.0f} operations)"
+                          if "device_ms" in g else "") for k, g in r["graphed"].items())
+                  + f"; capture {r['capture_s']:.2f} s, peak {r['graphed_peak_gib']:.2f} GiB; "
+                  f"{r['seconds']:.1f} s for this measurement", flush=True)
     finally:
         torch.backends.cudnn.deterministic = deterministic
 
     t0 = time.perf_counter()
-    rep["bench_train"] = bench_train.main(["--iters", "5"])
+    rep["bench_train"] = bench_train.main(list(BENCH_TRAIN_ARGS))
     rep["bench_train_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     rep["host_pipeline"] = bench_host_pipeline.main(["--root", str(root / "hostbench"),
@@ -3771,9 +3906,10 @@ def multistep_phase(cfg, card: str, root: Path) -> dict:
 
 # ------------------------------------------------------- the training chain
 # JAX's record of stage 1's test PSNR (dB) on its synthetic tree at Config()
-# widths, batch 16, bf16, 'tf1' upsample (docs/PERF.md:566-571); the step
-# noise and the z draws differ from JAX's by design, so the port is held to
-# the curve, not the bits
+# widths, batch 16, bf16, 'tf1' upsample (docs/PERF.md:566-571); the seed
+# gives JAX's initial weights and draws, but bf16 steps on another chip
+# round otherwise and the runs part within a few steps, so the port is held
+# to the curve, not the bits
 JAX_S1_PSNR = {500: 19.68, 1000: 22.41, 1500: 23.49, 2250: 23.61}
 QUALITY_S1_STEPS = 2250
 QUALITY_S2_STEPS = 2000
@@ -4008,6 +4144,149 @@ KERNEL_META = {
 }
 
 
+KAT_PATH = Path(__file__).resolve().parent / "tests" / "data" / "jax_random_kat.json"
+# Random123's known-answer vectors of threefry2x32_20 (its kat_vectors file):
+# key, counter, output
+RANDOM123_KAT = (
+    ((0x00000000, 0x00000000), (0x00000000, 0x00000000), (0x6B200159, 0x99BA4EFE)),
+    ((0xFFFFFFFF, 0xFFFFFFFF), (0xFFFFFFFF, 0xFFFFFFFF), (0x1CB996FC, 0xBB002BE7)),
+    ((0x13198A2E, 0x03707344), (0x243F6A88, 0x85A308D3), (0xC4923A9C, 0x483DF7A0)),
+)
+SUM_COLUMNS = 4096
+
+
+def leaf_sum(arr) -> float:
+    """A float64 sum of ``arr`` with a fixed order of additions, so that the
+    same values give the same bits on any host: the values in rows of
+    ``SUM_COLUMNS`` (zero-padded), the rows added one after another, then
+    the column sums added exactly (``math.fsum``)."""
+    import math
+
+    a = np.asarray(arr, np.float64).reshape(-1)
+    rows = np.concatenate([a, np.zeros((-a.size) % SUM_COLUMNS)]).reshape(-1, SUM_COLUMNS)
+    acc = np.zeros(SUM_COLUMNS)
+    for row in rows:
+        acc += row
+    return math.fsum(acc.tolist())
+
+
+def ulps(got, want) -> np.ndarray:
+    """|got - want| in f32 units in the last place (both f32 arrays)."""
+    def ordered(x):  # the f32 bit patterns on one monotonic integer line
+        i = np.asarray(x, np.float32).view(np.int32).astype(np.int64)
+        return np.where(i < 0, -(i & 0x7FFFFFFF), i)
+    return np.abs(ordered(got) - ordered(want))
+
+
+def digest(arr) -> str:
+    import hashlib
+
+    return hashlib.sha256(np.ascontiguousarray(arr).tobytes()).hexdigest()
+
+
+def prng_trees(cfg) -> dict:
+    """The full-width objects whose ``init_parameters`` phase 15 holds to
+    JAX's: name -> a constructor (all on the CPU: the draws are the host's)."""
+    from kpvid_tpu_torch.eval import FinalGenerator
+    from kpvid_tpu_torch.losses import synthesize_vgg19_params
+    from kpvid_tpu_torch.train import Stage1Trainer, Stage2Trainer
+
+    return {
+        "final_generator": lambda: FinalGenerator(cfg, device="cpu"),
+        # init_state draws no VGG weight: 16-channel stand-ins keep it short
+        "stage1_trainer": lambda: Stage1Trainer(cfg, synthesize_vgg19_params(max_width=16),
+                                                device="cpu"),
+        "stage2_trainer": lambda: Stage2Trainer(cfg, device="cpu"),
+    }
+
+
+def prng_phase(card: str) -> dict:
+    """Phase 15: the JAX streams against the recorded answers, then the
+    full-width trees' leaf sums and seconds (see the module docstring)."""
+    from kpvid_tpu_torch import evaluate
+    from kpvid_tpu_torch.bridge import to_flax_layout
+    from kpvid_tpu_torch.configs import Config
+    from kpvid_tpu_torch.utils import jax_random as jr
+
+    kat = json.loads(KAT_PATH.read_text())
+    t0 = time.perf_counter()
+    for key, ctr, want in RANDOM123_KAT:
+        y0, y1 = jr.threefry2x32(np.array(key, np.uint32), np.array([ctr[0]], np.uint32),
+                                 np.array([ctr[1]], np.uint32))
+        check((int(y0[0]), int(y1[0])) == want,
+              f"prng: threefry2x32_20 of key {key[0]:#x},{key[1]:#x} counter "
+              f"{ctr[0]:#x},{ctr[1]:#x} is Random123's {want[0]:#x},{want[1]:#x}")
+    exact = n_normal = n_equal = worst = 0
+    wrong = []
+    for entry in kat["seeds"]:
+        seed, key = entry["seed"], jr.PRNGKey(entry["seed"])
+        got = {"key": key.tolist(),
+               "split": {n: jr.split(key, int(n)).tolist() for n in entry["split"]},
+               "fold_in": {d: jr.fold_in(key, int(d)).tolist() for d in entry["fold_in"]}}
+        for name, value in got.items():
+            exact += 1
+            if value != entry[name]:
+                wrong.append(f"seed {seed} {name}")
+        for draw in entry["draws"]:
+            shape = tuple(draw["shape"])
+            for name, arr in (("bits", jr.bits(key, shape)), ("uniform", jr.uniform(key, shape)),
+                              ("uniform_affine", jr.uniform(key, shape, np.float32, -3.0, 2.5))):
+                exact += 1
+                if digest(arr) != draw[name]:
+                    wrong.append(f"seed {seed} {name} {shape}")
+            d = ulps(jr.normal(key, shape), np.array(draw["normal"], np.float32).reshape(shape))
+            n_normal, n_equal = n_normal + d.size, n_equal + int((d == 0).sum())
+            worst = max(worst, int(d.max(initial=0)))
+    check(not wrong, f"prng: {exact} keys, splits, fold-ins, bits and uniforms of "
+                     f"{len(kat['seeds'])} seeds equal JAX's bit for bit; differing: {wrong[:5]}")
+    z = kat["evaluate_z"]
+    for b, want in enumerate(z["batches"]):
+        d = ulps(evaluate.batch_z(z["seed"], b, z["rows"], z["vae_dim"]), np.array(want, np.float32))
+        n_normal, n_equal = n_normal + d.size, n_equal + int((d == 0).sum())
+        worst = max(worst, int(d.max()))
+    check(worst <= 4 and n_equal >= 0.9 * n_normal,
+          f"prng: {n_normal} normals (evaluate's latents of batches 0 and 1 at seed {z['seed']} "
+          f"among them) within {worst} ulp of JAX's, {n_equal / n_normal:.2%} equal (bounds: 4 "
+          f"ulp, 90%)")
+    streams_s = time.perf_counter() - t0
+
+    cfg = Config().validate()
+    out = {"streams_s": streams_s, "normals": n_normal, "normals_equal": n_equal,
+           "normal_max_ulp": worst, "trees": {}}
+    for name, build in prng_trees(cfg).items():
+        want = kat["trees"][name]
+        obj = build()
+        t = time.perf_counter()
+        params = obj.init_parameters(np.array(want["key"], np.uint32))
+        init_s = time.perf_counter() - t
+        missing = sorted(set(params) - set(want["sums"]))
+        off = []
+        worst_rel = None  # the normal(0.02) head's, where the tree has one
+        for leaf, val in params.items():
+            if leaf in missing:
+                continue
+            got, ref = leaf_sum(to_flax_layout(val)), want["sums"][leaf]
+            if leaf.endswith("to_coord.weight"):  # normal(0.02): the erfinv's last bits
+                rel = abs(got - ref) / max(abs(ref), 1e-30)
+                worst_rel = max(worst_rel or 0.0, rel)
+                if rel > 1e-6:
+                    off.append(leaf)
+            elif got != ref:
+                off.append(leaf)
+        n_values = sum(v.numel() for v in params.values())
+        check(not missing and not off,
+              f"prng: {name}.init_parameters at Config() width ({len(params)} leaves, "
+              f"{n_values:,} values) in {init_s:.2f} s on the host, every leaf's sum JAX's "
+              + ("(exact)" if worst_rel is None else
+                 f"(exact; the normal(0.02) head within {worst_rel:.1e} relative)")
+              + f"; not in the file: {missing[:3]}, differing: {off[:5]}")
+        out["trees"][name] = {"leaves": len(params), "values": n_values, "init_s": init_s,
+                              "normal_max_rel": worst_rel}
+    out["card"] = card
+    print(f"prng: {json.dumps(out)}", flush=True)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -4072,14 +4351,19 @@ def main() -> int:
         evaluation = evaluate_phase(cfg, card, root)
         phase("10 dp")
         dp = dp_phase(cfg, card, root, {1: stage1["step_ms"], 2: train["step_ms"]})
+        # phase 11's TF1 imports run in processes of their own beside the ranks
+        imports = start_tf1_imports(cfg, params, root)
+        dp = dp_ranks_phase(cfg, card, root, dp)
         phase("11 interop")
-        interop = interop_phase(cfg, params, card, root)
+        interop = interop_phase(cfg, params, card, root, imports)
         phase("12 tp_mesh")
         tp = tp_mesh_phase(cfg, params, card, root)
         phase("13 multistep")
         multistep = multistep_phase(cfg, card, root)
         phase("14 learn")
         learn = learn_phase(card, root)
+        phase("15 prng")
+        prng = prng_phase(card)
         phase("end")
 
     kernels = []
@@ -4138,7 +4422,7 @@ def main() -> int:
                       "dp": {k: v for k, v in dp.items() if not k.startswith("launches_")},
                       "interop": interop,
                       "tp_mesh": {k: v for k, v in tp.items() if not k.startswith("launches")},
-                      "multistep": multistep, "learn": learn, "card": card,
+                      "multistep": multistep, "learn": learn, "prng": prng, "card": card,
                       "seconds": time.perf_counter() - t_start}))
     print(gpu_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -5,8 +5,11 @@
 Counterpart of the root ``bench.py``: the fused generation path
 (``FinalGenerator.generate``: pose-encode one image, decode 32 keypoint
 frames, render the maps, translate B * 32 frames at 128x128, blend) at
-``Config()`` in bf16, random weights from seed 0
-(``FinalGenerator.init_parameters(0)``), ``--batch`` images a call,
+``Config()`` in bf16, on JAX's inputs: the weights of
+``init_variables(PRNGKey(0))`` (``FinalGenerator.init_parameters(0)``), the
+images ``uniform(PRNGKey(2), -1, 1)``, the latents of warm-up call ``i``
+``normal(PRNGKey(100 + i))`` and of round ``r``'s call ``i``
+``normal(PRNGKey(8 r + i))`` (utils/jax_random.py), ``--batch`` images a call,
 through eval/final.py::GeneratorMesh over the one device (with ``--mesh``
 over every visible card, the batch rounded to a multiple of the card
 count, each card's replica taking its rows). Three warm-up calls build
@@ -31,6 +34,8 @@ from argparse import ArgumentParser
 
 import numpy as np
 
+from .utils import jax_random
+
 ITERS, ROUNDS, WARMUP = 8, 3, 3
 
 
@@ -44,6 +49,20 @@ def build_parser() -> ArgumentParser:
     parser.add_argument("--device", type=str, default="cuda",
                         help="'cuda' (default) or 'cpu' for the plain versions")
     return parser
+
+
+def inputs(config, batch: int) -> tuple[np.ndarray, np.ndarray, list[np.ndarray]]:
+    """JAX ``bench.py``'s inputs at ``batch``: the images, the action one-hots
+    (class 0) and the latents of the warm-up calls, then of the timed calls
+    in order."""
+    m = config.model
+    im = jax_random.uniform(jax_random.PRNGKey(2), (batch, m.image_size, m.image_size, 3),
+                            np.float32, -1.0, 1.0)
+    act = np.zeros((batch, m.n_action), np.float32)
+    act[:, 0] = 1.0
+    seeds = [100 + i for i in range(WARMUP)] + list(range(ITERS * ROUNDS))
+    zs = [jax_random.normal(jax_random.PRNGKey(s), (batch, m.vae_dim)) for s in seeds]
+    return im, act, zs
 
 
 def main(argv=None) -> dict:
@@ -63,12 +82,7 @@ def main(argv=None) -> dict:
     def generate(im, act, z):
         return mesh.map(lambda rep, *rows: rep.final.generate(*rows), im, act, z)
 
-    rng = np.random.default_rng(2)
-    im = rng.uniform(-1.0, 1.0, (batch, m.image_size, m.image_size, 3)).astype(np.float32)
-    act = np.zeros((batch, m.n_action), np.float32)
-    act[:, 0] = 1.0
-    zs = [np.random.default_rng(100 + i).standard_normal((batch, m.vae_dim), dtype=np.float32)
-          for i in range(WARMUP + ITERS * ROUNDS)]
+    im, act, zs = inputs(config, batch)
     for i in range(WARMUP):
         generate(im, act, zs[i])
         mesh.synchronize()

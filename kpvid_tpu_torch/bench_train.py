@@ -78,19 +78,44 @@ def _inputs(m, stage: int, bs: int, device):
     return out
 
 
+# the profiler's own records, which key_averages() leaves out
+_UNCOUNTED = frozenset((
+    "[memory]", "[OutOfMemory]", "profiler::_record_function_enter",
+    "profiler::_record_function_enter_new", "profiler::_record_function_exit",
+    "aten::is_leaf", "aten::output_nr", "aten::_version"))
+
+
+def profile_totals(prof) -> tuple[dict, dict]:
+    """(device, host): per event name, [count, µs] of a finished
+    ``torch.profiler.profile``. The events and times ``key_averages()``
+    gives, read from the raw records: it builds a Python object for each,
+    seconds of host time for a training step's ~30,000."""
+    from torch.profiler import DeviceType
+
+    device, host = {}, {}
+    for e in prof.profiler.kineto_results.events():
+        if e.name() in _UNCOUNTED or getattr(e, "is_hidden_event", lambda: False)():
+            continue
+        rec = (device if e.device_type() == DeviceType.CUDA else host).setdefault(
+            e.name(), [0, 0.0])
+        rec[0] += 1
+        rec[1] += (e.end_ns() - e.start_ns()) / 1e3
+    return device, host
+
+
 def device_profile(fn, device) -> tuple[float | None, int | None]:
     """(device ms, device operations) of ``fn()`` from torch.profiler; None
     on the CPU."""
     if device.type != "cuda":
         return None, None
     import torch
-    from torch.profiler import DeviceType, ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize(device)
-    ops = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    return sum(e.self_device_time_total for e in ops) / 1e3, sum(e.count for e in ops)
+    ops, _ = profile_totals(prof)
+    return sum(us for _, us in ops.values()) / 1e3, sum(n for n, _ in ops.values())
 
 
 def _point(make, stage: int, bs: int, batches, iters: int, k: int, device) -> dict:

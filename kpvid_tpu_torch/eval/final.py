@@ -39,6 +39,7 @@ from ..device import resolve_device, to_device
 from ..models import MotionGenerator, Stage1Generator, init_like_jax
 from ..ops.coords import colorize_point_maps
 from ..ops.keypoint_kernels import gaussian_render
+from ..utils import jax_random
 
 
 class GenerateNet(nn.Module):
@@ -134,13 +135,14 @@ class FinalGenerator:
                                  m.heatmap_size, m.heatmap_inv_std, self.dtype)
         self.model.to(self.device).eval()
 
-    def init_parameters(self, seed: int) -> dict[str, torch.Tensor]:
-        """Parameters with the shapes and init laws of the JAX package's
-        FinalGenerator.init_variables, drawn on the CPU from ``seed``:
-        Xavier-uniform kernels, zero biases, normal(0.02) for ``to_coord``,
-        BN scale 1 / bias 0 / mean 0 / var 1. Keyed like
-        :meth:`load_parameters` takes them."""
-        return init_like_jax(self.model, seed)
+    def init_parameters(self, seed_or_key=0) -> dict[str, torch.Tensor]:
+        """The JAX package's ``FinalGenerator.init_variables(key)``, ``key``
+        ``PRNGKey(seed)`` for an integer: the stage-1 tree from the first
+        key of ``split(key)``, the stage-2 tree from the second, with Flax's
+        parameter keys and init laws (``models.init_like_jax``). Drawn on the
+        host; keyed like :meth:`load_parameters` takes them."""
+        r1, r2 = jax_random.split(jax_random.as_key(seed_or_key))
+        return init_like_jax(self.model, {"stage1": r1, "stage2": r2})
 
     def load_parameters(self, params: dict) -> None:
         """Load a dict from :meth:`init_parameters` or ``bridge.from_jax``."""
@@ -151,15 +153,21 @@ class FinalGenerator:
         )
 
     @torch.no_grad()
-    def generate(self, im, action_code, z) -> dict:
+    def generate(self, im, action_code, z=None, key=None) -> dict:
         """im: [B, H, W, 3] in [-1, 1]; action_code: [B, A] one-hot; z: the
         motion latents [B, vae_dim]. Each sample's output depends only on its
-        own (im, action, z) row.
+        own (im, action, z) row. Without ``z``, JAX's draw from ``key`` (a
+        JAX key or an integer seed for ``PRNGKey``): ``z = normal(key, (B,
+        vae_dim))``, drawn on the host.
 
         Returns im (the input on the device), pred_im_seq [B, T, H, W, 3],
         mask [B, T, H, W, 1], pred_im_crude, current_points [B, K, 2],
         future_points [B, T, K, 2] and fut_pt_raw (the same points, as JAX
         names them too)."""
+        if z is None:
+            if key is None:
+                raise ValueError("generate needs the latents z or a key to draw them from")
+            z = jax_random.normal(jax_random.as_key(key), (im.shape[0], self.config.model.vae_dim))
         im = to_device(im, self.device, torch.float32)
         act = to_device(action_code, self.device, torch.float32)
         z = to_device(z, self.device, torch.float32)

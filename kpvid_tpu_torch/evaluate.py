@@ -17,11 +17,10 @@ sample, under ``<save_dir>/<index:04d>/``, the same files as JAX's:
 releases the GIL), byte for byte the files JAX's writer makes of the same
 arrays.
 
-The latents of global batch ``b`` are ``np.random.default_rng([seed, b])``
-standard normals [B, vae_dim] (f32), drawn on the host: JAX's
-``fold_in(seed, b)`` stream cannot be drawn without JAX. It runs on the card
-and raises without one (``--device cpu`` runs the plain versions on the
-CPU).
+The latents of global batch ``b`` are JAX's: ``normal(fold_in(PRNGKey(seed),
+b), (B, vae_dim))`` (f32), drawn on the host (utils/jax_random.py), so one
+``--seed`` gives JAX's videos. It runs on the card and raises without one
+(``--device cpu`` runs the plain versions on the CPU).
 
 Several processes (the KPVID_* environment, parallel/distributed.py), one
 card each: each generates and writes the batches ``i, i + N, ...`` of the
@@ -49,6 +48,8 @@ from pathlib import Path
 
 import numpy as np
 
+from .utils import jax_random
+
 
 def build_parser() -> ArgumentParser:
     parser = ArgumentParser(description="kpvid_tpu_torch evaluate: the test split as PNGs")
@@ -60,7 +61,7 @@ def build_parser() -> ArgumentParser:
                         help="write a synthetic tree and labels into data_dir first")
     parser.add_argument("--batch_size", type=int, default=None)
     parser.add_argument("--seed", type=int, default=0,
-                        help="latent seed: batch b draws default_rng([seed, b])")
+                        help="latent seed: batch b draws normal(fold_in(PRNGKey(seed), b)), as JAX's")
     parser.add_argument("--gif", action="store_true",
                         help="also write pred.gif and real.gif per sample")
     parser.add_argument("--png-workers", type=int, default=None,
@@ -75,8 +76,9 @@ def build_parser() -> ArgumentParser:
 
 
 def batch_z(seed: int, b: int, rows: int, vae_dim: int) -> np.ndarray:
-    """The latents of global batch ``b``: [rows, vae_dim] f32."""
-    return np.random.default_rng([seed, b]).standard_normal((rows, vae_dim), dtype=np.float32)
+    """The latents of global batch ``b``: [rows, vae_dim] f32, JAX's
+    ``normal(fold_in(PRNGKey(seed), b), (rows, vae_dim))``."""
+    return jax_random.normal(jax_random.fold_in(jax_random.PRNGKey(seed), b), (rows, vae_dim))
 
 
 def make_launch(colors: np.ndarray):
@@ -135,7 +137,8 @@ def main(argv=None) -> dict:
             make_synthetic_pseudo_labels(data_dir, n_pts=m.n_pts)
         barrier("kpvid_eval_synthetic")
 
-    params = load_generator_parameters(FinalGenerator(config, device="cpu").model.state_dict(),
+    # the checkpoints merged into JAX's init_variables(PRNGKey(0)), as JAX's evaluate does
+    params = load_generator_parameters(FinalGenerator(config, device="cpu").init_parameters(0),
                                        args.checkpoint_stage1, args.checkpoint_stage2)
     mesh = GeneratorMesh(config, params, mesh_devices(device) if args.mesh else [device])
     if args.mesh:

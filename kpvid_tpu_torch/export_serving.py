@@ -48,8 +48,8 @@ def main(argv=None) -> dict:
 
     setup_console_logging()
     final = FinalGenerator(load_config(args.config), device=args.device)
-    final.load_parameters(load_generator_parameters(
-        final.model.state_dict(), args.checkpoint_stage1, args.checkpoint_stage2))
+    final.load_parameters(load_generator_parameters(  # into JAX's PRNGKey(0) tree
+        final.init_parameters(0), args.checkpoint_stage1, args.checkpoint_stage2))
     batch_sizes = [int(b) for b in args.batch_sizes.split(",") if b]
     t0 = time.monotonic()
     meta = export_serving(final, args.out, batch_sizes=batch_sizes)

@@ -56,16 +56,21 @@ def build_parser() -> ArgumentParser:
 
 def load_pose_encoder(config, checkpoint: str, device: torch.device):
     """The stage-1 pose encoder with the ``stage1.pose_encoder.*`` tensors of
-    a parameter file or trainer checkpoint merged in by name; returns
-    (encoder, tensors matched)."""
+    a parameter file or trainer checkpoint merged in by name into JAX's
+    ``Stage1Generator.init(PRNGKey(0))`` tree; returns (encoder, tensors
+    matched)."""
+    from torch import nn
+
     from .checkpoint import load_parameters, merge_parameters, resolve_parameter_file
-    from .models import PoseEncoder
+    from .models import PoseEncoder, init_like_jax
+    from .utils import jax_random
 
     m = config.model
     dtype = torch.bfloat16 if config.training.compute_dtype == "bfloat16" else torch.float32
     enc = PoseEncoder(m.n_pts, m.image_size, m.pose_decoder_filters, m.encoder_filters, dtype)
     prefix = "stage1.pose_encoder."
-    target = {prefix + k: v for k, v in enc.state_dict().items()}
+    holder = nn.ModuleDict({"stage1": nn.ModuleDict({"pose_encoder": enc})})
+    target = init_like_jax(holder, {"stage1": jax_random.PRNGKey(0)})
     merged, n = merge_parameters(
         target, load_parameters(resolve_parameter_file(checkpoint, "--checkpoint")))
     enc.load_state_dict({k[len(prefix):]: v for k, v in merged.items()}, strict=True)

@@ -49,6 +49,7 @@ from __future__ import annotations
 
 import contextlib
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -274,39 +275,50 @@ class Dense(nn.Module):
         return y
 
 
-def init_like_jax(model: nn.Module, seed: int,
+def init_like_jax(model: nn.Module, keys: dict,
                   shapes: dict | None = None) -> dict[str, torch.Tensor]:
-    """Parameters of ``model`` with the JAX package's init laws, drawn on the
-    CPU from ``seed`` in the order of ``named_modules``: Xavier-uniform conv,
-    LSTM and Dense kernels, normal(0.02) for a tanh ``to_coord`` head, zero
-    biases, BN scale 1 / bias 0 / mean 0 / var 1. Keyed like the model's
-    ``state_dict``; ``shapes`` (name -> full shape) gives the full arrays of
-    a model that holds shards."""
-    import math
+    """Parameters of ``model`` as Flax's ``init`` draws the JAX package's.
 
-    gen = torch.Generator().manual_seed(seed)
-    shapes = shapes or {k: v.shape for k, v in model.state_dict().items()}
-    params = {k: torch.zeros(s) for k, s in shapes.items()}
+    ``keys`` maps each top-level child of ``model`` to the key JAX's
+    ``init`` of that network takes (``utils/jax_random.py``). Each random
+    leaf is drawn with its Flax parameter key: the scope path of
+    ``bridge.jax_path`` and the leaf's place among the ``self.param`` calls
+    of that Flax module (a conv's or Dense's kernel 1, its bias 2; the
+    LSTM's ``lstm_{i}_kernel`` 2i + 1, ``lstm_{i}_bias`` 2i + 2). Conv, LSTM
+    and Dense kernels are Xavier-uniform (a conv's drawn in Flax's HWIO
+    shape, then laid out OIHW), a tanh ``to_coord`` head normal(0.02);
+    biases are 0, BN scale 1 / bias 0 / mean 0 / var 1. Keyed like the
+    model's ``state_dict``; ``shapes`` (name -> full shape) gives the full
+    arrays of a model that holds shards."""
+    from ..bridge import jax_path
+    from ..utils import jax_random
 
-    def xavier(key, fan_in, fan_out):
-        a = math.sqrt(6.0 / (fan_in + fan_out))
-        params[key].uniform_(-a, a, generator=gen)
-
+    shapes = shapes or {k: tuple(v.shape) for k, v in model.state_dict().items()}
+    drawn, ones = {}, set()  # name -> (init law, Flax counter); names filled with 1
     for name, mod in model.named_modules():
         p = f"{name}." if name else ""
         if isinstance(mod, Conv):
-            o, i, kh, kw = params[p + "weight"].shape
-            xavier(p + "weight", i * kh * kw, o * kh * kw)
+            drawn[p + "weight"] = (jax_random.xavier_uniform, 1)
         elif isinstance(mod, BatchNorm):
-            params[p + "weight"].fill_(1.0)
-            params[p + "running_var"].fill_(1.0)
+            ones.update((p + "weight", p + "running_var"))
         elif isinstance(mod, StackedLSTM):
             for li in range(len(mod.features)):
-                key = f"{p}lstm_{li}_kernel"
-                xavier(key, *params[key].shape)
+                drawn[f"{p}lstm_{li}_kernel"] = (jax_random.xavier_uniform, 2 * li + 1)
         elif isinstance(mod, Dense):
-            if mod.tanh:
-                params[p + "weight"].normal_(0.0, 0.02, generator=gen)
-            else:
-                xavier(p + "weight", *params[p + "weight"].shape)
+            drawn[p + "weight"] = (jax_random.normal_init if mod.tanh
+                                   else jax_random.xavier_uniform, 1)
+    params = {}
+    for name, shape in shapes.items():
+        if name not in drawn:
+            params[name] = (torch.ones if name in ones else torch.zeros)(shape)
+            continue
+        law, counter = drawn[name]
+        top, rest = name.split(".", 1)
+        key = jax_random.flax_param_key(keys[top], jax_path(rest)[:-1], counter)
+        if len(shape) == 4:  # OIHW here, HWIO in Flax
+            o, i, kh, kw = shape
+            arr = law(key, (kh, kw, i, o)).transpose(3, 2, 0, 1)
+        else:
+            arr = law(key, tuple(shape))
+        params[name] = torch.from_numpy(np.ascontiguousarray(arr))
     return params

@@ -92,7 +92,7 @@ def load_engine(args):
     from .utils import logger
 
     config = load_config(args.config)
-    target = FinalGenerator(config, device="cpu").model.state_dict()
+    target = FinalGenerator(config, device="cpu").init_parameters(0)  # JAX's PRNGKey(0) tree
     params = load_generator_parameters(target, args.checkpoint_stage1, args.checkpoint_stage2)
     devices = mesh_devices(args.device) if getattr(args, "mesh", False) else None
     if devices is not None:

@@ -25,10 +25,21 @@ a checkpoint ``{log_dir}/{mode}/ckpt-{step}/`` written in the background.
 ``ckpt-{step}`` holds the state after the update of loop step ``step``, as
 JAX's does. With ``training.resume`` a run continues from the newest
 checkpoint: the data stream from sample ``step * batch_size`` (twice that in
-'two_batch'), and, in stage 2, the VAE noise of step ``s``, drawn on the
-host from ``np.random.default_rng([seed, s])``, is the uninterrupted run's
-(stage 1 draws no noise); the CLI asks cuDNN for its deterministic
-algorithms, so that a resumed stage-1 run repeats the bits too. The trainer
+'two_batch'), and the key chain of JAX's ``train.py`` fast-forwarded to that
+step, so that stage 2's VAE noise is the uninterrupted run's; the CLI asks
+cuDNN for its deterministic algorithms, so that a resumed stage-1 run
+repeats the bits too.
+
+The keys are JAX's (utils/jax_random.py, drawn on the host), so one
+``training.seed`` gives the weights and noise of JAX's ``train.py``:
+``rng = PRNGKey(seed)``, ``rng, init_rng = split(rng)`` for
+``init_state(init_rng)``, then ``rng, step_rng = split(rng)`` on every
+step (stage 1 draws nothing from it). Stage 2 draws its noise from
+``step_rng`` as :func:`step_noise` says; at a summary step with images (one
+process) ``rng, viz_rng = split(rng)`` for the summary's noise; the test
+sweep splits the chain's current ``rng`` once per batch without advancing
+it. JAX's own resume restarts the chain from ``PRNGKey(seed)``; this one
+continues it. The trainer
 runs on the card and raises without one (``--device cpu`` runs on the CPU).
 Stage 1's train split decodes through the frame cache when
 ``data.decode_cache_mb`` > 0 (data/cache.py; the same bytes). As in JAX's
@@ -73,6 +84,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from ..utils import jax_random
+
 MODES = ("detector_translator", "motion_generator")
 
 
@@ -102,11 +115,33 @@ def build_parser() -> ArgumentParser:
     return parser
 
 
-def step_noise(seed: int, step: int, n: int, rows: int, vae_dim: int) -> np.ndarray:
-    """The VAE noise of train step ``step``: [n, rows, vae_dim] f32 (n = 1
-    for 'fused', 2 for the (D, G) draws of 'fused_dg' and 'two_batch')."""
-    return np.random.default_rng([seed, step]).standard_normal((n, rows, vae_dim),
-                                                               dtype=np.float32)
+def step_noise(step_key, n: int, rows: int, vae_dim: int) -> np.ndarray:
+    """The VAE noise of one stage-2 train step from its key: [n, rows,
+    vae_dim] f32, as JAX's steps draw it. n = 1 ('fused', its grad_accum
+    and data-parallel forms): ``normal(step_key, (rows, vae_dim))`` for the
+    global batch; n = 2 ('fused_dg', 'two_batch'): the D and G draws from
+    the two keys of ``split(step_key)``."""
+    keys = [step_key] if n == 1 else jax_random.split(step_key)
+    return np.stack([jax_random.normal(k, (rows, vae_dim)) for k in keys])
+
+
+def init_key(seed: int) -> np.ndarray:
+    """The key JAX's ``train.py`` initializes the trainer with for ``seed``:
+    ``split(PRNGKey(seed))[1]``."""
+    return jax_random.split(jax_random.PRNGKey(seed))[1]
+
+
+def key_chain(seed: int, start_step: int, summary_split) -> np.ndarray:
+    """The key of JAX's ``train.py`` chain before loop step ``start_step``:
+    from ``split(PRNGKey(seed))[0]`` through the splits of the earlier steps
+    (``summary_split(step)``: whether that step split a summary key off
+    too)."""
+    rng = jax_random.split(jax_random.PRNGKey(seed))[0]
+    for step in range(start_step):
+        rng = jax_random.split(rng)[0]
+        if summary_split(step):
+            rng = jax_random.split(rng)[0]
+    return rng
 
 
 def vgg_params(config):
@@ -211,7 +246,7 @@ def main(argv=None) -> dict:
         trainer = (Stage1Trainer(config, vgg, device=device) if stage1
                    else Stage2Trainer(config, device=device))
         step_fn = select_step(trainer, mode, t_cfg.grad_accum)
-    trainer.load_parameters(trainer.init_parameters(t_cfg.seed))
+    trainer.load_parameters(trainer.init_parameters(init_key(t_cfg.seed)))
     ckpt_dir = Path(config.paths.log_dir) / args.mode
     if t_cfg.resume:
         barrier("kpvid_train_restore")  # every rank reads the same ckpt-N
@@ -230,6 +265,10 @@ def main(argv=None) -> dict:
     two_batch = mode == "two_batch"
     fused_dg = mode == "fused_dg"
     start_step = trainer.step
+    images = not args.no_images and not multiproc
+    # train.py's chain before start_step: a summary split where stage 2 wrote images
+    rng = key_chain(t_cfg.seed, start_step, lambda step: images and not stage1
+                    and step % t_cfg.summary_interval == 0)
     shard_id, num_shards = batch_shard(mesh)  # the 'model' ranks of a coordinate: one shard
     train_pipe = HostDataPipeline(
         train_ds, local_bs, shuffle=True, repeat=True, num_workers=config.data.num_workers,
@@ -241,20 +280,18 @@ def main(argv=None) -> dict:
     batches = train_pipe.batches()
     train_iter = device_prefetch(batches, device, size=config.data.prefetch)
 
-    def train_step(step: int, batch: dict) -> dict:
+    def train_step(step_rng, batch: dict) -> dict:
         step_batches = (batch, next(train_iter)) if two_batch else (batch,)
         if stage1:
             return step_fn(*step_batches)
         # the global batch's noise on every rank; the trainer takes its rows
-        noise = step_noise(t_cfg.seed, step, 2 if two_batch or fused_dg else 1, bs,
-                           m_cfg.vae_dim)
+        noise = step_noise(step_rng, 2 if two_batch or fused_dg else 1, bs, m_cfg.vae_dim)
         return step_fn(*step_batches, *noise)
 
-    def summary_images(step: int, batch: dict) -> dict:
+    def summary_images(viz_rng, batch: dict) -> dict:
         if stage1:
             return stage1_summary_images(trainer, batch, colors)
-        noise = np.random.default_rng([t_cfg.seed, step, 2]).standard_normal(
-            (min(2, bs), m_cfg.vae_dim), dtype=np.float32)
+        noise = jax_random.normal(viz_rng, (min(2, bs), m_cfg.vae_dim))
         return stage2_summary_images(trainer, batch, colors, noise)
 
     def save(step: int) -> None:
@@ -275,9 +312,10 @@ def main(argv=None) -> dict:
                 trace, profiler = stop_profiler(profiler, device, args.profile_dir, args.mode,
                                                 rank), None
                 logger.info("profiler trace written to %s", args.profile_dir)
+            rng, step_rng = jax_random.split(rng)
             t0 = time.perf_counter()
             batch = next(train_iter)
-            metrics = train_step(step, batch)
+            metrics = train_step(step_rng, batch)
             throughput.update(bs)
 
             if step % t_cfg.log_interval == 0:  # the host waits for the card here only
@@ -291,12 +329,15 @@ def main(argv=None) -> dict:
                 metric_logger.log_metrics("train", step, metrics)
                 # (several processes: the summary's forward would run on one
                 # rank's rows alone; skipped, the scalars are still logged)
-                if not args.no_images and not multiproc:
-                    metric_logger.log_images("train", step, summary_images(step, batch))
+                if images:
+                    viz_rng = None
+                    if not stage1:  # train.py: rng, viz_rng = split(rng)
+                        rng, viz_rng = jax_random.split(rng)
+                    metric_logger.log_images("train", step, summary_images(viz_rng, batch))
             if step % t_cfg.checkpoint_interval == 0 and step > start_step:
                 save(step)
             if step % t_cfg.test_interval == 0:
-                run_test_sweep(trainer, test_ds, config, step, metric_logger, stage1)
+                run_test_sweep(trainer, test_ds, config, step, metric_logger, rng, stage1)
         save(n_steps)
         if ckpt_manager is not None:
             ckpt_manager.wait()
@@ -342,11 +383,13 @@ def stop_profiler(prof, device: torch.device, out_dir: str, mode: str, rank: int
     return path
 
 
-def run_test_sweep(trainer, test_ds, config, step: int, metric_logger,
+def run_test_sweep(trainer, test_ds, config, step: int, metric_logger, rng,
                    stage1: bool = False) -> dict:
     """Eval metrics over the whole test split, weighted by the true example
-    count of each batch (the ragged last one included); in stage 2 the noise
-    of batch k is default_rng([seed, step, 1, k])'s. Under data parallelism
+    count of each batch (the ragged last one included); in stage 2 each
+    batch's noise is ``normal(eval_rng, (rows, vae_dim))`` after ``rng,
+    eval_rng = split(rng)``, ``rng`` starting at the chain's key (the
+    caller's is not advanced), as JAX's sweep draws it. Under data parallelism
     every process sweeps the whole split with no collective (the
     single-process numbers), and the metric logger of rank 0 alone writes."""
     from ..data import HostDataPipeline
@@ -357,14 +400,13 @@ def run_test_sweep(trainer, test_ds, config, step: int, metric_logger,
     totals: dict[str, float] = {}
     n_batches = n_examples = 0
     t0 = time.perf_counter()
-    for k, batch in enumerate(pipe.batches()):
+    for batch in pipe.batches():
         bs = batch["image"].shape[0]
         if stage1:
             metrics = trainer.eval_step(batch)
         else:
-            noise = np.random.default_rng([t_cfg.seed, step, 1, k]).standard_normal(
-                (bs, trainer.vae_dim), dtype=np.float32)
-            metrics = trainer.eval_step(batch, noise)
+            rng, eval_rng = jax_random.split(rng)
+            metrics = trainer.eval_step(batch, jax_random.normal(eval_rng, (bs, trainer.vae_dim)))
         for name, v in metrics.items():
             totals[name] = totals.get(name, 0.0) + float(v) * bs
         n_batches += 1

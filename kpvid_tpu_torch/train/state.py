@@ -61,6 +61,7 @@ from ..configs import LRConfig
 from ..device import to_device
 from ..models import init_like_jax
 from ..parallel.sharding import gather_state, shard_modules, shard_state
+from ..utils import jax_random
 
 ADAM_BETAS = (0.5, 0.999)
 ADAM_EPS = 1e-8
@@ -371,10 +372,14 @@ class GANTrainer:
                     for key in ("exp_avg", "exp_avg_sq"):
                         self.array_rules[f"{opt}.{prefix}.{name}.{key}"] = dim
 
-    def init_parameters(self, seed: int) -> dict[str, torch.Tensor]:
-        """Both networks' full parameters (and BN statistics) with the JAX
-        package's init laws, drawn on the CPU from ``seed``."""
-        return init_like_jax(self.model, seed, self._full_shapes)
+    def init_parameters(self, seed_or_key=0) -> dict[str, torch.Tensor]:
+        """Both networks' full parameters (and BN statistics) as the JAX
+        package's ``init_state(key)`` draws them, ``key`` ``PRNGKey(seed)``
+        for an integer: the generator from the first key of ``split(key)``,
+        the discriminator from the second (``models.init_like_jax``)."""
+        g_key, d_key = jax_random.split(jax_random.as_key(seed_or_key))
+        return init_like_jax(self.model, {self.G_PREFIX: g_key, self.D_PREFIX: d_key},
+                             self._full_shapes)
 
     def load_parameters(self, params: dict) -> None:
         """Load full parameters (this rank keeps its shards)."""

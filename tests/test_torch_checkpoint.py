@@ -139,7 +139,7 @@ def test_package_imports_neither_jax_nor_kpvid_tpu():
     for new in ("losses/perceptual.py", "train/stage1.py", "data/image_pair.py",
                 "utils/tf_bundle.py", "utils/tf1_import.py", "import_tf1_checkpoint.py",
                 "data/cache.py", "bench_train.py", "verify_reference_parity.py",
-                "bench_host_pipeline.py"):
+                "bench_host_pipeline.py", "utils/jax_random.py"):
         assert REPO / "kpvid_tpu_torch" / new in modules
     for path in modules + [REPO / "chip_smoke.py"]:
         assert not _roots(_imports(path)) & banned, path

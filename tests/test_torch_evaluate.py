@@ -10,6 +10,9 @@
   ``render_point_images``, written with the root ``evaluate.py``'s
   ``_save_img``/``_save_seq``. Smoke widths of tests/test_torch_final.py,
   BN statistics, BN affine and biases randomized;
+- the same CLI against the root ``evaluate.py`` itself from one ``--seed``,
+  each drawing its own latents (JAX's ``fold_in`` stream in both), on
+  JAX's Orbax checkpoints and the parameter files exported from them;
 
 The trainer-checkpoint hand-off to the daemon is in tests/test_torch_train.py.
 """
@@ -218,6 +221,49 @@ def test_evaluate_png_tree_matches_jax(tree, tmp_path, dtype):
 
 
 BF16_UINT8_STEPS = 3
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_evaluate_cli_from_the_seed_matches_jaxs(tree, tmp_path, dtype, monkeypatch):
+    """``python -m kpvid_tpu_torch.evaluate --seed 3`` against the root
+    ``evaluate.py --seed 3`` on one pair of checkpoints, each CLI drawing its
+    own latents (nothing handed over): JAX's Orbax checkpoints of the
+    randomized smoke trees, and the port's parameter files that
+    ``tools/export_torch_params.py`` writes from them. f32: the PNG tree
+    byte for byte; bf16: within test_evaluate_png_tree_matches_jax's bound."""
+    import sys
+
+    from kpvid_tpu.utils.checkpoint import save_checkpoint
+
+    _, _, _, s1, s2p, _ = setup(dtype)
+    save_checkpoint(tmp_path / "jax", "stage1", 1, {"g_params": s1["params"],
+                                                    "batch_stats": s1["batch_stats"]})
+    save_checkpoint(tmp_path / "jax", "stage2", 1, {"g_params": s2p})
+    sys.path.insert(0, str(REPO / "tools"))
+    try:
+        import export_torch_params
+    finally:
+        sys.path.remove(str(REPO / "tools"))
+    npz = {s: export_torch_params.main(["--checkpoint", str(tmp_path / "jax" / s),
+                                        "--output", str(tmp_path / f"{s}.npz")])
+           for s in ("stage1", "stage2")}
+    cfg = _write_config(tmp_path / "cfg.yaml", tree, dtype)
+    evaluate.main(["--config", str(cfg), "--checkpoint_stage1", str(npz["stage1"]),
+                   "--checkpoint_stage2", str(npz["stage2"]), "--save_dir", str(tmp_path / "port"),
+                   "--seed", "3", "--device", "cpu", "--png-workers", "3"])
+    monkeypatch.setattr(sys, "argv", [
+        "evaluate.py", "--config", str(cfg), "--checkpoint_stage1", str(tmp_path / "jax" / "stage1"),
+        "--checkpoint_stage2", str(tmp_path / "jax" / "stage2"), "--save_dir",
+        str(tmp_path / "jax_tree"), "--seed", "3", "--png-workers", "3"])
+    jax_evaluate_module().main()
+    got, want = _files(tmp_path / "port"), _files(tmp_path / "jax_tree")
+    assert sorted(got) == sorted(want) and len(got) == 3 * (2 + 5 * T)
+    if dtype == "float32":
+        differ = [k for k in want if got[k] != want[k]]
+        assert not differ, differ[:5]
+    else:
+        worst = max(int(np.abs(_pixels(got[k]) - _pixels(want[k])).max()) for k in want)
+        assert worst <= BF16_UINT8_STEPS, worst
 
 
 def test_evaluate_defaults_to_the_card(tree, tmp_path):

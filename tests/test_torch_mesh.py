@@ -20,7 +20,8 @@ drawn at random:
   its launch copies the colors to each replica once per dtype;
 - ``python -m kpvid_tpu_torch.bench --device cpu --batch 2`` (at the smoke
   widths: the test swaps its ``Config()``) prints one JSON line without
-  ``vs_baseline``, with and without ``--mesh``.
+  ``vs_baseline``, with and without ``--mesh``; its inputs are the root
+  ``bench.py``'s draws.
 """
 
 import copy
@@ -281,6 +282,36 @@ def test_bench_prints_one_json_line(setup, capsys, monkeypatch, mesh):
     assert printed["unit"] == "frames/s" and printed["value"] > 0
     assert rec["batch"] == 2 and rec["n_data"] == (2 if mesh else 1)
     assert printed["value"] == round(2 * SMOKE["n_future_frames"] * 2 / rec["best_round_s"], 1)
+
+
+def test_bench_inputs_are_jax_bench_pys():
+    """bench's images, actions and latents at ``Config()``, batch 2, are the
+    root bench.py's draws: ``uniform(PRNGKey(2), -1, 1)`` images bit for
+    bit, class-0 one-hots, and generate's ``normal(key, (B, vae_dim))`` of
+    ``PRNGKey(100 + i)`` for the warm-up calls and ``PRNGKey(8 r + i)`` for
+    the timed ones within 4 ulp (the port's erfinv takes numpy's log1p)."""
+    import sys
+    from pathlib import Path
+
+    import jax
+    import jax.numpy as jnp
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+
+    cfg = configs.Config().validate()
+    m = cfg.model
+    im, act, zs = bench.inputs(cfg, 2)
+    want = jax.random.uniform(jax.random.PRNGKey(2), (2, m.image_size, m.image_size, 3),
+                              jnp.float32, -1.0, 1.0)
+    assert im.tobytes() == np.asarray(want).tobytes()
+    assert np.array_equal(act, np.asarray(jax.nn.one_hot(jnp.zeros((2,), jnp.int32), m.n_action)))
+    seeds = [100 + i for i in range(bench.WARMUP)] + [
+        r * bench.ITERS + i for r in range(bench.ROUNDS) for i in range(bench.ITERS)]
+    assert len(zs) == len(seeds)
+    for z, seed in zip(zs, seeds):
+        want = np.asarray(jax.random.normal(jax.random.PRNGKey(seed), (2, m.vae_dim), jnp.float32))
+        assert int(chip_smoke.ulps(z, want).max()) <= 4, seed
 
 
 def test_mesh_devices_default():

@@ -42,6 +42,11 @@ pieces of kpvid_tpu's generator. What the tests find:
 - JAX against itself: its gradient op by op against its jitted one turns
   over 7, 6, 38 and 0 first steps on seeds 50, 55, 70 and 72.
 
+- The train CLI's first step from scratch (JAX's init draw, BN scale 1 and
+  bias 0: test_cli_first_step_gap_is_the_kinks) turns first steps over at
+  two ReLU inputs of the pose decoder and two of the loss's kinks; with the
+  generator's ReLUs on JAX's side none turns over.
+
 So the gap is conditioning, not a fault: the gradient of a ReLU network is
 not continuous in its inputs, and two correct f32 programs land on
 different sides of a kink. The biases of convs that feed a train-mode BN
@@ -502,6 +507,56 @@ def test_gap_is_the_kinks(jax_init, seed):
     if not flips and not any(n for n, _, _ in lk.values()):  # no kink between them, no gap
         assert not any(n for _, n in before.values())
         assert loss_gap <= LOSS_REL
+
+
+@pytest.fixture(scope="module")
+def cli_first_step(tmp_path_factory):
+    """The stage-1 train CLI's first step from scratch at training.seed 5
+    (tests/test_torch_stage1.py's CLI run): JAX's ``init_state`` of the
+    CLI's init key, BN scale 1 and bias 0, biases 0, and the first batch of
+    the synthetic tree."""
+    from kpvid_tpu_torch.data import HostDataPipeline, ImagePairDataset, make_synthetic_penn_tree
+    from kpvid_tpu_torch.train.cli import init_key
+
+    root = tmp_path_factory.mktemp("cli_step")
+    make_synthetic_penn_tree(root)
+    batches = HostDataPipeline(ImagePairDataset(str(root), "train", image_size=32), 2,
+                               shuffle=True, repeat=True, seed=5).batches()
+    batch = next(batches)
+    batches.close()
+    return jax.device_get(jax_trainer().init_state(init_key(5))), batch
+
+
+def test_cli_first_step_gap_is_the_kinks(cli_first_step):
+    """On the CLI's first step from scratch, where its parameters after 3
+    steps leave JAX's train.py's (the CLI test prints by how much), first
+    Adam steps turn over; with the generator's ReLUs on JAX's side and
+    JAX's cotangent at the generated image none does: the same kinks as on
+    the seeds above. Prints the ReLU inputs across zero (as a share of
+    their layer's max), the loss's kinks and the gaps."""
+    state, batch = cli_first_step
+    want = jax_side(state, batch)
+    trainer = port_trainer(state)
+    fwd = port_forward(trainer, batch)
+    own = named_grads(trainer, fwd["loss"], trainer._g_params)
+    with JaxSideOfKinks(trainer, want["pre"]) as kinks:
+        aligned_fwd = trainer.generator(*trainer._pair_of(batch), train=True)
+    aligned = named_grads(trainer, aligned_fwd["final"], trainer._g_params,
+                          t(want["cot"]["final"]))
+    with torch.no_grad():
+        lk = loss_kinks(trainer, t(batch["future_image"]), fwd["final"],
+                        t(want["fwd"]["final"]))
+    before = turned_over(own, want["grads"])
+    after = turned_over(aligned, want["grads"])
+    flips = {k: (n, near / top) for k, (n, near, top) in kinks.flips.items() if n}
+    print(f"\nthe CLI's first step: ReLU inputs across zero {flips}; the loss's kinks "
+          f"{ {k: v for k, v in lk.items() if v[0]} }; generated image "
+          f"{rel(fwd['final'].detach().numpy(), want['fwd']['final']):.2e} of its max from "
+          f"JAX's; {sum(n for _, n in before.values())} first steps turned over, "
+          f"{sum(n for _, n in after.values())} with the kinks on JAX's side (worst gap "
+          f"{max(g for g, _ in after.values()):.2e})")
+    assert flips and sum(n for _, n in before.values()) > 0
+    assert not any(n for _, n in after.values())
 
 
 def test_jax_against_itself(jax_init):

@@ -12,7 +12,9 @@
   ``--tolerance-db 0.01``;
 - ``kpvid_tpu_torch.bench_host_pipeline``: its tree (2 videos of 4 frames)
   is the JAX tool's byte for byte, and a batch runs with the cache and
-  without.
+  without;
+- ``bench_train.profile_totals``, which the tool and ``chip_smoke.py`` read
+  their profiles with: ``key_averages()``'s counts and times.
 """
 
 import importlib.util
@@ -211,3 +213,24 @@ def test_bench_train_points_are_jaxs():
     assert [(t, b) for t, _, b in bench_train.POINTS] == [
         ("stage1_parity", 16), ("stage1_throughput", 128), ("stage2", 64)]
     assert [t for t, _, _ in bench_train.POINTS] == list(jax_tool("bench_train").R3_EX_PER_S)
+
+
+def test_profile_totals_read_what_key_averages_reads():
+    """``bench_train.profile_totals`` reads a profile's raw records: per
+    host op the count and µs of ``key_averages()`` (no op here nests a
+    record of its own name, which key_averages() folds)."""
+    import torch
+    from torch.profiler import DeviceType, ProfilerActivity, profile
+
+    x = torch.randn(64, 64)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for _ in range(3):
+            torch.relu(torch.mm(x, x) + 1.0)
+    device, host = bench_train.profile_totals(prof)
+    want = {e.key: (e.count, e.cpu_time_total) for e in prof.key_averages()
+            if e.device_type == DeviceType.CPU}
+    assert device == {}
+    assert sorted(host) == sorted(want)
+    for key, (n, us) in host.items():
+        assert n == want[key][0]
+        assert us == pytest.approx(want[key][1], rel=1e-6, abs=1e-3)

@@ -12,10 +12,22 @@ after the steps atol 2e-6 (the updates are lr = 1e-4 in size, so this is
 element whose first-step gradient is below 1e-6 in magnitude may differ by
 up to 2 * lr per step taken, since lr * g / (|g| + 1e-8) turns a tiny
 difference in g into a different step.
+
+The CLI (``python -m kpvid_tpu_torch.train --mode motion_generator``) runs
+from scratch at ``training.seed`` 5 beside the root ``train.py`` at the same
+config in a process of its own ('fused' for 4 steps, 'fused_dg' and
+'grad_accum' 2 for 3), nothing handed over: the weights, the noise, the
+summary noise and the test sweep's noise are both sides' own draws of JAX's
+streams. The checkpoints after 3 and 4 updates within the tolerance above,
+the logged train and test metrics rtol 1e-4, the summary PNGs within one
+uint8 step; a run resumed from ``ckpt-2`` ends with the uninterrupted
+run's bits, and so with JAX's uninterrupted run.
 """
 
 import dataclasses
+from pathlib import Path
 
+import jax_cli
 import numpy as np
 import pytest
 import torch
@@ -372,9 +384,9 @@ def test_sequence_batches_match_jax(short_tree, subset, seq_len, start):
 
 # ---------------------------------------------------------------- the CLI
 CLI_YAML = """
-paths: {{data_dir: '{root}/penn', log_dir: '{log}'}}
+paths: {{data_dir: '{data}', log_dir: '{log}'}}
 training: {{compute_dtype: float32, batch_size: 4, n_steps: 4, checkpoint_interval: 2,
-            summary_interval: 2, test_interval: 4, log_interval: 1}}
+            summary_interval: 2, test_interval: 4, log_interval: 1, seed: 5{extra}}}
 model: {{n_pts: 4, n_action: 9, cell_info: [32, 32], vae_dim: 8, n_future_frames: 8,
          image_size: 32, heatmap_size: 8, encoder_filters: 8, translator_filters: 16,
          pose_decoder_filters: 16}}
@@ -382,21 +394,92 @@ data: {{num_workers: 2, sequence_len: 9}}
 """
 
 
+# JAX's train.py from scratch beside the port's CLI, at training.seed 5:
+# 'fused' for CLI_YAML's 4 steps, the others for 3
+CLI_MODES = {"fused": "", "fused_dg": ", gan_step_mode: fused_dg", "grad_accum": ", grad_accum: 2"}
+
+
 @pytest.fixture(scope="module")
-def trained(tmp_path_factory):
+def jax_runs(tmp_path_factory):
+    """Root ``train.py --mode motion_generator --synthetic`` of each of
+    CLI_MODES, each in a process of its own on one CPU device, all started
+    at once; mode -> (the run, its log directory)."""
+    root = tmp_path_factory.mktemp("jax_cli")
+    runs = {}
+    for mode, extra in CLI_MODES.items():
+        conf = root / f"{mode}.yaml"
+        conf.write_text(CLI_YAML.format(data=root / f"penn_{mode}", log=root / f"log_{mode}",
+                                        extra=extra))
+        steps = [] if mode == "fused" else ["--max-steps", "3"]
+        run = jax_cli.start("train.py", ["--mode", "motion_generator", "--synthetic",
+                                         "--config", conf] + steps, root / f"{mode}.log")
+        runs[mode] = (run, root / f"log_{mode}" / "motion_generator")
+    yield runs
+    for (proc, _), _ in runs.values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def jax_run(jax_runs, mode: str) -> Path:
+    run, log_dir = jax_runs[mode]
+    jax_cli.finish(run)
+    return log_dir
+
+
+@pytest.fixture(scope="module")
+def trained(tmp_path_factory, jax_runs):
     """python -m kpvid_tpu_torch.train --mode motion_generator --synthetic on
-    the CPU, 4 steps, checkpoints at 2 and 4."""
+    the CPU, 4 steps, checkpoints at 2 and 4 (JAX's runs start first and
+    run beside it); the first update's gradients by name."""
     from kpvid_tpu_torch.train import main
 
     root = tmp_path_factory.mktemp("cli")
     for log in ("a", "b"):
-        (root / f"{log}.yaml").write_text(CLI_YAML.format(root=root, log=root / log))
-    run = main(["--mode", "motion_generator", "--synthetic", "--device", "cpu",
-                "--config", str(root / "a.yaml")])
-    return root, run
+        (root / f"{log}.yaml").write_text(CLI_YAML.format(data=root / "penn", log=root / log,
+                                                          extra=""))
+    with jax_cli.first_grads() as seen:
+        run = main(["--mode", "motion_generator", "--synthetic", "--device", "cpu",
+                    "--config", str(root / "a.yaml")])
+    return root, run, jax_cli.named_grads(run["trainer"], seen)
 
 
-def test_train_cli_resume_equals_uninterrupted(trained):
+def port_trainer_at(conf: Path, ckpt: Path) -> Stage2Trainer:
+    from kpvid_tpu_torch.checkpoint import load_checkpoint
+
+    trainer = Stage2Trainer(tcfgs.load_config(conf), device="cpu")
+    trainer.load_state_arrays(load_checkpoint(ckpt))
+    return trainer
+
+
+def assert_cli_matches_jax(conf: Path, port_dir: Path, jax_dir: Path, grads: dict,
+                           steps: dict) -> None:
+    """The port's CLI run against JAX's train.py at one config, from the
+    same seed: the parameters of ``ckpt-N`` after ``steps[N]`` updates
+    (the module docstring's tolerance), the logged train and test metrics
+    (rtol 1e-4) and the summary images (within one uint8 step: the
+    predicted strips are drawn from parameters that agree to 2e-6)."""
+    from types import SimpleNamespace
+
+    from kpvid_tpu.configs import load_config as jax_load_config
+    from kpvid_tpu.utils.checkpoint import restore_checkpoint
+    from kpvid_tpu_torch.train.cli import init_key
+
+    cfg = tcfgs.load_config(conf)
+    jax_init = JaxStage2Trainer(jax_load_config(conf)).init_state(init_key(cfg.training.seed))
+    for n, n_steps in steps.items():
+        want = restore_checkpoint(jax_dir / f"ckpt-{n}")
+        assert int(want["step"]) == n_steps
+        assert_params_match_jax(port_trainer_at(conf, port_dir / f"ckpt-{n}"),
+                                SimpleNamespace(**want), grads, n_steps, jax_init)
+    for split in ("train", "test"):
+        assert jax_cli.assert_metric_logs_match(port_dir / f"{split}_metrics.jsonl",
+                                                jax_dir / f"{split}_metrics.jsonl", METRIC_RTOL)
+    files, worst = jax_cli.png_steps(port_dir / "train_images", jax_dir / "train_images")
+    assert files and worst <= 1, worst
+
+
+def test_train_cli_resume_equals_uninterrupted(trained, jax_runs):
     """A second run that finds only ckpt-2 resumes and ends with ckpt-4's
     arrays, bit for bit; the logs, summaries and refusals of the CLI."""
     import shutil
@@ -404,7 +487,7 @@ def test_train_cli_resume_equals_uninterrupted(trained):
     from kpvid_tpu_torch.checkpoint import list_checkpoint_steps, load_checkpoint
     from kpvid_tpu_torch.train import main
 
-    root, run = trained
+    root, run, grads = trained
     ck = root / "a" / "motion_generator"
     assert run["start_step"] == 0 and list_checkpoint_steps(ck) == [2, 4]
     assert all(np.isfinite(v) for v in run["metrics"].values())
@@ -424,6 +507,28 @@ def test_train_cli_resume_equals_uninterrupted(trained):
     for mode in ("detector_translator", "motion_generator"):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             main(["--mode", mode, "--config", str(root / "a.yaml")])
+    # the uninterrupted run, and so the resumed one, is JAX's uninterrupted
+    # train.py from the same seed (JAX's own resume restarts its key chain)
+    assert_cli_matches_jax(root / "a.yaml", ck, jax_run(jax_runs, "fused"), grads,
+                           {2: 3, 4: 4})
+
+
+@pytest.mark.parametrize("mode", ["fused_dg", "grad_accum"])
+def test_train_cli_from_the_seed_matches_jax(jax_runs, tmp_path, mode):
+    """3 steps of the CLI from scratch at training.seed 5 against JAX's
+    train.py: the weights and the noise are JAX's draws, nothing handed
+    over ('grad_accum': K = 2 of the 'fused' step)."""
+    from kpvid_tpu_torch.train import main
+
+    conf = tmp_path / "c.yaml"
+    conf.write_text(CLI_YAML.format(data=tmp_path / "penn", log=tmp_path / "log",
+                                    extra=CLI_MODES[mode]))
+    with jax_cli.first_grads() as seen:
+        run = main(["--mode", "motion_generator", "--synthetic", "--device", "cpu", "--config",
+                    str(conf), "--max-steps", "3"])
+    assert_cli_matches_jax(conf, tmp_path / "log" / "motion_generator",
+                           jax_run(jax_runs, mode), jax_cli.named_grads(run["trainer"], seen),
+                           {3: 3})
 
 
 def test_daemon_serves_from_a_trainer_checkpoint(trained):
@@ -440,7 +545,7 @@ def test_daemon_serves_from_a_trainer_checkpoint(trained):
     )
     from kpvid_tpu_torch.eval import FinalGenerator
 
-    root, _ = trained
+    root, _, _ = trained
     ck = root / "a" / "motion_generator"
     assert resolve_parameter_file(ck) == ck / "ckpt-4" / "state.npz"
     assert resolve_parameter_file(ck / "ckpt-2") == ck / "ckpt-2" / "state.npz"
