@@ -14,6 +14,13 @@ and that the serving artifact traces (eval/export.py).
 ``render_point_images`` draws evaluate's colorized keypoint images at full
 resolution (gaussian_render again, at 128^2).
 
+While a profiler records, ``FinalGenerator.generate`` names its phases
+(utils/spans.py): ``kpvid.generate`` around the call, and inside it
+``kpvid.generate.inputs`` (the copies to the device), ``.detect``,
+``.motion_decode``, ``.first_conv``, ``.translator`` (twice: the heads'
+folding, then the decode) and ``.blend``. The serving artifact's graph has
+none of them.
+
 The entry point runs on the card by default and raises where there is none;
 pass ``device="cpu"`` to run the plain versions on the CPU.
 
@@ -40,6 +47,7 @@ from ..models import MotionGenerator, Stage1Generator, init_like_jax
 from ..ops.coords import colorize_point_maps
 from ..ops.keypoint_kernels import gaussian_render
 from ..utils import jax_random
+from ..utils.spans import span
 
 
 class GenerateNet(nn.Module):
@@ -65,12 +73,16 @@ class GenerateNet(nn.Module):
     def forward(self, im: torch.Tensor, action_code: torch.Tensor,
                 z: torch.Tensor) -> dict[str, torch.Tensor]:
         b = im.shape[0]
-        current_mu = self.stage1.detect(im)
+        with span("kpvid.generate.detect"):
+            current_mu = self.stage1.detect(im)
         first_pt = current_mu.reshape(b, 2 * self.n_pts)
-        pred_flat = self.stage2.decode(z, first_pt, action_code)  # [B, T, 2K]
+        with span("kpvid.generate.motion_decode"):
+            pred_flat = self.stage2.decode(z, first_pt, action_code)  # [B, T, 2K]
         future_mu_seq = pred_flat.reshape(b, self.n_future, self.n_pts, 2)
-        first = self.split_first_conv(im, current_mu, future_mu_seq)
-        head_k, head_b = self.stage1.translator.fused_heads()
+        with span("kpvid.generate.first_conv"):
+            first = self.split_first_conv(im, current_mu, future_mu_seq)
+        with span("kpvid.generate.translator"):
+            head_k, head_b = self.stage1.translator.fused_heads()
         out = self.stage1.generate(im, first, head_k, head_b)
         return {
             "im": im,
@@ -164,14 +176,17 @@ class FinalGenerator:
         mask [B, T, H, W, 1], pred_im_crude, current_points [B, K, 2],
         future_points [B, T, K, 2] and fut_pt_raw (the same points, as JAX
         names them too)."""
-        if z is None:
-            if key is None:
-                raise ValueError("generate needs the latents z or a key to draw them from")
-            z = jax_random.normal(jax_random.as_key(key), (im.shape[0], self.config.model.vae_dim))
-        im = to_device(im, self.device, torch.float32)
-        act = to_device(action_code, self.device, torch.float32)
-        z = to_device(z, self.device, torch.float32)
-        return self.model(im, act, z)
+        if z is None and key is None:
+            raise ValueError("generate needs the latents z or a key to draw them from")
+        with span("kpvid.generate"):
+            with span("kpvid.generate.inputs"):
+                if z is None:
+                    z = jax_random.normal(jax_random.as_key(key),
+                                          (im.shape[0], self.config.model.vae_dim))
+                im = to_device(im, self.device, torch.float32)
+                act = to_device(action_code, self.device, torch.float32)
+                z = to_device(z, self.device, torch.float32)
+            return self.model(im, act, z)
 
     @torch.no_grad()
     def render_point_images(self, mu: torch.Tensor, colors, size: int | None = None) -> torch.Tensor:

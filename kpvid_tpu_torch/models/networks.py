@@ -31,6 +31,7 @@ from ..ops.batching import pair_fns
 from ..ops.chain import translator_chain
 from ..ops.coords import blend
 from ..ops.keypoint_kernels import gaussian_render, pose_head
+from ..utils.spans import span
 from .layers import Conv, ConvBNReLU, Dense, StackedLSTM
 
 
@@ -248,16 +249,18 @@ class Stage1Generator(nn.Module):
         each sample, blended with the source frame and clipped to [-1, 1]."""
         b = im.shape[0]
         t = first_preact.shape[0] // b
-        crude, mask = self.translator(first_preact, head_kernel, head_bias)
-        im_t = im.float().repeat_interleave(t, dim=0)
-        final = torch.clamp(blend(im_t, crude, mask), -1.0, 1.0)
-        crude = torch.clamp(crude, -1.0, 1.0)
-        hw = tuple(im.shape[1:3])
-        return {
-            "pred_im_seq": final.reshape(b, t, *hw, 3),
-            "mask": mask.reshape(b, t, *hw, 1),
-            "pred_im_crude": crude.reshape(b, t, *hw, 3),
-        }
+        with span("kpvid.generate.translator"):
+            crude, mask = self.translator(first_preact, head_kernel, head_bias)
+        with span("kpvid.generate.blend"):
+            im_t = im.float().repeat_interleave(t, dim=0)
+            final = torch.clamp(blend(im_t, crude, mask), -1.0, 1.0)
+            crude = torch.clamp(crude, -1.0, 1.0)
+            hw = tuple(im.shape[1:3])
+            return {
+                "pred_im_seq": final.reshape(b, t, *hw, 3),
+                "mask": mask.reshape(b, t, *hw, 1),
+                "pred_im_crude": crude.reshape(b, t, *hw, 3),
+            }
 
 
 class MotionGenerator(nn.Module):

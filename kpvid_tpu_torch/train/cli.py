@@ -45,7 +45,9 @@ Stage 1's train split decodes through the frame cache when
 ``data.decode_cache_mb`` > 0 (data/cache.py; the same bytes). As in JAX's
 ``train.py``, ``--tensorboard`` also writes TensorBoard event files, and
 ``--profile-dir`` a ``torch.profiler`` trace (the host's ops and, on the
-card, the kernels) of loop steps ``start + 10`` to ``start + 14``.
+card, the kernels) of loop steps ``start + 10`` to ``start + 14``, in which
+each step's wait for its batch is the range ``kpvid.train.data_wait`` and
+its step call the range ``kpvid.train.step`` (utils/spans.py).
 
 Data parallelism, one process per card: launch N copies with the KPVID_*
 environment (``KPVID_COORDINATOR=host:port KPVID_NUM_PROCESSES=N
@@ -85,6 +87,7 @@ import numpy as np
 import torch
 
 from ..utils import jax_random
+from ..utils.spans import span
 
 MODES = ("detector_translator", "motion_generator")
 
@@ -103,7 +106,9 @@ def build_parser() -> ArgumentParser:
     parser.add_argument("--tensorboard", action="store_true",
                         help="also write TensorBoard event files (JSONL metrics always on)")
     parser.add_argument("--profile-dir", type=str, default=None,
-                        help="write a torch.profiler trace of steps 10-14 here")
+                        help="write a torch.profiler trace of steps 10-14 here, with each "
+                             "step's batch wait as kpvid.train.data_wait and its step as "
+                             "kpvid.train.step")
     parser.add_argument("--device", type=str, default="cuda",
                         help="'cuda' (default) or 'cpu'")
     parser.add_argument("--mesh-data", type=int, default=None,
@@ -314,8 +319,10 @@ def main(argv=None) -> dict:
                 logger.info("profiler trace written to %s", args.profile_dir)
             rng, step_rng = jax_random.split(rng)
             t0 = time.perf_counter()
-            batch = next(train_iter)
-            metrics = train_step(step_rng, batch)
+            with span("kpvid.train.data_wait"):
+                batch = next(train_iter)
+            with span("kpvid.train.step"):
+                metrics = train_step(step_rng, batch)
             throughput.update(bs)
 
             if step % t_cfg.log_interval == 0:  # the host waits for the card here only

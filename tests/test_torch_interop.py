@@ -457,6 +457,24 @@ def test_cli_profile_dir_writes_a_trace_of_steps_10_to_14(cli_runs):
     assert len(adam) == 10
 
 
+def test_cli_profile_dir_trace_names_each_steps_data_wait_and_step(cli_runs):
+    events = json.loads(cli_runs["cached"]["profile_trace"].read_text())["traceEvents"]
+
+    def ranges(name):
+        return sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                      if e.get("ph") == "X" and e.get("name") == name)
+
+    waits, steps = ranges("kpvid.train.data_wait"), ranges("kpvid.train.step")
+    assert len(waits) == 5 and len(steps) == 5
+    for (w0, w1), (s0, s1) in zip(waits, steps):
+        assert w0 <= w1 <= s0 <= s1  # each step's batch, then its step
+    # each step's two Adam updates inside its own kpvid.train.step
+    for a0, a1 in ranges("Optimizer.step#Adam.step"):
+        assert sum(s0 <= a0 and a1 <= s1 for s0, s1 in steps) == 1
+    assert all(sum(s0 <= a0 and a1 <= s1 for a0, a1 in ranges("Optimizer.step#Adam.step")) == 2
+               for s0, s1 in steps)
+
+
 def test_cli_tensorboard_writes_scalars_and_images(cli_runs):
     from tensorboard.backend.event_processing.event_accumulator import EventAccumulator
 
