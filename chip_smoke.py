@@ -715,7 +715,8 @@ def bucket_kernel_phase(cfg) -> dict:
     """Every kernel against its plain version, f32 and bf16, at the shapes
     each of the daemon's buckets gives it (N = bucket * 32 frames), with the
     tolerances of ``kernel_phase``; returns the worst error per kernel and
-    bucket."""
+    bucket, and the device ms of #1 and #2 per generate at each bucket (bf16,
+    the launches of one generate)."""
     import torch
 
     from kpvid_tpu_torch import ops
@@ -725,18 +726,22 @@ def bucket_kernel_phase(cfg) -> dict:
     worst = {}
     for b in SERVE_BUCKETS:
         conv_cases, up2_cases = conv_shapes(m, b * m.n_future_frames)
-        errs = {}
+        errs, conv_ms = {}, {}
         for name, kernel, plain, cases in (
             ("conv3x3_affine", ops.conv3x3_affine, ops.conv3x3_affine_plain, conv_cases),
             ("up2_conv3_affine", ops.up2_conv3_affine, ops.up2_conv3_affine_plain, up2_cases),
         ):
-            for _, shape, cout, relu, _ in cases:
+            conv_ms[name] = 0.0
+            for _, shape, cout, relu, mult in cases:
                 for dtype in (torch.float32, torch.bfloat16):
                     x, k, sc, sh = conv_inputs(gen, shape, cout, dtype)
                     got = kernel(x, k, sc, sh, relu=relu)
                     err = compare(got, plain(x, k, sc, sh, relu=relu), dtype)
                     errs[name] = max(errs.get(name, 0.0), err)
-                    del x, got
+                    del got
+                # x, k, sc, sh are the bfloat16 inputs of the path
+                conv_ms[name] += mult * device_ms(lambda: kernel(x, k, sc, sh, relu=relu))
+                del x
         errs["pose_head"] = max(check_pose_head(gen, m, b)[0].values())
         errs["gaussian_render"] = max(
             max(check_render(gen, m, rows, gd)[0].values())
@@ -745,7 +750,10 @@ def bucket_kernel_phase(cfg) -> dict:
         worst[b] = errs
         check(True, f"bucket {b} (N = {b * m.n_future_frames}): every kernel agrees with its "
                     f"plain version, f32 and bf16; worst max abs err "
-                    + ", ".join(f"{n} {e:.3e}" for n, e in errs.items()))
+                    + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
+                    + "; device ms per generate, bf16: "
+                    + ", ".join(f"{n} {t:.4f}" for n, t in conv_ms.items()))
+        errs["device_ms"] = conv_ms
     return worst
 
 
@@ -4403,6 +4411,9 @@ def main() -> int:
         })
         if counts[name]:
             kernels[-1]["max_abs_err_per_bucket"] = {b: e[name] for b, e in per_bucket.items()}
+            if name in per_bucket[SERVE_BUCKETS[0]]["device_ms"]:
+                kernels[-1]["device_ms_per_bucket"] = {
+                    b: e["device_ms"][name] for b, e in per_bucket.items()}
         else:
             kernels[-1].update({k: r[k] for k in ("forward_train_ms", "launch_floor_ms",
                                                   "zero_fill_ms", "ms_after_64mb_write")

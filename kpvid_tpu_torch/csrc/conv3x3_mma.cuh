@@ -1,84 +1,154 @@
 // The bf16 route of conv3x3.cu: the fused 3x3 SAME conv + affine + ReLU as an
-// implicit GEMM on Hopper's tensor cores (bf16 in, f32 accumulation), with
-// cp.async double buffering.
+// implicit GEMM on Hopper's tensor cores (bf16 in, f32 accumulation). It
+// replaces the TPU kernels conv3x3_affine (kpvid_tpu/ops/pallas_conv.py:158,
+// #1) and up2_conv3_affine (pallas_conv.py:434, #2): one template, UP2 picks
+// the input loader.
 //
-// GEMM view of one block: M = TH x TW = 16 x 16 output pixels, N = TN output
-// channels (128, 64, or 8 for the 4-channel head), K = 9 taps x C, walked in
-// chunks of CK = 32 input channels. Each of the 8 warps owns 2 output rows
-// (16 pixels each, one m16 tile) and all TN channels. The 16-row tile halves
-// the weight bytes each output pixel costs (every block stages the whole
-// weight slice of its TN channels), which is what bounds an 8-row tile. For
-// each chunk a stage holds
-//   - the weight slice [9 * CK][TN] bf16, output channels innermost (HWIO
-//     order, so it copies in 16-byte pieces);
-//   - the (TH+2) x (TW+2) x CK halo of x, bf16, channels innermost, so one
-//     pixel's k-slice is one 64-byte row, its 16-byte chunks XOR-swizzled
-//     (swz below) so that every ldmatrix phase (8 rows of 16 bytes) is free
-//     of bank conflicts.
-// The nine taps reuse one halo: for tap (dy, dx) the A rows of output pixel
-// (py, px) are halo pixel (py + dy, px + dx), and since an m16 tile is one
-// output row (TW = 16), ldmatrix's one row address per lane gives the
-// shifted rows for free. While chunk c is multiplied, cp.async (16 bytes,
-// zero-filled through src-size 0 outside the image and past C) fills the
-// other stage with chunk c + 1.
+// Design: a persistent, warp-specialised kernel. The grid is one block an SM
+// (fewer when there are fewer tiles); block b walks the output tiles b, b +
+// grid, b + 2 grid, ... of [N][tile rows][tile columns][Cout / TN]. A block is
+// three warpgroups:
+//   - the producer (warpgroup 0) fills a ring of STAGES (3 or more) stages in
+//     shared memory, one stage per CK = 16 input channels of one tile, and
+//     runs ahead across tiles, so the next tile's first stages load while the
+//     consumers run this tile's epilogue;
+//   - two consumer warpgroups run wgmma on each stage and keep the tile's
+//     accumulators in registers (128 f32 a thread).
+// ptxas gives every thread the launch bound's 168 registers whatever
+// setmaxnreg would move at run time (a 512-thread block, 128 a thread, does
+// not compile the m64n256 accumulators), so the block has one producer
+// warpgroup and no setmaxnreg.
+// A stage's full and empty mbarriers are the only synchronisation in the
+// loop: the producer waits for `empty`, the consumers for `full`; nothing
+// calls __syncthreads after the barriers are set up.
 //
-// The MMA is wgmma: each warpgroup (4 warps, 8 output rows) runs two
-// m64nTNk16 per k16 step, one per group of 4 rows, with A from registers
-// (ldmatrix.x4 from the halo: per warp the A layout of mma.sync.m16n8k16)
-// and B read from shared memory through a descriptor in the canonical
-// MN-major layout: for TN >= 64 with the 128-byte swizzle, as 64-channel
-// atoms of [9 * CK rows][128 B], chunk j of row r at chunk j ^ (r % 8); for
-// TN = 8 without a swizzle, one 16-byte row per k (8 rows make a core
-// matrix). One step's wgmmas run while the next step's A fragments load.
-//
-// up2 (the TF1-legacy 2x upsample of x): a stage holds the low-resolution
-// (TH/2+2) x (TW/2+2) x CK source tile instead of the halo; one more pass
-// builds the upsampled bf16 halo from it in shared memory (along H, then W,
-// edge-clamped, in f32, rounded once), then the same MMA loop runs. The
+// Both operands come from shared memory through descriptors (wgmma's SS
+// form), so no instruction but a wgmma writes a register that a wgmma reads
+// and ptxas keeps them pipelined (with A in registers, loaded by ldmatrix
+// while earlier wgmmas run, it serialises every wgmma). A stage holds
+//   - the weight slice [9 taps * CK][TN] bf16, output channels innermost, in
+//     the canonical MN-major layout with the 128-byte swizzle (64-channel
+//     atoms of [144 rows][128 B], chunk j of row r at chunk j ^ (r % 8)), one
+//     3-D TMA box {64, CK, 9} an atom, which zero-fills channels past C and
+//     Cout; for TN = 8 (the 4-channel head: Cout % 8 != 0, rows TMA cannot
+//     stride) one unswizzled 16-byte row per k, stored element-wise by the
+//     producer only when the stage last held other weights;
+//   - the (TH+2)-row halo of x at CK channels as three copies 16 pixels wide,
+//     copy dx starting at halo column dx, one 32-byte K-major row a pixel with
+//     the 32-byte swizzle (its two 16-byte chunks swapped on every other group
+//     of 4 pixels, swz). A copy's rows are 16 pixels, like the output tile's,
+//     so for tap (dy, dx) the pixels of output rows y.. are the consecutive
+//     pixels of copy dx from row y + dy: a descriptor whose start moves by 512
+//     bytes a row. Each copy is one 4-D TMA box {CK, 16, TH+2, 1} at signed
+//     coordinates whose out-of-bounds zero fill is the SAME padding.
+// up2 (the TF1-legacy 2x upsample of x, edge-clamped, which TMA's zero fill
+// does not give): TMA loads the (TH/2+2) x (TW/2+2) low-resolution source
+// tile into one of two buffers (the next stage's while the producer builds
+// this one, the edge clamp left to the build), then the producer builds the
+// copies from it:
+// each source pixel and its neighbours below and right give a 2 x 2 block of
+// the halo, in f32, rounded once, as the plain version computes it. The
 // upsampled activation never reaches device memory; every border is exact.
+// C % 8 != 0 (rows that are not 16-byte vectors) takes an element-wise
+// loader into the same copies, Cout % 8 != 0 element-wise weights, in the
+// same ring.
 //
-// VEC = false (C % 8 != 0, e.g. C = 4) takes an element-wise loader that
-// zero-pads the channels; weights with Cout % 8 != 0 likewise. The epilogue
-// applies acc * scale + shift and the optional ReLU in registers, rounds once
-// to bf16, stages the tile through shared memory and stores 16-byte vectors.
+// The MMA, and the tile shapes (TH x TW output pixels x TN channels), from
+// Cout:
+//   - TN = 128 (Cout >= 128), 16 x 16 x 128, and TN = 64 (8 < Cout < 128),
+//     32 x 16 x 64: channels on wgmma's M, pixels on N. Consumer warpgroup g
+//     takes the 64 channels of atom g (TN = 128) or output rows 16g.. (TN =
+//     64), 256 pixels, one m64n256k16 a tap, 9 a stage;
+//   - TN = 8 (the head), 32 x 16 x 8: pixels on M, 4 m64 tiles (4 output rows
+//     each) a warpgroup, m64n8k16.
+// A stage's wgmmas are one commit group; the consumers wait for the previous
+// stage's group only after issuing this one's, then release it (one arrival
+// per warp).
+//
+// What bounds them, at the tensor cores' full rate of 4,096 FLOP a clock an
+// SM, against shared memory's 128 B a clock: an m64n256k16 reads 2 KB of
+// weights and 8 KB of pixels for 524,288 FLOP, 80 B a clock (an m64nNk16
+// with the pixels on M reads 2 KB + 32 N bytes for 2,048 N FLOP: 96 B a clock
+// at N = 128, 128 at N = 64, the reason for the transposed form). The stage
+// fill (weights + the three copies) adds 28 B a clock at TN = 128 and 31 at
+// TN = 64; up2 fills its weights and source tile and builds the copies (35 /
+// 43 B a clock); the epilogue's staging 3.5-14. So #1 needs 112-125 B a clock
+// and is bound by operations; #2 at C' = 64 needs 137, so shared memory caps
+// oct2a at about 93% of the tensor rate. The head is bound by reading x (2 x
+// 64 bytes a pixel against 2 x 9 x 64 x 4 FLOP). On the card the stage's
+// TMA rows (32 bytes each) and up2's build bound them first (PERF.md).
+//
+// The epilogue applies acc * scale + shift and the optional ReLU in
+// registers, rounds once to bf16 and stages the tile in its last stage (held
+// until then, while the producer fills the others with the next tile), from
+// where each output row goes out in 16-byte vectors.
 
 #pragma once
 
+#include <cuda.h>  // CUtensorMap and its enums (types only)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 namespace kpvid_mma {
 
-constexpr int TW = 16;  // one m16 tile is one output row
-constexpr int CK = 32;
-constexpr int CPX = CK / 8;  // 16-byte chunks per halo pixel
-constexpr int NTHREADS = 256;
+constexpr int TW = 16;  // output pixels a tile row, and a halo copy's row
+constexpr int CK = 16;  // input channels a stage: one k16 step a tap
+constexpr int PIX_B = CK * 2;  // bytes of one halo pixel: a 32-byte K-major row
 constexpr int HW = TW + 2;
 constexpr int LW = TW / 2 + 2;
-constexpr int ATOM_B = 9 * CK * 128;  // a 64-channel atom of the weight slice
+constexpr int ATOM_B = 9 * CK * 128;  // a 64-channel atom of a stage's weights
+constexpr int NPT = 128;  // producer threads: one warpgroup
+constexpr int NCONS = 2;  // consumer warpgroups
+constexpr int NTHREADS = NPT + 128 * NCONS;
+constexpr int SMEM_MAX = 232448;  // 227 KB, a block's most
 
-constexpr int align1k(int b) { return (b + 1023) / 1024 * 1024; }
+constexpr int align_up(int b, int a) { return (b + a - 1) / a * a; }
+constexpr int min_i(int a, int b) { return a < b ? a : b; }
 
-// the tile of a block and its shared memory: two stages of [weights][x tile],
-// 1024-byte aligned for the 128-byte swizzle
+// the tile of a block and its shared memory: STAGES stages of [weights][three
+// halo copies] (1024-byte aligned, for the swizzles), up2's two source
+// buffers, the barriers, and slack to align the base
 template <int TN, bool UP2>
 struct Tile {
-  static constexpr int TH = 16;                 // output rows
-  static constexpr int MT = TH / 8;             // output rows (m16 tiles) of a warp
-  static constexpr int HPIX = (TH + 2) * HW;    // halo pixels
-  static constexpr int LPIX = (TH / 2 + 2) * LW;  // up2: low-resolution source pixels
-  static constexpr int HALO_B = HPIX * CK * 2;
-  static constexpr int W_B = 9 * CK * TN * 2;
-  static constexpr int SRC_B = UP2 ? LPIX * CK * 2 : HALO_B;
-  static constexpr int STAGE_B = align1k(W_B + SRC_B);
-  // + the upsampled halo, + slack to align the base
-  static constexpr int BYTES = 2 * STAGE_B + (UP2 ? HALO_B : 0) + 1024;
+  // TN >= 64: channels on wgmma's M (64 an atom), the tile's pixels on N (256 a
+  // warpgroup); the head: pixels on M, MT m64 tiles of 4 output rows a warpgroup
+  static constexpr bool TRANS = TN >= 64;
+  static constexpr int TH = TN == 128 ? 16 : 32;    // output rows a tile
+  static constexpr int MT = TH / (4 * NCONS);
+  static constexpr int COPY_B = (TH + 2) * TW * PIX_B;  // one halo copy
+  static constexpr int HALO_B = 3 * COPY_B;
+  static constexpr int LPIX = (TH / 2 + 2) * LW;    // up2: low-resolution source pixels
+  static constexpr int W_B = TN >= 64 ? TN / 64 * ATOM_B : 9 * CK * TN * 2;
+  static constexpr int HALO_OFF = align_up(W_B, 1024);
+  static constexpr int STAGE_B = align_up(HALO_OFF + HALO_B, 1024);
+  static constexpr int SRC_B = align_up(LPIX * PIX_B, 128);
+  static constexpr int EXTRA = 1024 + 128 + (UP2 ? 2 * SRC_B : 0);  // + the barriers
+  static constexpr int STAGES = min_i(8, (SMEM_MAX - EXTRA) / STAGE_B);
+  static constexpr int BYTES = STAGES * STAGE_B + EXTRA;
+  static_assert(STAGES >= 3, "a ring of at least three stages");
+  // the epilogue's staging: 64 pixels x 64 channels a warpgroup (TRANS), or 16
+  // pixels x TN channels a warp; rows padded by 16 bytes so that a store phase
+  // hits every bank
+  static constexpr int STG_ROW = (TRANS ? 64 : TN) * 2 + 16;
+  static constexpr int STG_B = (TRANS ? 64 : TW) * STG_ROW;
+  static_assert(COPY_B % 1024 == 0, "copies keep the swizzle's phase");
+  static_assert((TRANS ? 1 : 4) * NCONS * STG_B <= HALO_B, "the staging fits in the copies");
 };
 
-// chunk j (of CPX) of halo pixel p is stored at chunk swz(p, j): any 8
-// consecutive pixels then cover the 8 bank groups of 16 bytes once
-__device__ __forceinline__ int swz(int p, int j) { return j ^ ((p / (8 / CPX)) & (CPX - 1)); }
+// what a launch computes, beside the pointers and tensor maps
+struct Geom {
+  int H, W, C, Cout, OH, OW;
+  int tiles_w, tiles_per_img, nco, ntiles, nch;
+  int relu;
+  int wtma;  // the weights come by TMA (TN >= 64, Cout % 8 == 0, w 16-byte aligned)
+  int cvec;  // the output stores 16-byte vectors (Cout % 8 == 0, out 16-byte aligned)
+};
+
+// chunk j (of 2) of pixel p of a halo copy is stored at chunk swz(p, j): the
+// 32-byte swizzle, bit 4 of the offset XOR bit 7
+__device__ __forceinline__ int swz(int p, int j) { return j ^ ((p >> 2) & 1); }
 
 // byte offset of 16-byte chunk j (output channels 8j..8j+7) of weight row r:
 // 64-channel atoms with the 128-byte swizzle; for TN = 8 one 16-byte row per k
@@ -95,35 +165,100 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
-  const int n = valid ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(n));
+// the producer warpgroup's own barrier, the consumers', and each consumer
+// warpgroup's (barrier 0 is __syncthreads')
+__device__ __forceinline__ void producer_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(NPT) : "memory");
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 2, 256;\n" ::: "memory");
 }
 
-// waits for this thread's copies, then orders them (and its plain stores)
-// before the wgmma reads of the async proxy
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+__device__ __forceinline__ void warpgroup_sync(int wg) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(3 + wg) : "memory");
+}
+
+// orders this thread's plain shared-memory stores before wgmma's reads
+__device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
 }
 
-// shared-memory descriptor of the MN-major B operand. With the 128-byte
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.expect_tx.relaxed.cta.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
+  uint32_t ok;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(ok)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return ok != 0;
+}
+
+// waits for the phase of the given parity to complete; a wait of 10 s (a lost
+// arrival) traps, a launch error, instead of hanging the stream
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  if (mbar_try_wait(bar, parity)) return;
+  uint64_t t0, t;
+  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t0));
+  while (!mbar_try_wait(bar, parity)) {
+    asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
+    if (t - t0 > 10000000000ull) __trap();
+  }
+}
+
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// shared-memory descriptor of the pixels (a halo copy): K-major with the
+// 32-byte swizzle, a row the 32 bytes of k16, groups of 8 rows 256 bytes
+// apart (SBO); the k extent lies inside one swizzle row, so LBO is unused
+__device__ __forceinline__ uint64_t x_desc(uint32_t addr) {
+  return ((addr & 0x3FFFF) >> 4) | (1ull << 16) | ((uint64_t)(256 >> 4) << 32) | (3ull << 62);
+}
+
+// shared-memory descriptor of the weights: MN-major. With the 128-byte
 // swizzle (TN >= 64): LBO = the stride between 64-channel atoms, SBO = the
 // stride between groups of 8 k-rows (1024 bytes). Without (TN = 8, one core
 // matrix wide): the next 8 k-rows start 128 bytes on, and that is the only
 // stride the k16 operand uses, so LBO and SBO both hold it.
 template <int TN>
-__device__ __forceinline__ uint64_t b_desc(uint32_t addr) {
+__device__ __forceinline__ uint64_t w_desc(uint32_t addr) {
   const uint64_t start = (addr & 0x3FFFF) >> 4;
   if constexpr (TN >= 64) {
     return start | ((uint64_t)(ATOM_B >> 4) << 16) | ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
@@ -145,367 +280,559 @@ __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
-// D (m64 x N, f32) += A (m64 x k16 bf16, registers) * B (k16 x N bf16, MN-major
-// in shared memory): per warp, d[j][0..3] is the m16n8 accumulator of
-// columns 8j..8j+7
-__device__ __forceinline__ void wgmma_n128(float (&d)[16][4], const uint32_t (&a)[4],
-                                           uint64_t desc) {
+// D (m64 x n256, f32) += A (m64 x k16, MN-major) * B (k16 x n256, K-major), the
+// transposed form: channels on M, pixels on N
+__device__ __forceinline__ void wgmma_n256t(float (&d)[32][4], uint64_t da, uint64_t db) {
   asm volatile(
       "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
-      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, "
-      "%35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, "
-      "%52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]),
-        "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]),
-        "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]),
-        "+f"(d[3][3]), "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
-        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]), "+f"(d[6][0]),
-        "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]),
-        "+f"(d[7][2]), "+f"(d[7][3]), "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]),
-        "+f"(d[8][3]), "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
-        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]), "+f"(d[11][0]),
-        "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]), "+f"(d[12][0]), "+f"(d[12][1]),
-        "+f"(d[12][2]), "+f"(d[12][3]), "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]),
-        "+f"(d[13][3]), "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
-        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "%128, %129, p, 1, 1, 1, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3]),
+        "+f"(d[16][0]), "+f"(d[16][1]), "+f"(d[16][2]), "+f"(d[16][3]),
+        "+f"(d[17][0]), "+f"(d[17][1]), "+f"(d[17][2]), "+f"(d[17][3]),
+        "+f"(d[18][0]), "+f"(d[18][1]), "+f"(d[18][2]), "+f"(d[18][3]),
+        "+f"(d[19][0]), "+f"(d[19][1]), "+f"(d[19][2]), "+f"(d[19][3]),
+        "+f"(d[20][0]), "+f"(d[20][1]), "+f"(d[20][2]), "+f"(d[20][3]),
+        "+f"(d[21][0]), "+f"(d[21][1]), "+f"(d[21][2]), "+f"(d[21][3]),
+        "+f"(d[22][0]), "+f"(d[22][1]), "+f"(d[22][2]), "+f"(d[22][3]),
+        "+f"(d[23][0]), "+f"(d[23][1]), "+f"(d[23][2]), "+f"(d[23][3]),
+        "+f"(d[24][0]), "+f"(d[24][1]), "+f"(d[24][2]), "+f"(d[24][3]),
+        "+f"(d[25][0]), "+f"(d[25][1]), "+f"(d[25][2]), "+f"(d[25][3]),
+        "+f"(d[26][0]), "+f"(d[26][1]), "+f"(d[26][2]), "+f"(d[26][3]),
+        "+f"(d[27][0]), "+f"(d[27][1]), "+f"(d[27][2]), "+f"(d[27][3]),
+        "+f"(d[28][0]), "+f"(d[28][1]), "+f"(d[28][2]), "+f"(d[28][3]),
+        "+f"(d[29][0]), "+f"(d[29][1]), "+f"(d[29][2]), "+f"(d[29][3]),
+        "+f"(d[30][0]), "+f"(d[30][1]), "+f"(d[30][2]), "+f"(d[30][3]),
+        "+f"(d[31][0]), "+f"(d[31][1]), "+f"(d[31][2]), "+f"(d[31][3])
+      : "l"(da), "l"(db), "r"(1));
 }
 
-__device__ __forceinline__ void wgmma_n64(float (&d)[8][4], const uint32_t (&a)[4],
-                                          uint64_t desc) {
+// D (m64 x n8, f32) += A (m64 x k16, K-major) * B (k16 x n8, MN-major): the
+// head's form, pixels on M
+__device__ __forceinline__ void wgmma_n8(float (&d)[1][4], uint64_t da, uint64_t db) {
   asm volatile(
       "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
-      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]),
-        "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]),
-        "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]),
-        "+f"(d[3][3]), "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
-        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]), "+f"(d[6][0]),
-        "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]),
-        "+f"(d[7][2]), "+f"(d[7][3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_n8(float (&d)[1][4], const uint32_t (&a)[4],
-                                         uint64_t desc) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %9, 0;\n"
+      "setp.ne.b32 p, %6, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p, 1, 1, 1;\n}\n"
+      "{%0, %1, %2, %3}, %4, %5, p, 1, 1, 0, 1;\n}\n"
       : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// 16 bytes (k chunk j) of halo pixel (hy, hx), hx in 0..TW+1, into every copy
+// that holds it: copy dx keeps halo columns dx .. dx + TW - 1
+__device__ __forceinline__ void put_halo(unsigned char* halo, int copy_b, int hy, int hx, int j,
+                                         uint4 v) {
+#pragma unroll
+  for (int dx = 0; dx < 3; ++dx) {
+    const int c = hx - dx;
+    if (c >= 0 && c < TW) {
+      const int p = hy * TW + c;
+      *reinterpret_cast<uint4*>(halo + dx * copy_b + p * PIX_B + swz(p, j) * 16) = v;
+    }
+  }
 }
 
 // x: [N, H, W, C]; w: [3, 3, C, Cout]; out: [N, OH, OW, Cout], all bf16, with
-// (OH, OW) = (H, W), or (2H, 2W) when UP2. cvec: the weights load and the
-// output stores as 16-byte vectors (Cout % 8 == 0, both aligned). The 64-channel up2 tile is small
-// enough in shared memory (107 KB) for two blocks an SM once its registers
-// are held to 128 a thread; that overlaps one block's loads and halo build
-// with the other's MMAs.
+// (OH, OW) = (H, W), or (2H, 2W) when UP2. VEC: x's rows are 16-byte vectors
+// (C % 8 == 0, x aligned), so the halo copies come by TMA (xmap) or up2's
+// source tile (xmap). wmap is read only when g.wtma, xmap only when VEC.
 template <int TN, bool UP2, bool VEC>
-__global__ void __launch_bounds__(NTHREADS, (TN == 64 && UP2) ? 2 : 1)
-conv3x3_bf16_mma_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
+__global__ void __launch_bounds__(NTHREADS, 1)
+conv3x3_bf16_mma_kernel(const __grid_constant__ CUtensorMap xmap,
+                        const __grid_constant__ CUtensorMap wmap,
+                        const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
                         const float* __restrict__ scale, const float* __restrict__ shift,
-                        __nv_bfloat16* __restrict__ out, int H, int W, int C, int Cout, int OH,
-                        int OW, int tiles_w, int tiles_per_img, int relu, int cvec) {
+                        __nv_bfloat16* __restrict__ out, const Geom g) {
   static_assert(TN == 128 || TN == 64 || TN == 8, "tile width");
-  constexpr int NT = TN / 8;  // n8 tiles of a warp
   using S = Tile<TN, UP2>;
-  constexpr int TH = S::TH, MT = S::MT, HPIX = S::HPIX, LPIX = S::LPIX;
+  constexpr int MT = S::MT, TH = S::TH, NS = S::STAGES, NT = TN / 8;
+  constexpr bool X_TMA = VEC && !UP2;
   extern __shared__ __align__(128) unsigned char mma_smem[];
   unsigned char* smem = mma_smem + ((1024 - (smem_u32(mma_smem) & 1023)) & 1023);
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int n = blockIdx.x / tiles_per_img;
-  const int tile = blockIdx.x - n * tiles_per_img;
-  const int oy0 = (tile / tiles_w) * TH;
-  const int ox0 = (tile % tiles_w) * TW;
-  const int co0 = blockIdx.y * TN;
-  const __nv_bfloat16* xn = x + (size_t)n * H * W * C;
   const uint32_t sbase = smem_u32(smem);
-  const __nv_bfloat16 zero = __float2bfloat16(0.f);
+  const uint32_t src_base = sbase + NS * S::STAGE_B;  // up2's two source buffers
+  const uint32_t bars = src_base + (UP2 ? 2 * S::SRC_B : 0);
+  // full: the stage's TMA bytes and an arrival from every producer thread;
+  // empty: one arrival per consumer warp
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 * (NS + s); };
+  auto src_in = [&](int b) { return bars + 8 * (2 * NS + b); };  // up2: source buffer b's TMA
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(full(s), NPT);
+      mbar_init(empty(s), 4 * NCONS);
+    }
+    mbar_init(src_in(0), 1);
+    mbar_init(src_in(1), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-  // chunk ch of the input channels (and its weight rows) into stage s
-  auto load_stage = [&](int ch, int s) {
-    const int c0 = ch * CK;
-    const uint32_t ws = sbase + s * S::STAGE_B;
-    unsigned char* ws_p = smem + s * S::STAGE_B;
-    const uint32_t xs = ws + S::W_B;
-    unsigned char* xs_p = ws_p + S::W_B;
-    // weight rows r = tap * CK + ci
-    if (cvec) {
-      for (int i = tid; i < 9 * CK * NT; i += NTHREADS) {
-        const int r = i / NT, j = i % NT;
-        const int tap = r / CK, c = c0 + r % CK, o = co0 + j * 8;
-        const bool ok = c < C && o < Cout;
-        const __nv_bfloat16* src = ok ? w + ((size_t)tap * C + c) * Cout + o : w;
-        cp_async16(ws + w_off<TN>(r, j), src, ok);
-      }
-    } else {
-      for (int i = tid; i < 9 * CK * TN; i += NTHREADS) {
-        const int r = i / TN, co = i % TN;
-        const int tap = r / CK, c = c0 + r % CK, o = co0 + co;
-        *reinterpret_cast<__nv_bfloat16*>(ws_p + w_off<TN>(r, co >> 3) + (co & 7) * 2) =
-            (c < C && o < Cout) ? w[((size_t)tap * C + c) * Cout + o] : zero;
-      }
-    }
-    // x: the halo (or, for up2, the low-resolution source tile)
-    if constexpr (!UP2) {
-      if constexpr (VEC) {
-        for (int i = tid; i < HPIX * CPX; i += NTHREADS) {
-          const int p = i / CPX, j = i % CPX;
-          const int gy = oy0 - 1 + p / HW, gx = ox0 - 1 + p % HW;
-          const int c = c0 + j * 8;
-          const bool ok = c < C && gy >= 0 && gy < H && gx >= 0 && gx < W;
-          const __nv_bfloat16* src = ok ? xn + ((size_t)gy * W + gx) * C + c : xn;
-          cp_async16(xs + p * (CK * 2) + swz(p, j) * 16, src, ok);
-        }
-      } else {
-        for (int i = tid; i < HPIX * CK; i += NTHREADS) {
-          const int p = i / CK, ci = i % CK;
-          const int gy = oy0 - 1 + p / HW, gx = ox0 - 1 + p % HW;
-          const int c = c0 + ci;
-          const bool ok = c < C && gy >= 0 && gy < H && gx >= 0 && gx < W;
-          *reinterpret_cast<__nv_bfloat16*>(xs_p + p * (CK * 2) + swz(p, ci >> 3) * 16 +
-                                            (ci & 7) * 2) =
-              ok ? xn[((size_t)gy * W + gx) * C + c] : zero;
-        }
-      }
-    } else {
-      // source rows oy0/2 - 1 .. oy0/2 + TH/2 and columns likewise, clamped
-      // into the image: a clamped row is either the edge clamp of the
-      // upsample or feeds only halo pixels outside the output, which are 0
-      const int ly0 = oy0 / 2 - 1, lx0 = ox0 / 2 - 1;
-      if constexpr (VEC) {
-        for (int i = tid; i < LPIX * CPX; i += NTHREADS) {
-          const int p = i / CPX, j = i % CPX;
-          const int gy = min(max(ly0 + p / LW, 0), H - 1);
-          const int gx = min(max(lx0 + p % LW, 0), W - 1);
-          const int c = c0 + j * 8;
-          const bool ok = c < C;
-          const __nv_bfloat16* src = ok ? xn + ((size_t)gy * W + gx) * C + c : xn;
-          cp_async16(xs + p * (CK * 2) + j * 16, src, ok);
-        }
-      } else {
-        for (int i = tid; i < LPIX * CK; i += NTHREADS) {
-          const int p = i / CK, ci = i % CK;
-          const int gy = min(max(ly0 + p / LW, 0), H - 1);
-          const int gx = min(max(lx0 + p % LW, 0), W - 1);
-          const int c = c0 + ci;
-          *reinterpret_cast<__nv_bfloat16*>(xs_p + (p * CK + ci) * 2) =
-              c < C ? xn[((size_t)gy * W + gx) * C + c] : zero;
-        }
-      }
-    }
+  const int n_mine = (g.ntiles - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x;
+  const int items = n_mine * g.nch;  // (tile, chunk) pairs of this block, in ring order
+  struct Item {
+    int n, oy0, ox0, co0, c0;
+  };
+  auto item = [&](int i) {
+    const int t = (int)blockIdx.x + (i / g.nch) * (int)gridDim.x;
+    const int rest = t / g.nco;
+    const int tile = rest % g.tiles_per_img;
+    return Item{rest / g.tiles_per_img, (tile / g.tiles_w) * TH, (tile % g.tiles_w) * TW,
+                (t - rest * g.nco) * TN, (i % g.nch) * CK};
   };
 
-  // up2: the upsampled halo from the source tile of stage s
-  auto build_halo = [&](int s) {
-    const unsigned char* src = smem + s * S::STAGE_B + S::W_B;
-    unsigned char* halo = smem + 2 * S::STAGE_B;
-    for (int i = tid; i < HPIX * CPX; i += NTHREADS) {
-      const int p = i / CPX, j = i % CPX;
-      const int hy = p / HW, hx = p % HW;
-      const int gy = oy0 - 1 + hy, gx = ox0 - 1 + hx;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (gy >= 0 && gy < OH && gx >= 0 && gx < OW) {
-        const int ty = (gy >> 1) - (oy0 / 2 - 1), tx = (gx >> 1) - (ox0 / 2 - 1);
-        const int ty1 = ty + (gy & 1), tx1 = tx + (gx & 1);
-        const uint4 q00 = *reinterpret_cast<const uint4*>(src + (ty * LW + tx) * (CK * 2) + j * 16);
-        const uint4 q10 = *reinterpret_cast<const uint4*>(src + (ty1 * LW + tx) * (CK * 2) + j * 16);
-        const uint4 q01 = *reinterpret_cast<const uint4*>(src + (ty * LW + tx1) * (CK * 2) + j * 16);
-        const uint4 q11 = *reinterpret_cast<const uint4*>(src + (ty1 * LW + tx1) * (CK * 2) + j * 16);
-        const __nv_bfloat162* a = reinterpret_cast<const __nv_bfloat162*>(&q00);
-        const __nv_bfloat162* b = reinterpret_cast<const __nv_bfloat162*>(&q10);
-        const __nv_bfloat162* c = reinterpret_cast<const __nv_bfloat162*>(&q01);
-        const __nv_bfloat162* d = reinterpret_cast<const __nv_bfloat162*>(&q11);
-        __nv_bfloat162* o = reinterpret_cast<__nv_bfloat162*>(&v);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          float2 u = __bfloat1622float2(a[e]);
-          if (gy & 1) {
-            const float2 t = __bfloat1622float2(b[e]);
-            u = make_float2((u.x + t.x) * 0.5f, (u.y + t.y) * 0.5f);
-          }
-          if (gx & 1) {
-            float2 r = __bfloat1622float2(c[e]);
-            if (gy & 1) {
-              const float2 t = __bfloat1622float2(d[e]);
-              r = make_float2((r.x + t.x) * 0.5f, (r.y + t.y) * 0.5f);
-            }
-            u = make_float2((u.x + r.x) * 0.5f, (u.y + r.y) * 0.5f);
-          }
-          o[e] = __floats2bfloat162_rn(u.x, u.y);
+  if (threadIdx.x < NPT) {
+    // ------------------------------------------------------------ producer
+    const int ptid = threadIdx.x;
+    const __nv_bfloat16 zero = __float2bfloat16(0.f);
+    // up2: the low-resolution source tile of item i (source rows oy0/2 - 1 ..
+    // oy0/2 + TH/2, columns likewise) into buffer b: one TMA box, zero outside
+    // the image, or element by element, clamped into it; the build repeats the
+    // last row and column either way
+    auto load_src = [&](int i, int b) {
+      const Item it = item(i);
+      const int ly0 = it.oy0 / 2 - 1, lx0 = it.ox0 / 2 - 1;
+      const uint32_t dst = src_base + b * S::SRC_B;
+      if constexpr (VEC) {
+        if (ptid == 0) {
+          mbar_arrive_tx(src_in(b), S::LPIX * PIX_B);
+          tma_load_4d(dst, &xmap, src_in(b), it.c0, lx0, ly0, it.n);
         }
-      }
-      *reinterpret_cast<uint4*>(halo + p * (CK * 2) + swz(p, j) * 16) = v;
-    }
-  };
-
-  float acc[MT][NT][4];
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
-
-  // output row of the warp's m16 tile mt: warpgroup g covers rows 4 * MT * g
-  // onwards, its warp q row q of each group of 4 (the m64 of a wgmma)
-  auto out_row = [&](int mt) { return (warp >> 2) * 4 * MT + 4 * mt + (warp & 3); };
-  // ldmatrix lanes: A row = pixel (lane & 15) of an output row, k half lane >> 4
-  const int l16 = lane & 15;
-  const int lhi = lane >> 4;
-  constexpr int STEPS = 9 * CK / 16;  // k16 steps of a chunk: weight rows 16 * step..
-
-  const int nch = (C + CK - 1) / CK;
-  load_stage(0, 0);
-  cp_async_commit();
-  for (int ch = 0; ch < nch; ++ch) {
-    const int s = ch & 1;
-    cp_async_wait_all();
-    __syncthreads();  // stage s is in; every warp is done with stage s ^ 1
-    if (ch + 1 < nch) load_stage(ch + 1, s ^ 1);
-    cp_async_commit();
-    const uint32_t wsm = sbase + s * S::STAGE_B;
-    uint32_t halo = wsm + S::W_B;
-    if constexpr (UP2) {
-      build_halo(s);
-      __syncthreads();
-      halo = sbase + 2 * S::STAGE_B;
-    }
-    // the A fragments of k16 step `step` (tap = step / (CK / 16)), one per m16 tile
-    auto load_a = [&](int step, uint32_t(&a)[MT][4]) {
-      const int tap = step / (CK / 16), kk = step % (CK / 16);
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-        const int hp = (out_row(mt) + tap / 3) * HW + l16 + tap % 3;
-        ldmatrix_x4(a[mt], halo + hp * (CK * 2) + swz(hp, kk * 2 + lhi) * 16);
+      } else {
+        const __nv_bfloat16* xn = x + (size_t)it.n * g.H * g.W * g.C;
+        unsigned char* d = smem + (dst - sbase);
+        for (int k = ptid; k < S::LPIX * CK; k += NPT) {
+          const int p = k / CK, ci = k % CK;
+          const int gy = min(max(ly0 + p / LW, 0), g.H - 1);
+          const int gx = min(max(lx0 + p % LW, 0), g.W - 1);
+          const int c = it.c0 + ci;
+          *reinterpret_cast<__nv_bfloat16*>(d + p * PIX_B + ci * 2) =
+              c < g.C ? xn[((size_t)gy * g.W + gx) * g.C + c] : zero;
+        }
       }
     };
-    // one step's wgmmas in flight while the next A fragments load
-    uint32_t a[2][MT][4];
-    load_a(0, a[0]);
+    if constexpr (UP2) {
+      if (items > 0) load_src(0, 0);
+    }
+    // thread 0: the stage's TMA loads, after announcing their bytes
+    auto tma_stage = [&](const Item& it, int s) {
+      const uint32_t st = sbase + s * S::STAGE_B;
+      if (g.wtma) {
 #pragma unroll
-    for (int step = 0; step < STEPS; ++step) {
-      wgmma_fence();
-      const uint64_t desc = b_desc<TN>(wsm + w_off<TN>(step * 16, 0));
+        for (int a = 0; a < TN / 64; ++a)
+          tma_load_3d(st + a * ATOM_B, &wmap, full(s), it.co0 + 64 * a, it.c0, 0);
+      }
+      if constexpr (X_TMA) {
 #pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-        if constexpr (TN == 128) {
-          wgmma_n128(acc[mt], a[step & 1][mt], desc);
-        } else if constexpr (TN == 64) {
-          wgmma_n64(acc[mt], a[step & 1][mt], desc);
+        for (int dx = 0; dx < 3; ++dx)
+          tma_load_4d(st + S::HALO_OFF + dx * S::COPY_B, &xmap, full(s), it.c0, it.ox0 - 1 + dx,
+                      it.oy0 - 1, it.n);
+      }
+    };
+    const uint32_t tx = (g.wtma ? S::W_B : 0) + (X_TMA ? S::HALO_B : 0);
+    for (int i = 0; i < items; ++i) {
+      const Item it = item(i);
+      const int s = i % NS;
+      const uint32_t par = (i / NS) & 1;
+      unsigned char* st_p = smem + s * S::STAGE_B;
+      unsigned char* halo = st_p + S::HALO_OFF;
+      if constexpr (UP2) {
+        if (i + 1 < items) load_src(i + 1, (i + 1) & 1);
+        if constexpr (VEC) {
+          mbar_wait(src_in(i & 1), (i >> 1) & 1);
         } else {
-          wgmma_n8(acc[mt], a[step & 1][mt], desc);
+          producer_sync();  // every thread's stores of the source tiles so far
+        }
+      }
+      mbar_wait(empty(s), par ^ 1);
+      if (ptid == 0 && tx) {
+        mbar_expect_tx(full(s), tx);
+        tma_stage(it, s);
+      }
+      // element-wise weights (TN = 8, or Cout % 8 != 0), written only when the
+      // stage held other ones: the head's 4 chunks fill its 4 stages once
+      if (!g.wtma && !(i >= NS && item(i - NS).c0 == it.c0 && item(i - NS).co0 == it.co0)) {
+        // weight rows r = tap * CK + ci, zero past C and Cout
+        for (int k = ptid; k < 9 * CK * TN; k += NPT) {
+          const int r = k / TN, co = k % TN;
+          const int tap = r / CK, c = it.c0 + r % CK, o = it.co0 + co;
+          *reinterpret_cast<__nv_bfloat16*>(st_p + w_off<TN>(r, co >> 3) + (co & 7) * 2) =
+              (c < g.C && o < g.Cout) ? w[((size_t)tap * g.C + c) * g.Cout + o] : zero;
+        }
+      }
+      if constexpr (UP2) {
+        // the upsampled halo from the source tile, along H, then W, in f32: source
+        // pixel (sy, sx) of the tile and its neighbours below and right give the
+        // halo's 2 x 2 block at rows 2 sy - 1 + {0, 1} and columns 2 sx - 1 + {0, 1}
+        const unsigned char* src = smem + (src_base - sbase) + (i & 1) * S::SRC_B;
+#pragma unroll 2
+        for (int k = ptid; k < S::LPIX * 2; k += NPT) {
+          const int p = k >> 1, j = k & 1;
+          const int sy = p / LW, sx = p % LW;
+          const int hy = 2 * sy - 1, hx = 2 * sx - 1;
+          // the source row below and the column right inside the image, else
+          // the upsample's edge clamp repeats this one
+          const int y1 = it.oy0 / 2 + sy < g.H ? sy + 1 : sy;
+          const int x1 = it.ox0 / 2 + sx < g.W ? sx + 1 : sx;
+          // the block's rows and columns inside the halo and the output
+          const bool r0 = hy >= 0 && it.oy0 - 1 + hy < g.OH;
+          const bool r1 = hy + 1 <= TH + 1 && it.oy0 + hy >= 0 && it.oy0 + hy < g.OH;
+          const bool c0 = hx >= 0 && it.ox0 - 1 + hx < g.OW;
+          const bool c1 = hx + 1 <= TW + 1 && it.ox0 + hx >= 0 && it.ox0 + hx < g.OW;
+          auto at = [&](int yy, int xx) {
+            return *reinterpret_cast<const uint4*>(src + (yy * LW + xx) * PIX_B + j * 16);
+          };
+          const uint4 q00 = at(sy, sx);
+          const uint4 q10 = r1 ? at(y1, sx) : q00;
+          const uint4 q01 = c1 ? at(sy, x1) : q00;
+          const uint4 q11 = r1 && c1 ? at(y1, x1) : q00;
+          uint4 v00, v10, v01, v11;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float2 a = __bfloat1622float2(reinterpret_cast<const __nv_bfloat162*>(&q00)[e]);
+            const float2 b = __bfloat1622float2(reinterpret_cast<const __nv_bfloat162*>(&q10)[e]);
+            const float2 c = __bfloat1622float2(reinterpret_cast<const __nv_bfloat162*>(&q01)[e]);
+            const float2 d = __bfloat1622float2(reinterpret_cast<const __nv_bfloat162*>(&q11)[e]);
+            const float2 u = make_float2((a.x + b.x) * 0.5f, (a.y + b.y) * 0.5f);  // odd row
+            const float2 r = make_float2((c.x + d.x) * 0.5f, (c.y + d.y) * 0.5f);
+            reinterpret_cast<__nv_bfloat162*>(&v00)[e] = __floats2bfloat162_rn(a.x, a.y);
+            reinterpret_cast<__nv_bfloat162*>(&v10)[e] = __floats2bfloat162_rn(u.x, u.y);
+            reinterpret_cast<__nv_bfloat162*>(&v01)[e] =
+                __floats2bfloat162_rn((a.x + c.x) * 0.5f, (a.y + c.y) * 0.5f);
+            reinterpret_cast<__nv_bfloat162*>(&v11)[e] =
+                __floats2bfloat162_rn((u.x + r.x) * 0.5f, (u.y + r.y) * 0.5f);
+          }
+          // halo pixels outside the output are the SAME padding: 0
+          const uint4 z = make_uint4(0u, 0u, 0u, 0u);
+          if (hy >= 0) {
+            if (hx >= 0) put_halo(halo, S::COPY_B, hy, hx, j, r0 && c0 ? v00 : z);
+            if (hx + 1 <= TW + 1) put_halo(halo, S::COPY_B, hy, hx + 1, j, r0 && c1 ? v01 : z);
+          }
+          if (hy + 1 <= TH + 1) {
+            if (hx >= 0) put_halo(halo, S::COPY_B, hy + 1, hx, j, r1 && c0 ? v10 : z);
+            if (hx + 1 <= TW + 1)
+              put_halo(halo, S::COPY_B, hy + 1, hx + 1, j, r1 && c1 ? v11 : z);
+          }
+        }
+      } else if constexpr (!VEC) {
+        // C % 8 != 0: the halo element by element
+        const __nv_bfloat16* xn = x + (size_t)it.n * g.H * g.W * g.C;
+        for (int k = ptid; k < (TH + 2) * HW * 2; k += NPT) {
+          const int p = k >> 1, j = k & 1;
+          const int hy = p / HW, hx = p % HW;
+          const int gy = it.oy0 - 1 + hy, gx = it.ox0 - 1 + hx;
+          uint4 v;
+          __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&v);
+#pragma unroll
+          for (int ci = 0; ci < 8; ++ci) {
+            const int c = it.c0 + j * 8 + ci;
+            const bool ok = c < g.C && gy >= 0 && gy < g.H && gx >= 0 && gx < g.W;
+            e[ci] = ok ? xn[((size_t)gy * g.W + gx) * g.C + c] : zero;
+          }
+          put_halo(halo, S::COPY_B, hy, hx, j, v);
+        }
+      }
+      fence_proxy_async();  // the plain stores above, before the consumers' wgmmas
+      mbar_arrive(full(s));
+      if constexpr (UP2) producer_sync();  // every thread is done with source buffer i & 1
+    }
+    return;
+  }
+
+  // -------------------------------------------------------------- consumers
+  const int cw = (threadIdx.x >> 5) - 4;  // consumer warp 0..7; warp cw & 3 of its warpgroup
+  const int wg = cw >> 2;
+  const int lane = threadIdx.x & 31;
+  // TRANS: the warpgroup's atom (64 channels) and first output row of its 256
+  // pixels; the head: its first output row
+  const int atom = TN == 128 ? wg : 0;
+  const int row0 = TN == 128 ? 0 : wg * (TH / NCONS);
+  constexpr int AM = S::TRANS ? 1 : MT, AN = S::TRANS ? 32 : NT;
+  float acc[AM][AN][4];
+  int i = 0;  // the item of the ring, as the producer counts them
+  for (int t = 0; t < n_mine; ++t) {
+    const Item tile = item(i);
+#pragma unroll
+    for (int m = 0; m < AM; ++m)
+#pragma unroll
+      for (int n = 0; n < AN; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[m][n][e] = 0.f;
+    for (int ch = 0; ch < g.nch; ++ch, ++i) {
+      const int s = i % NS;
+      mbar_wait(full(s), (i / NS) & 1);
+      const uint32_t wsm = sbase + s * S::STAGE_B, halo = wsm + S::HALO_OFF;
+      wgmma_fence();
+#pragma unroll
+      for (int tap = 0; tap < 9; ++tap) {
+        const int dy = tap / 3, dx = tap % 3;
+        const uint64_t dw = w_desc<TN>(wsm + atom * ATOM_B + w_off<TN>(tap * CK, 0));
+        // the pixels of output rows y.. are copy dx from row y + dy
+        if constexpr (S::TRANS) {
+          wgmma_n256t(acc[0], dw, x_desc(halo + dx * S::COPY_B + (row0 + dy) * TW * PIX_B));
+        } else {
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt)
+            wgmma_n8(acc[mt],
+                     x_desc(halo + dx * S::COPY_B + (row0 + 4 * mt + dy) * TW * PIX_B), dw);
         }
       }
       wgmma_commit();
-      if (step + 1 < STEPS) {
-        wgmma_wait<1>();
-        load_a(step + 1, a[(step + 1) & 1]);
-      }
+      wgmma_wait<1>();
+      // every wgmma of the previous stage is done: release it
+      if (ch > 0 && lane == 0) mbar_arrive(empty((i - 1) % NS));
     }
-    wgmma_wait<0>();  // done with stage s before any warp refills it
-  }
-  cp_async_wait_all();
-  __syncthreads();  // every warp is done with the stages: reuse them for the output tile
-  // keep the compiler from reading the accumulators above the last wgmma wait
+    wgmma_wait<0>();
+    // keep the compiler from reading the accumulators above the last wgmma wait
 #pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
+    for (int m = 0; m < AM; ++m)
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
+      for (int n = 0; n < AN; ++n)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(acc[mt][nt][e])::"memory");
+        for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(acc[m][n][e])::"memory");
 
-  // epilogue: affine + ReLU in registers, one rounding, through shared memory
-  constexpr int OST = TN + 8;  // padded row of the output tile, in elements
-  __nv_bfloat16* otile = reinterpret_cast<__nv_bfloat16*>(smem);
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt) {
-    const int nl = nt * 8 + (lane & 3) * 2;
-    const int o = co0 + nl;
-    const float s0 = o < Cout ? scale[o] : 0.f, t0 = o < Cout ? shift[o] : 0.f;
-    const float s1 = o + 1 < Cout ? scale[o + 1] : 0.f, t1 = o + 1 < Cout ? shift[o + 1] : 0.f;
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
+    // epilogue: affine + ReLU in registers, one rounding, staged in the halo
+    // copies of the tile's last stage (every consumer warp is done reading
+    // them) so that each output row goes out in 16-byte vectors; the stage is
+    // released after
+    consumer_sync();
+    const int last = (i - 1) % NS;
+    if constexpr (S::TRANS) {
+      // d[j][2h + e]: channel 16 (cw & 3) + lane / 4 + 8h of the atom, pixel
+      // 8j + 2 (lane % 4) + e of the warpgroup's 256; staged 64 pixels (4
+      // output rows) at a time, [pixel][64 channels]
+      unsigned char* stg = smem + last * S::STAGE_B + S::HALO_OFF + wg * S::STG_B;
+      const int wtid = threadIdx.x & 127;
+      const int cl = 16 * (cw & 3) + (lane >> 2);  // the thread's channel (h = 0) in the atom
+      const int oa = tile.co0 + 64 * atom;
+      float sc[2], sh[2];
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const int m = out_row(mt) * TW + (lane >> 2) + h * 8;
-        float y0 = acc[mt][nt][2 * h] * s0 + t0;
-        float y1 = acc[mt][nt][2 * h + 1] * s1 + t1;
-        if (relu) {
-          y0 = fmaxf(y0, 0.f);
-          y1 = fmaxf(y1, 0.f);
-        }
-        *reinterpret_cast<__nv_bfloat162*>(otile + m * OST + nl) = __floats2bfloat162_rn(y0, y1);
+        const int o = oa + cl + 8 * h;
+        sc[h] = o < g.Cout ? scale[o] : 0.f;
+        sh[h] = o < g.Cout ? shift[o] : 0.f;
       }
-  }
-  __syncthreads();
-  for (int i = tid; i < TH * TW * NT; i += NTHREADS) {
-    const int m = i / NT, j = i % NT;
-    const int oy = oy0 + m / TW, ox = ox0 + m % TW, o = co0 + j * 8;
-    if (oy >= OH || ox >= OW || o >= Cout) continue;
-    __nv_bfloat16* dst = out + (((size_t)n * OH + oy) * OW + ox) * Cout + o;
-    const __nv_bfloat16* src = otile + m * OST + j * 8;
-    if (cvec) {
-      *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              float y = acc[0][8 * r + jj][2 * h + e] * sc[h] + sh[h];
+              if (g.relu) y = fmaxf(y, 0.f);
+              const int px = 8 * jj + 2 * (lane & 3) + e;
+              *reinterpret_cast<__nv_bfloat16*>(stg + px * S::STG_ROW + (cl + 8 * h) * 2) =
+                  __float2bfloat16(y);
+            }
+        warpgroup_sync(wg);
+        const int oyr = tile.oy0 + row0 + 4 * r;
+        if (g.cvec) {
+          for (int k = wtid; k < 64 * 8; k += 128) {
+            const int px = k >> 3, c = k & 7;
+            const int oy = oyr + px / TW, ox = tile.ox0 + px % TW, o = oa + c * 8;
+            if (oy < g.OH && ox < g.OW && o < g.Cout)
+              *reinterpret_cast<uint4*>(out + (((size_t)tile.n * g.OH + oy) * g.OW + ox) * g.Cout +
+                                        o) =
+                  *reinterpret_cast<const uint4*>(stg + px * S::STG_ROW + c * 16);
+          }
+        } else {
+          for (int k = wtid; k < 64 * 64; k += 128) {
+            const int px = k >> 6, c = k & 63;
+            const int oy = oyr + px / TW, ox = tile.ox0 + px % TW, o = oa + c;
+            if (oy < g.OH && ox < g.OW && o < g.Cout)
+              out[(((size_t)tile.n * g.OH + oy) * g.OW + ox) * g.Cout + o] =
+                  *reinterpret_cast<const __nv_bfloat16*>(stg + px * S::STG_ROW + c * 2);
+          }
+        }
+        warpgroup_sync(wg);
+      }
     } else {
-      for (int e = 0; e < 8 && o + e < Cout; ++e) dst[e] = src[e];
+      // d[mt][0][2h + e]: pixel lane / 4 + 8h of output row 4 mt + (cw & 3) of
+      // the warpgroup's, channel 2 (lane % 4) + e; staged [16 pixels][TN] a warp
+      unsigned char* stg = smem + last * S::STAGE_B + S::HALO_OFF + cw * S::STG_B;
+      const int o = tile.co0 + (lane & 3) * 2;
+      const float s0 = o < g.Cout ? scale[o] : 0.f, t0 = o < g.Cout ? shift[o] : 0.f;
+      const float s1 = o + 1 < g.Cout ? scale[o + 1] : 0.f;
+      const float t1 = o + 1 < g.Cout ? shift[o + 1] : 0.f;
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float y0 = acc[mt][0][2 * h] * s0 + t0;
+          float y1 = acc[mt][0][2 * h + 1] * s1 + t1;
+          if (g.relu) {
+            y0 = fmaxf(y0, 0.f);
+            y1 = fmaxf(y1, 0.f);
+          }
+          *reinterpret_cast<__nv_bfloat162*>(stg + ((lane >> 2) + 8 * h) * S::STG_ROW +
+                                             (lane & 3) * 4) = __floats2bfloat162_rn(y0, y1);
+        }
+        __syncwarp();
+        const int oy = tile.oy0 + row0 + 4 * mt + (cw & 3);
+        for (int k = lane; k < TW * TN; k += 32) {
+          const int px = k / TN, c = k % TN;
+          const int ox = tile.ox0 + px, oc = tile.co0 + c;
+          if (oy < g.OH && ox < g.OW && oc < g.Cout)
+            out[(((size_t)tile.n * g.OH + oy) * g.OW + ox) * g.Cout + oc] =
+                *reinterpret_cast<const __nv_bfloat16*>(stg + px * S::STG_ROW + c * 2);
+        }
+        __syncwarp();
+      }
     }
+    fence_proxy_async();  // the staging stores, before the producer's next TMA writes here
+    if (lane == 0) mbar_arrive(empty(last));
   }
+}
+
+// cuTensorMapEncodeTiled, looked up through the CUDA runtime (no link to libcuda)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
+                                         &q) != cudaSuccess ||
+        q != cudaDriverEntryPointSuccess)
+      p = nullptr;
+#else
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) !=
+            cudaSuccess ||
+        q != cudaDriverEntryPointSuccess)
+      p = nullptr;
+#endif
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// a bf16 tensor map with 16-byte-aligned rows; dims and box innermost first
+template <int R>
+inline cudaError_t tensor_map(CUtensorMap* map, const void* base, const cuuint64_t (&dims)[R],
+                              const cuuint32_t (&box)[R], CUtensorMapSwizzle swizzle) {
+  const EncodeTiled encode = encode_tiled();
+  if (!encode) return cudaErrorNotSupported;
+  cuuint64_t strides[R - 1];
+  cuuint64_t s = dims[0] * 2;
+  for (int d = 0; d < R - 1; ++d) {
+    strides[d] = s;
+    s *= dims[d + 1];
+  }
+  cuuint32_t ones[R];
+  for (int d = 0; d < R; ++d) ones[d] = 1;
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, R, const_cast<void*>(base),
+                            dims, strides, box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+inline int sm_count() {
+  int dev = 0, n = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+    return 132;
+  return n;
 }
 
 template <int TN, bool UP2, bool VEC>
 cudaError_t launch_mma(const __nv_bfloat16* x, const __nv_bfloat16* w, const float* scale,
                        const float* shift, __nv_bfloat16* out, int N, int H, int W, int C,
-                       int Cout, int relu, int cvec, cudaStream_t stream) {
+                       int Cout, int relu, bool wvec, bool cvec, cudaStream_t stream) {
+  using S = Tile<TN, UP2>;
   auto kern = conv3x3_bf16_mma_kernel<TN, UP2, VEC>;
-  constexpr int smem = Tile<TN, UP2>::BYTES;
-  constexpr int TH = Tile<TN, UP2>::TH;
   static bool attr_set = false;
   if (!attr_set) {
-    cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    cudaError_t e =
+        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, S::BYTES);
     if (e != cudaSuccess) return e;
     attr_set = true;
   }
-  const int OH = UP2 ? 2 * H : H;
-  const int OW = UP2 ? 2 * W : W;
-  const int tiles_w = (OW + TW - 1) / TW;
-  const int tiles_per_img = ((OH + TH - 1) / TH) * tiles_w;
-  dim3 grid((unsigned)(N * tiles_per_img), (unsigned)((Cout + TN - 1) / TN));
-  kern<<<grid, NTHREADS, smem, stream>>>(x, w, scale, shift, out, H, W, C, Cout, OH, OW, tiles_w,
-                                         tiles_per_img, relu, cvec);
+  Geom g;
+  g.H = H, g.W = W, g.C = C, g.Cout = Cout;
+  g.OH = UP2 ? 2 * H : H, g.OW = UP2 ? 2 * W : W;
+  g.tiles_w = (g.OW + TW - 1) / TW;
+  g.tiles_per_img = ((g.OH + S::TH - 1) / S::TH) * g.tiles_w;
+  g.nco = (Cout + TN - 1) / TN;
+  g.ntiles = N * g.tiles_per_img * g.nco;
+  g.nch = (C + CK - 1) / CK;
+  g.relu = relu;
+  g.wtma = TN >= 64 && wvec;
+  g.cvec = cvec;
+  if (g.ntiles == 0) return cudaSuccess;
+  CUtensorMap xmap, wmap;
+  memset(&xmap, 0, sizeof(xmap));
+  memset(&wmap, 0, sizeof(wmap));
+  if (VEC) {
+    // the halo copies (32-byte swizzle), or up2's source tile (unswizzled)
+    cudaError_t e =
+        UP2 ? tensor_map<4>(&xmap, x, {(cuuint64_t)C, (cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)N},
+                            {CK, LW, S::TH / 2 + 2, 1}, CU_TENSOR_MAP_SWIZZLE_NONE)
+            : tensor_map<4>(&xmap, x, {(cuuint64_t)C, (cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)N},
+                            {CK, TW, S::TH + 2, 1}, CU_TENSOR_MAP_SWIZZLE_32B);
+    if (e != cudaSuccess) return e;
+  }
+  if (g.wtma) {
+    cudaError_t e = tensor_map<3>(&wmap, w, {(cuuint64_t)Cout, (cuuint64_t)C, 9}, {64, CK, 9},
+                                  CU_TENSOR_MAP_SWIZZLE_128B);
+    if (e != cudaSuccess) return e;
+  }
+  const int sms = sm_count();
+  const int grid = g.ntiles < sms ? g.ntiles : sms;
+  kern<<<grid, NTHREADS, S::BYTES, stream>>>(xmap, wmap, x, w, scale, shift, out, g);
   return cudaGetLastError();
 }
 
 template <bool UP2, bool VEC>
 cudaError_t dispatch_mma(const __nv_bfloat16* x, const __nv_bfloat16* w, const float* scale,
                          const float* shift, __nv_bfloat16* out, int N, int H, int W, int C,
-                         int Cout, int relu, int cvec, cudaStream_t stream) {
-  // 128 output channels a block for the wide layers, 64 for C' = 64 (a
+                         int Cout, int relu, bool wvec, bool cvec, cudaStream_t stream) {
+  // 128 output channels a tile for the wide layers, 64 for C' = 64 (a
   // 128-wide tile would idle half its lanes), 8 for the 4-channel head
   if (Cout >= 128)
-    return launch_mma<128, UP2, VEC>(x, w, scale, shift, out, N, H, W, C, Cout, relu, cvec,
+    return launch_mma<128, UP2, VEC>(x, w, scale, shift, out, N, H, W, C, Cout, relu, wvec, cvec,
                                      stream);
   if (Cout > 8)
-    return launch_mma<64, UP2, VEC>(x, w, scale, shift, out, N, H, W, C, Cout, relu, cvec,
+    return launch_mma<64, UP2, VEC>(x, w, scale, shift, out, N, H, W, C, Cout, relu, wvec, cvec,
                                     stream);
-  return launch_mma<8, UP2, VEC>(x, w, scale, shift, out, N, H, W, C, Cout, relu, cvec, stream);
+  return launch_mma<8, UP2, VEC>(x, w, scale, shift, out, N, H, W, C, Cout, relu, wvec, cvec,
+                                 stream);
 }
 
-inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+inline bool aligned(const void* p, int bytes) {
+  return (reinterpret_cast<uintptr_t>(p) & (bytes - 1)) == 0;
+}
 
 inline cudaError_t conv3x3_bf16(int up2, const void* x, const void* w, const float* scale,
                                 const float* shift, void* out, int N, int H, int W, int C,
@@ -513,17 +840,18 @@ inline cudaError_t conv3x3_bf16(int up2, const void* x, const void* w, const flo
   auto xb = static_cast<const __nv_bfloat16*>(x);
   auto wb = static_cast<const __nv_bfloat16*>(w);
   auto ob = static_cast<__nv_bfloat16*>(out);
-  const bool vec = C % 8 == 0 && aligned16(x);
-  const int cvec = Cout % 8 == 0 && aligned16(w) && aligned16(out);
+  const bool vec = C % 8 == 0 && aligned(x, 16);
+  const bool wvec = Cout % 8 == 0 && aligned(w, 16);
+  const bool cvec = Cout % 8 == 0 && aligned(out, 16);
   if (up2)
-    return vec ? dispatch_mma<true, true>(xb, wb, scale, shift, ob, N, H, W, C, Cout, relu,
-                                            cvec, stream)
+    return vec ? dispatch_mma<true, true>(xb, wb, scale, shift, ob, N, H, W, C, Cout, relu, wvec,
+                                          cvec, stream)
                : dispatch_mma<true, false>(xb, wb, scale, shift, ob, N, H, W, C, Cout, relu,
-                                             cvec, stream);
-  return vec ? dispatch_mma<false, true>(xb, wb, scale, shift, ob, N, H, W, C, Cout, relu, cvec,
-                                           stream)
-             : dispatch_mma<false, false>(xb, wb, scale, shift, ob, N, H, W, C, Cout, relu,
-                                            cvec, stream);
+                                           wvec, cvec, stream);
+  return vec ? dispatch_mma<false, true>(xb, wb, scale, shift, ob, N, H, W, C, Cout, relu, wvec,
+                                         cvec, stream)
+             : dispatch_mma<false, false>(xb, wb, scale, shift, ob, N, H, W, C, Cout, relu, wvec,
+                                          cvec, stream);
 }
 
 }  // namespace kpvid_mma

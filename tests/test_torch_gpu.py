@@ -35,9 +35,12 @@ through the kernels: 8 / 2 / 1 / 2 launches a batch, the live engine's
 outputs within one uint8 step and 1e-5 on the points.
 
 The conv shapes cover the main path at N = 2 (Config() widths), ragged
-spatial tiles, C not a multiple of the 32-channel chunk, Cout not a multiple
+spatial tiles, C not a multiple of the 16-channel stage, Cout not a multiple
 of the output-channel tile, ReLU on and off, and C % 8 != 0, which takes the
-bf16 kernel's element-wise loader.
+bf16 kernel's element-wise loader; for the persistent bf16 kernel also fewer
+tiles than blocks of a full grid (N = 1), blocks that walk many tiles
+(N = 16), a border-heavy shape at C = 40, and two launches that give the
+same bytes.
 """
 
 import contextlib
@@ -110,7 +113,11 @@ def _conv_inputs(dev, dtype, n, h, w, c, cout, seed=0):
      ((2, 128, 128, 64, 64), True), ((2, 128, 128, 64, 4), False),
      # ragged tiles, C = 40, Cout = 8, ReLU off; C = 4 and 12 (element-wise loader)
      ((2, 7, 5, 32, 64), True), ((2, 16, 16, 40, 64), False), ((2, 16, 16, 64, 8), True),
-     ((2, 16, 16, 4, 16), True), ((2, 12, 20, 12, 64), False), ((1, 9, 9, 4, 4), False)],
+     ((2, 16, 16, 4, 16), True), ((2, 12, 20, 12, 64), False), ((1, 9, 9, 4, 4), False),
+     # fewer tiles than SMs; many tiles a block; C = 40 (not a multiple of the
+     # 16-channel stage) on ragged borders; oct0 at N = 3
+     ((1, 32, 32, 256, 256), True), ((16, 64, 64, 128, 128), True),
+     ((3, 37, 29, 40, 128), True), ((3, 32, 32, 256, 256), True)],
 )
 def test_conv3x3_kernel_matches_plain(dev, dtype, shape, relu):
     x, k, s, t = _conv_inputs(dev, dtype, *shape)
@@ -126,7 +133,10 @@ def test_conv3x3_kernel_matches_plain(dev, dtype, shape, relu):
      # the main path's shapes at N = 2: oct1a, oct2a
      ((2, 32, 32, 256, 128), True), ((2, 64, 64, 128, 64), True),
      # ragged, C = 24, Cout = 72, ReLU off; C = 4 and 12 (element-wise loader)
-     ((2, 10, 6, 24, 72), False), ((2, 8, 8, 4, 16), True), ((2, 5, 7, 12, 8), False)],
+     ((2, 10, 6, 24, 72), False), ((2, 8, 8, 4, 16), True), ((2, 5, 7, 12, 8), False),
+     # many tiles a block: oct1a and oct2a at N = 16; C = 40 on ragged borders
+     ((16, 32, 32, 256, 128), True), ((16, 64, 64, 128, 64), True),
+     ((3, 19, 13, 40, 128), True)],
 )
 def test_up2_kernel_matches_plain(dev, dtype, shape, relu):
     x, k, s, t = _conv_inputs(dev, dtype, *shape, seed=1)
@@ -134,6 +144,18 @@ def test_up2_kernel_matches_plain(dev, dtype, shape, relu):
     torch.cuda.synchronize()
     assert got.shape == (shape[0], 2 * shape[1], 2 * shape[2], shape[4])
     _close(got, up2_conv3_affine_plain(x, k, s, t, relu=relu), dtype)
+
+
+@pytest.mark.parametrize("up2", [False, True])
+def test_conv_kernels_give_the_same_bytes_twice(dev, up2):
+    # oct1 b/c/d and oct2a at N = 4, bf16: no launch depends on another's timing
+    shape = (4, 64, 64, 128, 64 if up2 else 128)
+    x, k, s, t = _conv_inputs(dev, torch.bfloat16, *shape, seed=3)
+    fn = up2_conv3_affine if up2 else conv3x3_affine
+    first = fn(x, k, s, t, relu=True)
+    second = fn(x, k, s, t, relu=True)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 def test_keypoint_kernels_match_plain(dev):
