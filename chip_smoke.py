@@ -15,9 +15,11 @@ imports nothing of JAX or of the JAX package, and:
    with 4 requests (N = 4 * 32 frames): float32 with TF32 off (rtol 1e-4,
    atol 1e-4) and bfloat16 (max |kernel - plain| <= 2% of max |plain|: the
    kernel rounds once, the plain version rounds the conv output and then
-   the affine); the soft-argmax from f32 and bf16 maps and the Gaussian
-   render into f32 and bf16 maps on both grids (bf16 maps within one bf16
-   step), at the slice's shapes and at batch 32's. Every kernel is timed two
+   the affine); #1+, the split first conv's per-frame part with oct0a's
+   BN and ReLU (an f32 addend row a sample), beside the route it replaced;
+   the soft-argmax from f32 and bf16 maps and the Gaussian render into f32
+   and bf16 maps on both grids (bf16 maps within one bf16 step), at the
+   slice's shapes and at batch 32's. Every kernel is timed two
    ways: its device time (``device_ms``: launches captured in one CUDA
    graph, the replays timed with CUDA events) and a host loop of launches
    between two CUDA events (``time_ms``), which includes the host's launch
@@ -30,7 +32,7 @@ imports nothing of JAX or of the JAX package, and:
 3. serves 4 requests through ``InferenceEngine`` at ``Config()`` with random
    weights from a seed (BN statistics and biases randomized), checks the
    shapes, the uint8 outputs, the mask range, that a seed gives the same
-   video twice, and that every generate launched 8 / 2 / 1 / 2 kernels;
+   video twice, and that every generate launched 8 / 1 / 2 / 1 / 2 kernels;
    then runs the whole path in float32 through the kernels and through the
    plain versions on the card and compares them;
 4. times ``generate`` at batch 32 (1,024 frames, bfloat16), each of its
@@ -43,7 +45,7 @@ imports nothing of JAX or of the JAX package, and:
    in a spawned process of their own (PNGs drawn from seed 0, alternating
    160x120 and 120x160; npz and a few GIFs), once with the depth-1 pipeline
    and once without. It checks every response, that the launch counters
-   show 8 / 2 / 1 / 2 per dispatched batch, that a request sent twice comes
+   show 8 / 1 / 2 / 1 / 2 per dispatched batch, that a request sent twice comes
    back with the same bits, and that 4 responses, and a batch of 32 run at
    once, agree with the same requests run alone at bucket 1: images within
    0.02 (3 uint8 steps), points within 0.016 (two bf16 steps); and that
@@ -59,7 +61,7 @@ imports nothing of JAX or of the JAX package, and:
    export time; loads each, once written, in a fresh spawned process that
    imports the loader and the engine only (it checks that no model, config,
    checkpoint or JAX module was imported) and runs each bucket's batch through
-   ``ArtifactEngine``: launches 8 / 2 / 1 / 2 per batch, and the outputs
+   ``ArtifactEngine``: launches 8 / 1 / 2 / 1 / 2 per batch, and the outputs
    against ``InferenceEngine.run`` on the same batch (uint8 within one step,
    points within 1e-5; it says whether the bits are the same); times the
    batch-32 generate of the CPU-traced artifact against the live one, host
@@ -151,7 +153,7 @@ imports nothing of JAX or of the JAX package, and:
    the card and on the host. (d) the labeler on those two ranks (a stride of
    the videos each) within 1e-5 of the one-process labels of the same
    checkpoint, one #3 a chunk; evaluate on the two ranks at batch 4 (one
-   batch each, 8 / 2 / 1 / 4 launches) writes the one-process tree byte
+   batch each, 8 / 1 / 2 / 1 / 4 launches) writes the one-process tree byte
    for byte. Phase 11's two TF1 imports run beside the ranks;
 11. interop: (a) both stages' trainer weights at ``Config()`` from seed 0
    (the generators with phase 3's randomized parameters, the stage-2
@@ -162,7 +164,7 @@ imports nothing of JAX or of the JAX package, and:
    with TensorFlow unimportable (stage 2 at ``--step 1000``): every mapped
    tensor matched, none missing or mismatched; ``FinalGenerator`` on the two
    imported checkpoints gives the bits of the seed-0 parameters loaded
-   directly, with 8 / 2 / 1 / 2 launches; 3 stage-2 steps of ``train.main``
+   directly, with 8 / 1 / 2 / 1 / 2 launches; 3 stage-2 steps of ``train.main``
    from the imported ``ckpt-1000`` with finite losses, the first update at
    ``lr(0)``. (b) 16 stage-1 steps of ``train.main`` with
    ``data.decode_cache_mb`` 256, ``--profile-dir`` and (where
@@ -446,7 +448,8 @@ KERNEL_SYMBOLS = {"conv3x3": "conv3x3_", "pose_head": "pose_head_kernel",
                   "gaussian_render_backward": "render_backward_kernel"}
 
 
-REPLAY_SYMBOL = {"conv3x3_affine": "conv3x3", "up2_conv3_affine": "conv3x3"}
+REPLAY_SYMBOL = {"conv3x3_affine": "conv3x3", "conv3x3_add_affine": "conv3x3",
+                 "up2_conv3_affine": "conv3x3"}
 
 
 def replay_kernels(graph) -> dict:
@@ -527,6 +530,51 @@ def conv_shapes(m, n: int) -> tuple[list, list]:
         ("oct2a", (n, 2 * hs, 2 * hs, f1), f2, True, 1),
     ]
     return conv, up2
+
+
+def check_add_conv(gen, m, b: int, timed: bool = True) -> tuple[dict, dict]:
+    """#1+ as ``generate`` launches it for ``b`` samples: the split first
+    conv's per-frame part ([b * T, hs, hs, K] -> translator_filters, an f32
+    addend row a sample) with oct0a's affine and ReLU, f32 and bf16 against
+    the plain version; then the bf16 call's device time and, when ``timed``,
+    its host loop, the plain version's and the route it replaced (cuDNN's
+    conv, the broadcast add, the f32 affine and ReLU; device time).
+    Returns (max abs error by dtype, times)."""
+    import torch
+    import torch.nn.functional as F
+
+    from kpvid_tpu_torch import ops
+
+    t, hs, c, cout = m.n_future_frames, m.heatmap_size, m.n_pts, m.translator_filters
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        x, k, sc, sh = conv_inputs(gen, (b * t, hs, hs, c), cout, dtype)
+        add = torch.randn((b, hs, hs, cout), generator=gen, device="cuda")
+        got = ops.conv3x3_add_affine(x, k, add, sc, sh)
+        torch.cuda.synchronize()
+        errs[dtype] = compare(got, ops.conv3x3_add_affine_plain(x, k, add, sc, sh), dtype)
+        del got
+    # x, k, add, sc, sh are the bfloat16 inputs of the path
+
+    def kernel():
+        return ops.conv3x3_add_affine(x, k, add, sc, sh)
+
+    times = {"ms": device_ms(kernel)}
+    n_ops = 2.0 * b * t * hs * hs * cout * 9 * c
+    n_bytes = (2.0 * (b * t * hs * hs * (c + cout) + 9 * c * cout) + 8 * cout
+               + 4.0 * b * hs * hs * cout)
+    times["bound_ms"], times["bound_by"] = bound_ms(n_bytes, n_ops, "bfloat16")
+    if timed:
+        wc = k.permute(3, 2, 0, 1).contiguous()
+
+        def former():
+            y = F.conv2d(x.permute(0, 3, 1, 2), wc, padding=1).permute(0, 2, 3, 1)
+            y = (y.unflatten(0, (b, t)) + add.to(x.dtype)[:, None]).flatten(0, 1)
+            return torch.relu(y.float() * sc + sh).to(x.dtype)
+
+        times.update(host_loop_ms=time_ms(kernel), former_route_ms=device_ms(former),
+                     plain_ms=time_ms(lambda: ops.conv3x3_add_affine_plain(x, k, add, sc, sh)))
+    return errs, times
 
 
 def conv_inputs(gen, shape, cout, dtype):
@@ -647,6 +695,24 @@ def kernel_phase(cfg) -> dict:
               f"kernel / F.conv2d {ratio}", flush=True)
         records[name] = rec
 
+    # #1+: the split first conv with oct0a's BN and ReLU
+    rec = dict(library_ms=None, max_abs_err=0.0, max_abs_err_f32=0.0)
+    for b in (BATCH, BATCH_B32):
+        errs, times = check_add_conv(gen, m, b)
+        rec["max_abs_err"] = max(rec["max_abs_err"], errs[torch.bfloat16])
+        rec["max_abs_err_f32"] = max(rec["max_abs_err_f32"], errs[torch.float32])
+        if b == BATCH:
+            rec.update(times)
+        else:
+            rec["b32"] = times
+        print(f"conv3x3_add_affine bf16 batch {b} ({b * m.n_future_frames} frames): device "
+              f"{times['ms']:.4f} ms ({100 * times['bound_ms'] / times['ms']:.1f}% of the bound "
+              f"{times['bound_ms']:.4f} ms, {times['bound_by']}), host loop "
+              f"{times['host_loop_ms']:.4f} ms, plain {times['plain_ms']:.4f} ms, the route it "
+              f"replaced {times['former_route_ms']:.4f} ms; max abs err bf16 "
+              f"{errs[torch.bfloat16]:.3e}, f32 {errs[torch.float32]:.3e}", flush=True)
+    records["conv3x3_add_affine"] = rec
+
     # pose head: the raw heatmaps of the request images, which the path
     # hands over in the compute dtype (bf16); f32 is checked too
     rec = dict(library_ms=None, max_abs_err=0.0, max_abs_err_f32=0.0)
@@ -742,6 +808,9 @@ def bucket_kernel_phase(cfg) -> dict:
                 # x, k, sc, sh are the bfloat16 inputs of the path
                 conv_ms[name] += mult * device_ms(lambda: kernel(x, k, sc, sh, relu=relu))
                 del x
+        add_errs, add_times = check_add_conv(gen, m, b, timed=False)
+        errs["conv3x3_add_affine"] = max(add_errs.values())
+        conv_ms["conv3x3_add_affine"] = add_times["ms"]
         errs["pose_head"] = max(check_pose_head(gen, m, b)[0].values())
         errs["gaussian_render"] = max(
             max(check_render(gen, m, rows, gd)[0].values())
@@ -771,7 +840,7 @@ def sass_phase() -> None:
     found = {}
     for section in sass.split("Function : ")[1:]:
         name = section.split(maxsplit=1)[0]
-        if "conv3x3_bf16_mma_kernel" in name:
+        if "bf16_mma_kernel" in name:
             found[name] = next((op for op in ("HGMMA", "HMMA") if op in section), None)
     print(f"bf16 conv kernels in {lib.name}: " + ", ".join(
         f"{name[:60]}...: {op}" for name, op in found.items()), flush=True)
@@ -799,8 +868,8 @@ def randomized_params(cfg, seed: int) -> dict:
     return params
 
 
-EXPECTED_LAUNCHES = {"conv3x3_affine": 8, "up2_conv3_affine": 2, "pose_head": 1,
-                     "gaussian_render": 2, "pose_head_backward": 0,
+EXPECTED_LAUNCHES = {"conv3x3_affine": 8, "conv3x3_add_affine": 1, "up2_conv3_affine": 2,
+                     "pose_head": 1, "gaussian_render": 2, "pose_head_backward": 0,
                      "gaussian_render_backward": 0}
 
 
@@ -825,7 +894,7 @@ def slice_phase(cfg, params) -> dict:
     out = engine.run(images, actions, z)
     counts = ops.launch_counts()
     print(f"launches in one generate: {counts}", flush=True)
-    check(counts == EXPECTED_LAUNCHES, "launches per generate are 8 / 2 / 1 / 2")
+    check(counts == EXPECTED_LAUNCHES, "launches per generate are 8 / 1 / 2 / 1 / 2")
     t, s, k = m.n_future_frames, m.image_size, m.n_pts
     check(out["pred_im_seq"].shape == (BATCH, t, s, s, 3) and out["pred_im_seq"].dtype == np.uint8,
           f"pred_im_seq is uint8 {out['pred_im_seq'].shape}")
@@ -847,7 +916,7 @@ def slice_phase(cfg, params) -> dict:
     check(all(np.array_equal(out[key], again[key]) for key in engine.OUTPUT_KEYS),
           "the same seeds give the same videos twice")
     check(ops.launch_counts() == {name: 3 * c for name, c in EXPECTED_LAUNCHES.items()},
-          "every generate call launched 8 / 2 / 1 / 2 kernels")
+          "every generate call launched 8 / 1 / 2 / 1 / 2 kernels")
     return counts
 
 
@@ -919,9 +988,9 @@ def throughput_phase(cfg, params, card: str) -> float:
         stages = {
             "detect (pose encoder + pose_head)": lambda: s1.detect(images),
             "motion decode (LSTM)": lambda: gen.stage2.decode(z, mu.reshape(b, -1), act),
-            "split first conv (+ gaussian_render)": lambda: gen.model.split_first_conv(images, mu,
-                                                                                       fut),
-            "translator decode (conv kernels)": lambda: s1.translator(first, *heads),
+            "split first conv through oct0a's ReLU (#1+, gaussian_render)":
+                lambda: gen.model.split_first_conv(images, mu, fut),
+            "translator decode from oct0b (conv kernels)": lambda: s1.translator(first, *heads),
         }
         stages["the whole generate"] = lambda: gen.generate(images, act, z)
         for name, fn in stages.items():
@@ -954,6 +1023,7 @@ def plain_path(ops):
     for target, fn in (
         ("kpvid_tpu_torch.ops.chain.conv3x3_affine", ops.conv3x3_affine_plain),
         ("kpvid_tpu_torch.ops.chain.up2_conv3_affine", ops.up2_conv3_affine_plain),
+        ("kpvid_tpu_torch.eval.final.conv3x3_add_affine", ops.conv3x3_add_affine_plain),
         ("kpvid_tpu_torch.models.networks.pose_head", ops.heatmaps_to_keypoints),
         ("kpvid_tpu_torch.eval.final.gaussian_render", ops.render_gaussian_maps),
     ):
@@ -1154,7 +1224,7 @@ def serve_phase(cfg, params, card: str) -> dict:
         check(stats["requests_total"] == len(reqs) and batches > 0,
               f"{mode}: {len(reqs)} requests in {batches} batches")
         check(counts == {name: c * batches for name, c in EXPECTED_LAUNCHES.items()},
-              f"{mode}: launches {counts} are 8 / 2 / 1 / 2 per dispatched batch")
+              f"{mode}: launches {counts} are 8 / 1 / 2 / 1 / 2 per dispatched batch")
         outs, gifs = {}, []
         for i, (req, (_, ctype, body)) in enumerate(zip(reqs, results)):
             if req["format"] == "gif":
@@ -1445,7 +1515,7 @@ def artifact_phase(cfg, params, card: str, root: Path) -> dict:
             for b in buckets[traced_on]:
                 counts = child["launches"][str(b)]
                 check(counts == EXPECTED_LAUNCHES,
-                      f"{traced_on}-traced artifact, bucket {b}: launches {counts} are 8 / 2 / 1 / 2")
+                      f"{traced_on}-traced artifact, bucket {b}: launches {counts} are 8 / 1 / 2 / 1 / 2")
                 with np.load(out_dir / f"out_{b}.npz") as got:
                     for key in engine.OUTPUT_KEYS:
                         a, w = got[key], live[b][key]
@@ -1681,8 +1751,9 @@ TRAIN_CKPT = 20
 # where the KL term's 1/sigma is large, see tests/test_torch_gpu.py)
 STEP_LOSS_RTOL = 1e-4
 STEP_GRAD_REL = 1e-3
-EVAL_LAUNCHES = {"conv3x3_affine": 8, "up2_conv3_affine": 2, "pose_head": 1,
-                 "gaussian_render": 4, "pose_head_backward": 0, "gaussian_render_backward": 0}
+EVAL_LAUNCHES = {"conv3x3_affine": 8, "conv3x3_add_affine": 1, "up2_conv3_affine": 2,
+                 "pose_head": 1, "gaussian_render": 4, "pose_head_backward": 0,
+                 "gaussian_render_backward": 0}
 
 
 def train_config(cfg, root: Path, name: str, log: str, data: dict | None = None,
@@ -2280,7 +2351,7 @@ def evaluate_phase(cfg, card: str, root: Path) -> dict:
         check(stats["samples"] == 8 and stats["batches"] == 1
               and counts == {k: v * stats["batches"] for k, v in EVAL_LAUNCHES.items()},
               f"evaluate wrote 8 samples in {stats['batches']} batch; launches {counts} are "
-              "8 / 2 / 1 / 4 per batch")
+              "8 / 1 / 2 / 1 / 4 per batch")
         per_batch = {k: v / stats["batches"] for k, v in counts.items()}
         files = {p.relative_to(root / name).as_posix(): p.read_bytes()
                  for p in sorted((root / name).rglob("*.png"))}
@@ -2814,7 +2885,7 @@ def dp_ranks_phase(cfg, card: str, root: Path, rep: dict) -> dict:
           and all(i["evaluate"]["launches"] == EVAL_LAUNCHES for i in infos)
           and sorted(got) == sorted(want) and all(got[k] == want[k] for k in want)
           and len(want) == 8 * (2 + 5 * m.n_future_frames),
-          f"evaluate on 2 ranks at batch 4 (one batch each, 8 / 2 / 1 / 4 launches) writes the "
+          f"evaluate on 2 ranks at batch 4 (one batch each, 8 / 1 / 2 / 1 / 4 launches) writes the "
           f"one-process tree byte for byte ({len(want)} PNGs)")
     rep.update(spawn_seconds=spawn_s, label_gap=label_gap,
                rank_label=[i["label"] for i in infos], rank_evaluate=[i["evaluate"] for i in infos])
@@ -3470,7 +3541,7 @@ def tp_mesh_phase(cfg, params, card: str, root: Path) -> dict:
         n = eng.n_data
         where = "the one device" if devices is None else [str(d) for d in devices]
         check(counts == {k: v * n for k, v in EXPECTED_LAUNCHES.items()},
-              f"engine over {where}: launches {counts}, 8 / 2 / 1 / 2 per replica batch of "
+              f"engine over {where}: launches {counts}, 8 / 1 / 2 / 1 / 2 per replica batch of "
               f"{b // n}")
         if n == 1:
             same = [k for k in want if np.array_equal(got[k], want[k])]
@@ -3580,7 +3651,7 @@ def evaluate_mesh_checks(root: Path, s1_dir: str, ck2: str) -> dict:
                                    str(root / name), "--seed", str(seed), "--mesh"])
             counts = ops.launch_counts()
         check(stats["batches"] == 1 and counts == {k: 2 * v for k, v in EVAL_LAUNCHES.items()},
-              f"evaluate --mesh over two replicas ({name}): launches {counts}, 8 / 2 / 1 / 4 per "
+              f"evaluate --mesh over two replicas ({name}): launches {counts}, 8 / 1 / 2 / 1 / 4 per "
               "replica batch of 4")
         trees[name] = tree_bytes(root / name)
     got, want = trees["eval_mesh2_delayed"], trees["eval_mesh2"]
@@ -4139,6 +4210,10 @@ KERNEL_META = {
                        "kpvid_tpu/ops/pallas_conv.py:158"),
     "up2_conv3_affine": ("cuda", "kpvid_tpu_torch/csrc/conv3x3_mma.cuh",
                          "kpvid_tpu/ops/pallas_conv.py:434"),
+    # no TPU kernel: XLA's split first conv and oct0a's BN + ReLU
+    "conv3x3_add_affine": ("cuda", "kpvid_tpu_torch/csrc/conv3x3_mma.cuh",
+                           "kpvid_tpu/eval/final.py::_split_first_conv, "
+                           "kpvid_tpu/ops/pallas_chain.py:90"),
     "pose_head": ("cuda", "kpvid_tpu_torch/csrc/keypoint.cu",
                   "kpvid_tpu/ops/pallas_kernels.py:92"),
     "gaussian_render": ("cuda", "kpvid_tpu_torch/csrc/keypoint.cu",

@@ -4,6 +4,9 @@
 // Replaces two TPU kernels of kpvid_tpu/ops/pallas_conv.py:
 //   conv3x3_affine    (pl.pallas_call at pallas_conv.py:158)
 //   up2_conv3_affine  (pl.pallas_call at pallas_conv.py:434)
+// and, with an f32 addend read in the epilogue (conv3x3_add_affine, #1+), the
+// translator's split first conv with oct0a's BN + ReLU, which the JAX path
+// leaves to XLA (conv3x3_mma.cuh says more).
 // The second is the same kernel with another input loader: it builds the
 // TF1-legacy 2x upsample of x (out[2i] = x[i], out[2i+1] = (x[i] + x[i+1]) / 2,
 // edge-clamped) straight into the shared-memory halo tile, so it is exact on
@@ -36,10 +39,12 @@ constexpr int HALO = (TH + 2) * (TW + 2);
 
 // x: [N, H, W, C]; w: [3, 3, C, Cout]; out: [N, OH, OW, Cout] with
 // (OH, OW) = (H, W), or (2H, 2W) when UP2 (the conv then runs on the
-// upsampled input).
+// upsampled input). add: null, or (not UP2) the f32 addend [N / frames, OH,
+// OW, Cout] added to the conv before the affine.
 template <int TCO, int CO_T, int PX, bool UP2>
 __global__ void __launch_bounds__(NTHREADS)
 conv3x3_affine_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                      const float* __restrict__ add, int frames,
                       const float* __restrict__ scale, const float* __restrict__ shift,
                       float* __restrict__ out, int H, int W, int C, int Cout, int OH, int OW,
                       int tiles_w, int tiles_per_img, int relu) {
@@ -146,11 +151,12 @@ conv3x3_affine_kernel(const float* __restrict__ x, const float* __restrict__ w,
     const int ox = ox0 + pix % TW;
     if (oy >= OH || ox >= OW) continue;
     float* op = out + (((size_t)n * OH + oy) * OW + ox) * Cout;
+    const float* ap = add ? add + (((size_t)(n / frames) * OH + oy) * OW + ox) * Cout : nullptr;
 #pragma unroll
     for (int j = 0; j < CO_T; ++j) {
       const int o = co0 + cg * CO_T + j;
       if (o < Cout) {
-        float y = acc[p][j] * scale[o] + shift[o];
+        float y = (ap ? acc[p][j] + ap[o] : acc[p][j]) * scale[o] + shift[o];
         if (relu) y = fmaxf(y, 0.f);
         op[o] = y;
       }
@@ -159,9 +165,9 @@ conv3x3_affine_kernel(const float* __restrict__ x, const float* __restrict__ w,
 }
 
 template <int TCO, int CO_T, int PX, bool UP2>
-cudaError_t launch(const float* x, const float* w, const float* scale, const float* shift,
-                   float* out, int N, int H, int W, int C, int Cout, int relu,
-                   cudaStream_t stream) {
+cudaError_t launch(const float* x, const float* w, const float* add, int frames,
+                   const float* scale, const float* shift, float* out, int N, int H, int W, int C,
+                   int Cout, int relu, cudaStream_t stream) {
   auto kern = conv3x3_affine_kernel<TCO, CO_T, PX, UP2>;
   const size_t smem = (size_t)(CI * HALO + CI * 9 * TCO) * sizeof(float);
   static bool attr_set = false;
@@ -176,20 +182,22 @@ cudaError_t launch(const float* x, const float* w, const float* scale, const flo
   const int tiles_w = (OW + TW - 1) / TW;
   const int tiles_per_img = ((OH + TH - 1) / TH) * tiles_w;
   dim3 grid((unsigned)(N * tiles_per_img), (unsigned)((Cout + TCO - 1) / TCO));
-  kern<<<grid, NTHREADS, smem, stream>>>(x, w, scale, shift, out, H, W, C, Cout, OH, OW,
-                                         tiles_w, tiles_per_img, relu);
+  kern<<<grid, NTHREADS, smem, stream>>>(x, w, add, frames, scale, shift, out, H, W, C, Cout, OH,
+                                         OW, tiles_w, tiles_per_img, relu);
   return cudaGetLastError();
 }
 
 template <bool UP2>
-cudaError_t dispatch_width(const float* x, const float* w, const float* scale,
-                           const float* shift, float* out, int N, int H, int W, int C,
-                           int Cout, int relu, cudaStream_t stream) {
+cudaError_t dispatch_width(const float* x, const float* w, const float* add, int frames,
+                           const float* scale, const float* shift, float* out, int N, int H,
+                           int W, int C, int Cout, int relu, cudaStream_t stream) {
   // wide layers: 64 output channels a block, 4 pixels x 16 channels a thread;
   // narrow ones (the 4-channel crude+mask head): 4 channels, 1 pixel a thread
   if (Cout >= 64)
-    return launch<64, 16, 4, UP2>(x, w, scale, shift, out, N, H, W, C, Cout, relu, stream);
-  return launch<4, 4, 1, UP2>(x, w, scale, shift, out, N, H, W, C, Cout, relu, stream);
+    return launch<64, 16, 4, UP2>(x, w, add, frames, scale, shift, out, N, H, W, C, Cout, relu,
+                                  stream);
+  return launch<4, 4, 1, UP2>(x, w, add, frames, scale, shift, out, N, H, W, C, Cout, relu,
+                              stream);
 }
 
 }  // namespace
@@ -197,21 +205,27 @@ cudaError_t dispatch_width(const float* x, const float* w, const float* scale,
 extern "C" {
 
 // dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores). up2: 0 =
-// conv3x3_affine, 1 = up2_conv3_affine. Returns the cudaError_t of the launch
-// (0 on success).
-int kpvid_conv3x3_affine(int dtype, int up2, const void* x, const void* w,
-                         const float* scale, const float* shift, void* out, int N, int H,
-                         int W, int C, int Cout, int relu, void* stream) {
+// conv3x3_affine, 1 = up2_conv3_affine. add: null, or (with up2 = 0, for
+// conv3x3_add_affine) the f32 addend [N / frames, H, W, Cout], whose row n /
+// frames is added to output image n before the affine. Returns the
+// cudaError_t of the launch (0 on success).
+int kpvid_conv3x3_affine(int dtype, int up2, const void* x, const void* w, const float* add,
+                         int frames, const float* scale, const float* shift, void* out, int N,
+                         int H, int W, int C, int Cout, int relu, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (add && (up2 || frames <= 0 || N % frames != 0)) return (int)cudaErrorInvalidValue;
   if (dtype == 0) {
     auto xf = static_cast<const float*>(x);
     auto wf = static_cast<const float*>(w);
     auto of = static_cast<float*>(out);
-    return up2 ? dispatch_width<true>(xf, wf, scale, shift, of, N, H, W, C, Cout, relu, s)
-               : dispatch_width<false>(xf, wf, scale, shift, of, N, H, W, C, Cout, relu, s);
+    return up2 ? dispatch_width<true>(xf, wf, add, frames, scale, shift, of, N, H, W, C, Cout,
+                                      relu, s)
+               : dispatch_width<false>(xf, wf, add, frames, scale, shift, of, N, H, W, C, Cout,
+                                       relu, s);
   }
   if (dtype == 1)
-    return kpvid_mma::conv3x3_bf16(up2, x, w, scale, shift, out, N, H, W, C, Cout, relu, s);
+    return kpvid_mma::conv3x3_bf16(up2, x, w, add, frames, scale, shift, out, N, H, W, C, Cout,
+                                   relu, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -2,7 +2,8 @@
 // implicit GEMM on Hopper's tensor cores (bf16 in, f32 accumulation). It
 // replaces the TPU kernels conv3x3_affine (kpvid_tpu/ops/pallas_conv.py:158,
 // #1) and up2_conv3_affine (pallas_conv.py:434, #2): one template, UP2 picks
-// the input loader.
+// the input loader. ADD (conv3x3_add_bf16_mma_kernel, #1+) adds an f32 addend
+// in the epilogue, see there.
 //
 // Design: a persistent, warp-specialised kernel. The grid is one block an SM
 // (fewer when there are fewer tiles); block b walks the output tiles b, b +
@@ -82,6 +83,36 @@
 // registers, rounds once to bf16 and stages the tile in its last stage (held
 // until then, while the producer fills the others with the next tile), from
 // where each output row goes out in 16-byte vectors.
+//
+// #1+ (ADD, kpvid::conv3x3_add_affine) replaces no TPU kernel: the JAX path
+// leaves the split first conv of the translator to XLA (kpvid_tpu/eval/
+// final.py::_split_first_conv: a per-frame conv, a broadcast add of each
+// sample's part, then oct0a's BN + ReLU in kpvid_tpu/ops/pallas_chain.py:90).
+// Here that is one launch: the same main loop, and an epilogue that reads the
+// f32 addend of the tile's sample (frame n takes addend row n / frames) and
+// applies (acc + addend) * scale + shift, then the ReLU, before the one
+// rounding. The addend adds 4 bytes an output element to the bytes a tile
+// moves, served mostly from L2 (the 32 frames of a sample are neighbouring
+// tiles); at the split conv's C = 40 the main loop is 3 stages a tile, so the
+// read is not hidden behind wgmma by itself. Read in the accumulator's layout
+// (two channels 8 apart, pixels 2 apart, a thread) it is 128 scattered loads a
+// thread and a tile, and issuing it from the consumers, even as cp.async,
+// takes registers the 128 accumulators do not leave (ptxas spilled; 1.69 and
+// 1.26 ms at the split conv's shape against #1's 0.50). So the producer
+// warpgroup's last warp fetches it (the stages go on from its other three):
+// each consumer warpgroup has a ring of ANB buffers, one output row of its 256
+// pixels (16 pixels x 64 channels, f32) each, behind full/empty mbarriers like
+// the stages'; a row is two TMA boxes {32 channels, 16 pixels} with the
+// 128-byte swizzle (chunk j of pixel p at j ^ (p % 8)), so that the epilogue's
+// reads (8 channels of 4 pixels 2 apart a warp) hit every bank once, and the
+// warp runs ANB rows ahead of the epilogue, into the next tile's first rows
+// during its main loop. The rings take the third stage's shared memory: two
+// stages, 12 rows a ring (0.79 ms; three stages and 4 rows spilled and ran
+// 0.80, 8 rows 0.79: what is left over #1 is the epilogue's reads and waits
+// on the rows' arrival, not the ring's depth). Two stages suit the split
+// conv's 3 stages a tile; a long K would want more. An addend whose rows TMA
+// cannot stride (Cout % 4 != 0) is copied element by element by the same warp
+// into the same layout.
 
 #pragma once
 
@@ -103,14 +134,16 @@ constexpr int NPT = 128;  // producer threads: one warpgroup
 constexpr int NCONS = 2;  // consumer warpgroups
 constexpr int NTHREADS = NPT + 128 * NCONS;
 constexpr int SMEM_MAX = 232448;  // 227 KB, a block's most
+constexpr int ANB_MAX = 12;  // ADD: rows of an addend ring
 
 constexpr int align_up(int b, int a) { return (b + a - 1) / a * a; }
 constexpr int min_i(int a, int b) { return a < b ? a : b; }
 
 // the tile of a block and its shared memory: STAGES stages of [weights][three
 // halo copies] (1024-byte aligned, for the swizzles), up2's two source
-// buffers, the barriers, and slack to align the base
-template <int TN, bool UP2>
+// buffers, the barriers, slack to align the base, and (ADD, TN >= 64) the
+// addend rings of the consumer warpgroups in what is left
+template <int TN, bool UP2, bool ADD = false>
 struct Tile {
   // TN >= 64: channels on wgmma's M (64 an atom), the tile's pixels on N (256 a
   // warpgroup); the head: pixels on M, MT m64 tiles of 4 output rows a warpgroup
@@ -125,9 +158,20 @@ struct Tile {
   static constexpr int STAGE_B = align_up(HALO_OFF + HALO_B, 1024);
   static constexpr int SRC_B = align_up(LPIX * PIX_B, 128);
   static constexpr int EXTRA = 1024 + 128 + (UP2 ? 2 * SRC_B : 0);  // + the barriers
-  static constexpr int STAGES = min_i(8, (SMEM_MAX - EXTRA) / STAGE_B);
-  static constexpr int BYTES = STAGES * STAGE_B + EXTRA;
-  static_assert(STAGES >= 3, "a ring of at least three stages");
+  // ADD (TRANS): two stages, and after them each consumer warpgroup's ring of
+  // ANB addend buffers (one output row: 16 pixels x 64 channels, f32, two
+  // 1024-byte-aligned halves of 32 channels) and their barriers
+  static constexpr bool ARING = ADD && TRANS;
+  static constexpr int STAGES = ARING ? 2 : min_i(8, (SMEM_MAX - EXTRA) / STAGE_B);
+  static constexpr int AROW_B = TW * 64 * 4;
+  static constexpr int ABAR_B = 512;
+  static constexpr int ANB =
+      ARING ? min_i(ANB_MAX, (SMEM_MAX - STAGES * STAGE_B - EXTRA - ABAR_B) / (NCONS * AROW_B))
+            : 0;
+  static constexpr int ADD_B = ARING ? ANB * NCONS * AROW_B + ABAR_B : 0;
+  static constexpr int BYTES = STAGES * STAGE_B + EXTRA + ADD_B;
+  static_assert(STAGES >= (ARING ? 2 : 3), "a ring of at least three stages (two with ADD)");
+  static_assert(!ARING || (ANB >= 2 && 2 * NCONS * ANB * 8 <= ABAR_B), "the addend ring");
   // the epilogue's staging: 64 pixels x 64 channels a warpgroup (TRANS), or 16
   // pixels x TN channels a warp; rows padded by 16 bytes so that a store phase
   // hits every bank
@@ -144,6 +188,9 @@ struct Geom {
   int relu;
   int wtma;  // the weights come by TMA (TN >= 64, Cout % 8 == 0, w 16-byte aligned)
   int cvec;  // the output stores 16-byte vectors (Cout % 8 == 0, out 16-byte aligned)
+  const float* add;  // ADD: the f32 addend [N / frames, OH, OW, Cout]
+  int frames;        // ADD: output images per addend row
+  int atma;          // ADD: the addend comes by TMA (amap; Cout % 4 == 0, add 16-byte aligned)
 };
 
 // chunk j (of 2) of pixel p of a halo copy is stored at chunk swz(p, j): the
@@ -360,35 +407,56 @@ __device__ __forceinline__ void put_halo(unsigned char* halo, int copy_b, int hy
 // x: [N, H, W, C]; w: [3, 3, C, Cout]; out: [N, OH, OW, Cout], all bf16, with
 // (OH, OW) = (H, W), or (2H, 2W) when UP2. VEC: x's rows are 16-byte vectors
 // (C % 8 == 0, x aligned), so the halo copies come by TMA (xmap) or up2's
-// source tile (xmap). wmap is read only when g.wtma, xmap only when VEC.
-template <int TN, bool UP2, bool VEC>
-__global__ void __launch_bounds__(NTHREADS, 1)
-conv3x3_bf16_mma_kernel(const __grid_constant__ CUtensorMap xmap,
-                        const __grid_constant__ CUtensorMap wmap,
-                        const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
-                        const float* __restrict__ scale, const float* __restrict__ shift,
-                        __nv_bfloat16* __restrict__ out, const Geom g) {
+// source tile (xmap). wmap is read only when g.wtma, xmap only when VEC. ADD:
+// the epilogue adds g.add's f32 value at each output element of the sample
+// (amap: its tensor map, read when g.atma and TN >= 64). The body of the two
+// kernels below, which name the two ops' launches apart.
+template <int TN, bool UP2, bool VEC, bool ADD>
+__device__ __forceinline__ void conv3x3_mma_body(const CUtensorMap& xmap, const CUtensorMap& wmap,
+                                                 const CUtensorMap& amap,
+                                                 const __nv_bfloat16* __restrict__ x,
+                                                 const __nv_bfloat16* __restrict__ w,
+                                                 const float* __restrict__ scale,
+                                                 const float* __restrict__ shift,
+                                                 __nv_bfloat16* __restrict__ out, const Geom g) {
   static_assert(TN == 128 || TN == 64 || TN == 8, "tile width");
-  using S = Tile<TN, UP2>;
+  static_assert(!(ADD && UP2), "the addend has no upsampled form");
+  using S = Tile<TN, UP2, ADD>;
   constexpr int MT = S::MT, TH = S::TH, NS = S::STAGES, NT = TN / 8;
   constexpr bool X_TMA = VEC && !UP2;
   extern __shared__ __align__(128) unsigned char mma_smem[];
   unsigned char* smem = mma_smem + ((1024 - (smem_u32(mma_smem) & 1023)) & 1023);
   const uint32_t sbase = smem_u32(smem);
-  const uint32_t src_base = sbase + NS * S::STAGE_B;  // up2's two source buffers
+  const uint32_t ring_base = sbase + NS * S::STAGE_B;  // ADD: the addend rings
+  const uint32_t abars = ring_base + S::ANB * NCONS * S::AROW_B;
+  const uint32_t src_base = ring_base + S::ADD_B;  // up2's two source buffers
   const uint32_t bars = src_base + (UP2 ? 2 * S::SRC_B : 0);
-  // full: the stage's TMA bytes and an arrival from every producer thread;
-  // empty: one arrival per consumer warp
+  // ADD: the producer threads that fill the stages; its last warp fetches the
+  // addend
+  constexpr int NPS = S::ARING ? NPT - 32 : NPT;
+  // full: the stage's TMA bytes and an arrival from every stage producer
+  // thread; empty: one arrival per consumer warp
   auto full = [&](int s) { return bars + 8 * s; };
   auto empty = [&](int s) { return bars + 8 * (NS + s); };
   auto src_in = [&](int b) { return bars + 8 * (2 * NS + b); };  // up2: source buffer b's TMA
+  // ADD: consumer warpgroup w's addend buffer s and its barriers: afull (the
+  // TMA bytes, or the fetching warp's one arrival), aempty (one arrival per
+  // consumer warp of w)
+  auto abuf = [&](int w, int s) { return ring_base + (w * S::ANB + s) * S::AROW_B; };
+  auto afull = [&](int w, int s) { return abars + 8 * (w * S::ANB + s); };
+  auto aempty = [&](int w, int s) { return abars + 8 * ((NCONS + w) * S::ANB + s); };
   if (threadIdx.x == 0) {
     for (int s = 0; s < NS; ++s) {
-      mbar_init(full(s), NPT);
+      mbar_init(full(s), NPS);
       mbar_init(empty(s), 4 * NCONS);
     }
     mbar_init(src_in(0), 1);
     mbar_init(src_in(1), 1);
+    for (int w = 0; w < NCONS; ++w)
+      for (int s = 0; s < S::ANB; ++s) {
+        mbar_init(afull(w, s), 1);
+        mbar_init(aempty(w, s), 4);
+      }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
@@ -409,6 +477,50 @@ conv3x3_bf16_mma_kernel(const __grid_constant__ CUtensorMap xmap,
   if (threadIdx.x < NPT) {
     // ------------------------------------------------------------ producer
     const int ptid = threadIdx.x;
+    if constexpr (S::ARING) {
+      if (ptid >= NPS) {
+        // the addend: for each tile of the block, output row q of consumer
+        // warpgroup w's 256 pixels (channels 64 w.. for TN = 128, rows 16 w..
+        // for TN = 64) into w's ring, row R = 16 t + q in buffer R % ANB
+        const int lane = ptid & 31;
+        for (int t = 0; t < n_mine; ++t) {
+          const Item tl = item(t * g.nch);
+          const int ns = tl.n / g.frames;
+          for (int q = 0; q < 16; ++q) {
+            const int R = 16 * t + q, s = R % S::ANB;
+            for (int w = 0; w < NCONS; ++w) {
+              const int oy = tl.oy0 + (TN == 128 ? 0 : 16 * w) + q;
+              const int oa = tl.co0 + (TN == 128 ? 64 * w : 0);
+              mbar_wait(aempty(w, s), ((R / S::ANB) & 1) ^ 1);
+              if (g.atma) {
+                if (lane == 0) {
+                  mbar_arrive_tx(afull(w, s), S::AROW_B);
+                  tma_load_4d(abuf(w, s), &amap, afull(w, s), oa, tl.ox0, oy, ns);
+                  tma_load_4d(abuf(w, s) + S::AROW_B / 2, &amap, afull(w, s), oa + 32, tl.ox0, oy,
+                              ns);
+                }
+              } else {
+                // element by element, zero outside the image and past Cout
+                unsigned char* b = smem + (abuf(w, s) - sbase);
+                const float* img = g.add + (size_t)ns * g.OH * g.OW * g.Cout;
+                for (int k = lane; k < TW * 64; k += 32) {
+                  const int px = k >> 6, ch = k & 63;
+                  const int ox = tl.ox0 + px, o = oa + ch;
+                  const float v = oy < g.OH && ox < g.OW && o < g.Cout
+                                      ? img[((size_t)oy * g.OW + ox) * g.Cout + o]
+                                      : 0.f;
+                  *reinterpret_cast<float*>(b + (ch >> 5) * (S::AROW_B / 2) + px * 128 +
+                                            ((((ch & 31) >> 2) ^ (px & 7)) << 4) + (ch & 3) * 4) = v;
+                }
+                __syncwarp();
+                if (lane == 0) mbar_arrive(afull(w, s));
+              }
+            }
+          }
+        }
+        return;
+      }
+    }
     const __nv_bfloat16 zero = __float2bfloat16(0.f);
     // up2: the low-resolution source tile of item i (source rows oy0/2 - 1 ..
     // oy0/2 + TH/2, columns likewise) into buffer b: one TMA box, zero outside
@@ -426,7 +538,7 @@ conv3x3_bf16_mma_kernel(const __grid_constant__ CUtensorMap xmap,
       } else {
         const __nv_bfloat16* xn = x + (size_t)it.n * g.H * g.W * g.C;
         unsigned char* d = smem + (dst - sbase);
-        for (int k = ptid; k < S::LPIX * CK; k += NPT) {
+        for (int k = ptid; k < S::LPIX * CK; k += NPS) {
           const int p = k / CK, ci = k % CK;
           const int gy = min(max(ly0 + p / LW, 0), g.H - 1);
           const int gx = min(max(lx0 + p % LW, 0), g.W - 1);
@@ -478,7 +590,7 @@ conv3x3_bf16_mma_kernel(const __grid_constant__ CUtensorMap xmap,
       // stage held other ones: the head's 4 chunks fill its 4 stages once
       if (!g.wtma && !(i >= NS && item(i - NS).c0 == it.c0 && item(i - NS).co0 == it.co0)) {
         // weight rows r = tap * CK + ci, zero past C and Cout
-        for (int k = ptid; k < 9 * CK * TN; k += NPT) {
+        for (int k = ptid; k < 9 * CK * TN; k += NPS) {
           const int r = k / TN, co = k % TN;
           const int tap = r / CK, c = it.c0 + r % CK, o = it.co0 + co;
           *reinterpret_cast<__nv_bfloat16*>(st_p + w_off<TN>(r, co >> 3) + (co & 7) * 2) =
@@ -491,7 +603,7 @@ conv3x3_bf16_mma_kernel(const __grid_constant__ CUtensorMap xmap,
         // halo's 2 x 2 block at rows 2 sy - 1 + {0, 1} and columns 2 sx - 1 + {0, 1}
         const unsigned char* src = smem + (src_base - sbase) + (i & 1) * S::SRC_B;
 #pragma unroll 2
-        for (int k = ptid; k < S::LPIX * 2; k += NPT) {
+        for (int k = ptid; k < S::LPIX * 2; k += NPS) {
           const int p = k >> 1, j = k & 1;
           const int sy = p / LW, sx = p % LW;
           const int hy = 2 * sy - 1, hx = 2 * sx - 1;
@@ -542,7 +654,7 @@ conv3x3_bf16_mma_kernel(const __grid_constant__ CUtensorMap xmap,
       } else if constexpr (!VEC) {
         // C % 8 != 0: the halo element by element
         const __nv_bfloat16* xn = x + (size_t)it.n * g.H * g.W * g.C;
-        for (int k = ptid; k < (TH + 2) * HW * 2; k += NPT) {
+        for (int k = ptid; k < (TH + 2) * HW * 2; k += NPS) {
           const int p = k >> 1, j = k & 1;
           const int hy = p / HW, hx = p % HW;
           const int gy = it.oy0 - 1 + hy, gx = it.ox0 - 1 + hx;
@@ -573,6 +685,7 @@ conv3x3_bf16_mma_kernel(const __grid_constant__ CUtensorMap xmap,
   const int atom = TN == 128 ? wg : 0;
   const int row0 = TN == 128 ? 0 : wg * (TH / NCONS);
   constexpr int AM = S::TRANS ? 1 : MT, AN = S::TRANS ? 32 : NT;
+  const int wtid = threadIdx.x & 127;
   float acc[AM][AN][4];
   int i = 0;  // the item of the ring, as the producer counts them
   for (int t = 0; t < n_mine; ++t) {
@@ -627,7 +740,6 @@ conv3x3_bf16_mma_kernel(const __grid_constant__ CUtensorMap xmap,
       // 8j + 2 (lane % 4) + e of the warpgroup's 256; staged 64 pixels (4
       // output rows) at a time, [pixel][64 channels]
       unsigned char* stg = smem + last * S::STAGE_B + S::HALO_OFF + wg * S::STG_B;
-      const int wtid = threadIdx.x & 127;
       const int cl = 16 * (cw & 3) + (lane >> 2);  // the thread's channel (h = 0) in the atom
       const int oa = tile.co0 + 64 * atom;
       float sc[2], sh[2];
@@ -639,20 +751,45 @@ conv3x3_bf16_mma_kernel(const __grid_constant__ CUtensorMap xmap,
       }
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
+        const int oyr = tile.oy0 + row0 + 4 * r;
+        // ADD: the addend buffer of output row 4 r + jj / 2 of the warpgroup's
+        [[maybe_unused]] int slot = 0;
+        [[maybe_unused]] const unsigned char* arow = nullptr;
 #pragma unroll
-        for (int jj = 0; jj < 8; ++jj)
+        for (int jj = 0; jj < 8; ++jj) {
+          if constexpr (ADD) {
+            if (jj % 2 == 0) {
+              const int R = 16 * t + 4 * r + jj / 2;
+              slot = R % S::ANB;
+              mbar_wait(afull(wg, slot), (R / S::ANB) & 1);
+              arow = smem + (abuf(wg, slot) - sbase);
+            }
+          }
 #pragma unroll
           for (int h = 0; h < 2; ++h)
 #pragma unroll
             for (int e = 0; e < 2; ++e) {
-              float y = acc[0][8 * r + jj][2 * h + e] * sc[h] + sh[h];
-              if (g.relu) y = fmaxf(y, 0.f);
               const int px = 8 * jj + 2 * (lane & 3) + e;
+              float a = acc[0][8 * r + jj][2 * h + e];
+              if constexpr (ADD) {
+                const int p = px % TW, ch = cl + 8 * h;
+                a += *reinterpret_cast<const float*>(arow + (ch >> 5) * (S::AROW_B / 2) + p * 128 +
+                                                     ((((ch & 31) >> 2) ^ (p & 7)) << 4) +
+                                                     (ch & 3) * 4);
+              }
+              float y = a * sc[h] + sh[h];
+              if (g.relu) y = fmaxf(y, 0.f);
               *reinterpret_cast<__nv_bfloat16*>(stg + px * S::STG_ROW + (cl + 8 * h) * 2) =
                   __float2bfloat16(y);
             }
+          if constexpr (ADD) {
+            if (jj % 2 == 1) {  // the warp is done with the row's buffer
+              __syncwarp();
+              if (lane == 0) mbar_arrive(aempty(wg, slot));
+            }
+          }
+        }
         warpgroup_sync(wg);
-        const int oyr = tile.oy0 + row0 + 4 * r;
         if (g.cvec) {
           for (int k = wtid; k < 64 * 8; k += 128) {
             const int px = k >> 3, c = k & 7;
@@ -681,12 +818,25 @@ conv3x3_bf16_mma_kernel(const __grid_constant__ CUtensorMap xmap,
       const float s0 = o < g.Cout ? scale[o] : 0.f, t0 = o < g.Cout ? shift[o] : 0.f;
       const float s1 = o + 1 < g.Cout ? scale[o + 1] : 0.f;
       const float t1 = o + 1 < g.Cout ? shift[o + 1] : 0.f;
+      // ADD: at most 8 channels a pixel, read straight from the addend (its
+      // registers fit beside the head's 4 x MT accumulators)
+      const float* addn = ADD ? g.add + (size_t)(tile.n / g.frames) * g.OH * g.OW * g.Cout : nullptr;
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt) {
+        const int oy = tile.oy0 + row0 + 4 * mt + (cw & 3);
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
-          float y0 = acc[mt][0][2 * h] * s0 + t0;
-          float y1 = acc[mt][0][2 * h + 1] * s1 + t1;
+          float a0 = acc[mt][0][2 * h], a1 = acc[mt][0][2 * h + 1];
+          if constexpr (ADD) {
+            const int ox = tile.ox0 + (lane >> 2) + 8 * h;
+            if (oy < g.OH && ox < g.OW) {
+              const float* ap = addn + ((size_t)oy * g.OW + ox) * g.Cout;
+              if (o < g.Cout) a0 += __ldg(ap + o);
+              if (o + 1 < g.Cout) a1 += __ldg(ap + o + 1);
+            }
+          }
+          float y0 = a0 * s0 + t0;
+          float y1 = a1 * s1 + t1;
           if (g.relu) {
             y0 = fmaxf(y0, 0.f);
             y1 = fmaxf(y1, 0.f);
@@ -695,7 +845,6 @@ conv3x3_bf16_mma_kernel(const __grid_constant__ CUtensorMap xmap,
                                              (lane & 3) * 4) = __floats2bfloat162_rn(y0, y1);
         }
         __syncwarp();
-        const int oy = tile.oy0 + row0 + 4 * mt + (cw & 3);
         for (int k = lane; k < TW * TN; k += 32) {
           const int px = k / TN, c = k % TN;
           const int ox = tile.ox0 + px, oc = tile.co0 + c;
@@ -709,6 +858,30 @@ conv3x3_bf16_mma_kernel(const __grid_constant__ CUtensorMap xmap,
     fence_proxy_async();  // the staging stores, before the producer's next TMA writes here
     if (lane == 0) mbar_arrive(empty(last));
   }
+}
+
+// #1 and #2
+template <int TN, bool UP2, bool VEC>
+__global__ void __launch_bounds__(NTHREADS, 1)
+conv3x3_bf16_mma_kernel(const __grid_constant__ CUtensorMap xmap,
+                        const __grid_constant__ CUtensorMap wmap,
+                        const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
+                        const float* __restrict__ scale, const float* __restrict__ shift,
+                        __nv_bfloat16* __restrict__ out, const Geom g) {
+  conv3x3_mma_body<TN, UP2, VEC, false>(xmap, wmap, xmap, x, w, scale, shift, out, g);
+}
+
+// #1+: #1 with the addend
+template <int TN, bool VEC>
+__global__ void __launch_bounds__(NTHREADS, 1)
+conv3x3_add_bf16_mma_kernel(const __grid_constant__ CUtensorMap xmap,
+                            const __grid_constant__ CUtensorMap wmap,
+                            const __grid_constant__ CUtensorMap amap,
+                            const __nv_bfloat16* __restrict__ x,
+                            const __nv_bfloat16* __restrict__ w, const float* __restrict__ scale,
+                            const float* __restrict__ shift, __nv_bfloat16* __restrict__ out,
+                            const Geom g) {
+  conv3x3_mma_body<TN, false, VEC, true>(xmap, wmap, amap, x, w, scale, shift, out, g);
 }
 
 // cuTensorMapEncodeTiled, looked up through the CUDA runtime (no link to libcuda)
@@ -737,21 +910,24 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// a bf16 tensor map with 16-byte-aligned rows; dims and box innermost first
+// a bf16 (or f32) tensor map with 16-byte-aligned rows; dims and box
+// innermost first
 template <int R>
 inline cudaError_t tensor_map(CUtensorMap* map, const void* base, const cuuint64_t (&dims)[R],
-                              const cuuint32_t (&box)[R], CUtensorMapSwizzle swizzle) {
+                              const cuuint32_t (&box)[R], CUtensorMapSwizzle swizzle,
+                              bool f32 = false) {
   const EncodeTiled encode = encode_tiled();
   if (!encode) return cudaErrorNotSupported;
   cuuint64_t strides[R - 1];
-  cuuint64_t s = dims[0] * 2;
+  cuuint64_t s = dims[0] * (f32 ? 4 : 2);
   for (int d = 0; d < R - 1; ++d) {
     strides[d] = s;
     s *= dims[d + 1];
   }
   cuuint32_t ones[R];
   for (int d = 0; d < R; ++d) ones[d] = 1;
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, R, const_cast<void*>(base),
+  const CUresult r = encode(map, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                            R, const_cast<void*>(base),
                             dims, strides, box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
@@ -766,16 +942,20 @@ inline int sm_count() {
   return n;
 }
 
-template <int TN, bool UP2, bool VEC>
-cudaError_t launch_mma(const __nv_bfloat16* x, const __nv_bfloat16* w, const float* scale,
-                       const float* shift, __nv_bfloat16* out, int N, int H, int W, int C,
-                       int Cout, int relu, bool wvec, bool cvec, cudaStream_t stream) {
-  using S = Tile<TN, UP2>;
+template <int TN, bool UP2, bool VEC, bool ADD>
+cudaError_t launch_mma(const __nv_bfloat16* x, const __nv_bfloat16* w, const float* add,
+                       int frames, const float* scale, const float* shift, __nv_bfloat16* out,
+                       int N, int H, int W, int C, int Cout, int relu, bool wvec, bool cvec,
+                       cudaStream_t stream) {
+  using S = Tile<TN, UP2, ADD>;
   auto kern = conv3x3_bf16_mma_kernel<TN, UP2, VEC>;
+  auto add_kern = conv3x3_add_bf16_mma_kernel<TN, VEC>;
   static bool attr_set = false;
   if (!attr_set) {
-    cudaError_t e =
-        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, S::BYTES);
+    cudaError_t e = ADD ? cudaFuncSetAttribute(add_kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               S::BYTES)
+                        : cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               S::BYTES);
     if (e != cudaSuccess) return e;
     attr_set = true;
   }
@@ -790,10 +970,14 @@ cudaError_t launch_mma(const __nv_bfloat16* x, const __nv_bfloat16* w, const flo
   g.relu = relu;
   g.wtma = TN >= 64 && wvec;
   g.cvec = cvec;
+  g.add = add;
+  g.frames = frames;
+  g.atma = Cout % 4 == 0 && (reinterpret_cast<uintptr_t>(add) & 15) == 0;
   if (g.ntiles == 0) return cudaSuccess;
-  CUtensorMap xmap, wmap;
+  CUtensorMap xmap, wmap, amap;
   memset(&xmap, 0, sizeof(xmap));
   memset(&wmap, 0, sizeof(wmap));
+  memset(&amap, 0, sizeof(amap));
   if (VEC) {
     // the halo copies (32-byte swizzle), or up2's source tile (unswizzled)
     cudaError_t e =
@@ -808,50 +992,68 @@ cudaError_t launch_mma(const __nv_bfloat16* x, const __nv_bfloat16* w, const flo
                                   CU_TENSOR_MAP_SWIZZLE_128B);
     if (e != cudaSuccess) return e;
   }
+  if (S::ARING && g.atma) {
+    // the addend's rows, two boxes of 32 channels x 16 pixels a ring buffer
+    cudaError_t e = tensor_map<4>(
+        &amap, add, {(cuuint64_t)Cout, (cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)(N / frames)},
+        {32, TW, 1, 1}, CU_TENSOR_MAP_SWIZZLE_128B, true);
+    if (e != cudaSuccess) return e;
+  }
   const int sms = sm_count();
   const int grid = g.ntiles < sms ? g.ntiles : sms;
-  kern<<<grid, NTHREADS, S::BYTES, stream>>>(xmap, wmap, x, w, scale, shift, out, g);
+  if (ADD)
+    add_kern<<<grid, NTHREADS, S::BYTES, stream>>>(xmap, wmap, amap, x, w, scale, shift, out, g);
+  else
+    kern<<<grid, NTHREADS, S::BYTES, stream>>>(xmap, wmap, x, w, scale, shift, out, g);
   return cudaGetLastError();
 }
 
-template <bool UP2, bool VEC>
-cudaError_t dispatch_mma(const __nv_bfloat16* x, const __nv_bfloat16* w, const float* scale,
-                         const float* shift, __nv_bfloat16* out, int N, int H, int W, int C,
-                         int Cout, int relu, bool wvec, bool cvec, cudaStream_t stream) {
+template <bool UP2, bool VEC, bool ADD>
+cudaError_t dispatch_mma(const __nv_bfloat16* x, const __nv_bfloat16* w, const float* add,
+                         int frames, const float* scale, const float* shift, __nv_bfloat16* out,
+                         int N, int H, int W, int C, int Cout, int relu, bool wvec, bool cvec,
+                         cudaStream_t stream) {
   // 128 output channels a tile for the wide layers, 64 for C' = 64 (a
   // 128-wide tile would idle half its lanes), 8 for the 4-channel head
   if (Cout >= 128)
-    return launch_mma<128, UP2, VEC>(x, w, scale, shift, out, N, H, W, C, Cout, relu, wvec, cvec,
-                                     stream);
+    return launch_mma<128, UP2, VEC, ADD>(x, w, add, frames, scale, shift, out, N, H, W, C, Cout,
+                                          relu, wvec, cvec, stream);
   if (Cout > 8)
-    return launch_mma<64, UP2, VEC>(x, w, scale, shift, out, N, H, W, C, Cout, relu, wvec, cvec,
-                                    stream);
-  return launch_mma<8, UP2, VEC>(x, w, scale, shift, out, N, H, W, C, Cout, relu, wvec, cvec,
-                                 stream);
+    return launch_mma<64, UP2, VEC, ADD>(x, w, add, frames, scale, shift, out, N, H, W, C, Cout,
+                                         relu, wvec, cvec, stream);
+  return launch_mma<8, UP2, VEC, ADD>(x, w, add, frames, scale, shift, out, N, H, W, C, Cout,
+                                      relu, wvec, cvec, stream);
 }
 
 inline bool aligned(const void* p, int bytes) {
   return (reinterpret_cast<uintptr_t>(p) & (bytes - 1)) == 0;
 }
 
-inline cudaError_t conv3x3_bf16(int up2, const void* x, const void* w, const float* scale,
-                                const float* shift, void* out, int N, int H, int W, int C,
-                                int Cout, int relu, cudaStream_t stream) {
+// add: null for #1 / #2; for #1+ the f32 addend [N / frames, H, W, Cout]
+inline cudaError_t conv3x3_bf16(int up2, const void* x, const void* w, const float* add,
+                                int frames, const float* scale, const float* shift, void* out,
+                                int N, int H, int W, int C, int Cout, int relu,
+                                cudaStream_t stream) {
   auto xb = static_cast<const __nv_bfloat16*>(x);
   auto wb = static_cast<const __nv_bfloat16*>(w);
   auto ob = static_cast<__nv_bfloat16*>(out);
   const bool vec = C % 8 == 0 && aligned(x, 16);
   const bool wvec = Cout % 8 == 0 && aligned(w, 16);
   const bool cvec = Cout % 8 == 0 && aligned(out, 16);
+  if (add)
+    return vec ? dispatch_mma<false, true, true>(xb, wb, add, frames, scale, shift, ob, N, H, W,
+                                                 C, Cout, relu, wvec, cvec, stream)
+               : dispatch_mma<false, false, true>(xb, wb, add, frames, scale, shift, ob, N, H, W,
+                                                  C, Cout, relu, wvec, cvec, stream);
   if (up2)
-    return vec ? dispatch_mma<true, true>(xb, wb, scale, shift, ob, N, H, W, C, Cout, relu, wvec,
-                                          cvec, stream)
-               : dispatch_mma<true, false>(xb, wb, scale, shift, ob, N, H, W, C, Cout, relu,
-                                           wvec, cvec, stream);
-  return vec ? dispatch_mma<false, true>(xb, wb, scale, shift, ob, N, H, W, C, Cout, relu, wvec,
-                                         cvec, stream)
-             : dispatch_mma<false, false>(xb, wb, scale, shift, ob, N, H, W, C, Cout, relu, wvec,
-                                          cvec, stream);
+    return vec ? dispatch_mma<true, true, false>(xb, wb, nullptr, 0, scale, shift, ob, N, H, W, C,
+                                                 Cout, relu, wvec, cvec, stream)
+               : dispatch_mma<true, false, false>(xb, wb, nullptr, 0, scale, shift, ob, N, H, W,
+                                                  C, Cout, relu, wvec, cvec, stream);
+  return vec ? dispatch_mma<false, true, false>(xb, wb, nullptr, 0, scale, shift, ob, N, H, W, C,
+                                                Cout, relu, wvec, cvec, stream)
+             : dispatch_mma<false, false, false>(xb, wb, nullptr, 0, scale, shift, ob, N, H, W, C,
+                                                 Cout, relu, wvec, cvec, stream);
 }
 
 }  // namespace kpvid_mma

@@ -5,8 +5,10 @@ Counterpart of kpvid_tpu/eval/final.py::FinalGenerator:
   pose-encode the input image -> first-frame keypoints (pose_head kernel)
   explicit z -> motion decoder (stacked LSTM) -> T future keypoint frames
   32^2 Gaussian maps (gaussian_render kernel); the translator's first conv
-  split so its frame-invariant channels are convolved once per sample;
-  the translator decode (conv kernels, ops/chain.py); blend and clip.
+  split so its frame-invariant channels are convolved once per sample, its
+  per-frame part, that sum and oct0a's BN + ReLU one conv3x3_add_affine
+  launch; the translator decode from oct0b (conv kernels, ops/chain.py);
+  blend and clip.
 
 The path itself is :class:`GenerateNet`, a module on tensors that
 ``FinalGenerator.generate`` calls after moving its inputs to the device,
@@ -44,6 +46,7 @@ from torch import nn
 from ..configs import Config
 from ..device import resolve_device, to_device
 from ..models import MotionGenerator, Stage1Generator, init_like_jax
+from ..ops.conv3x3 import conv3x3_add_affine
 from ..ops.coords import colorize_point_maps
 from ..ops.keypoint_kernels import gaussian_render
 from ..utils import jax_random
@@ -95,11 +98,14 @@ class GenerateNet(nn.Module):
         }
 
     def split_first_conv(self, im, current_mu, future_mu_seq) -> torch.Tensor:
-        """Pre-activation output of the translator's first conv for all B*T
-        frames. Its input channels are [embedding ++ current map ++ future
-        map]; the first two are the same for every frame of a sample, so
-        they are convolved once per sample (exact by linearity), with the
-        bias added once."""
+        """The translator's first layer (oct0a: conv, BN, ReLU) for all B*T
+        frames, in the compute dtype. The conv's input channels are
+        [embedding ++ current map ++ future map]; the first two are the same
+        for every frame of a sample, so they are convolved once per sample
+        (exact by linearity), with the bias, and kept in f32. One
+        conv3x3_add_affine launch convolves each frame's future map, adds
+        its sample's part and applies oct0a's BN and ReLU, in f32 until the
+        one rounding."""
         b, t = future_mu_seq.shape[:2]
         hs, dt, inv_std = self.heatmap_size, self.dtype, self.heatmap_inv_std
         emb = self.stage1.embed(im)
@@ -112,18 +118,15 @@ class GenerateNet(nn.Module):
             hs, hs, inv_std, grid_dtype=future_mu_seq.dtype, out_dtype=dt,
         )
         static = torch.cat([emb.to(dt), cur_map], dim=-1)
-        conv = self.stage1.translator.oct0a.conv
+        translator = self.stage1.translator
+        conv = translator.oct0a.conv
         weight = conv.weight.to(dt)  # [F, 128 + 2K, 3, 3]
         n_static = static.shape[-1]
-
-        def conv3(x, w):
-            y = F.conv2d(x.permute(0, 3, 1, 2), w, padding=1)
-            return y.permute(0, 2, 3, 1)
-
-        y_static = conv3(static, weight[:, :n_static]) + conv.bias.to(dt)  # [B, h, w, F]
-        y_dyn = conv3(fut_map, weight[:, n_static:])  # [B*T, h, w, F]
-        y = y_dyn.reshape(b, t, *y_dyn.shape[1:]) + y_static[:, None]
-        return y.reshape(b * t, *y_dyn.shape[1:])
+        y_static = F.conv2d(static.permute(0, 3, 1, 2), weight[:, :n_static], padding=1)
+        y_static = y_static.permute(0, 2, 3, 1).float() + conv.bias.float()  # [B, h, w, F]
+        # HWIO, copied here so that the op launches its kernel alone
+        k_dyn = weight[:, n_static:].permute(2, 3, 1, 0).contiguous()
+        return conv3x3_add_affine(fut_map, k_dyn, y_static, *translator.first_affine())
 
 
 class FinalGenerator:

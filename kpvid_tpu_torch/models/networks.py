@@ -15,8 +15,9 @@ skip input before each octave's first conv, which is the same function as
 the JAX fused form. The soft-argmax runs the fused ``pose_head`` kernel and
 the stage-1 forward's maps the ``gaussian_render`` kernel, both
 differentiable through their backward kernels. The translator's serving
-decode runs the conv kernels of ops/chain.py; its training form runs torch
-convolutions, as JAX training takes the XLA path. On a CPU tensor every
+decode runs the conv kernels of ops/chain.py from oct0a's activation, which
+generation's split first conv makes (eval/final.py); its training form runs
+torch convolutions, as JAX training takes the XLA path. On a CPU tensor every
 kernel wrapper takes its plain version. ``train`` selects batch-statistics
 BN, as in Flax.
 """
@@ -29,6 +30,7 @@ from torch import nn
 
 from ..ops.batching import pair_fns
 from ..ops.chain import translator_chain
+from ..ops.conv3x3 import fold_bn
 from ..ops.coords import blend
 from ..ops.keypoint_kernels import gaussian_render, pose_head
 from ..utils.spans import span
@@ -117,7 +119,8 @@ class Translator(nn.Module):
     """Image decoder from the 1/4-resolution joint embedding: conv blocks per
     octave, filters halving from ``filters``, two 2x upsample octaves, a
     3-channel crude image head and a 1-channel sigmoid mask head. Inference
-    runs the serving decode of ops/chain.py on the precomputed first conv."""
+    runs the serving decode of ops/chain.py on oct0a's activation, which the
+    split first conv computes (eval/final.py)."""
 
     n_octaves = 2
 
@@ -149,6 +152,12 @@ class Translator(nn.Module):
                 )
         return out
 
+    def first_affine(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """oct0a's BN folded to f32 (scale, shift) without its conv bias,
+        which the split first conv adds with its per-sample part."""
+        bn = self.oct0a.bn
+        return fold_bn(None, bn.weight, bn.bias, bn.running_mean, bn.running_var)
+
     def fused_heads(self) -> tuple[torch.Tensor, torch.Tensor]:
         """The crude and mask convs as one 4-channel conv: ([3, 3, C, 4] HWIO,
         [4]); channels 0..2 are crude, channel 3 the mask logit."""
@@ -156,12 +165,13 @@ class Translator(nn.Module):
         b = torch.cat([self.crude.bias, self.mask.bias], dim=0)
         return k.permute(2, 3, 1, 0).contiguous(), b
 
-    def forward(self, first_preact: torch.Tensor, head_kernel: torch.Tensor,
+    def forward(self, first_act: torch.Tensor, head_kernel: torch.Tensor,
                 head_bias: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-        """first_preact: [N, h, w, F] output of oct0a's conv (bias included)
-        -> (crude f32 [N, 4h, 4w, 3], mask f32 [N, 4h, 4w, 1])."""
+        """first_act: [N, h, w, F] oct0a's activation (conv, BN, ReLU) -> the
+        decode from oct0b on: (crude f32 [N, 4h, 4w, 3], mask f32 [N, 4h, 4w,
+        1])."""
         return translator_chain(
-            self.layer_params(), first_preact.contiguous(), head_kernel, head_bias,
+            self.layer_params(), first_act.contiguous(), head_kernel, head_bias,
             n_octaves=self.n_octaves,
         )
 
@@ -243,14 +253,15 @@ class Stage1Generator(nn.Module):
         """Appearance embedding [B, H/4, W/4, 4 * encoder_filters]."""
         return self.image_encoder(im)[-2]
 
-    def generate(self, im: torch.Tensor, first_preact: torch.Tensor,
+    def generate(self, im: torch.Tensor, first_act: torch.Tensor,
                  head_kernel: torch.Tensor, head_bias: torch.Tensor) -> dict:
-        """im: [B, H, W, 3]; first_preact: [B*T, h, w, F] -> the T frames of
-        each sample, blended with the source frame and clipped to [-1, 1]."""
+        """im: [B, H, W, 3]; first_act: [B*T, h, w, F] the translator's oct0a
+        activation -> the T frames of each sample, blended with the source
+        frame and clipped to [-1, 1]."""
         b = im.shape[0]
-        t = first_preact.shape[0] // b
+        t = first_act.shape[0] // b
         with span("kpvid.generate.translator"):
-            crude, mask = self.translator(first_preact, head_kernel, head_bias)
+            crude, mask = self.translator(first_act, head_kernel, head_bias)
         with span("kpvid.generate.blend"):
             im_t = im.float().repeat_interleave(t, dim=0)
             final = torch.clamp(blend(im_t, crude, mask), -1.0, 1.0)

@@ -1,6 +1,8 @@
 from . import library  # registers the torch.ops.kpvid ops
 from .chain import translator_chain
 from .conv3x3 import (
+    conv3x3_add_affine,
+    conv3x3_add_affine_plain,
     conv3x3_affine,
     conv3x3_affine_plain,
     fold_bn,
@@ -19,6 +21,7 @@ from .resize import up2_conv3, upsample2x
 # every kernel wrapper of the port, by name; each counts its launches
 KERNELS = {
     "conv3x3_affine": conv3x3_affine,
+    "conv3x3_add_affine": conv3x3_add_affine,
     "up2_conv3_affine": up2_conv3_affine,
     "pose_head": pose_head,
     "gaussian_render": gaussian_render,
@@ -40,6 +43,8 @@ __all__ = [
     "KERNELS",
     "blend",
     "colorize_point_maps",
+    "conv3x3_add_affine",
+    "conv3x3_add_affine_plain",
     "conv3x3_affine",
     "conv3x3_affine_plain",
     "fold_bn",

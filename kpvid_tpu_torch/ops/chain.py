@@ -1,8 +1,9 @@
 """The translator decode as a chain of fused conv kernels.
 
-Counterpart of kpvid_tpu/ops/pallas_chain.py::translator_chain:
+Counterpart of kpvid_tpu/ops/pallas_chain.py::translator_chain, from oct0a's
+activation on (the split first conv with oct0a's BN + ReLU is one
+conv3x3_add_affine launch, eval/final.py::GenerateNet.split_first_conv):
 
-  oct0a BN + ReLU      elementwise torch on the precomputed first conv
   oct0b..oct0d         conv3x3_affine      32^2 x 256
   oct1a                up2_conv3_affine    -> 64^2 x 128
   oct1b..oct1d         conv3x3_affine      64^2 x 128
@@ -26,28 +27,24 @@ from .conv3x3 import conv3x3_affine, fold_bn, up2_conv3_affine
 
 def translator_chain(
     layers: dict,
-    first_preact: torch.Tensor,
+    x: torch.Tensor,
     head_kernel: torch.Tensor,
     head_bias: torch.Tensor,
     n_octaves: int = 2,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(crude f32 [N, R, R, 3], mask f32 [N, R, R, 1]).
 
-    layers: name -> (kernel HWIO or None, conv bias or None, BN gamma, BN beta,
-    BN mean, BN var) for oct0a and every oct{o}{a..d} layer the decode runs.
-    first_preact: [N, h, w, F] pre-activation output of oct0a (bias
-    included), in the compute dtype. head_kernel/head_bias: the crude and
-    mask convs concatenated along the output channels ([3, 3, C, 4], [4])."""
-    dt = first_preact.dtype
+    layers: name -> (kernel HWIO, conv bias, BN gamma, BN beta, BN mean, BN
+    var) for every oct{o}{a..d} layer the decode runs after oct0a. x: [N, h,
+    w, F] oct0a's activation (after its BN and ReLU), in the compute dtype.
+    head_kernel/head_bias: the crude and mask convs concatenated along the
+    output channels ([3, 3, C, 4], [4])."""
+    dt = x.dtype
 
     def folded(name):
         k, bias, gamma, beta, mean, var = layers[name]
         scale, shift = fold_bn(bias, gamma, beta, mean, var)
         return k.to(dt), scale, shift
-
-    _, _, gamma, beta, mean, var = layers["oct0a"]
-    s0, t0 = fold_bn(None, gamma, beta, mean, var)
-    x = torch.relu(first_preact.float() * s0 + t0).to(dt)
 
     for o in range(n_octaves + 1):
         if o > 0:

@@ -17,6 +17,7 @@ No device has another implementation, and none falls back to another. The
 ops, by TPU kernel they replace:
 
   #1  kpvid::conv3x3_affine        [N,H,W,C] -> [N,H,W,Cout], x.dtype
+  #1+ kpvid::conv3x3_add_affine    ([N,H,W,C], addend [N/T,H,W,Cout] f32) -> [N,H,W,Cout]
   #2  kpvid::up2_conv3_affine      [N,H,W,C] -> [N,2H,2W,Cout], x.dtype
   #3  kpvid::pose_head             [B,H,W,K] -> [B,K,2] f32
       kpvid::pose_head_train       -> ([B,K,2], p [B,K,W], q [B,K,H]) f32
@@ -39,7 +40,7 @@ def _custom_op(name: str):
     return torch.library.custom_op(f"kpvid::{name}", mutates_args=(), device_types="cpu")
 
 
-# --- #1 / #2: the fused conv + affine --------------------------------------
+# --- #1 / #1+ / #2: the fused conv + affine --------------------------------
 
 
 @_custom_op("conv3x3_affine")
@@ -55,6 +56,23 @@ def _(x, kernel, scale, shift, relu):
 
 @conv3x3_affine.register_fake
 def _(x, kernel, scale, shift, relu):
+    n, h, w, _ = x.shape
+    return x.new_empty((n, h, w, kernel.shape[3]))
+
+
+@_custom_op("conv3x3_add_affine")
+def conv3x3_add_affine(x: Tensor, kernel: Tensor, addend: Tensor, scale: Tensor, shift: Tensor,
+                       relu: bool) -> Tensor:
+    return _conv.conv3x3_add_affine_plain(x, kernel, addend, scale, shift, relu)
+
+
+@conv3x3_add_affine.register_kernel("cuda")
+def _(x, kernel, addend, scale, shift, relu):
+    return _conv.launch(x, kernel, scale, shift, relu, up2=False, addend=addend)
+
+
+@conv3x3_add_affine.register_fake
+def _(x, kernel, addend, scale, shift, relu):
     n, h, w, _ = x.shape
     return x.new_empty((n, h, w, kernel.shape[3]))
 

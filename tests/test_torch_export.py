@@ -41,9 +41,9 @@ from test_torch_final import SMOKE, _setup
 
 REPO = Path(__file__).resolve().parent.parent
 BUCKETS = (1, 2)
-# kernel nodes per program: #1 / #2 / #3 / #4, as the live path launches them
-KERNEL_NODES = {"conv3x3_affine": 8, "up2_conv3_affine": 2, "pose_head": 1,
-                "gaussian_render": 2}
+# kernel nodes per program: #1 / #1+ / #2 / #3 / #4, as the live path launches them
+KERNEL_NODES = {"conv3x3_affine": 8, "conv3x3_add_affine": 1, "up2_conv3_affine": 2,
+                "pose_head": 1, "gaussian_render": 2}
 
 
 @pytest.fixture(scope="module")
@@ -121,10 +121,11 @@ def test_unknown_format_version_is_refused(setup, tmp_path):
 
 @pytest.mark.parametrize("b", BUCKETS)
 def test_graph_carries_the_kernels(setup, b):
-    """Each program holds the kernels as torch.ops.kpvid nodes, 8 / 2 / 1 / 2,
-    and none of their plain versions: the only torch conv over all B*T
-    frames is the split first conv's, and no softmax or exp is left (the
-    soft-argmax's and the render's plain forms)."""
+    """Each program holds the kernels as torch.ops.kpvid nodes, 8 / 1 / 2 / 1
+    / 2, and none of their plain versions: no torch conv runs over all B*T
+    frames (the split first conv's per-frame part is the #1+ node), and no
+    softmax or exp is left (the soft-argmax's and the render's plain
+    forms)."""
     program = setup[5].programs[b]
     targets = collections.Counter(
         str(n.target) for n in program.graph.nodes if n.op == "call_function")
@@ -134,7 +135,7 @@ def test_graph_carries_the_kernels(setup, b):
     convs = [n for n in program.graph.nodes
              if n.op == "call_function" and "conv" in str(n.target) and "kpvid" not in str(n.target)]
     assert convs
-    assert sum(n.meta["val"].shape[0] == frames for n in convs) == 1
+    assert sum(n.meta["val"].shape[0] == frames for n in convs) == 0
     assert not [t for t in targets if "softmax" in t or t.startswith("aten.exp")]
 
 
@@ -197,6 +198,7 @@ def _op_cases():
     x = torch.randn(2, 6, 5, 12, generator=g)
     k = torch.randn(3, 3, 12, 8, generator=g) / 10
     sc, sh = torch.rand(8, generator=g) + 0.5, torch.randn(8, generator=g) / 10
+    add = torch.randn(1, 6, 5, 8, generator=g)
     raw = 3 * torch.randn(2, 9, 7, 4, generator=g)
     pts, p, q = keypoint_kernels.pose_head_train_plain(raw)
     mu = torch.rand(3, 4, 2, generator=g) * 2 - 1
@@ -204,6 +206,8 @@ def _op_cases():
     f32, bf16 = torch.float32, torch.bfloat16
     return {
         "conv3x3_affine": [(x, k, sc, sh, True), (x.to(bf16), k.to(bf16), sc, sh, False)],
+        "conv3x3_add_affine": [(x, k, add, sc, sh, True),
+                               (x.to(bf16), k.to(bf16), add, sc, sh, False)],
         "up2_conv3_affine": [(x, k, sc, sh, True), (x.to(bf16), k.to(bf16), sc, sh, False)],
         "pose_head": [(raw,), (raw.to(bf16),)],
         "pose_head_train": [(raw,), (raw.to(bf16),)],
@@ -224,10 +228,14 @@ def test_opcheck_on_cpu(name):
 def test_ops_cpu_implementations_are_the_plain_versions():
     cases = _op_cases()
     x, k, sc, sh, relu = cases["conv3x3_affine"][0]
-    from kpvid_tpu_torch.ops import conv3x3_affine_plain, up2_conv3_affine_plain
+    from kpvid_tpu_torch.ops import (conv3x3_add_affine_plain, conv3x3_affine_plain,
+                                     up2_conv3_affine_plain)
 
     assert torch.equal(torch.ops.kpvid.conv3x3_affine(x, k, sc, sh, relu),
                        conv3x3_affine_plain(x, k, sc, sh, relu))
+    add = cases["conv3x3_add_affine"][0][2]
+    assert torch.equal(torch.ops.kpvid.conv3x3_add_affine(x, k, add, sc, sh, relu),
+                       conv3x3_add_affine_plain(x, k, add, sc, sh, relu))
     assert torch.equal(torch.ops.kpvid.up2_conv3_affine(x, k, sc, sh, relu),
                        up2_conv3_affine_plain(x, k, sc, sh, relu))
     (raw,) = cases["pose_head"][0]

@@ -31,7 +31,7 @@ to the same bits (and generate the same bits).
 
 Each ``torch.ops.kpvid`` op passes ``torch.library.opcheck`` on CUDA tensors,
 and a serving artifact traced on the CPU or on the card runs on the card
-through the kernels: 8 / 2 / 1 / 2 launches a batch, the live engine's
+through the kernels: 8 / 1 / 2 / 1 / 2 launches a batch, the live engine's
 outputs within one uint8 step and 1e-5 on the points.
 
 The conv shapes cover the main path at N = 2 (Config() widths), ragged
@@ -40,7 +40,12 @@ of the output-channel tile, ReLU on and off, and C % 8 != 0, which takes the
 bf16 kernel's element-wise loader; for the persistent bf16 kernel also fewer
 tiles than blocks of a full grid (N = 1), blocks that walk many tiles
 (N = 16), a border-heavy shape at C = 40, and two launches that give the
-same bytes.
+same bytes. #1+ (conv3x3_add_affine, the split first conv with oct0a's BN
+and ReLU) at the batch-32 generate's shape ([1024, 32, 32, 40] -> 256, an
+addend row per 32 frames), on ragged borders with one frame a row, at
+Cout = 72 and 4 (the 64- and 8-channel tiles), at C = 12 (the element-wise
+loader) with Cout = 30 (the addend copied element by element), f32 and
+bf16, and twice to the same bytes.
 """
 
 import contextlib
@@ -58,6 +63,8 @@ from kpvid_tpu_torch import ops
 from kpvid_tpu_torch.configs import Config, load_config
 from kpvid_tpu_torch.eval import FinalGenerator, InferenceEngine, MicroBatcher, request_z
 from kpvid_tpu_torch.ops import (
+    conv3x3_add_affine,
+    conv3x3_add_affine_plain,
     conv3x3_affine,
     conv3x3_affine_plain,
     gaussian_render,
@@ -144,6 +151,42 @@ def test_up2_kernel_matches_plain(dev, dtype, shape, relu):
     torch.cuda.synchronize()
     assert got.shape == (shape[0], 2 * shape[1], 2 * shape[2], shape[4])
     _close(got, up2_conv3_affine_plain(x, k, s, t, relu=relu), dtype)
+
+
+def _addend(dev, x, cout, frames, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    n, h, w, _ = x.shape
+    return torch.randn(n // frames, h, w, cout, generator=g).to(dev)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "shape,frames,relu",
+    [  # the batch-32 generate's split first conv: 1,024 frames, 32 a sample
+     ((1024, 32, 32, 40, 256), 32, True),
+     # ragged borders, one frame a row; Cout 72 and 4 (the 64- and 8-channel
+     # tiles), ReLU off; C = 12 (element-wise loader) with Cout = 30 (the
+     # addend's element-wise copies)
+     ((3, 37, 29, 40, 128), 1, True), ((4, 20, 12, 24, 72), 2, False),
+     ((4, 16, 16, 64, 4), 4, False), ((2, 12, 20, 12, 30), 2, True)],
+)
+def test_conv3x3_add_kernel_matches_plain(dev, dtype, shape, frames, relu):
+    x, k, s, t = _conv_inputs(dev, dtype, *shape, seed=2)
+    add = _addend(dev, x, shape[4], frames)
+    got = conv3x3_add_affine(x, k, add, s, t, relu=relu)
+    torch.cuda.synchronize()
+    assert got.shape == shape[:3] + (shape[4],) and got.dtype == dtype
+    _close(got, conv3x3_add_affine_plain(x, k, add, s, t, relu=relu), dtype)
+
+
+def test_conv3x3_add_kernel_gives_the_same_bytes_twice(dev):
+    # the batch-32 split first conv, bf16
+    x, k, s, t = _conv_inputs(dev, torch.bfloat16, 1024, 32, 32, 40, 256, seed=4)
+    add = _addend(dev, x, 256, 32, seed=4)
+    first = conv3x3_add_affine(x, k, add, s, t, relu=True)
+    second = conv3x3_add_affine(x, k, add, s, t, relu=True)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 @pytest.mark.parametrize("up2", [False, True])
@@ -338,8 +381,8 @@ def test_stage1_step_on_card_launches_and_matches_cpu(dev):
         out[str(device)] = ({k: float(v) for k, v in {**g_m, **d_m}.items()},
                             [g.cpu() for g in list(g_grads) + list(d_grads)], launch_counts())
     (lc, gc, counts), (lp, gp, _) = out[str(dev)], out["cpu"]
-    assert counts == {"conv3x3_affine": 0, "up2_conv3_affine": 0, "pose_head": 1,
-                      "gaussian_render": 2, "pose_head_backward": 1,
+    assert counts == {"conv3x3_affine": 0, "conv3x3_add_affine": 0, "up2_conv3_affine": 0,
+                      "pose_head": 1, "gaussian_render": 2, "pose_head_backward": 1,
                       "gaussian_render_backward": 2}
     for k in lp:
         assert lc[k] == pytest.approx(lp[k], rel=1e-4), k
@@ -352,15 +395,18 @@ def test_wrappers_count_launches_and_check_inputs(dev):
     reset_launch_counts()
     x, k, s, t = _conv_inputs(dev, torch.float32, 1, 8, 8, 16, 16)
     conv3x3_affine(x, k, s, t)
+    conv3x3_add_affine(x, k, torch.zeros(1, 8, 8, 16, device=dev), s, t)
     up2_conv3_affine(x, k, s, t)
     pose_head(torch.zeros(1, 8, 8, 4, device=dev))
     gaussian_render(torch.zeros(1, 4, 2, device=dev), 8, 8)
     assert launch_counts() == {
-        "conv3x3_affine": 1, "up2_conv3_affine": 1, "pose_head": 1, "gaussian_render": 1,
-        "pose_head_backward": 0, "gaussian_render_backward": 0,
+        "conv3x3_affine": 1, "conv3x3_add_affine": 1, "up2_conv3_affine": 1, "pose_head": 1,
+        "gaussian_render": 1, "pose_head_backward": 0, "gaussian_render_backward": 0,
     }
     with pytest.raises(TypeError):
         conv3x3_affine(x.half(), k.half(), s, t)
+    with pytest.raises(ValueError, match="addend"):
+        conv3x3_add_affine(x, k, torch.zeros(1, 8, 8, 8, device=dev), s, t)
     with pytest.raises(ValueError):
         pose_head(torch.zeros(1, 8, 8, 4, device=dev, dtype=torch.float64))
     with pytest.raises(ValueError):
@@ -382,8 +428,8 @@ def test_generate_on_card_matches_cpu(dev):
     reset_launch_counts()
     got = engine.final.generate(im, act, z)
     assert launch_counts() == {
-        "conv3x3_affine": 8, "up2_conv3_affine": 2, "pose_head": 1, "gaussian_render": 2,
-        "pose_head_backward": 0, "gaussian_render_backward": 0,
+        "conv3x3_affine": 8, "conv3x3_add_affine": 1, "up2_conv3_affine": 2, "pose_head": 1,
+        "gaussian_render": 2, "pose_head_backward": 0, "gaussian_render_backward": 0,
     }
     want = cpu.generate(im, act, z)
     for key in ("current_points", "future_points", "pred_im_seq", "mask"):
@@ -454,13 +500,14 @@ def test_generate_bf16_on_card_matches_plain(dev):
     reset_launch_counts()
     got = gen.generate(im, act, z)
     assert launch_counts() == {
-        "conv3x3_affine": 8, "up2_conv3_affine": 2, "pose_head": 1, "gaussian_render": 2,
-        "pose_head_backward": 0, "gaussian_render_backward": 0,
+        "conv3x3_affine": 8, "conv3x3_add_affine": 1, "up2_conv3_affine": 2, "pose_head": 1,
+        "gaussian_render": 2, "pose_head_backward": 0, "gaussian_render_backward": 0,
     }
     with contextlib.ExitStack() as stack:
         for target, fn in (
             ("kpvid_tpu_torch.ops.chain.conv3x3_affine", ops.conv3x3_affine_plain),
             ("kpvid_tpu_torch.ops.chain.up2_conv3_affine", ops.up2_conv3_affine_plain),
+            ("kpvid_tpu_torch.eval.final.conv3x3_add_affine", ops.conv3x3_add_affine_plain),
             ("kpvid_tpu_torch.models.networks.pose_head", ops.heatmaps_to_keypoints),
             ("kpvid_tpu_torch.eval.final.gaussian_render", ops.render_gaussian_maps),
         ):
@@ -609,6 +656,7 @@ def _op_cases(dev):
     x = torch.randn(2, 6, 5, 12, generator=g).to(dev)
     k = (torch.randn(3, 3, 12, 8, generator=g) / 10).to(dev)
     sc, sh = (torch.rand(8, generator=g) + 0.5).to(dev), (torch.randn(8, generator=g) / 10).to(dev)
+    add = torch.randn(1, 6, 5, 8, generator=g).to(dev)
     raw = (3 * torch.randn(2, 9, 7, 8, generator=g)).to(dev)
     pts, p, q = torch.ops.kpvid.pose_head_train(raw)
     ct = torch.randn(2, 8, 2, generator=g).to(dev)
@@ -617,6 +665,8 @@ def _op_cases(dev):
     f32, bf16 = torch.float32, torch.bfloat16
     return {
         "conv3x3_affine": [(x, k, sc, sh, True), (x.to(bf16), k.to(bf16), sc, sh, False)],
+        "conv3x3_add_affine": [(x, k, add, sc, sh, True),
+                               (x.to(bf16), k.to(bf16), add, sc, sh, False)],
         "up2_conv3_affine": [(x, k, sc, sh, True), (x.to(bf16), k.to(bf16), sc, sh, False)],
         "pose_head": [(raw,), (raw.to(bf16),)],
         "pose_head_train": [(raw,), (raw.to(bf16),)],
@@ -628,7 +678,7 @@ def _op_cases(dev):
 
 @pytest.mark.parametrize("name", ["conv3x3_affine", "gaussian_render", "gaussian_render_backward",
                                   "pose_head", "pose_head_backward", "pose_head_train",
-                                  "up2_conv3_affine"])
+                                  "up2_conv3_affine", "conv3x3_add_affine"])
 def test_opcheck_on_card(dev, name):
     """Each op's schema, fake implementation (shapes, dtypes and strides of
     the kernel's output) and autograd registration against its CUDA
@@ -641,7 +691,8 @@ def test_opcheck_on_card(dev, name):
 def test_artifact_runs_on_card_through_the_kernels(dev, tmp_path, traced_on):
     """The smoke config in bfloat16: an artifact traced on the CPU (no card
     needed to write it) or on the card, loaded onto the card, launches
-    8 / 2 / 1 / 2 kernels a batch and serves what the live engine serves:
+    8 / 1 / 2 / 1 / 2 kernels a batch (#1 / #1+ / #2 / #3 / #4) and serves
+    what the live engine serves:
     uint8 within one step, points within 1e-5."""
     from kpvid_tpu_torch.eval import ArtifactEngine, export_serving, load_serving
 
@@ -668,8 +719,8 @@ def test_artifact_runs_on_card_through_the_kernels(dev, tmp_path, traced_on):
     reset_launch_counts()
     got = engine.run(images, actions, z)
     assert launch_counts() == {
-        "conv3x3_affine": 8, "up2_conv3_affine": 2, "pose_head": 1, "gaussian_render": 2,
-        "pose_head_backward": 0, "gaussian_render_backward": 0,
+        "conv3x3_affine": 8, "conv3x3_add_affine": 1, "up2_conv3_affine": 2, "pose_head": 1,
+        "gaussian_render": 2, "pose_head_backward": 0, "gaussian_render_backward": 0,
     }
     for key in ("pred_im_seq", "mask"):
         assert got[key].dtype == np.uint8

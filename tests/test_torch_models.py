@@ -27,6 +27,8 @@ from kpvid_tpu_torch.configs import TrainingConfig as TTrainingConfig
 from kpvid_tpu_torch.configs import load_config
 from kpvid_tpu_torch.eval import FinalGenerator
 from kpvid_tpu_torch.models import ConvEncoder, PoseEncoder
+from kpvid_tpu_torch.ops import conv3x3_add_affine
+from kpvid_tpu_torch.ops.resize import conv3x3_same
 
 SMOKE = dict(
     n_pts=4, n_action=5, cell_info=(16, 16), vae_dim=8, image_size=32, heatmap_size=8,
@@ -125,10 +127,17 @@ def test_pose_encoder_detect_matches_flax(setup, mode):
 
 def test_translator_chain_matches_flax(setup):
     """The port's serving decode (ops/chain.py, plain versions on the CPU)
-    against the Flax Translator with precomputed_first + fused_heads."""
+    against the Flax Translator with precomputed_first + fused_heads. The
+    port's chain starts at oct0b from oct0a's activation, which #1+'s plain
+    version computes as the split first conv does: a conv of per-frame maps
+    plus one addend for all 3 frames, oct0a's BN, ReLU. Flax is handed the
+    same conv + addend as its precomputed_first."""
     _, s1, _, gen = setup
     rng = np.random.default_rng(3)
-    first = rng.normal(size=(3, 8, 8, 16)).astype(np.float32)
+    maps = torch.from_numpy(rng.normal(size=(3, 8, 8, 5)).astype(np.float32))
+    kernel = torch.from_numpy((rng.normal(size=(3, 3, 5, 16)) * 0.2).astype(np.float32))
+    addend = torch.from_numpy(rng.normal(size=(1, 8, 8, 16)).astype(np.float32))
+    first = (conv3x3_same(maps, kernel) + addend).numpy()
     tp = s1["params"]["translator"]
     hk = np.concatenate([tp["crude"]["Conv_0"]["kernel"], tp["mask"]["Conv_0"]["kernel"]], -1)
     hb = np.concatenate([tp["crude"]["Conv_0"]["bias"], tp["mask"]["Conv_0"]["bias"]], 0)
@@ -140,7 +149,8 @@ def test_translator_chain_matches_flax(setup):
     k, b = gen.stage1.translator.fused_heads()
     np.testing.assert_allclose(k.detach().numpy(), hk, rtol=0, atol=0)
     with torch.no_grad():
-        crude, mask = gen.stage1.translator(torch.from_numpy(first), k, b)
+        act = conv3x3_add_affine(maps, kernel, addend, *gen.stage1.translator.first_affine())
+        crude, mask = gen.stage1.translator(act, k, b)
     assert crude.shape == (3, 32, 32, 3) and mask.shape == (3, 32, 32, 1)
     np.testing.assert_allclose(crude.numpy(), np.asarray(want_crude), rtol=1e-4, atol=1e-5)
     np.testing.assert_allclose(mask.numpy(), np.asarray(want_mask), rtol=1e-4, atol=1e-5)

@@ -27,6 +27,7 @@ from kpvid_tpu.ops.pallas_kernels import gaussian_render_pallas, pose_head_palla
 from kpvid_tpu.ops.resize import up2_conv3 as jax_up2_conv3
 from kpvid_tpu_torch import ops
 from kpvid_tpu_torch.ops import _build
+from kpvid_tpu_torch.ops.resize import conv3x3_same
 
 
 def _t(a):
@@ -66,6 +67,39 @@ def test_up2_conv3_plain_matches_pallas(rng, shape, relu):
     got = ops.up2_conv3_affine(_t(x), _t(k), _t(s), _t(t), relu=relu)
     assert got.shape == (shape[0], 2 * shape[1], 2 * shape[2], shape[4])
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("relu", [True, False])
+@pytest.mark.parametrize("frames", [1, 4])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_conv3x3_add_affine_plain_matches_composition(rng, dtype, frames, relu):
+    """#1+'s plain version (its op's CPU implementation) against the
+    composition it replaces in the split first conv: conv3x3_same, each
+    image's addend row broadcast over its T images, oct0a's BN folded by
+    fold_bn (no conv bias), ReLU; C = 40 (the future maps' channels) on a
+    ragged 13 x 11 image. Both round the conv once in the working dtype and
+    keep the rest in f32."""
+    n, h, w, c, cout = 8, 13, 11, 40, 24
+    x, k, _, _ = _conv_args(rng, n, h, w, c, cout)
+    addend = _t(rng.normal(size=(n // frames, h, w, cout)))
+    gamma, beta, mean = (_t(rng.normal(size=(cout,))) for _ in range(3))
+    var = _t(rng.uniform(0.5, 2.0, (cout,)))
+    scale, shift = ops.fold_bn(None, gamma, beta, mean, var)
+    dt = getattr(torch, dtype)
+    xt, kt = _t(x).to(dt), _t(k).to(dt)
+    got = ops.conv3x3_add_affine(xt, kt, addend, scale, shift, relu=relu)
+    pre = conv3x3_same(xt, kt).float() + addend.repeat_interleave(frames, dim=0)
+    want = pre * scale + shift
+    want = (torch.relu(want) if relu else want).to(dt)
+    assert got.dtype == dt and got.shape == (n, h, w, cout)
+    torch.testing.assert_close(got, want)
+
+
+def test_conv3x3_add_affine_refuses_a_ragged_addend(rng):
+    x, k, s, t = (_t(a) for a in _conv_args(rng, 6, 8, 8, 4, 16))
+    for shape in ((4, 8, 8, 16), (3, 8, 8, 8), (3, 8, 7, 16), (0, 8, 8, 16)):
+        with pytest.raises(ValueError, match="addend"):
+            ops.conv3x3_add_affine(x, k, torch.zeros(shape), s, t)
 
 
 def test_fold_bn_matches(rng):
@@ -248,6 +282,9 @@ def test_cpu_tensors_take_plain_versions_and_count_nothing(rng):
     torch.testing.assert_close(
         ops.up2_conv3_affine(x, k, s, t), ops.up2_conv3_affine_plain(x, k, s, t)
     )
+    add = torch.ones(1, 8, 8, 4)
+    torch.testing.assert_close(ops.conv3x3_add_affine(x, k, add, s, t),
+                               ops.conv3x3_add_affine_plain(x, k, add, s, t))
     ops.pose_head(x)
     ops.gaussian_render(torch.zeros(1, 4, 2), 8, 8)
     raw = x.clone().requires_grad_()
@@ -277,6 +314,8 @@ def test_kernel_wrappers_refuse_other_devices():
     for up2 in (False, True):
         with pytest.raises(ValueError, match="CUDA"):
             conv3x3.launch(x, k, s, s, True, up2)
+    with pytest.raises(ValueError, match="CUDA"):
+        conv3x3.launch(x, k, s, s, True, False, addend=x)
     for marginals in (False, True):
         with pytest.raises(ValueError, match="CUDA"):
             keypoint_kernels.pose_head_launch(x, marginals)
@@ -290,6 +329,7 @@ def test_kernel_wrappers_refuse_other_devices():
     for out, shape, dtype in (
         (ops.conv3x3_affine(x, k, s, s), (1, 8, 8, 4), torch.float32),
         (ops.up2_conv3_affine(x, k, s, s), (1, 16, 16, 4), torch.float32),
+        (ops.conv3x3_add_affine(x, k, x, s, s), (1, 8, 8, 4), torch.float32),
         (ops.pose_head(x), (1, 4, 2), torch.float32),
         (ops.gaussian_render(pts, 8, 6, out_dtype=torch.bfloat16), (1, 8, 6, 4), torch.bfloat16),
         (ops.pose_head_backward(pts, pts, p, p, torch.bfloat16), (1, 8, 8, 4), torch.bfloat16),
