@@ -988,6 +988,10 @@ def throughput_phase(cfg, params, card: str) -> float:
         stages = {
             "detect (pose encoder + pose_head)": lambda: s1.detect(images),
             "motion decode (LSTM)": lambda: gen.stage2.decode(z, mu.reshape(b, -1), act),
+            # its host loop replays the decode's graph; its device time is
+            # the eager decode's, captured inside device_ms's own graph
+            "motion decode (LSTM), graphed": lambda: gen.model.motion_decode(
+                z, mu.reshape(b, -1), act),
             "split first conv through oct0a's ReLU (#1+, gaussian_render)":
                 lambda: gen.model.split_first_conv(images, mu, fut),
             "translator decode from oct0b (conv kernels)": lambda: s1.translator(first, *heads),

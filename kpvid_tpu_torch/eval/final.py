@@ -20,8 +20,14 @@ While a profiler records, ``FinalGenerator.generate`` names its phases
 (utils/spans.py): ``kpvid.generate`` around the call, and inside it
 ``kpvid.generate.inputs`` (the copies to the device), ``.detect``,
 ``.motion_decode``, ``.first_conv``, ``.translator`` (twice: the heads'
-folding, then the decode) and ``.blend``. The serving artifact's graph has
-none of them.
+folding, then the decode) and ``.blend``; ``kpvid.graph.motion_decode``
+inside ``.motion_decode`` around each replay of :class:`GraphedDecode`. The
+serving artifact's graph has none of them.
+
+On the card the motion decode (``MotionGenerator.decode``: 32 steps of a
+2-layer LSTM, some 1,000 small launches at ``Config()``) is replayed from a
+CUDA graph captured once per batch shape (:class:`GraphedDecode`), so that
+the host's launches no longer pace the call.
 
 The entry point runs on the card by default and raises where there is none;
 pass ``device="cpu"`` to run the plain versions on the CPU.
@@ -36,7 +42,9 @@ without ``--mesh`` its list is the one device.
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
+import gc
 
 import numpy as np
 import torch
@@ -50,7 +58,107 @@ from ..ops.conv3x3 import conv3x3_add_affine
 from ..ops.coords import colorize_point_maps
 from ..ops.keypoint_kernels import gaussian_render
 from ..utils import jax_random
-from ..utils.spans import span
+from ..utils.spans import op_span, span
+
+
+class GraphedDecode:
+    """``MotionGenerator.decode`` for :class:`GenerateNet`, replayed from a
+    CUDA graph captured once per batch shape and device.
+
+    The graph runs the eager decode's ops in their dtypes (the LSTM kernels
+    rounded to the compute dtype and widened to f32 inside it), so it reads
+    the parameters by address: values copied into them in place
+    (``load_state_dict``) show at the next replay; a parameter rebound to
+    other storage (``.to``) drops every graph, and the next call captures
+    anew. A call copies its inputs into the graph's buffers, replays it on
+    the current stream and returns a clone of its output, which no later
+    replay overwrites. The captures share one memory pool, so each replay is
+    ordered after the last one, on whatever stream that ran.
+
+    The graph is replayed only where the code can tell that it is safe: CUDA
+    inputs, grad mode off, no stream capture under way (a graph of the
+    caller's, such as the graphed train step), neither ``torch.export`` nor
+    ``torch.compile`` tracing (the serving artifact keeps the eager ops), no
+    layer of the decoder sharded. Elsewhere the eager decode runs, as it
+    does while a profiler records and no graph of the shape exists yet: no
+    capture is made under a profiler. A capture follows
+    ``train/state.py::StepGraph``: an eager warm-up on a side stream, a sync,
+    then the capture with the garbage collector paused, in the
+    ``"thread_local"`` error mode, so that other threads' CUDA calls (the
+    daemon's readbacks) go on during it.
+
+    ``captures``, ``replays`` and ``eager_calls`` count the calls by path."""
+
+    def __init__(self, stage2: MotionGenerator):
+        self.stage2 = stage2
+        self.graphs: dict = {}  # (device, input shapes and dtypes) -> (graph, inputs, output)
+        self.pool = None
+        self.addresses: list[int] = []  # the parameters' storage the graphs read
+        self.stream = None  # the stream of the last replay
+        self.captures = self.replays = self.eager_calls = 0
+
+    def __deepcopy__(self, memo):
+        return type(self)(copy.deepcopy(self.stage2, memo))  # a copy starts with no graph
+
+    def graphable(self, z: torch.Tensor) -> bool:
+        s2 = self.stage2
+        return (not torch.compiler.is_compiling() and z.is_cuda and not torch.is_grad_enabled()
+                and not torch.cuda.is_current_stream_capturing()
+                and not (s2.dec_in.sharded or s2.dec_lstm.sharded or s2.to_coord.sharded))
+
+    def __call__(self, z: torch.Tensor, first_pt: torch.Tensor,
+                 act: torch.Tensor) -> torch.Tensor:
+        args = (z, first_pt, act)
+        if not self.graphable(z):
+            self.eager_calls += 1
+            return self.stage2.decode(*args)
+        addresses = [p.data_ptr() for p in self.stage2.parameters()]
+        if addresses != self.addresses:
+            self.graphs.clear()
+            self.pool, self.addresses = None, addresses
+        key = (z.device, tuple((tuple(a.shape), a.dtype) for a in args))
+        entry = self.graphs.get(key)
+        if entry is None:
+            if torch._C._autograd._profiler_enabled():
+                self.eager_calls += 1
+                return self.stage2.decode(*args)
+            entry = self.graphs[key] = self._capture(args)
+        graph, inputs, out = entry
+        stream = torch.cuda.current_stream(z.device)
+        if self.stream is not None and self.stream != stream:
+            stream.wait_stream(self.stream)
+        self.stream = stream
+        with op_span("kpvid.graph.motion_decode"):  # the graph's kernels are linked to it
+            for buf, a in zip(inputs, args):
+                buf.copy_(a)
+            graph.replay()
+            result = out.clone()
+        self.replays += 1
+        return result
+
+    def _capture(self, args: tuple) -> tuple:
+        dev = args[0].device
+        inputs = [a.clone() for a in args]
+        current = torch.cuda.current_stream(dev)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            self.stage2.decode(*inputs)  # cuBLAS's handle and workspace, outside the capture
+        current.wait_stream(side)
+        if self.pool is None:
+            self.pool = torch.cuda.graph_pool_handle()
+        graph = torch.cuda.CUDAGraph()
+        collecting = gc.isenabled()
+        try:
+            with torch.cuda.device(dev), torch.cuda.graph(graph, pool=self.pool, stream=side,
+                                                          capture_error_mode="thread_local"):
+                gc.disable()
+                out = self.stage2.decode(*inputs)
+        finally:
+            if collecting:
+                gc.enable()
+        self.captures += 1
+        return graph, inputs, out
 
 
 class GenerateNet(nn.Module):
@@ -67,6 +175,7 @@ class GenerateNet(nn.Module):
         super().__init__()
         self.stage1 = stage1
         self.stage2 = stage2
+        self.motion_decode = GraphedDecode(stage2)
         self.n_pts = n_pts
         self.n_future = n_future
         self.heatmap_size = heatmap_size
@@ -80,7 +189,7 @@ class GenerateNet(nn.Module):
             current_mu = self.stage1.detect(im)
         first_pt = current_mu.reshape(b, 2 * self.n_pts)
         with span("kpvid.generate.motion_decode"):
-            pred_flat = self.stage2.decode(z, first_pt, action_code)  # [B, T, 2K]
+            pred_flat = self.motion_decode(z, first_pt, action_code)  # [B, T, 2K]
         future_mu_seq = pred_flat.reshape(b, self.n_future, self.n_pts, 2)
         with span("kpvid.generate.first_conv"):
             first = self.split_first_conv(im, current_mu, future_mu_seq)

@@ -9,6 +9,12 @@ well under one. Names are ``kpvid.<layer>.<phase>``.
 
 The ranges are host events: ``torch.export`` drops them from its graph, and
 one inside a captured CUDA graph records only at capture, not at replay.
+
+``span`` records a user range, which the profiler links no kernel to: a
+kernel is linked to the innermost op open on its thread when it was queued.
+Inside an aten op that is the op; a CUDA graph's replay is no op, so its
+kernels are linked to none unless ``op_span`` opens a range of the op kind
+(``RecordScope.FUNCTION``) around it.
 """
 
 from __future__ import annotations
@@ -25,4 +31,13 @@ def span(name: str):
     on, and does nothing otherwise."""
     if torch._C._autograd._profiler_enabled():
         return torch.profiler.record_function(name)
+    return _OFF
+
+
+def op_span(name: str):
+    """As :func:`span`, the range recorded as an op rather than a user range,
+    so that the profiler links the kernels queued inside it (and no deeper
+    op) to it: around a CUDA graph's replay."""
+    if torch._C._autograd._profiler_enabled():
+        return torch._C._profiler._RecordFunctionFast(name)
     return _OFF

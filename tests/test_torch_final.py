@@ -223,3 +223,90 @@ def test_entry_points_default_to_the_card(setup):
         FinalGenerator(tcfg)
     with pytest.raises(RuntimeError, match="CUDA"):
         InferenceEngine(tcfg, params)
+
+
+def test_cpu_generation_decodes_eager(setup):
+    """On the CPU no graph is captured: every generate call's motion decode
+    runs eager and counts so."""
+    _, tcfg, *_, params = setup
+    gen = FinalGenerator(tcfg, device="cpu")
+    gen.load_parameters(params)
+    rng = np.random.default_rng(14)
+    im = rng.uniform(-1, 1, (2, 32, 32, 3)).astype(np.float32)
+    act = np.eye(5, dtype=np.float32)[[2, 3]]
+    z = rng.standard_normal((2, 8)).astype(np.float32)
+    for _ in range(2):
+        gen.generate(im, act, z)
+    dec = gen.model.motion_decode
+    assert (dec.captures, dec.replays, dec.eager_calls) == (0, 0, 2) and not dec.graphs
+
+
+@pytest.mark.parametrize("case", ["graphable", "grad", "capturing", "export", "sharded"])
+def test_decode_graph_only_where_it_is_safe(setup, monkeypatch, case):
+    """The graph is used for CUDA inputs only with grad mode off, no stream
+    capture under way, no ``torch.export`` tracing and no sharded layer; a
+    CPU tensor never. (A stand-in answers ``is_cuda`` for the CUDA input.)"""
+    from types import SimpleNamespace
+
+    _, tcfg, *_ = setup
+    dec = FinalGenerator(tcfg, device="cpu").model.motion_decode
+    cuda = SimpleNamespace(is_cuda=True)
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: case == "capturing")
+    if case == "sharded":
+        dec.stage2.dec_lstm.sharded = {"lstm_0_kernel": 1}
+    if case == "export":
+        seen = []
+
+        class Probe(torch.nn.Module):
+            def forward(self, x):
+                seen.append(dec.graphable(cuda))
+                return x + 1
+
+        with torch.no_grad():
+            torch.export.export(Probe(), (torch.zeros(2),))
+        got = seen[0]
+    else:
+        with torch.set_grad_enabled(case == "grad"):
+            got = dec.graphable(cuda)
+    assert got == (case == "graphable")
+    with torch.no_grad():
+        assert not dec.graphable(torch.zeros(1))
+
+
+def test_stage2_training_never_reaches_the_decode_graph(monkeypatch):
+    """The stage-2 trainer decodes through ``MotionGenerator.forward`` under
+    autograd: one train step runs with the graphed decode made to raise."""
+    from kpvid_tpu_torch.eval.final import GraphedDecode
+    from kpvid_tpu_torch.train import Stage2Trainer
+
+    def refuse(self, *args):
+        raise AssertionError("the training step reached the decode graph")
+
+    monkeypatch.setattr(GraphedDecode, "__call__", refuse)
+    m = dict(SMOKE, cell_info=(8, 8), n_future_frames=4)
+    cfg = TConfig(model=TModelConfig(**m), training=TTrainingConfig(
+        compute_dtype="float32", batch_size=2)).validate()
+    t = Stage2Trainer(cfg, device="cpu")
+    t.load_parameters(t.init_parameters(0))
+    rng = np.random.default_rng(15)
+    batch = {"keypoints": rng.uniform(-1, 1, (2, 4, 2)).astype(np.float32),
+             "real_seq": rng.uniform(-1, 1, (2, 4, 4, 2)).astype(np.float32),
+             "action_code": np.eye(5, dtype=np.float32)[[0, 1]]}
+    out = t.train_step(batch, rng.standard_normal((2, 8)).astype(np.float32))
+    assert t.step == 1 and np.isfinite(float(out["loss_G"]))
+
+
+def test_exported_generate_net_decodes_eager(setup):
+    """``torch.export`` of GenerateNet traces the eager decode: no capture,
+    one eager call, and every LSTM step's three gate sigmoids in the
+    program (and the mask's)."""
+    _, tcfg, *_, params = setup
+    gen = FinalGenerator(tcfg, device="cpu")
+    gen.load_parameters(params)
+    args = (torch.zeros(2, 32, 32, 3), torch.eye(5)[:2], torch.zeros(2, 8))
+    with torch.no_grad():
+        program = torch.export.export(gen.model, args)
+    dec = gen.model.motion_decode
+    assert (dec.captures, dec.replays, dec.eager_calls) == (0, 0, 1)
+    sigmoids = sum("sigmoid" in str(n.target) for n in program.graph.nodes)
+    assert sigmoids == 3 * SMOKE["n_future_frames"] * len(SMOKE["cell_info"]) + 1

@@ -46,6 +46,17 @@ addend row per 32 frames), on ragged borders with one frame a row, at
 Cout = 72 and 4 (the 64- and 8-channel tiles), at C = 12 (the element-wise
 loader) with Cout = 30 (the addend copied element by element), f32 and
 bf16, and twice to the same bytes.
+
+Generate's motion decode replayed from a CUDA graph (eval/final.py::
+GraphedDecode) gives the eager decode's bits at batch 1, 4 and 32 of
+Config()'s decoder; a call's result outlives the next replay; parameters
+loaded in place show at the next replay and rebound ones force a capture;
+two replicas on one card replay their own rows; the daemon without its
+warm-up captures at a bucket's first batch, readbacks in flight; under a caller's stream
+capture (the graphed stage-2 step too) and under ``torch.export`` the decode
+runs eager; under a profiler a graphed shape replays and a new one runs
+eager without a capture, and the profiler links the replayed kernels to
+the replay's range; the counters read one capture and a replay a call.
 """
 
 import contextlib
@@ -1169,3 +1180,229 @@ def test_a_capture_that_syncs_raises(dev):
     t._one_step = one
     single(t, 0)
     assert t.step == 1
+
+
+def _decoder(dev, seed: int = 0):
+    """A GraphedDecode over Config()'s motion decoder (a 2 x 1024 LSTM over
+    32 steps, bf16) on the card, its parameters drawn from ``seed``."""
+    from kpvid_tpu_torch.eval.final import GraphedDecode
+    from kpvid_tpu_torch.models import MotionGenerator
+
+    m = Config().model
+    s2 = MotionGenerator(m.n_pts, m.n_action, m.n_future_frames, m.cell_info, m.vae_dim,
+                         torch.bfloat16)
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for p in s2.parameters():
+            p.copy_(torch.randn(p.shape, generator=g) / p.shape[0] ** 0.5)
+    return GraphedDecode(s2.to(dev).eval())
+
+
+def _decode_inputs(dev, b: int, seed: int = 0) -> tuple:
+    """(z, first points, one-hot actions) of ``b`` rows at Config() sizes."""
+    m = Config().model
+    g = torch.Generator().manual_seed(seed)
+    z = torch.randn(b, m.vae_dim, generator=g)
+    first = torch.rand(b, 2 * m.n_pts, generator=g) * 2 - 1
+    act = torch.eye(m.n_action)[torch.randint(0, m.n_action, (b,), generator=g)]
+    return tuple(t.to(dev) for t in (z, first, act))
+
+
+def _counts(dec) -> tuple:
+    return dec.captures, dec.replays, dec.eager_calls
+
+
+@pytest.mark.parametrize("b", [1, 4, 32])
+def test_graphed_decode_matches_eager_bit_for_bit(dev, b):
+    """The replayed decode gives the eager decode's bits, at the serve
+    buckets' ends and the offline batch: the same ops in the same dtypes,
+    the same cuBLAS kernels."""
+    dec = _decoder(dev)
+    args = _decode_inputs(dev, b)
+    with torch.no_grad():
+        want = dec.stage2.decode(*args)
+        got = dec(*args)
+        again = dec(*args)
+    torch.cuda.synchronize()
+    assert _counts(dec) == (1, 2, 0)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert torch.equal(got, want) and torch.equal(again, want)
+
+
+def test_graphed_decode_output_outlives_the_next_replay(dev):
+    """Each call returns a tensor of its own: the next replay, which
+    rewrites the graph's output buffer, leaves the last call's result as it
+    was."""
+    dec = _decoder(dev)
+    with torch.no_grad():
+        first = dec(*_decode_inputs(dev, 4, 1))
+        kept = first.clone()
+        second = dec(*_decode_inputs(dev, 4, 2))
+    torch.cuda.synchronize()
+    assert _counts(dec) == (1, 2, 0)
+    assert torch.equal(first, kept) and not torch.equal(first, second)
+
+
+def test_graphed_decode_follows_the_parameters(dev):
+    """``load_parameters`` copies new values into the same tensors: the next
+    replay reads them, with no new capture. A parameter rebound to other
+    storage drops the graph, and the next call captures anew."""
+    cfg = load_config("kpvid_tpu_torch/configs/smoke.yaml")
+    cfg.training.compute_dtype = "bfloat16"
+    gen = FinalGenerator(cfg, device="cuda")
+    gen.load_parameters(_randomized(gen, 5))
+    dec = gen.model.motion_decode
+    rng = np.random.default_rng(5)
+    im = rng.uniform(-1, 1, (2, 32, 32, 3)).astype(np.float32)
+    act = np.eye(cfg.model.n_action, dtype=np.float32)[[1, 6]]
+    z = np.stack([request_z(s, cfg.model.vae_dim) for s in (11, 12)])
+
+    def eager(out):
+        first = out["current_points"].reshape(2, -1)
+        return gen.stage2.decode(torch.as_tensor(z, device=dev), first,
+                                 torch.as_tensor(act, device=dev)).reshape(
+                                     out["future_points"].shape)
+
+    before = gen.generate(im, act, z)
+    gen.load_parameters(_randomized(gen, 6))
+    after = gen.generate(im, act, z)
+    assert _counts(dec) == (1, 2, 0)
+    with torch.no_grad():
+        assert torch.equal(after["future_points"], eager(after))
+    assert not torch.equal(after["future_points"], before["future_points"])
+    for p in gen.stage2.parameters():
+        p.data = p.data.clone()
+    again = gen.generate(im, act, z)
+    assert _counts(dec) == (2, 3, 0)
+    assert torch.equal(again["future_points"], after["future_points"])
+
+
+def test_two_replicas_on_one_card_each_replay_their_rows(dev):
+    """Two replicas of one mesh on one card, each with its own graphs, pool
+    and stream: each replica's rows of the future points are the eager
+    decode's of those rows."""
+    from kpvid_tpu_torch.eval.final import GeneratorMesh
+
+    cfg = load_config("kpvid_tpu_torch/configs/smoke.yaml")
+    cfg.training.compute_dtype = "bfloat16"
+    params = _randomized(FinalGenerator(cfg, device="cpu"), 7)
+    mesh = GeneratorMesh(cfg, params, [dev, dev])
+    rng = np.random.default_rng(7)
+    im = rng.uniform(-1, 1, (4, 32, 32, 3)).astype(np.float32)
+    act = np.eye(cfg.model.n_action, dtype=np.float32)[[0, 3, 5, 8]]
+    z = np.stack([request_z(400 + i, cfg.model.vae_dim) for i in range(4)])
+    for _ in range(2):
+        got = mesh.run(lambda rep, *rows: rep.final.generate(*rows), im, act, z)
+    for i, rep in enumerate(mesh.replicas):
+        assert _counts(rep.final.model.motion_decode) == (1, 2, 0)
+        rows = slice(2 * i, 2 * i + 2)
+        with torch.no_grad():
+            first = torch.as_tensor(got["current_points"][rows], device=dev).reshape(2, -1)
+            want = rep.final.stage2.decode(torch.as_tensor(z[rows], device=dev), first,
+                                           torch.as_tensor(act[rows], device=dev))
+        np.testing.assert_array_equal(got["future_points"][rows],
+                                      want.float().reshape(2, *got["future_points"].shape[1:])
+                                      .cpu().numpy())
+
+
+def test_a_callers_capture_takes_the_eager_decode(deterministic):
+    """Under a stream capture that is not its own (the graphed stage-2 step,
+    chip_smoke.py's device timings) the decode runs eager inside it, and
+    counts so: the captured caller replays the decode's bits. The stage-2
+    trainer's graphed step still captures and steps."""
+    make, _, multi, _ = _multi_setup(2, deterministic)
+    t = make()
+    multi(t)
+    assert len(t._graphs) == 1 and t.step == MULTI_K
+    dec = _decoder(deterministic)
+    args = _decode_inputs(deterministic, 4)
+    with torch.no_grad():
+        want = dec(*args)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            inside = dec(*args)
+        graph.replay()
+    torch.cuda.synchronize()
+    assert _counts(dec) == (1, 1, 1)
+    assert torch.equal(inside, want)
+
+
+def test_daemon_without_warmup_captures_at_a_buckets_first_batch(dev):
+    """``--no_warmup``: each bucket's decode graph is captured at its first
+    batch, while the pipeline's readbacks of the batch before are in flight
+    on the copy stream; the answers are those of an engine that captured in
+    its warm-up, and no decode ran eager."""
+    cfg = load_config("kpvid_tpu_torch/configs/smoke.yaml")
+    cfg.training.compute_dtype = "bfloat16"
+    params = _randomized(FinalGenerator(cfg, device="cpu"), 8)
+    rng = np.random.default_rng(8)
+    n = 12
+    images = rng.uniform(-1, 1, (n, 32, 32, 3)).astype(np.float32)
+    zs = [request_z(500 + i, cfg.model.vae_dim) for i in range(n)]
+    results = {}
+    for warm in (True, False):
+        engine = InferenceEngine(cfg, params, device="cuda")
+        batcher = MicroBatcher(engine, buckets=(2, 4), max_wait_ms=0.0, pipeline=True)
+        try:
+            if warm:
+                batcher.warmup()
+            futs = [batcher.submit(images[i], i % cfg.model.n_action, zs[i]) for i in range(n)]
+            results[warm] = [f.result(timeout=120) for f in futs]
+        finally:
+            batcher.stop()
+        dec = engine.final.model.motion_decode
+        assert dec.eager_calls == 0 and 1 <= dec.captures <= 2 and dec.replays >= 3
+    for a, b in zip(results[True], results[False]):
+        for key in InferenceEngine.OUTPUT_KEYS:
+            np.testing.assert_array_equal(a[key], b[key])
+
+
+def test_graphed_decode_counters_and_the_profiler(dev):
+    """After a warm-up call and k calls: one capture, k + 1 replays. Under a
+    profiler a shape with a graph replays (its range ``kpvid.graph.
+    motion_decode`` and the graph's launch in the trace); a new shape runs
+    eager, with no capture; it is captured at its first call after."""
+    from torch.profiler import DeviceType, ProfilerActivity, profile
+
+    dec = _decoder(dev)
+    four, two = _decode_inputs(dev, 4), _decode_inputs(dev, 2)
+    k = 3
+    with torch.no_grad():
+        for _ in range(k + 1):
+            dec(*four)
+        assert _counts(dec) == (1, k + 1, 0)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            dec(*four)
+            dec(*two)
+            torch.cuda.synchronize()
+        assert _counts(dec) == (1, k + 2, 1)
+        dec(*two)
+    assert _counts(dec) == (2, k + 3, 1)
+    events = list(prof.profiler.kineto_results.events())
+    host = [e.name() for e in events if e.device_type() == DeviceType.CPU]
+    assert host.count("kpvid.graph.motion_decode") == 1
+    assert any("GraphLaunch" in n for n in host), sorted(set(host))
+    # the graph's kernels are linked to the replay's range (an op), which
+    # the benchmark's phase readers follow to the phase that queued them
+    replay = next(e for e in events if e.name() == "kpvid.graph.motion_decode")
+    linked = [e for e in events if e.device_type() == DeviceType.CUDA
+              and e.linked_correlation_id() == replay.correlation_id()]
+    assert len(linked) >= 3 * Config().model.n_future_frames, len(linked)
+
+
+def test_export_on_the_card_keeps_the_eager_decode(dev):
+    """``torch.export`` on the card after a capture traces the eager decode
+    (every LSTM step's gates in the program) and captures nothing."""
+    cfg = load_config("kpvid_tpu_torch/configs/smoke.yaml")
+    gen = FinalGenerator(cfg, device="cuda")
+    gen.load_parameters(gen.init_parameters(0))
+    m = cfg.model
+    args = (torch.zeros(2, m.image_size, m.image_size, 3, device=dev),
+            torch.eye(m.n_action, device=dev)[:2], torch.zeros(2, m.vae_dim, device=dev))
+    dec = gen.model.motion_decode
+    with torch.no_grad():
+        gen.model(*args)
+        program = torch.export.export(gen.model, args)
+    assert _counts(dec) == (1, 1, 1)
+    sigmoids = sum("sigmoid" in str(n.target) for n in program.graph.nodes)
+    assert sigmoids == 3 * m.n_future_frames * len(m.cell_info) + 1  # + the mask's

@@ -4,7 +4,7 @@ same bits with one on, one ``FinalGenerator.generate`` call records
 ``kpvid.generate`` with its six phases nested in order (``translator``
 twice), also per replica through ``GeneratorMesh.map`` and
 ``InferenceEngine.dispatch``, and the serving artifact's graph has no
-profiler node."""
+profiler node. ``op_span`` records an op's range, not a user range."""
 
 from __future__ import annotations
 
@@ -84,6 +84,21 @@ def test_span_under_a_profiler_records_its_range():
             torch.ones(2).add_(1)
     names = [e.name() for e in prof.profiler.kineto_results.events()]
     assert names.count("kpvid.test.range") == 1
+
+
+def test_op_span_records_an_op_range_and_nothing_without_a_profiler():
+    """``op_span`` is the shared null context without a profiler; under one
+    it records its range as an op, not a user range (the kind the profiler
+    links kernels to)."""
+    assert spans.op_span("kpvid.a") is spans.span("kpvid.b")
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with spans.op_span("kpvid.test.op"):
+            torch.ones(2).add_(1)
+        with spans.span("kpvid.test.user"):
+            pass
+    events = {e.name(): e for e in prof.profiler.kineto_results.events()}
+    assert not events["kpvid.test.op"].is_user_annotation()
+    assert events["kpvid.test.user"].is_user_annotation()
 
 
 def test_generate_net_gives_the_same_bits_with_the_profiler_on(setup):
