@@ -977,32 +977,9 @@ def throughput_phase(cfg, params, card: str) -> float:
     print(f"generate batch {b} bf16: {dt / iters * 1e3:.1f} ms per call, {fps:.1f} frames/s, "
           f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB on {card}", flush=True)
 
-    # where the time of one call goes: its stages, timed one by one
-    s1 = gen.stage1
     with torch.no_grad():
-        mu = s1.detect(images)
-        fut = gen.stage2.decode(z, mu.reshape(b, -1), act)
-        fut = fut.reshape(b, m.n_future_frames, m.n_pts, 2)
-        first = gen.model.split_first_conv(images, mu, fut)
-        heads = s1.translator.fused_heads()
-        stages = {
-            "detect (pose encoder + pose_head)": lambda: s1.detect(images),
-            "motion decode (LSTM)": lambda: gen.stage2.decode(z, mu.reshape(b, -1), act),
-            # its host loop replays the decode's graph; its device time is
-            # the eager decode's, captured inside device_ms's own graph
-            "motion decode (LSTM), graphed": lambda: gen.model.motion_decode(
-                z, mu.reshape(b, -1), act),
-            "split first conv through oct0a's ReLU (#1+, gaussian_render)":
-                lambda: gen.model.split_first_conv(images, mu, fut),
-            "translator decode from oct0b (conv kernels)": lambda: s1.translator(first, *heads),
-        }
-        stages["the whole generate"] = lambda: gen.generate(images, act, z)
-        for name, fn in stages.items():
-            print(f"stage at batch {b} bf16: {name}: device {device_ms(fn, 1, 1.0):.3f} ms, "
-                  f"host loop {time_ms(fn, 1.0):.3f} ms", flush=True)
-
         # the raw maps reach pose_head in bf16; does .contiguous() copy them?
-        raw = s1.pose_encoder.raw_maps(images)
+        raw = gen.stage1.pose_encoder.raw_maps(images)
         line = (f"raw maps at batch {b}: {raw.dtype} {tuple(raw.shape)}, contiguous "
                 f"{raw.is_contiguous()}")
         if not raw.is_contiguous():

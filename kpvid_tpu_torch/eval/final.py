@@ -4,11 +4,12 @@ Counterpart of kpvid_tpu/eval/final.py::FinalGenerator:
 
   pose-encode the input image -> first-frame keypoints (pose_head kernel)
   explicit z -> motion decoder (stacked LSTM) -> T future keypoint frames
-  32^2 Gaussian maps (gaussian_render kernel); the translator's first conv
-  split so its frame-invariant channels are convolved once per sample, its
-  per-frame part, that sum and oct0a's BN + ReLU one conv3x3_add_affine
-  launch; the translator decode from oct0b (conv kernels, ops/chain.py);
-  blend and clip.
+  the translator's serving weights (``Translator.serving_weights``, the one
+  owner of their layout); 32^2 Gaussian maps (gaussian_render kernel); the
+  translator's first conv split so its frame-invariant channels are
+  convolved once per sample, its per-frame part, that sum and oct0a's BN +
+  ReLU one conv3x3_add_affine launch; the translator decode from oct0b
+  (ops/chain.py runs the prepared layers); blend and clip.
 
 The path itself is :class:`GenerateNet`, a module on tensors that
 ``FinalGenerator.generate`` calls after moving its inputs to the device,
@@ -16,13 +17,14 @@ and that the serving artifact traces (eval/export.py).
 ``render_point_images`` draws evaluate's colorized keypoint images at full
 resolution (gaussian_render again, at 128^2).
 
-While a profiler records, ``FinalGenerator.generate`` names its phases
-(utils/spans.py): ``kpvid.generate`` around the call, and inside it
-``kpvid.generate.inputs`` (the copies to the device), ``.detect``,
-``.motion_decode``, ``.first_conv``, ``.translator`` (twice: the heads'
-folding, then the decode) and ``.blend``; ``kpvid.graph.motion_decode``
-inside ``.motion_decode`` around each replay of :class:`GraphedDecode`. The
-serving artifact's graph has none of them.
+While a profiler records, generation names its phases (utils/spans.py):
+``kpvid.generate`` around ``FinalGenerator.generate``, inside it
+``kpvid.generate.inputs`` (the copies to the device), then, each opened once
+by ``GenerateNet.forward``, ``.detect``, ``.motion_decode``, ``.first_conv``
+(the serving weights and the split first conv), ``.translator`` and
+``.blend``; ``kpvid.graph.motion_decode`` inside ``.motion_decode`` around
+each replay of :class:`GraphedDecode`. The serving artifact's graph has
+none of them.
 
 On the card the motion decode (``MotionGenerator.decode``: 32 steps of a
 2-layer LSTM, some 1,000 small launches at ``Config()``) is replayed from a
@@ -54,8 +56,10 @@ from torch import nn
 from ..configs import Config
 from ..device import resolve_device, to_device
 from ..models import MotionGenerator, Stage1Generator, init_like_jax
+from ..models.networks import FirstLayer
+from ..ops.chain import translator_chain
 from ..ops.conv3x3 import conv3x3_add_affine
-from ..ops.coords import colorize_point_maps
+from ..ops.coords import blend, colorize_point_maps
 from ..ops.keypoint_kernels import gaussian_render
 from ..utils import jax_random
 from ..utils.spans import op_span, span
@@ -184,31 +188,37 @@ class GenerateNet(nn.Module):
 
     def forward(self, im: torch.Tensor, action_code: torch.Tensor,
                 z: torch.Tensor) -> dict[str, torch.Tensor]:
-        b = im.shape[0]
+        b, hw = im.shape[0], tuple(im.shape[1:3])
+        t = self.n_future
         with span("kpvid.generate.detect"):
             current_mu = self.stage1.detect(im)
         first_pt = current_mu.reshape(b, 2 * self.n_pts)
         with span("kpvid.generate.motion_decode"):
             pred_flat = self.motion_decode(z, first_pt, action_code)  # [B, T, 2K]
-        future_mu_seq = pred_flat.reshape(b, self.n_future, self.n_pts, 2)
+        future_mu_seq = pred_flat.reshape(b, t, self.n_pts, 2)
         with span("kpvid.generate.first_conv"):
-            first = self.split_first_conv(im, current_mu, future_mu_seq)
+            weights = self.stage1.translator.serving_weights()
+            first = self.split_first_conv(im, current_mu, future_mu_seq, weights.first)
         with span("kpvid.generate.translator"):
-            head_k, head_b = self.stage1.translator.fused_heads()
-        out = self.stage1.generate(im, first, head_k, head_b)
-        return {
-            "im": im,
-            "pred_im_seq": out["pred_im_seq"],
-            "mask": out["mask"],
-            "pred_im_crude": out["pred_im_crude"],
-            "current_points": current_mu,
-            "future_points": future_mu_seq,
-            "fut_pt_raw": future_mu_seq,
-        }
+            crude, mask = translator_chain(first, weights)
+        with span("kpvid.generate.blend"):
+            im_t = im.float().repeat_interleave(t, dim=0)
+            final = torch.clamp(blend(im_t, crude, mask), -1.0, 1.0)
+            crude = torch.clamp(crude, -1.0, 1.0)
+            return {
+                "im": im,
+                "pred_im_seq": final.reshape(b, t, *hw, 3),
+                "mask": mask.reshape(b, t, *hw, 1),
+                "pred_im_crude": crude.reshape(b, t, *hw, 3),
+                "current_points": current_mu,
+                "future_points": future_mu_seq,
+                "fut_pt_raw": future_mu_seq,
+            }
 
-    def split_first_conv(self, im, current_mu, future_mu_seq) -> torch.Tensor:
+    def split_first_conv(self, im, current_mu, future_mu_seq, first: FirstLayer) -> torch.Tensor:
         """The translator's first layer (oct0a: conv, BN, ReLU) for all B*T
-        frames, in the compute dtype. The conv's input channels are
+        frames, in the compute dtype, from ``first`` of
+        ``Translator.serving_weights()``. The conv's input channels are
         [embedding ++ current map ++ future map]; the first two are the same
         for every frame of a sample, so they are convolved once per sample
         (exact by linearity), with the bias, and kept in f32. One
@@ -227,15 +237,9 @@ class GenerateNet(nn.Module):
             hs, hs, inv_std, grid_dtype=future_mu_seq.dtype, out_dtype=dt,
         )
         static = torch.cat([emb.to(dt), cur_map], dim=-1)
-        translator = self.stage1.translator
-        conv = translator.oct0a.conv
-        weight = conv.weight.to(dt)  # [F, 128 + 2K, 3, 3]
-        n_static = static.shape[-1]
-        y_static = F.conv2d(static.permute(0, 3, 1, 2), weight[:, :n_static], padding=1)
-        y_static = y_static.permute(0, 2, 3, 1).float() + conv.bias.float()  # [B, h, w, F]
-        # HWIO, copied here so that the op launches its kernel alone
-        k_dyn = weight[:, n_static:].permute(2, 3, 1, 0).contiguous()
-        return conv3x3_add_affine(fut_map, k_dyn, y_static, *translator.first_affine())
+        y_static = F.conv2d(static.permute(0, 3, 1, 2), first.static_kernel, padding=1)
+        y_static = y_static.permute(0, 2, 3, 1).float() + first.bias  # [B, h, w, F]
+        return conv3x3_add_affine(fut_map, first.frame_kernel, y_static, first.scale, first.shift)
 
 
 class FinalGenerator:

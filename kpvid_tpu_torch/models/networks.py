@@ -2,7 +2,7 @@
 
 Counterpart of kpvid_tpu/models/networks.py: ConvEncoder, ImageEncoder,
 PoseEncoder, Translator, Stage1Generator (the training forward, and
-detect/embed/generate for inference), ImageDiscriminator (the PatchGAN of
+detect/embed for inference), ImageDiscriminator (the PatchGAN of
 stage 1), and the trainable stage-2 pair: MotionGenerator (decode; with
 ``encoder=True`` also encode and the training forward) and
 SeqDiscriminator. Module and parameter names follow the Flax tree
@@ -14,26 +14,26 @@ package leaves them to XLA; the pose decoder upsamples and concatenates its
 skip input before each octave's first conv, which is the same function as
 the JAX fused form. The soft-argmax runs the fused ``pose_head`` kernel and
 the stage-1 forward's maps the ``gaussian_render`` kernel, both
-differentiable through their backward kernels. The translator's serving
-decode runs the conv kernels of ops/chain.py from oct0a's activation, which
-generation's split first conv makes (eval/final.py); its training form runs
-torch convolutions, as JAX training takes the XLA path. On a CPU tensor every
-kernel wrapper takes its plain version. ``train`` selects batch-statistics
-BN, as in Flax.
+differentiable through their backward kernels. The translator's training
+form runs torch convolutions, as JAX training takes the XLA path;
+``Translator.serving_weights`` is the one owner of its serving layout, which
+eval/final.py (generation and its phases) and ops/chain.py (the prepared
+layers) read. On a CPU tensor every kernel wrapper takes its plain version.
+``train`` selects batch-statistics BN, as in Flax.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ..ops.batching import pair_fns
-from ..ops.chain import translator_chain
 from ..ops.conv3x3 import fold_bn
 from ..ops.coords import blend
 from ..ops.keypoint_kernels import gaussian_render, pose_head
-from ..utils.spans import span
 from .layers import Conv, ConvBNReLU, Dense, StackedLSTM
 
 
@@ -115,17 +115,49 @@ class PoseEncoder(nn.Module):
         return pose_head(self.raw_maps(x, train).contiguous())
 
 
+class FirstLayer(NamedTuple):  # oct0a, split for eval/final.py's split first conv
+    static_kernel: torch.Tensor  # OIHW [F, C + K, 3, 3] of the per-sample channels, for cuDNN
+    bias: torch.Tensor  # [F] f32
+    frame_kernel: torch.Tensor  # HWIO [3, 3, K, F] of the per-frame channels
+    scale: torch.Tensor  # [F] f32: oct0a's BN folded without the bias
+    shift: torch.Tensor
+
+
+class ChainLayer(NamedTuple):  # a conv + BN + ReLU layer of ops/chain.py
+    up2: bool  # a 2x upsample before the conv
+    kernel: torch.Tensor  # HWIO [3, 3, Cin, Cout]
+    scale: torch.Tensor  # [Cout] f32: BN with the conv bias folded in
+    shift: torch.Tensor
+
+
+class Head(NamedTuple):  # crude (channels 0..2) and mask (3) as one conv, no ReLU
+    kernel: torch.Tensor  # HWIO [3, 3, C, 4]
+    scale: torch.Tensor  # [4] f32 ones
+    bias: torch.Tensor  # [4] f32
+
+
+class ServingWeights(NamedTuple):
+    """:meth:`Translator.serving_weights`: kernels in the compute dtype."""
+
+    first: FirstLayer
+    chain: tuple[ChainLayer, ...]  # oct0b .. oct2b
+    head: Head
+
+
 class Translator(nn.Module):
     """Image decoder from the 1/4-resolution joint embedding: conv blocks per
     octave, filters halving from ``filters``, two 2x upsample octaves, a
-    3-channel crude image head and a 1-channel sigmoid mask head. Inference
-    runs the serving decode of ops/chain.py on oct0a's activation, which the
-    split first conv computes (eval/final.py)."""
+    3-channel crude image head and a 1-channel sigmoid mask head. Its input's
+    ``in_ch`` channels are [embedding ++ current maps ++ future maps], the
+    maps ``n_pts`` channels each. :meth:`decode` is the training form;
+    serving reads :meth:`serving_weights`."""
 
     n_octaves = 2
 
-    def __init__(self, in_ch: int, filters: int = 256, dtype=torch.float32):
+    def __init__(self, in_ch: int, n_pts: int, filters: int = 256, dtype=torch.float32):
         super().__init__()
+        self.n_pts = n_pts
+        self.dtype = dtype
         f, prev_f = filters, in_ch
         for o in range(self.n_octaves + 1):
             setattr(self, f"oct{o}a", ConvBNReLU(prev_f, f, 3, 1, dtype))
@@ -139,41 +171,34 @@ class Translator(nn.Module):
         self.crude = Conv(f, 3, 3, dtype=dtype)
         self.mask = Conv(f, 1, 3, dtype=dtype)
 
-    def layer_params(self) -> dict:
-        """name -> (HWIO kernel, conv bias, BN gamma, beta, mean, var) for
-        every conv+BN block, as ops/chain.translator_chain takes them."""
-        out = {}
-        for name, mod in self.named_children():
-            if isinstance(mod, ConvBNReLU):
-                bn = mod.bn
-                out[name] = (
-                    mod.conv.weight.permute(2, 3, 1, 0).contiguous(), mod.conv.bias,
-                    bn.weight, bn.bias, bn.running_mean, bn.running_var,
-                )
-        return out
-
-    def first_affine(self) -> tuple[torch.Tensor, torch.Tensor]:
-        """oct0a's BN folded to f32 (scale, shift) without its conv bias,
-        which the split first conv adds with its per-sample part."""
-        bn = self.oct0a.bn
-        return fold_bn(None, bn.weight, bn.bias, bn.running_mean, bn.running_var)
-
-    def fused_heads(self) -> tuple[torch.Tensor, torch.Tensor]:
-        """The crude and mask convs as one 4-channel conv: ([3, 3, C, 4] HWIO,
-        [4]); channels 0..2 are crude, channel 3 the mask logit."""
+    def serving_weights(self) -> ServingWeights:
+        """The one place that lays the parameters out for serving: every
+        kernel in the compute dtype, every BN folded to f32 (scale, shift)
+        by ``fold_bn``. Made from the current parameters at each call. oct0a
+        is split at its last ``n_pts`` input channels, the future maps,
+        which the split first conv convolves per frame."""
+        dt = self.dtype
+        conv, bn = self.oct0a.conv, self.oct0a.bn
+        weight = conv.weight.to(dt)
+        n_static = weight.shape[1] - self.n_pts
+        first = FirstLayer(
+            weight[:, :n_static], conv.bias.float(),
+            # HWIO, copied here so that the op launches its kernel alone
+            weight[:, n_static:].permute(2, 3, 1, 0).contiguous(),
+            *fold_bn(None, bn.weight, bn.bias, bn.running_mean, bn.running_var),
+        )
+        chain = tuple(  # registered in decode order; each later octave's "a" upsamples
+            ChainLayer(name.endswith("a"), mod.conv.weight.permute(2, 3, 1, 0).contiguous().to(dt),
+                       *fold_bn(mod.conv.bias, mod.bn.weight, mod.bn.bias, mod.bn.running_mean,
+                                mod.bn.running_var))
+            for name, mod in self.named_children()
+            if isinstance(mod, ConvBNReLU) and name != "oct0a"
+        )
         k = torch.cat([self.crude.weight, self.mask.weight], dim=0)
         b = torch.cat([self.crude.bias, self.mask.bias], dim=0)
-        return k.permute(2, 3, 1, 0).contiguous(), b
-
-    def forward(self, first_act: torch.Tensor, head_kernel: torch.Tensor,
-                head_bias: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-        """first_act: [N, h, w, F] oct0a's activation (conv, BN, ReLU) -> the
-        decode from oct0b on: (crude f32 [N, 4h, 4w, 3], mask f32 [N, 4h, 4w,
-        1])."""
-        return translator_chain(
-            self.layer_params(), first_act.contiguous(), head_kernel, head_bias,
-            n_octaves=self.n_octaves,
-        )
+        head = Head(k.permute(2, 3, 1, 0).contiguous().to(dt),
+                    torch.ones_like(b, dtype=torch.float32), b.float())
+        return ServingWeights(first, chain, head)
 
     def decode(self, joint: torch.Tensor, train: bool) -> tuple[torch.Tensor, torch.Tensor]:
         """The training form, torch convolutions: joint [N, h, w, C] -> (crude
@@ -211,8 +236,8 @@ class ImageDiscriminator(nn.Module):
 class Stage1Generator(nn.Module):
     """Stage-1 graph: the training forward (image encoder on frame t, pose
     encoder on both frames as one 2B batch, Gaussian maps at
-    ``heatmap_size``, translator, masked blend), and for inference detect,
-    embed, and generate T frames from one source frame."""
+    ``heatmap_size``, translator, masked blend), and for inference detect
+    and embed."""
 
     def __init__(self, n_pts: int, image_size: int = 128, encoder_filters: int = 32,
                  translator_filters: int = 256, pose_decoder_filters: int = 128,
@@ -227,7 +252,8 @@ class Stage1Generator(nn.Module):
         self.pose_encoder = PoseEncoder(
             n_pts, image_size, pose_decoder_filters, encoder_filters, dtype
         )
-        self.translator = Translator(encoder_filters * 4 + 2 * n_pts, translator_filters, dtype)
+        self.translator = Translator(encoder_filters * 4 + 2 * n_pts, n_pts, translator_filters,
+                                     dtype)
 
     def forward(self, im: torch.Tensor, future_im: torch.Tensor, train: bool) -> dict:
         """im, future_im: [B, H, W, 3] f32 -> final, crude (f32 [B, H, W, 3]),
@@ -252,26 +278,6 @@ class Stage1Generator(nn.Module):
     def embed(self, im: torch.Tensor) -> torch.Tensor:
         """Appearance embedding [B, H/4, W/4, 4 * encoder_filters]."""
         return self.image_encoder(im)[-2]
-
-    def generate(self, im: torch.Tensor, first_act: torch.Tensor,
-                 head_kernel: torch.Tensor, head_bias: torch.Tensor) -> dict:
-        """im: [B, H, W, 3]; first_act: [B*T, h, w, F] the translator's oct0a
-        activation -> the T frames of each sample, blended with the source
-        frame and clipped to [-1, 1]."""
-        b = im.shape[0]
-        t = first_act.shape[0] // b
-        with span("kpvid.generate.translator"):
-            crude, mask = self.translator(first_act, head_kernel, head_bias)
-        with span("kpvid.generate.blend"):
-            im_t = im.float().repeat_interleave(t, dim=0)
-            final = torch.clamp(blend(im_t, crude, mask), -1.0, 1.0)
-            crude = torch.clamp(crude, -1.0, 1.0)
-            hw = tuple(im.shape[1:3])
-            return {
-                "pred_im_seq": final.reshape(b, t, *hw, 3),
-                "mask": mask.reshape(b, t, *hw, 1),
-                "pred_im_crude": crude.reshape(b, t, *hw, 3),
-            }
 
 
 class MotionGenerator(nn.Module):

@@ -27,7 +27,7 @@ from kpvid_tpu_torch.configs import TrainingConfig as TTrainingConfig
 from kpvid_tpu_torch.configs import load_config
 from kpvid_tpu_torch.eval import FinalGenerator
 from kpvid_tpu_torch.models import ConvEncoder, PoseEncoder
-from kpvid_tpu_torch.ops import conv3x3_add_affine
+from kpvid_tpu_torch.ops import conv3x3_add_affine, translator_chain
 from kpvid_tpu_torch.ops.resize import conv3x3_same
 
 SMOKE = dict(
@@ -126,12 +126,14 @@ def test_pose_encoder_detect_matches_flax(setup, mode):
 
 
 def test_translator_chain_matches_flax(setup):
-    """The port's serving decode (ops/chain.py, plain versions on the CPU)
-    against the Flax Translator with precomputed_first + fused_heads. The
-    port's chain starts at oct0b from oct0a's activation, which #1+'s plain
-    version computes as the split first conv does: a conv of per-frame maps
-    plus one addend for all 3 frames, oct0a's BN, ReLU. Flax is handed the
-    same conv + addend as its precomputed_first."""
+    """The port's serving decode (ops/chain.py on ``serving_weights()``,
+    plain versions on the CPU) against the Flax Translator with
+    precomputed_first + fused_heads. The port's chain starts at oct0b from
+    oct0a's activation, which #1+'s plain version computes as the split
+    first conv does: a conv of per-frame maps plus one addend for all 3
+    frames, the record's folded oct0a BN, ReLU. Flax is handed the same conv
+    + addend as its precomputed_first. The record's head kernel is Flax's
+    concatenation exactly."""
     _, s1, _, gen = setup
     rng = np.random.default_rng(3)
     maps = torch.from_numpy(rng.normal(size=(3, 8, 8, 5)).astype(np.float32))
@@ -146,11 +148,12 @@ def test_translator_chain_matches_flax(setup):
     want_crude, want_mask = jax.jit(
         lambda tv, x: mod.apply(tv, x, False, precomputed_first=x, fused_heads=(hk, hb))
     )(tv, jnp.asarray(first))
-    k, b = gen.stage1.translator.fused_heads()
-    np.testing.assert_allclose(k.detach().numpy(), hk, rtol=0, atol=0)
     with torch.no_grad():
-        act = conv3x3_add_affine(maps, kernel, addend, *gen.stage1.translator.first_affine())
-        crude, mask = gen.stage1.translator(act, k, b)
+        w = gen.stage1.translator.serving_weights()
+        np.testing.assert_allclose(w.head.kernel.numpy(), hk, rtol=0, atol=0)
+        np.testing.assert_allclose(w.head.bias.numpy(), hb, rtol=0, atol=0)
+        act = conv3x3_add_affine(maps, kernel, addend, w.first.scale, w.first.shift)
+        crude, mask = translator_chain(act, w)
     assert crude.shape == (3, 32, 32, 3) and mask.shape == (3, 32, 32, 1)
     np.testing.assert_allclose(crude.numpy(), np.asarray(want_crude), rtol=1e-4, atol=1e-5)
     np.testing.assert_allclose(mask.numpy(), np.asarray(want_mask), rtol=1e-4, atol=1e-5)

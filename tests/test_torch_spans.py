@@ -1,10 +1,11 @@
 """The port's profiler ranges (kpvid_tpu_torch/utils/spans.py), on the CPU at
 smoke widths: ``span`` does nothing without a profiler, generation gives the
 same bits with one on, one ``FinalGenerator.generate`` call records
-``kpvid.generate`` with its six phases nested in order (``translator``
-twice), also per replica through ``GeneratorMesh.map`` and
-``InferenceEngine.dispatch``, and the serving artifact's graph has no
-profiler node. ``op_span`` records an op's range, not a user range."""
+``kpvid.generate`` with its six phases nested in order, each once (all
+but ``inputs`` opened by ``GenerateNet.forward``), also per replica through
+``GeneratorMesh.map`` and ``InferenceEngine.dispatch``, and the serving
+artifact's graph has no profiler node. ``op_span`` records an op's range,
+not a user range."""
 
 from __future__ import annotations
 
@@ -26,7 +27,7 @@ SMOKE = dict(
     n_future_frames=6, encoder_filters=8, translator_filters=16, pose_decoder_filters=16,
     discriminator_filters=8,
 )
-PHASES = ["inputs", "detect", "motion_decode", "first_conv", "translator", "translator", "blend"]
+PHASES = ["inputs", "detect", "motion_decode", "first_conv", "translator", "blend"]
 B = 4
 
 
