@@ -7,10 +7,12 @@
 // and, with an f32 addend read in the epilogue (conv3x3_add_affine, #1+), the
 // translator's split first conv with oct0a's BN + ReLU, which the JAX path
 // leaves to XLA (conv3x3_mma.cuh says more).
-// The second is the same kernel with another input loader: it builds the
-// TF1-legacy 2x upsample of x (out[2i] = x[i], out[2i+1] = (x[i] + x[i+1]) / 2,
-// edge-clamped) straight into the shared-memory halo tile, so it is exact on
-// every border without the TPU kernel's phase decomposition or border splices.
+// On the f32 route below the second is the same kernel with another input
+// loader: it builds the TF1-legacy 2x upsample of x (out[2i] = x[i], out[2i+1]
+// = (x[i] + x[i+1]) / 2, edge-clamped) straight into the shared-memory halo
+// tile. The bf16 route runs it as the TPU kernel's phase decomposition, a
+// conv of the low-resolution x at four times the output channels, exact on
+// every border (conv3x3_mma.cuh).
 //
 // Bound on the card: at the translator's shapes the work is 2 * 9 * C * Cout
 // flops per output pixel against a few bytes per pixel, far above the bf16
@@ -205,13 +207,16 @@ cudaError_t dispatch_width(const float* x, const float* w, const float* add, int
 extern "C" {
 
 // dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores). up2: 0 =
-// conv3x3_affine, 1 = up2_conv3_affine. add: null, or (with up2 = 0, for
-// conv3x3_add_affine) the f32 addend [N / frames, H, W, Cout], whose row n /
-// frames is added to output image n before the affine. Returns the
-// cudaError_t of the launch (0 on success).
-int kpvid_conv3x3_affine(int dtype, int up2, const void* x, const void* w, const float* add,
-                         int frames, const float* scale, const float* shift, void* out, int N,
-                         int H, int W, int C, int Cout, int relu, void* stream) {
+// conv3x3_affine, 1 = up2_conv3_affine. work: with dtype 1 and up2 1, room for
+// the phase weights (bf16, 3 * 3 * C * 4 * Fp with Fp = Cout rounded up to 64,
+// 16-byte aligned), written and read on the stream; else unused. add: null, or
+// (with up2 = 0, for conv3x3_add_affine) the f32 addend [N / frames, H, W,
+// Cout], whose row n / frames is added to output image n before the affine.
+// Returns the cudaError_t of the launches (0 on success).
+int kpvid_conv3x3_affine(int dtype, int up2, const void* x, const void* w, void* work,
+                         const float* add, int frames, const float* scale, const float* shift,
+                         void* out, int N, int H, int W, int C, int Cout, int relu,
+                         void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (add && (up2 || frames <= 0 || N % frames != 0)) return (int)cudaErrorInvalidValue;
   if (dtype == 0) {
@@ -224,8 +229,8 @@ int kpvid_conv3x3_affine(int dtype, int up2, const void* x, const void* w, const
                                        relu, s);
   }
   if (dtype == 1)
-    return kpvid_mma::conv3x3_bf16(up2, x, w, add, frames, scale, shift, out, N, H, W, C, Cout,
-                                   relu, s);
+    return kpvid_mma::conv3x3_bf16(up2, x, w, work, add, frames, scale, shift, out, N, H, W, C,
+                                   Cout, relu, s);
   return (int)cudaErrorInvalidValue;
 }
 

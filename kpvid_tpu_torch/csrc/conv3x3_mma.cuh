@@ -1,9 +1,10 @@
 // The bf16 route of conv3x3.cu: the fused 3x3 SAME conv + affine + ReLU as an
 // implicit GEMM on Hopper's tensor cores (bf16 in, f32 accumulation). It
 // replaces the TPU kernels conv3x3_affine (kpvid_tpu/ops/pallas_conv.py:158,
-// #1) and up2_conv3_affine (pallas_conv.py:434, #2): one template, UP2 picks
-// the input loader. ADD (conv3x3_add_bf16_mma_kernel, #1+) adds an f32 addend
-// in the epilogue, see there.
+// #1) and up2_conv3_affine (pallas_conv.py:434, #2): one template, UP2 runs
+// the same main loop on the phase form of #2, see there. ADD
+// (conv3x3_add_bf16_mma_kernel, #1+) adds an f32 addend in the epilogue, see
+// there.
 //
 // Design: a persistent, warp-specialised kernel. The grid is one block an SM
 // (fewer when there are fewer tiles); block b walks the output tiles b, b +
@@ -42,17 +43,56 @@
 //     pixels of copy dx from row y + dy: a descriptor whose start moves by 512
 //     bytes a row. Each copy is one 4-D TMA box {CK, 16, TH+2, 1} at signed
 //     coordinates whose out-of-bounds zero fill is the SAME padding.
-// up2 (the TF1-legacy 2x upsample of x, edge-clamped, which TMA's zero fill
-// does not give): TMA loads the (TH/2+2) x (TW/2+2) low-resolution source
-// tile into one of two buffers (the next stage's while the producer builds
-// this one, the edge clamp left to the build), then the producer builds the
-// copies from it:
-// each source pixel and its neighbours below and right give a 2 x 2 block of
-// the halo, in f32, rounded once, as the plain version computes it. The
-// upsampled activation never reaches device memory; every border is exact.
 // C % 8 != 0 (rows that are not 16-byte vectors) takes an element-wise
 // loader into the same copies, Cout % 8 != 0 element-wise weights, in the
 // same ring.
+//
+// #2, the phase form (UP2). The TF1-legacy 2x upsample (u[2i] = x[i],
+// u[2i+1] = (x[i] + x[i+1]) / 2, edge-clamped) followed by the SAME 3x3 conv
+// is, for each output phase (a, b) in {0,1}^2, a 3x3 conv of the
+// low-resolution x: out[2i+a][2j+b] = sum_{e,f} K_ab[e][f] x[i+e][j+f] with
+// K_ab[e][f] = sum_{dy,dx} A_a[e][dy] A_b[f][dx] k[dy][dx] (the JAX
+// reference's _up2_phase_kbig, pallas_conv.py:197; A_0 and A_1 at
+// up2_phase_weights_kernel). So #2 is #1's main loop over the
+// low-resolution grid at Cout' = 4 Fp output channels: the pixels the same
+// TMA halo copies of x, the weights the [9 CK][128] slice of the phase
+// weights K' [3][3][C][4 Fp] (channel o' = (2b + a) Fp + o, Fp = F rounded up
+// to 64, so that each 64-channel atom holds one phase and each 128-channel
+// tile one b), which up2_phase_weights_kernel makes from k in f32 and rounds
+// once, in the same launch sequence. The epilogue writes low-resolution pixel
+// (i, j) of phase (a, b) to output pixel (2i + a, 2j + b). Four phases of 9
+// taps are the upsampled conv's 36 taps for a 2 x 2 block of output pixels;
+// the kernel leaves out those whose weights are zero, A_1's row e = -1 and, for
+// b = 1, column f = -1, and runs 25.
+// The borders, exact before the one rounding. The phase form on x padded with
+// zeros is wrong on output rows/columns {0, 2n-2, 2n-1}. Per axis, padding x
+// with -x[0] before and +x[n-1] after (corners by product) makes every line
+// exact but 2n-1 of phase 1, where tap d = +1 adds x[n-1] that the upsample's
+// edge clamp and the conv's zero pad leave out. The producer warpgroup splits
+// for it: its first warp issues each stage's TMA as soon as the stage is free
+// (the copies complete a barrier of their own, `loaded`), its other three
+// patch the pad lines of the edge tiles' copies once they have landed and
+// then arrive on `full` (a producer that waited for each stage's copies
+// before issuing the next stage's ran oct1a 29% slower on an H100). Those two
+// surplus terms, and their overlap at the corner, go through the taps that are
+// zero in the interior:
+//   - row 2H-1: phase a = 1's slots e = -1 hold -sum_dx A_b[f][dx] k[+1][dx];
+//     a = 1 tiles skip those slots' n256 wgmmas and, on the bottom tile row,
+//     run them as m64n16k16 over the tile's last row (halo row TH, one per
+//     f), accumulated into the registers of that row's 16 pixels;
+//   - column 2W-1: phase b = 1's slots f = -1 hold -sum_dy A_a[e][dy]
+//     k[dy][+1], and on the right tile column their n256 wgmmas read, for
+//     copy 0, a column copy: zero but at the last column, which holds
+//     x[:, W-1] with its patched pads (the producer copies it from copy 1
+//     into a ring of NS such copies, zeroed once); elsewhere b = 1 tiles skip
+//     them and load no copy 0;
+//   - the corner: phase (1, 1)'s slot (-1, -1), which both rules leave at 0,
+//     holds +k[+1][+1], read by the row term's f = -1 wgmma from the column
+//     copy.
+// Tiles are aligned to the bottom and right edges of the low-resolution grid
+// (the first tile row and column may start above and left of the image), so
+// the last image row and column are always the tile's row and column 15. A
+// stage's weights come one TMA box a tap, only the taps its atoms read.
 //
 // The MMA, and the tile shapes (TH x TW output pixels x TN channels), from
 // Cout:
@@ -72,12 +112,15 @@
 // with the pixels on M reads 2 KB + 32 N bytes for 2,048 N FLOP: 96 B a clock
 // at N = 128, 128 at N = 64, the reason for the transposed form). The stage
 // fill (weights + the three copies) adds 28 B a clock at TN = 128 and 31 at
-// TN = 64; up2 fills its weights and source tile and builds the copies (35 /
-// 43 B a clock); the epilogue's staging 3.5-14. So #1 needs 112-125 B a clock
-// and is bound by operations; #2 at C' = 64 needs 137, so shared memory caps
-// oct2a at about 93% of the tensor rate. The head is bound by reading x (2 x
-// 64 bytes a pixel against 2 x 9 x 64 x 4 FLOP). On the card the stage's
-// TMA rows (32 bytes each) and up2's build bound them first (PERF.md).
+// TN = 64; the epilogue's staging 3.5-14. So #1 needs 112-125 B a clock and is
+// bound by operations. #2 runs TN = 128 stages with 4 to 9 of their taps (on
+// average 6.9 at oct1a's 32^2 grid, 6.6 at oct2a's 64^2), so its stage fill
+// takes 28-41 B a clock beside the wgmmas' 80 at the rate of the taps it runs,
+// plus the edge tiles' patch (the pad lines, a few hundred bytes a stage).
+// The head is bound by reading x (2 x 64 bytes a pixel against 2 x 9 x 64 x 4
+// FLOP). On an H100 the stages' fill from L2 (the copies' TMA rows are 32
+// bytes) bounds them first: #1's wide layers and #2 take about the same time a
+// stage whatever taps they run (PERF.md).
 //
 // The epilogue applies acc * scale + shift and the optional ReLU in
 // registers, rounds once to bf16 and stages the tile in its last stage (held
@@ -128,7 +171,6 @@ constexpr int TW = 16;  // output pixels a tile row, and a halo copy's row
 constexpr int CK = 16;  // input channels a stage: one k16 step a tap
 constexpr int PIX_B = CK * 2;  // bytes of one halo pixel: a 32-byte K-major row
 constexpr int HW = TW + 2;
-constexpr int LW = TW / 2 + 2;
 constexpr int ATOM_B = 9 * CK * 128;  // a 64-channel atom of a stage's weights
 constexpr int NPT = 128;  // producer threads: one warpgroup
 constexpr int NCONS = 2;  // consumer warpgroups
@@ -140,8 +182,8 @@ constexpr int align_up(int b, int a) { return (b + a - 1) / a * a; }
 constexpr int min_i(int a, int b) { return a < b ? a : b; }
 
 // the tile of a block and its shared memory: STAGES stages of [weights][three
-// halo copies] (1024-byte aligned, for the swizzles), up2's two source
-// buffers, the barriers, slack to align the base, and (ADD, TN >= 64) the
+// halo copies] (1024-byte aligned, for the swizzles), (UP2) a column copy a
+// stage, the barriers, slack to align the base, and (ADD, TN >= 64) the
 // addend rings of the consumer warpgroups in what is left
 template <int TN, bool UP2, bool ADD = false>
 struct Tile {
@@ -152,26 +194,26 @@ struct Tile {
   static constexpr int MT = TH / (4 * NCONS);
   static constexpr int COPY_B = (TH + 2) * TW * PIX_B;  // one halo copy
   static constexpr int HALO_B = 3 * COPY_B;
-  static constexpr int LPIX = (TH / 2 + 2) * LW;    // up2: low-resolution source pixels
   static constexpr int W_B = TN >= 64 ? TN / 64 * ATOM_B : 9 * CK * TN * 2;
   static constexpr int HALO_OFF = align_up(W_B, 1024);
   static constexpr int STAGE_B = align_up(HALO_OFF + HALO_B, 1024);
-  static constexpr int SRC_B = align_up(LPIX * PIX_B, 128);
-  static constexpr int EXTRA = 1024 + 128 + (UP2 ? 2 * SRC_B : 0);  // + the barriers
+  static constexpr int COL_B = UP2 ? COPY_B : 0;  // UP2: the stage's column copy
+  static constexpr int EXTRA = 1024 + 128;  // + the barriers
   // ADD (TRANS): two stages, and after them each consumer warpgroup's ring of
   // ANB addend buffers (one output row: 16 pixels x 64 channels, f32, two
   // 1024-byte-aligned halves of 32 channels) and their barriers
   static constexpr bool ARING = ADD && TRANS;
-  static constexpr int STAGES = ARING ? 2 : min_i(8, (SMEM_MAX - EXTRA) / STAGE_B);
+  static constexpr int STAGES = ARING ? 2 : min_i(8, (SMEM_MAX - EXTRA) / (STAGE_B + COL_B));
   static constexpr int AROW_B = TW * 64 * 4;
   static constexpr int ABAR_B = 512;
   static constexpr int ANB =
       ARING ? min_i(ANB_MAX, (SMEM_MAX - STAGES * STAGE_B - EXTRA - ABAR_B) / (NCONS * AROW_B))
             : 0;
   static constexpr int ADD_B = ARING ? ANB * NCONS * AROW_B + ABAR_B : 0;
-  static constexpr int BYTES = STAGES * STAGE_B + EXTRA + ADD_B;
+  static constexpr int BYTES = STAGES * (STAGE_B + COL_B) + EXTRA + ADD_B;
   static_assert(STAGES >= (ARING ? 2 : 3), "a ring of at least three stages (two with ADD)");
   static_assert(!ARING || (ANB >= 2 && 2 * NCONS * ANB * 8 <= ABAR_B), "the addend ring");
+  static_assert(!UP2 || (TN == 128 && !ADD), "the phase form runs 128-channel tiles");
   // the epilogue's staging: 64 pixels x 64 channels a warpgroup (TRANS), or 16
   // pixels x TN channels a warp; rows padded by 16 bytes so that a store phase
   // hits every bank
@@ -183,14 +225,15 @@ struct Tile {
 
 // what a launch computes, beside the pointers and tensor maps
 struct Geom {
-  int H, W, C, Cout, OH, OW;
-  int tiles_w, tiles_per_img, nco, ntiles, nch;
+  int H, W, C, Cout, OH, OW;  // UP2: H, W the low-resolution grid, Cout = 4 Fp
+  int tiles_w, tiles_h, tiles_per_img, nco, ntiles, nch;
   int relu;
   int wtma;  // the weights come by TMA (TN >= 64, Cout % 8 == 0, w 16-byte aligned)
   int cvec;  // the output stores 16-byte vectors (Cout % 8 == 0, out 16-byte aligned)
   const float* add;  // ADD: the f32 addend [N / frames, OH, OW, Cout]
   int frames;        // ADD: output images per addend row
   int atma;          // ADD: the addend comes by TMA (amap; Cout % 4 == 0, add 16-byte aligned)
+  int F, Fp;         // UP2: the output's channels, and each phase's in Cout
 };
 
 // chunk j (of 2) of pixel p of a halo copy is stored at chunk swz(p, j): the
@@ -214,8 +257,9 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 
 // the producer warpgroup's own barrier, the consumers', and each consumer
 // warpgroup's (barrier 0 is __syncthreads')
+template <int N = NPT>
 __device__ __forceinline__ void producer_sync() {
-  asm volatile("bar.sync 1, %0;\n" ::"n"(NPT) : "memory");
+  asm volatile("bar.sync 1, %0;\n" ::"n"(N) : "memory");
 }
 
 __device__ __forceinline__ void consumer_sync() {
@@ -390,27 +434,60 @@ __device__ __forceinline__ void wgmma_n8(float (&d)[1][4], uint64_t da, uint64_t
       : "l"(da), "l"(db), "r"(1));
 }
 
+// D (m64 x n16, f32) += A (m64 x k16, MN-major) * B (k16 x n16, K-major): UP2's
+// row term over one row of a tile, into the registers that hold that row's 16
+// pixels in the n256 accumulator (d0: pixels 0-7, d1: pixels 8-15)
+__device__ __forceinline__ void wgmma_n16t(float (&d0)[4], float (&d1)[4], uint64_t da,
+                                           uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 1, 0;\n}\n"
+      : "+f"(d0[0]), "+f"(d0[1]), "+f"(d0[2]), "+f"(d0[3]), "+f"(d1[0]), "+f"(d1[1]),
+        "+f"(d1[2]), "+f"(d1[3])
+      : "l"(da), "l"(db), "r"(1));
+}
+
 // 16 bytes (k chunk j) of halo pixel (hy, hx), hx in 0..TW+1, into every copy
-// that holds it: copy dx keeps halo columns dx .. dx + TW - 1
+// from copy d0 on that holds it: copy dx keeps halo columns dx .. dx + TW - 1
 __device__ __forceinline__ void put_halo(unsigned char* halo, int copy_b, int hy, int hx, int j,
-                                         uint4 v) {
+                                         uint4 v, int d0 = 0) {
 #pragma unroll
   for (int dx = 0; dx < 3; ++dx) {
     const int c = hx - dx;
-    if (c >= 0 && c < TW) {
+    if (dx >= d0 && c >= 0 && c < TW) {
       const int p = hy * TW + c;
       *reinterpret_cast<uint4*>(halo + dx * copy_b + p * PIX_B + swz(p, j) * 16) = v;
     }
   }
 }
 
+// eight bf16 values negated: their sign bits flipped, exact
+__device__ __forceinline__ uint4 neg_bf16(uint4 v) {
+  constexpr uint32_t m = 0x80008000u;
+  return make_uint4(v.x ^ m, v.y ^ m, v.z ^ m, v.w ^ m);
+}
+
+// the n256 wgmmas of a stage, bit dy * 3 + dx a tap (#1 runs all nine; UP2
+// leaves out the slots that hold its edge terms where they do not apply),
+// and a mode: the taps, and in bits 9 + f UP2's row term
+constexpr int TAPS_ALL = 0x1FF;
+constexpr int TAPS_NO_F = 0x1B6;   // without column f = -1 (dx = 0)
+constexpr int TAPS_NO_E = 0x1F8;   // without row e = -1 (dy = 0)
+constexpr int TAPS_NO_EF = 0x1B0;  // without either
+template <int V>
+struct Mode {
+  static constexpr int value = V;
+};
+
 // x: [N, H, W, C]; w: [3, 3, C, Cout]; out: [N, OH, OW, Cout], all bf16, with
-// (OH, OW) = (H, W), or (2H, 2W) when UP2. VEC: x's rows are 16-byte vectors
-// (C % 8 == 0, x aligned), so the halo copies come by TMA (xmap) or up2's
-// source tile (xmap). wmap is read only when g.wtma, xmap only when VEC. ADD:
-// the epilogue adds g.add's f32 value at each output element of the sample
-// (amap: its tensor map, read when g.atma and TN >= 64). The body of the two
-// kernels below, which name the two ops' launches apart.
+// (OH, OW) = (H, W); UP2: w the phase weights [3, 3, C, Cout = 4 Fp], out
+// [N, 2H, 2W, F]. VEC: x's rows are 16-byte vectors (C % 8 == 0, x aligned),
+// so the halo copies come by TMA (xmap). wmap is read only when g.wtma, xmap
+// only when VEC. ADD: the epilogue adds g.add's f32 value at each output
+// element of the sample (amap: its tensor map, read when g.atma and TN >= 64).
+// The body of the two kernels below, which name the two ops' launches apart.
 template <int TN, bool UP2, bool VEC, bool ADD>
 __device__ __forceinline__ void conv3x3_mma_body(const CUtensorMap& xmap, const CUtensorMap& wmap,
                                                  const CUtensorMap& amap,
@@ -423,22 +500,23 @@ __device__ __forceinline__ void conv3x3_mma_body(const CUtensorMap& xmap, const 
   static_assert(!(ADD && UP2), "the addend has no upsampled form");
   using S = Tile<TN, UP2, ADD>;
   constexpr int MT = S::MT, TH = S::TH, NS = S::STAGES, NT = TN / 8;
-  constexpr bool X_TMA = VEC && !UP2;
   extern __shared__ __align__(128) unsigned char mma_smem[];
   unsigned char* smem = mma_smem + ((1024 - (smem_u32(mma_smem) & 1023)) & 1023);
   const uint32_t sbase = smem_u32(smem);
   const uint32_t ring_base = sbase + NS * S::STAGE_B;  // ADD: the addend rings
   const uint32_t abars = ring_base + S::ANB * NCONS * S::AROW_B;
-  const uint32_t src_base = ring_base + S::ADD_B;  // up2's two source buffers
-  const uint32_t bars = src_base + (UP2 ? 2 * S::SRC_B : 0);
-  // ADD: the producer threads that fill the stages; its last warp fetches the
-  // addend
-  constexpr int NPS = S::ARING ? NPT - 32 : NPT;
+  const uint32_t col_base = ring_base + S::ADD_B;  // UP2: the stages' column copies
+  const uint32_t bars = col_base + NS * S::COL_B;
+  // the producer threads that arrive on a stage's full barrier: all; ADD: all
+  // but the last warp, which fetches the addend; UP2: all but the first, which
+  // issues the TMA
+  constexpr int NPS = S::ARING || UP2 ? NPT - 32 : NPT;
   // full: the stage's TMA bytes and an arrival from every stage producer
-  // thread; empty: one arrival per consumer warp
+  // thread (UP2: and from the thread that issues the TMA, with the weights'
+  // bytes); empty: one arrival per consumer warp
   auto full = [&](int s) { return bars + 8 * s; };
   auto empty = [&](int s) { return bars + 8 * (NS + s); };
-  auto src_in = [&](int b) { return bars + 8 * (2 * NS + b); };  // up2: source buffer b's TMA
+  auto loaded = [&](int s) { return bars + 8 * (2 * NS + s); };  // UP2: the stage's copies' TMA
   // ADD: consumer warpgroup w's addend buffer s and its barriers: afull (the
   // TMA bytes, or the fetching warp's one arrival), aempty (one arrival per
   // consumer warp of w)
@@ -447,11 +525,10 @@ __device__ __forceinline__ void conv3x3_mma_body(const CUtensorMap& xmap, const 
   auto aempty = [&](int w, int s) { return abars + 8 * ((NCONS + w) * S::ANB + s); };
   if (threadIdx.x == 0) {
     for (int s = 0; s < NS; ++s) {
-      mbar_init(full(s), NPS);
+      mbar_init(full(s), NPS + UP2);
       mbar_init(empty(s), 4 * NCONS);
+      if constexpr (UP2) mbar_init(loaded(s), 1);
     }
-    mbar_init(src_in(0), 1);
-    mbar_init(src_in(1), 1);
     for (int w = 0; w < NCONS; ++w)
       for (int s = 0; s < S::ANB; ++s) {
         mbar_init(afull(w, s), 1);
@@ -466,17 +543,52 @@ __device__ __forceinline__ void conv3x3_mma_body(const CUtensorMap& xmap, const 
   struct Item {
     int n, oy0, ox0, co0, c0;
   };
+  // UP2: tiles of the low-resolution grid aligned to its bottom and right
+  // edges, so the first may start above or left of the image
   auto item = [&](int i) {
     const int t = (int)blockIdx.x + (i / g.nch) * (int)gridDim.x;
     const int rest = t / g.nco;
     const int tile = rest % g.tiles_per_img;
-    return Item{rest / g.tiles_per_img, (tile / g.tiles_w) * TH, (tile % g.tiles_w) * TW,
-                (t - rest * g.nco) * TN, (i % g.nch) * CK};
+    const int ty = tile / g.tiles_w, tx = tile % g.tiles_w;
+    return Item{rest / g.tiles_per_img, UP2 ? g.H - (g.tiles_h - ty) * TH : ty * TH,
+                UP2 ? g.W - (g.tiles_w - tx) * TW : tx * TW, (t - rest * g.nco) * TN,
+                (i % g.nch) * CK};
+  };
+  // UP2: the phase b of a tile's 128 channels (one b a tile, Fp a multiple of 64)
+  auto phase_b = [&](const Item& it) { return UP2 ? (it.co0 / g.Fp) >> 1 : 0; };
+  // UP2: the taps whose weights atom g of a tile reads: phase b = 1 away from
+  // the right edge reads no column f = -1 (its column copy would be 0), phase
+  // a = 1 no row e = -1 but on the bottom edge, where its row term reads it
+  auto up2_taps = [&](const Item& it, int g_atom) {
+    const int q = (it.co0 + 64 * g_atom) / g.Fp;
+    const bool no_f = (q >> 1) && it.ox0 + TW < g.W;
+    const bool all_e = !(q & 1) || it.oy0 + TH >= g.H;
+    return all_e ? (no_f ? TAPS_NO_F : TAPS_ALL) : (no_f ? TAPS_NO_EF : TAPS_NO_E);
   };
 
   if (threadIdx.x < NPT) {
     // ------------------------------------------------------------ producer
     const int ptid = threadIdx.x;
+    const __nv_bfloat16 zero = __float2bfloat16(0.f);
+    // C % 8 != 0: item it's halo element by element into the copies from d0
+    // on, 0 outside the image and past C, by threads t, t + nt, ...
+    auto load_halo = [&](const Item& it, unsigned char* halo, int t, int nt, int d0) {
+      const __nv_bfloat16* xn = x + (size_t)it.n * g.H * g.W * g.C;
+      for (int k = t; k < (TH + 2) * HW * 2; k += nt) {
+        const int p = k >> 1, j = k & 1;
+        const int hy = p / HW, hx = p % HW;
+        const int gy = it.oy0 - 1 + hy, gx = it.ox0 - 1 + hx;
+        uint4 v;
+        __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&v);
+#pragma unroll
+        for (int ci = 0; ci < 8; ++ci) {
+          const int c = it.c0 + j * 8 + ci;
+          const bool ok = c < g.C && gy >= 0 && gy < g.H && gx >= 0 && gx < g.W;
+          e[ci] = ok ? xn[((size_t)gy * g.W + gx) * g.C + c] : zero;
+        }
+        put_halo(halo, S::COPY_B, hy, hx, j, v, d0);
+      }
+    };
     if constexpr (S::ARING) {
       if (ptid >= NPS) {
         // the addend: for each tile of the block, output row q of consumer
@@ -521,35 +633,99 @@ __device__ __forceinline__ void conv3x3_mma_body(const CUtensorMap& xmap, const 
         return;
       }
     }
-    const __nv_bfloat16 zero = __float2bfloat16(0.f);
-    // up2: the low-resolution source tile of item i (source rows oy0/2 - 1 ..
-    // oy0/2 + TH/2, columns likewise) into buffer b: one TMA box, zero outside
-    // the image, or element by element, clamped into it; the build repeats the
-    // last row and column either way
-    auto load_src = [&](int i, int b) {
-      const Item it = item(i);
-      const int ly0 = it.oy0 / 2 - 1, lx0 = it.ox0 / 2 - 1;
-      const uint32_t dst = src_base + b * S::SRC_B;
-      if constexpr (VEC) {
-        if (ptid == 0) {
-          mbar_arrive_tx(src_in(b), S::LPIX * PIX_B);
-          tma_load_4d(dst, &xmap, src_in(b), it.c0, lx0, ly0, it.n);
-        }
-      } else {
-        const __nv_bfloat16* xn = x + (size_t)it.n * g.H * g.W * g.C;
-        unsigned char* d = smem + (dst - sbase);
-        for (int k = ptid; k < S::LPIX * CK; k += NPS) {
-          const int p = k / CK, ci = k % CK;
-          const int gy = min(max(ly0 + p / LW, 0), g.H - 1);
-          const int gx = min(max(lx0 + p % LW, 0), g.W - 1);
-          const int c = it.c0 + ci;
-          *reinterpret_cast<__nv_bfloat16*>(d + p * PIX_B + ci * 2) =
-              c < g.C ? xn[((size_t)gy * g.W + gx) * g.C + c] : zero;
-        }
-      }
-    };
     if constexpr (UP2) {
-      if (items > 0) load_src(0, 0);
+      // the column copies are 0 but in their last column, the only one written
+      for (int k = ptid; k < NS * S::COL_B / 16; k += NPT)
+        reinterpret_cast<uint4*>(smem + (col_base - sbase))[k] = make_uint4(0u, 0u, 0u, 0u);
+      producer_sync();
+      if (ptid < 32) {
+        // the first warp: each item's weights by TMA into full, and (VEC) its
+        // copies into loaded, as soon as the stage is free; b = 1 tiles load
+        // no copy 0
+        for (int i = 0; i < items; ++i) {
+          const Item it = item(i);
+          const int s = i % NS;
+          mbar_wait(empty(s), ((i / NS) & 1) ^ 1);
+          if (ptid == 0) {
+            const uint32_t st = sbase + s * S::STAGE_B;
+            // the taps that the atom's warpgroup runs, one TMA box a tap
+            const int m0 = up2_taps(it, 0), m1 = up2_taps(it, 1);
+            mbar_arrive_tx(full(s), (__popc(m0) + __popc(m1)) * CK * 128);
+            for (int tap = 0; tap < 9; ++tap) {
+              if ((m0 >> tap) & 1)
+                tma_load_3d(st + tap * CK * 128, &wmap, full(s), it.co0, it.c0, tap);
+              if ((m1 >> tap) & 1)
+                tma_load_3d(st + ATOM_B + tap * CK * 128, &wmap, full(s), it.co0 + 64, it.c0, tap);
+            }
+            if constexpr (VEC) {
+              const int d0 = phase_b(it);
+              mbar_arrive_tx(loaded(s), (3 - d0) * S::COPY_B);
+              for (int dx = d0; dx < 3; ++dx)
+                tma_load_4d(st + S::HALO_OFF + dx * S::COPY_B, &xmap, loaded(s), it.c0,
+                            it.ox0 - 1 + dx, it.oy0 - 1, it.n);
+            }
+          }
+        }
+        return;
+      }
+      // the other NPS threads: each item's copies (VEC: once their TMA has
+      // landed; else element by element) with x padded by -x[0] before and
+      // +x[n-1] after on each axis, the pad lines of the edge tiles patched,
+      // then (b = 1 on the right edge) the column copy: halo column TW, x[:,
+      // W-1], into the copy's last column
+      const int pt = ptid - 32;
+      for (int i = 0; i < items; ++i) {
+        const Item it = item(i);
+        const int s = i % NS;
+        unsigned char* halo = smem + s * S::STAGE_B + S::HALO_OFF;
+        unsigned char* col = smem + (col_base - sbase) + s * S::COL_B;
+        const int d0 = phase_b(it);
+        if constexpr (VEC) {
+          mbar_wait(loaded(s), (i / NS) & 1);
+        } else {
+          mbar_wait(empty(s), ((i / NS) & 1) ^ 1);
+          load_halo(it, halo, pt, NPS, d0);
+          producer_sync<NPS>();
+        }
+        // 16 bytes of halo pixel (hy, hx) from a copy that holds it
+        auto get = [&](int hy, int hx, int j) {
+          const int dx = hx >= TW ? hx - TW + 1 : d0;
+          const int p = hy * TW + hx - dx;
+          return *reinterpret_cast<const uint4*>(halo + dx * S::COPY_B + p * PIX_B +
+                                                 swz(p, j) * 16);
+        };
+        const bool top = it.oy0 <= 0, left = it.ox0 <= 0;
+        const bool bottom = it.oy0 + TH >= g.H, right = it.ox0 + TW >= g.W;
+        // the columns first, so that the pad rows carry the corners' products
+        if (left || right) {
+          for (int k = pt; k < (TH + 2) * 2; k += NPS) {
+            const int hy = k >> 1, j = k & 1;
+            if (left && (it.ox0 < 0 || !d0))  // halo column 0 is in copy 0 alone
+              put_halo(halo, S::COPY_B, hy, -it.ox0, j, neg_bf16(get(hy, 1 - it.ox0, j)), d0);
+            if (right) put_halo(halo, S::COPY_B, hy, TW + 1, j, get(hy, TW, j), d0);
+          }
+          producer_sync<NPS>();
+        }
+        if (top || bottom) {
+          for (int k = pt; k < HW * 2; k += NPS) {
+            const int hx = k >> 1, j = k & 1;
+            if (hx < d0) continue;
+            if (top)
+              put_halo(halo, S::COPY_B, -it.oy0, hx, j, neg_bf16(get(1 - it.oy0, hx, j)), d0);
+            if (bottom) put_halo(halo, S::COPY_B, TH + 1, hx, j, get(TH, hx, j), d0);
+          }
+          producer_sync<NPS>();
+        }
+        if (d0 && right) {
+          for (int k = pt; k < (TH + 2) * 2; k += NPS) {
+            const int hy = k >> 1, j = k & 1, p = hy * TW + TW - 1;
+            *reinterpret_cast<uint4*>(col + p * PIX_B + swz(p, j) * 16) = get(hy, TW, j);
+          }
+        }
+        fence_proxy_async();  // the plain stores above, before the consumers' wgmmas
+        mbar_arrive(full(s));
+      }
+      return;
     }
     // thread 0: the stage's TMA loads, after announcing their bytes
     auto tma_stage = [&](const Item& it, int s) {
@@ -559,28 +735,20 @@ __device__ __forceinline__ void conv3x3_mma_body(const CUtensorMap& xmap, const 
         for (int a = 0; a < TN / 64; ++a)
           tma_load_3d(st + a * ATOM_B, &wmap, full(s), it.co0 + 64 * a, it.c0, 0);
       }
-      if constexpr (X_TMA) {
+      if constexpr (VEC) {
 #pragma unroll
         for (int dx = 0; dx < 3; ++dx)
           tma_load_4d(st + S::HALO_OFF + dx * S::COPY_B, &xmap, full(s), it.c0, it.ox0 - 1 + dx,
                       it.oy0 - 1, it.n);
       }
     };
-    const uint32_t tx = (g.wtma ? S::W_B : 0) + (X_TMA ? S::HALO_B : 0);
+    const uint32_t tx = (g.wtma ? S::W_B : 0) + (VEC ? S::HALO_B : 0);
     for (int i = 0; i < items; ++i) {
       const Item it = item(i);
       const int s = i % NS;
       const uint32_t par = (i / NS) & 1;
       unsigned char* st_p = smem + s * S::STAGE_B;
       unsigned char* halo = st_p + S::HALO_OFF;
-      if constexpr (UP2) {
-        if (i + 1 < items) load_src(i + 1, (i + 1) & 1);
-        if constexpr (VEC) {
-          mbar_wait(src_in(i & 1), (i >> 1) & 1);
-        } else {
-          producer_sync();  // every thread's stores of the source tiles so far
-        }
-      }
       mbar_wait(empty(s), par ^ 1);
       if (ptid == 0 && tx) {
         mbar_expect_tx(full(s), tx);
@@ -597,81 +765,9 @@ __device__ __forceinline__ void conv3x3_mma_body(const CUtensorMap& xmap, const 
               (c < g.C && o < g.Cout) ? w[((size_t)tap * g.C + c) * g.Cout + o] : zero;
         }
       }
-      if constexpr (UP2) {
-        // the upsampled halo from the source tile, along H, then W, in f32: source
-        // pixel (sy, sx) of the tile and its neighbours below and right give the
-        // halo's 2 x 2 block at rows 2 sy - 1 + {0, 1} and columns 2 sx - 1 + {0, 1}
-        const unsigned char* src = smem + (src_base - sbase) + (i & 1) * S::SRC_B;
-#pragma unroll 2
-        for (int k = ptid; k < S::LPIX * 2; k += NPS) {
-          const int p = k >> 1, j = k & 1;
-          const int sy = p / LW, sx = p % LW;
-          const int hy = 2 * sy - 1, hx = 2 * sx - 1;
-          // the source row below and the column right inside the image, else
-          // the upsample's edge clamp repeats this one
-          const int y1 = it.oy0 / 2 + sy < g.H ? sy + 1 : sy;
-          const int x1 = it.ox0 / 2 + sx < g.W ? sx + 1 : sx;
-          // the block's rows and columns inside the halo and the output
-          const bool r0 = hy >= 0 && it.oy0 - 1 + hy < g.OH;
-          const bool r1 = hy + 1 <= TH + 1 && it.oy0 + hy >= 0 && it.oy0 + hy < g.OH;
-          const bool c0 = hx >= 0 && it.ox0 - 1 + hx < g.OW;
-          const bool c1 = hx + 1 <= TW + 1 && it.ox0 + hx >= 0 && it.ox0 + hx < g.OW;
-          auto at = [&](int yy, int xx) {
-            return *reinterpret_cast<const uint4*>(src + (yy * LW + xx) * PIX_B + j * 16);
-          };
-          const uint4 q00 = at(sy, sx);
-          const uint4 q10 = r1 ? at(y1, sx) : q00;
-          const uint4 q01 = c1 ? at(sy, x1) : q00;
-          const uint4 q11 = r1 && c1 ? at(y1, x1) : q00;
-          uint4 v00, v10, v01, v11;
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const float2 a = __bfloat1622float2(reinterpret_cast<const __nv_bfloat162*>(&q00)[e]);
-            const float2 b = __bfloat1622float2(reinterpret_cast<const __nv_bfloat162*>(&q10)[e]);
-            const float2 c = __bfloat1622float2(reinterpret_cast<const __nv_bfloat162*>(&q01)[e]);
-            const float2 d = __bfloat1622float2(reinterpret_cast<const __nv_bfloat162*>(&q11)[e]);
-            const float2 u = make_float2((a.x + b.x) * 0.5f, (a.y + b.y) * 0.5f);  // odd row
-            const float2 r = make_float2((c.x + d.x) * 0.5f, (c.y + d.y) * 0.5f);
-            reinterpret_cast<__nv_bfloat162*>(&v00)[e] = __floats2bfloat162_rn(a.x, a.y);
-            reinterpret_cast<__nv_bfloat162*>(&v10)[e] = __floats2bfloat162_rn(u.x, u.y);
-            reinterpret_cast<__nv_bfloat162*>(&v01)[e] =
-                __floats2bfloat162_rn((a.x + c.x) * 0.5f, (a.y + c.y) * 0.5f);
-            reinterpret_cast<__nv_bfloat162*>(&v11)[e] =
-                __floats2bfloat162_rn((u.x + r.x) * 0.5f, (u.y + r.y) * 0.5f);
-          }
-          // halo pixels outside the output are the SAME padding: 0
-          const uint4 z = make_uint4(0u, 0u, 0u, 0u);
-          if (hy >= 0) {
-            if (hx >= 0) put_halo(halo, S::COPY_B, hy, hx, j, r0 && c0 ? v00 : z);
-            if (hx + 1 <= TW + 1) put_halo(halo, S::COPY_B, hy, hx + 1, j, r0 && c1 ? v01 : z);
-          }
-          if (hy + 1 <= TH + 1) {
-            if (hx >= 0) put_halo(halo, S::COPY_B, hy + 1, hx, j, r1 && c0 ? v10 : z);
-            if (hx + 1 <= TW + 1)
-              put_halo(halo, S::COPY_B, hy + 1, hx + 1, j, r1 && c1 ? v11 : z);
-          }
-        }
-      } else if constexpr (!VEC) {
-        // C % 8 != 0: the halo element by element
-        const __nv_bfloat16* xn = x + (size_t)it.n * g.H * g.W * g.C;
-        for (int k = ptid; k < (TH + 2) * HW * 2; k += NPS) {
-          const int p = k >> 1, j = k & 1;
-          const int hy = p / HW, hx = p % HW;
-          const int gy = it.oy0 - 1 + hy, gx = it.ox0 - 1 + hx;
-          uint4 v;
-          __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&v);
-#pragma unroll
-          for (int ci = 0; ci < 8; ++ci) {
-            const int c = it.c0 + j * 8 + ci;
-            const bool ok = c < g.C && gy >= 0 && gy < g.H && gx >= 0 && gx < g.W;
-            e[ci] = ok ? xn[((size_t)gy * g.W + gx) * g.C + c] : zero;
-          }
-          put_halo(halo, S::COPY_B, hy, hx, j, v);
-        }
-      }
+      if constexpr (!VEC) load_halo(it, halo, ptid, NPS, 0);
       fence_proxy_async();  // the plain stores above, before the consumers' wgmmas
       mbar_arrive(full(s));
-      if constexpr (UP2) producer_sync();  // every thread is done with source buffer i & 1
     }
     return;
   }
@@ -696,29 +792,68 @@ __device__ __forceinline__ void conv3x3_mma_body(const CUtensorMap& xmap, const 
       for (int n = 0; n < AN; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[m][n][e] = 0.f;
-    for (int ch = 0; ch < g.nch; ++ch, ++i) {
-      const int s = i % NS;
-      mbar_wait(full(s), (i / NS) & 1);
-      const uint32_t wsm = sbase + s * S::STAGE_B, halo = wsm + S::HALO_OFF;
-      wgmma_fence();
+    // UP2: the warpgroup's phase (pa, pb); b = 1 tiles on the right edge read
+    // the column copy for copy 0
+    const int q = UP2 ? (tile.co0 + 64 * atom) / g.Fp : 0;
+    const int pa = q & 1, pb = q >> 1;
+    const bool colcopy = UP2 && pb && tile.ox0 + TW >= g.W;
+    // the tile's stages, with the taps and the row term of a mode
+    auto stages = [&](auto mode) {
+      constexpr int TAPS = decltype(mode)::value & 0x1FF, ROWS = decltype(mode)::value >> 9;
+      for (int ch = 0; ch < g.nch; ++ch, ++i) {
+        const int s = i % NS;
+        mbar_wait(full(s), (i / NS) & 1);
+        const uint32_t wsm = sbase + s * S::STAGE_B, halo = wsm + S::HALO_OFF;
+        const uint32_t copy0 = colcopy ? col_base + s * S::COL_B : halo;
+        wgmma_fence();
 #pragma unroll
-      for (int tap = 0; tap < 9; ++tap) {
-        const int dy = tap / 3, dx = tap % 3;
-        const uint64_t dw = w_desc<TN>(wsm + atom * ATOM_B + w_off<TN>(tap * CK, 0));
-        // the pixels of output rows y.. are copy dx from row y + dy
-        if constexpr (S::TRANS) {
-          wgmma_n256t(acc[0], dw, x_desc(halo + dx * S::COPY_B + (row0 + dy) * TW * PIX_B));
-        } else {
+        for (int tap = 0; tap < 9; ++tap) {
+          if (!((TAPS >> tap) & 1)) continue;
+          const int dy = tap / 3, dx = tap % 3;
+          const uint64_t dw = w_desc<TN>(wsm + atom * ATOM_B + w_off<TN>(tap * CK, 0));
+          const uint32_t cp = dx ? halo + dx * S::COPY_B : copy0;
+          // the pixels of output rows y.. are copy dx from row y + dy
+          if constexpr (S::TRANS) {
+            wgmma_n256t(acc[0], dw, x_desc(cp + (row0 + dy) * TW * PIX_B));
+          } else {
 #pragma unroll
-          for (int mt = 0; mt < MT; ++mt)
-            wgmma_n8(acc[mt],
-                     x_desc(halo + dx * S::COPY_B + (row0 + 4 * mt + dy) * TW * PIX_B), dw);
+            for (int mt = 0; mt < MT; ++mt)
+              wgmma_n8(acc[mt], x_desc(cp + (row0 + 4 * mt + dy) * TW * PIX_B), dw);
+          }
         }
+        if constexpr (ROWS != 0) {
+          // the tile's last row (halo row TH) through the slots e = -1: pixels
+          // 16 (TH - 1).. of the accumulator
+#pragma unroll
+          for (int f = 0; f < 3; ++f) {
+            if (!((ROWS >> f) & 1)) continue;
+            wgmma_n16t(acc[0][2 * TH - 2], acc[0][2 * TH - 1],
+                       w_desc<TN>(wsm + atom * ATOM_B + w_off<TN>(f * CK, 0)),
+                       x_desc((f ? halo + f * S::COPY_B : copy0) + TH * TW * PIX_B));
+          }
+        }
+        wgmma_commit();
+        wgmma_wait<1>();
+        // every wgmma of the previous stage is done: release it
+        if (ch > 0 && lane == 0) mbar_arrive(empty((i - 1) % NS));
       }
-      wgmma_commit();
-      wgmma_wait<1>();
-      // every wgmma of the previous stage is done: release it
-      if (ch > 0 && lane == 0) mbar_arrive(empty((i - 1) % NS));
+    };
+    if constexpr (UP2) {
+      // b = 1 away from the right edge: no column f = -1; a = 1: no row e =
+      // -1, and on the bottom edge the row term
+      const bool no_f = pb && !colcopy;
+      if (!pa) {
+        if (no_f) stages(Mode<TAPS_NO_F>{});
+        else stages(Mode<TAPS_ALL>{});
+      } else if (tile.oy0 + TH < g.H) {
+        if (no_f) stages(Mode<TAPS_NO_EF>{});
+        else stages(Mode<TAPS_NO_E>{});
+      } else {
+        if (no_f) stages(Mode<TAPS_NO_EF | 6 << 9>{});
+        else stages(Mode<TAPS_NO_E | 7 << 9>{});
+      }
+    } else {
+      stages(Mode<TAPS_ALL>{});
     }
     wgmma_wait<0>();
     // keep the compiler from reading the accumulators above the last wgmma wait
@@ -738,17 +873,34 @@ __device__ __forceinline__ void conv3x3_mma_body(const CUtensorMap& xmap, const 
     if constexpr (S::TRANS) {
       // d[j][2h + e]: channel 16 (cw & 3) + lane / 4 + 8h of the atom, pixel
       // 8j + 2 (lane % 4) + e of the warpgroup's 256; staged 64 pixels (4
-      // output rows) at a time, [pixel][64 channels]
+      // output rows) at a time, [pixel][64 channels]. UP2: the atom's channels
+      // are output channels ob.. of phase (pa, pb), its pixel (i, j) output
+      // pixel (2i + pa, 2j + pb)
       unsigned char* stg = smem + last * S::STAGE_B + S::HALO_OFF + wg * S::STG_B;
       const int cl = 16 * (cw & 3) + (lane >> 2);  // the thread's channel (h = 0) in the atom
       const int oa = tile.co0 + 64 * atom;
+      const int ob = UP2 ? oa - q * g.Fp : oa, cmax = UP2 ? g.F : g.Cout;
       float sc[2], sh[2];
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const int o = oa + cl + 8 * h;
-        sc[h] = o < g.Cout ? scale[o] : 0.f;
-        sh[h] = o < g.Cout ? shift[o] : 0.f;
+        const int o = ob + cl + 8 * h;
+        sc[h] = o < cmax ? scale[o] : 0.f;
+        sh[h] = o < cmax ? shift[o] : 0.f;
       }
+      // the output pixel of staged pixel px of row group r, and whether it is
+      // in the image
+      auto out_px = [&](int oyr, int px, int& oy, int& ox) {
+        oy = oyr + px / TW;
+        ox = tile.ox0 + px % TW;
+        if constexpr (UP2) {
+          const bool in = oy >= 0 && oy < g.H && ox >= 0 && ox < g.W;
+          oy = 2 * oy + pa;
+          ox = 2 * ox + pb;
+          return in;
+        } else {
+          return oy < g.OH && ox < g.OW;
+        }
+      };
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
         const int oyr = tile.oy0 + row0 + 4 * r;
@@ -792,19 +944,19 @@ __device__ __forceinline__ void conv3x3_mma_body(const CUtensorMap& xmap, const 
         warpgroup_sync(wg);
         if (g.cvec) {
           for (int k = wtid; k < 64 * 8; k += 128) {
-            const int px = k >> 3, c = k & 7;
-            const int oy = oyr + px / TW, ox = tile.ox0 + px % TW, o = oa + c * 8;
-            if (oy < g.OH && ox < g.OW && o < g.Cout)
-              *reinterpret_cast<uint4*>(out + (((size_t)tile.n * g.OH + oy) * g.OW + ox) * g.Cout +
+            const int px = k >> 3, c = k & 7, o = ob + c * 8;
+            int oy, ox;
+            if (out_px(oyr, px, oy, ox) && o < cmax)
+              *reinterpret_cast<uint4*>(out + (((size_t)tile.n * g.OH + oy) * g.OW + ox) * cmax +
                                         o) =
                   *reinterpret_cast<const uint4*>(stg + px * S::STG_ROW + c * 16);
           }
         } else {
           for (int k = wtid; k < 64 * 64; k += 128) {
-            const int px = k >> 6, c = k & 63;
-            const int oy = oyr + px / TW, ox = tile.ox0 + px % TW, o = oa + c;
-            if (oy < g.OH && ox < g.OW && o < g.Cout)
-              out[(((size_t)tile.n * g.OH + oy) * g.OW + ox) * g.Cout + o] =
+            const int px = k >> 6, c = k & 63, o = ob + c;
+            int oy, ox;
+            if (out_px(oyr, px, oy, ox) && o < cmax)
+              out[(((size_t)tile.n * g.OH + oy) * g.OW + ox) * cmax + o] =
                   *reinterpret_cast<const __nv_bfloat16*>(stg + px * S::STG_ROW + c * 2);
           }
         }
@@ -869,6 +1021,51 @@ conv3x3_bf16_mma_kernel(const __grid_constant__ CUtensorMap xmap,
                         const float* __restrict__ scale, const float* __restrict__ shift,
                         __nv_bfloat16* __restrict__ out, const Geom g) {
   conv3x3_mma_body<TN, UP2, VEC, false>(xmap, wmap, xmap, x, w, scale, shift, out, g);
+}
+
+// #2's phase weights kp [3][3][C][4 Fp] from its kernel k [3][3][C][F], in f32
+// from k's bf16 values, rounded once. Channel o' = (2b + a) Fp + o is output
+// channel o of phase (a, b), 0 for o >= F. Tap (e, f) of the low-resolution x
+// (e, f in -1..1, index e + 1, f + 1) holds K_ab[e][f] = sum_{dy,dx}
+// A_a[e][dy] A_b[f][dx] k[dy][dx], with A_0 = ((.5, 0, 0), (.5, 1, .5), (0, 0,
+// .5)) and A_1 = ((0, 0, 0), (1, .5, 0), (0, .5, 1)) (rows e, columns dy: the
+// reference's _A0, _A1), except the slots where K_ab is 0, which hold the
+// edge terms (the header): a = 1, e = -1: -sum_dx A_b[f][dx] k[+1][dx]; b = 1,
+// f = -1: -sum_dy A_a[e][dy] k[dy][+1]; phase (1, 1) at (-1, -1): +k[+1][+1].
+// One thread an input channel and output channel o' for the nine taps.
+__global__ void up2_phase_weights_kernel(const __nv_bfloat16* __restrict__ k,
+                                         __nv_bfloat16* __restrict__ kp, int C, int F, int Fp) {
+  const int n4 = 4 * Fp;
+  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= C * n4) return;
+  const int c = idx / n4, op = idx % n4;
+  const int q = op / Fp, o = op % Fp, a = q & 1, b = q >> 1;
+  constexpr float A0[3][3] = {{.5f, 0.f, 0.f}, {.5f, 1.f, .5f}, {0.f, 0.f, .5f}};
+  constexpr float A1[3][3] = {{0.f, 0.f, 0.f}, {1.f, .5f, 0.f}, {0.f, .5f, 1.f}};
+  float kk[3][3], Aa[3][3], Ab[3][3];
+#pragma unroll
+  for (int u = 0; u < 3; ++u)
+#pragma unroll
+    for (int v = 0; v < 3; ++v) {
+      kk[u][v] = o < F ? __bfloat162float(k[((size_t)(u * 3 + v) * C + c) * F + o]) : 0.f;
+      Aa[u][v] = a ? A1[u][v] : A0[u][v];
+      Ab[u][v] = b ? A1[u][v] : A0[u][v];
+    }
+  float t[3][3], K[3][3];  // t[e][dx] = sum_dy A_a[e][dy] k[dy][dx]
+#pragma unroll
+  for (int e = 0; e < 3; ++e)
+#pragma unroll
+    for (int d = 0; d < 3; ++d) t[e][d] = Aa[e][0] * kk[0][d] + Aa[e][1] * kk[1][d] + Aa[e][2] * kk[2][d];
+#pragma unroll
+  for (int e = 0; e < 3; ++e)
+#pragma unroll
+    for (int f = 0; f < 3; ++f) {
+      K[e][f] = Ab[f][0] * t[e][0] + Ab[f][1] * t[e][1] + Ab[f][2] * t[e][2];
+      if (a && e == 0) K[e][f] = -(Ab[f][0] * kk[2][0] + Ab[f][1] * kk[2][1] + Ab[f][2] * kk[2][2]);
+      if (b && f == 0) K[e][f] = -(Aa[e][0] * kk[0][2] + Aa[e][1] * kk[1][2] + Aa[e][2] * kk[2][2]);
+      if (a && b && e == 0 && f == 0) K[e][f] = kk[2][2];
+      kp[((size_t)(e * 3 + f) * C + c) * n4 + op] = __float2bfloat16(K[e][f]);
+    }
 }
 
 // #1+: #1 with the addend
@@ -943,10 +1140,10 @@ inline int sm_count() {
 }
 
 template <int TN, bool UP2, bool VEC, bool ADD>
-cudaError_t launch_mma(const __nv_bfloat16* x, const __nv_bfloat16* w, const float* add,
-                       int frames, const float* scale, const float* shift, __nv_bfloat16* out,
-                       int N, int H, int W, int C, int Cout, int relu, bool wvec, bool cvec,
-                       cudaStream_t stream) {
+cudaError_t launch_mma(const __nv_bfloat16* x, const __nv_bfloat16* w, __nv_bfloat16* work,
+                       const float* add, int frames, const float* scale, const float* shift,
+                       __nv_bfloat16* out, int N, int H, int W, int C, int Cout, int relu,
+                       bool wvec, bool cvec, cudaStream_t stream) {
   using S = Tile<TN, UP2, ADD>;
   auto kern = conv3x3_bf16_mma_kernel<TN, UP2, VEC>;
   auto add_kern = conv3x3_add_bf16_mma_kernel<TN, VEC>;
@@ -961,14 +1158,27 @@ cudaError_t launch_mma(const __nv_bfloat16* x, const __nv_bfloat16* w, const flo
   }
   Geom g;
   g.H = H, g.W = W, g.C = C, g.Cout = Cout;
+  g.F = Cout, g.Fp = (Cout + 63) / 64 * 64;
   g.OH = UP2 ? 2 * H : H, g.OW = UP2 ? 2 * W : W;
-  g.tiles_w = (g.OW + TW - 1) / TW;
-  g.tiles_per_img = ((g.OH + S::TH - 1) / S::TH) * g.tiles_w;
-  g.nco = (Cout + TN - 1) / TN;
+  if (UP2) {
+    // the phase weights, into work, launched before the conv on the same stream
+    g.Cout = 4 * g.Fp;
+    const int n = C * g.Cout;
+    if (n > 0) {
+      up2_phase_weights_kernel<<<(n + 255) / 256, 256, 0, stream>>>(w, work, C, Cout, g.Fp);
+      cudaError_t e = cudaGetLastError();
+      if (e != cudaSuccess) return e;
+    }
+    w = work;
+  }
+  g.tiles_w = (W + TW - 1) / TW;
+  g.tiles_h = (H + S::TH - 1) / S::TH;
+  g.tiles_per_img = g.tiles_h * g.tiles_w;
+  g.nco = (g.Cout + TN - 1) / TN;
   g.ntiles = N * g.tiles_per_img * g.nco;
   g.nch = (C + CK - 1) / CK;
   g.relu = relu;
-  g.wtma = TN >= 64 && wvec;
+  g.wtma = TN >= 64 && (UP2 || wvec);
   g.cvec = cvec;
   g.add = add;
   g.frames = frames;
@@ -979,17 +1189,16 @@ cudaError_t launch_mma(const __nv_bfloat16* x, const __nv_bfloat16* w, const flo
   memset(&wmap, 0, sizeof(wmap));
   memset(&amap, 0, sizeof(amap));
   if (VEC) {
-    // the halo copies (32-byte swizzle), or up2's source tile (unswizzled)
+    // the halo copies (32-byte swizzle)
     cudaError_t e =
-        UP2 ? tensor_map<4>(&xmap, x, {(cuuint64_t)C, (cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)N},
-                            {CK, LW, S::TH / 2 + 2, 1}, CU_TENSOR_MAP_SWIZZLE_NONE)
-            : tensor_map<4>(&xmap, x, {(cuuint64_t)C, (cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)N},
-                            {CK, TW, S::TH + 2, 1}, CU_TENSOR_MAP_SWIZZLE_32B);
+        tensor_map<4>(&xmap, x, {(cuuint64_t)C, (cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)N},
+                      {CK, TW, S::TH + 2, 1}, CU_TENSOR_MAP_SWIZZLE_32B);
     if (e != cudaSuccess) return e;
   }
   if (g.wtma) {
-    cudaError_t e = tensor_map<3>(&wmap, w, {(cuuint64_t)Cout, (cuuint64_t)C, 9}, {64, CK, 9},
-                                  CU_TENSOR_MAP_SWIZZLE_128B);
+    // a box of 64 channels x CK rows: all nine taps, or (UP2) one
+    cudaError_t e = tensor_map<3>(&wmap, w, {(cuuint64_t)g.Cout, (cuuint64_t)C, 9},
+                                  {64, CK, UP2 ? 1u : 9u}, CU_TENSOR_MAP_SWIZZLE_128B);
     if (e != cudaSuccess) return e;
   }
   if (S::ARING && g.atma) {
@@ -1008,7 +1217,7 @@ cudaError_t launch_mma(const __nv_bfloat16* x, const __nv_bfloat16* w, const flo
   return cudaGetLastError();
 }
 
-template <bool UP2, bool VEC, bool ADD>
+template <bool VEC, bool ADD>
 cudaError_t dispatch_mma(const __nv_bfloat16* x, const __nv_bfloat16* w, const float* add,
                          int frames, const float* scale, const float* shift, __nv_bfloat16* out,
                          int N, int H, int W, int C, int Cout, int relu, bool wvec, bool cvec,
@@ -1016,44 +1225,49 @@ cudaError_t dispatch_mma(const __nv_bfloat16* x, const __nv_bfloat16* w, const f
   // 128 output channels a tile for the wide layers, 64 for C' = 64 (a
   // 128-wide tile would idle half its lanes), 8 for the 4-channel head
   if (Cout >= 128)
-    return launch_mma<128, UP2, VEC, ADD>(x, w, add, frames, scale, shift, out, N, H, W, C, Cout,
-                                          relu, wvec, cvec, stream);
+    return launch_mma<128, false, VEC, ADD>(x, w, nullptr, add, frames, scale, shift, out, N, H,
+                                            W, C, Cout, relu, wvec, cvec, stream);
   if (Cout > 8)
-    return launch_mma<64, UP2, VEC, ADD>(x, w, add, frames, scale, shift, out, N, H, W, C, Cout,
-                                         relu, wvec, cvec, stream);
-  return launch_mma<8, UP2, VEC, ADD>(x, w, add, frames, scale, shift, out, N, H, W, C, Cout,
-                                      relu, wvec, cvec, stream);
+    return launch_mma<64, false, VEC, ADD>(x, w, nullptr, add, frames, scale, shift, out, N, H, W,
+                                           C, Cout, relu, wvec, cvec, stream);
+  return launch_mma<8, false, VEC, ADD>(x, w, nullptr, add, frames, scale, shift, out, N, H, W, C,
+                                        Cout, relu, wvec, cvec, stream);
 }
 
 inline bool aligned(const void* p, int bytes) {
   return (reinterpret_cast<uintptr_t>(p) & (bytes - 1)) == 0;
 }
 
-// add: null for #1 / #2; for #1+ the f32 addend [N / frames, H, W, Cout]
-inline cudaError_t conv3x3_bf16(int up2, const void* x, const void* w, const float* add,
-                                int frames, const float* scale, const float* shift, void* out,
-                                int N, int H, int W, int C, int Cout, int relu,
-                                cudaStream_t stream) {
+// add: null for #1 / #2; for #1+ the f32 addend [N / frames, H, W, Cout].
+// work (up2): room for the phase weights, [3, 3, C, 4 Fp] bf16 (Fp: Cout
+// rounded up to 64), 16-byte aligned
+inline cudaError_t conv3x3_bf16(int up2, const void* x, const void* w, void* work,
+                                const float* add, int frames, const float* scale,
+                                const float* shift, void* out, int N, int H, int W, int C,
+                                int Cout, int relu, cudaStream_t stream) {
   auto xb = static_cast<const __nv_bfloat16*>(x);
   auto wb = static_cast<const __nv_bfloat16*>(w);
   auto ob = static_cast<__nv_bfloat16*>(out);
   const bool vec = C % 8 == 0 && aligned(x, 16);
   const bool wvec = Cout % 8 == 0 && aligned(w, 16);
   const bool cvec = Cout % 8 == 0 && aligned(out, 16);
+  if (up2) {
+    if (!work || !aligned(work, 16)) return cudaErrorInvalidValue;
+    auto kb = static_cast<__nv_bfloat16*>(work);
+    return vec ? launch_mma<128, true, true, false>(xb, wb, kb, nullptr, 0, scale, shift, ob, N,
+                                                    H, W, C, Cout, relu, wvec, cvec, stream)
+               : launch_mma<128, true, false, false>(xb, wb, kb, nullptr, 0, scale, shift, ob, N,
+                                                     H, W, C, Cout, relu, wvec, cvec, stream);
+  }
   if (add)
-    return vec ? dispatch_mma<false, true, true>(xb, wb, add, frames, scale, shift, ob, N, H, W,
-                                                 C, Cout, relu, wvec, cvec, stream)
-               : dispatch_mma<false, false, true>(xb, wb, add, frames, scale, shift, ob, N, H, W,
-                                                  C, Cout, relu, wvec, cvec, stream);
-  if (up2)
-    return vec ? dispatch_mma<true, true, false>(xb, wb, nullptr, 0, scale, shift, ob, N, H, W, C,
-                                                 Cout, relu, wvec, cvec, stream)
-               : dispatch_mma<true, false, false>(xb, wb, nullptr, 0, scale, shift, ob, N, H, W,
-                                                  C, Cout, relu, wvec, cvec, stream);
-  return vec ? dispatch_mma<false, true, false>(xb, wb, nullptr, 0, scale, shift, ob, N, H, W, C,
-                                                Cout, relu, wvec, cvec, stream)
-             : dispatch_mma<false, false, false>(xb, wb, nullptr, 0, scale, shift, ob, N, H, W, C,
-                                                 Cout, relu, wvec, cvec, stream);
+    return vec ? dispatch_mma<true, true>(xb, wb, add, frames, scale, shift, ob, N, H, W, C, Cout,
+                                          relu, wvec, cvec, stream)
+               : dispatch_mma<false, true>(xb, wb, add, frames, scale, shift, ob, N, H, W, C,
+                                           Cout, relu, wvec, cvec, stream);
+  return vec ? dispatch_mma<true, false>(xb, wb, nullptr, 0, scale, shift, ob, N, H, W, C, Cout,
+                                         relu, wvec, cvec, stream)
+             : dispatch_mma<false, false>(xb, wb, nullptr, 0, scale, shift, ob, N, H, W, C, Cout,
+                                          relu, wvec, cvec, stream);
 }
 
 }  // namespace kpvid_mma

@@ -6,7 +6,10 @@ Three ops of the kernels in ``csrc/conv3x3.cu`` (CUDA C++ for sm_90a):
   (the ``pl.pallas_call`` at pallas_conv.py:158);
 - :func:`up2_conv3_affine` replaces pallas_conv.py::up2_conv3_affine
   (pallas_conv.py:434): the same conv on the TF1-legacy 2x upsample of its
-  input, built in shared memory and never written to device memory;
+  input, which never reaches device memory. In bfloat16 it is, as on the TPU,
+  #1's main loop over the low-resolution input at four times the output
+  channels, one per output phase, with phase weights made on the card in the
+  same call;
 - :func:`conv3x3_add_affine` (#1+) replaces no TPU kernel: it is #1 with an
   f32 addend per sample read in the epilogue, the translator's split first
   conv and oct0a's BN + ReLU in one launch (eval/final.py), which JAX leaves
@@ -95,7 +98,7 @@ def _lib():
     lib = _build.load(_SOURCE)
     if not getattr(lib, "_kpvid_bound", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.kpvid_conv3x3_affine.argtypes = [i, i, p, p, p, i, p, p, p, i, i, i, i, i, i, p]
+        lib.kpvid_conv3x3_affine.argtypes = [i, i, p, p, p, p, i, p, p, p, i, i, i, i, i, i, p]
         lib.kpvid_conv3x3_affine.restype = i
         lib.kpvid_cuda_error_string.argtypes = [i]
         lib.kpvid_cuda_error_string.restype = ctypes.c_char_p
@@ -134,9 +137,16 @@ def launch(x, kernel, scale, shift, relu: bool, up2: bool, addend=None) -> torch
             raise ValueError(f"all operands must be on {x.device}, got {addend.device}")
     oh, ow = (2 * h, 2 * w) if up2 else (h, w)
     out = torch.empty((n, oh, ow, cout), dtype=x.dtype, device=x.device)
+    work = None
+    if up2 and x.dtype == torch.bfloat16:
+        # the phase weights [3, 3, C, 4 Fp] (Fp: Cout rounded up to 64), which
+        # the call writes before its conv reads them
+        fp = -(-cout // 64) * 64
+        work = torch.empty(9 * c * 4 * fp, dtype=x.dtype, device=x.device)
     lib = _lib()
     err = lib.kpvid_conv3x3_affine(
         _DTYPES[x.dtype], int(up2), x.data_ptr(), kernel.data_ptr(),
+        None if work is None else work.data_ptr(),
         None if addend is None else addend.data_ptr(), frames, scale.data_ptr(),
         shift.data_ptr(), out.data_ptr(), n, h, w, c, cout, int(relu),
         torch.cuda.current_stream(x.device).cuda_stream,

@@ -40,7 +40,9 @@ of the output-channel tile, ReLU on and off, and C % 8 != 0, which takes the
 bf16 kernel's element-wise loader; for the persistent bf16 kernel also fewer
 tiles than blocks of a full grid (N = 1), blocks that walk many tiles
 (N = 16), a border-heavy shape at C = 40, and two launches that give the
-same bytes. #1+ (conv3x3_add_affine, the split first conv with oct0a's BN
+same bytes. #2 also at H or W of 1 and 2 and at 17 x 9, and, in bf16 at
+oct1a's and oct2a's shapes, on each border line by that line's own largest
+magnitude (the phase form's edge terms). #1+ (conv3x3_add_affine, the split first conv with oct0a's BN
 and ReLU) at the batch-32 generate's shape ([1024, 32, 32, 40] -> 256, an
 addend row per 32 frames), on ragged borders with one frame a row, at
 Cout = 72 and 4 (the 64- and 8-channel tiles), at C = 12 (the element-wise
@@ -154,7 +156,12 @@ def test_conv3x3_kernel_matches_plain(dev, dtype, shape, relu):
      ((2, 10, 6, 24, 72), False), ((2, 8, 8, 4, 16), True), ((2, 5, 7, 12, 8), False),
      # many tiles a block: oct1a and oct2a at N = 16; C = 40 on ragged borders
      ((16, 32, 32, 256, 128), True), ((16, 64, 64, 128, 64), True),
-     ((3, 19, 13, 40, 128), True)],
+     ((3, 19, 13, 40, 128), True),
+     # H or W of 1 and 2 (every border line in one tile, lines that coincide);
+     # 17 x 9 (a partial tile at the top and the left); the element-wise
+     # loader at W = 2 and on partial tiles
+     ((2, 1, 1, 32, 64), True), ((2, 1, 5, 16, 72), False), ((2, 2, 3, 40, 128), True),
+     ((2, 5, 2, 12, 64), True), ((3, 17, 9, 32, 64), True), ((2, 17, 9, 4, 8), False)],
 )
 def test_up2_kernel_matches_plain(dev, dtype, shape, relu):
     x, k, s, t = _conv_inputs(dev, dtype, *shape, seed=1)
@@ -162,6 +169,23 @@ def test_up2_kernel_matches_plain(dev, dtype, shape, relu):
     torch.cuda.synchronize()
     assert got.shape == (shape[0], 2 * shape[1], 2 * shape[2], shape[4])
     _close(got, up2_conv3_affine_plain(x, k, s, t, relu=relu), dtype)
+
+
+@pytest.mark.parametrize("shape", [(2, 32, 32, 256, 128), (2, 64, 64, 128, 64)])
+def test_up2_kernel_border_lines_match_plain(dev, shape):
+    """bf16 #2 at oct1a's and oct2a's shapes, each border line (output rows
+    and columns 0, 2n - 2, 2n - 1: where the phase form needs its edge
+    terms) held to the plain version by 2% of that line's own largest
+    magnitude, which a wrong edge term would pass under the whole tensor's."""
+    x, k, s, t = _conv_inputs(dev, torch.bfloat16, *shape, seed=5)
+    got = up2_conv3_affine(x, k, s, t, relu=False).float().cpu()
+    want = up2_conv3_affine_plain(x, k, s, t, relu=False).float().cpu()
+    h, w = 2 * shape[1], 2 * shape[2]
+    lines = [("row", r, got[:, r], want[:, r]) for r in (0, h - 2, h - 1)]
+    lines += [("column", c, got[:, :, c], want[:, :, c]) for c in (0, w - 2, w - 1)]
+    for axis, i, g, want_line in lines:
+        err, bound = (g - want_line).abs().max(), 0.02 * want_line.abs().max()
+        assert err <= bound, f"{axis} {i}: {err} > {bound}"
 
 
 def _addend(dev, x, cout, frames, seed=0):

@@ -22,6 +22,7 @@ from kpvid_tpu.ops import render_gaussian_maps as jax_render_gaussian_maps
 from kpvid_tpu.ops import upsample2x as jax_upsample2x
 from kpvid_tpu.ops.pallas_conv import conv3x3_affine as jax_conv3x3_affine
 from kpvid_tpu.ops.pallas_conv import fold_bn as jax_fold_bn
+from kpvid_tpu.ops.pallas_conv import _up2_phase_kbig as jax_up2_phase_kbig
 from kpvid_tpu.ops.pallas_conv import up2_conv3_affine as jax_up2_conv3_affine
 from kpvid_tpu.ops.pallas_kernels import gaussian_render_pallas, pose_head_pallas
 from kpvid_tpu.ops.resize import up2_conv3 as jax_up2_conv3
@@ -123,6 +124,88 @@ def test_upsample2x_and_up2_conv3_match(rng):
         ops.up2_conv3(_t(x), _t(k), _t(b)).numpy(), np.asarray(jax_up2_conv3(x, k, b)),
         rtol=1e-4, atol=1e-5,
     )
+
+
+# The bf16 #2's arithmetic (kpvid_tpu_torch/csrc/conv3x3_mma.cuh, the phase
+# form), written out in float64 as its specification. _A[a][e][dy]: how much
+# of the conv's tap dy reaches the low-resolution x[i + e] in output phase a.
+_A = torch.tensor([[[.5, 0, 0], [.5, 1, .5], [0, 0, .5]], [[0, 0, 0], [1, .5, 0], [0, .5, 1]]],
+                  dtype=torch.float64)
+
+
+def _phase_weights(k):
+    """up2_phase_weights_kernel before its one rounding: [a, b, e + 1, f + 1,
+    C, F]. K_ab[e][f] = sum A_a[e][dy] A_b[f][dx] k[dy][dx], and the slots
+    where that is 0 hold the edge terms: a = 1, e = -1 minus the row term's
+    weights; b = 1, f = -1 minus the column term's; (1, 1) at (-1, -1)
+    k[+1][+1], the corner."""
+    k = k.double()
+    kp = torch.einsum("aey,bfx,yxco->abefco", _A, _A, k)
+    kp[1, :, 0] = -torch.einsum("bfx,xco->bfco", _A, k[2])
+    kp[:, 1, :, 0] = -torch.einsum("aey,yco->aeco", _A, k[:, 2])
+    kp[1, 1, 0, 0] = k[2, 2]
+    return kp
+
+
+def _phase_up2_conv3(x, k):
+    """conv3x3_SAME(upsample2x(x), k) as the card computes it: x padded with
+    -x[0] before and +x[n-1] after on each axis (corners by product); per
+    phase (a, b) a 3x3 conv of the padded x with _phase_weights, where phase
+    b = 1's taps f = -1 read the column copy (zero but at column W - 1),
+    phase a = 1 leaves out its taps e = -1 and adds them, as the row term,
+    over the last row alone."""
+    x = x.double()
+    n, h, w, _ = x.shape
+    kp = _phase_weights(k)
+    xt = torch.nn.functional.pad(x, (0, 0, 1, 1, 1, 1))
+    xt[:, 1:-1, 0], xt[:, 1:-1, -1] = -x[:, :, 0], x[:, :, -1]
+    xt[:, 0], xt[:, -1] = -xt[:, 1], xt[:, -2]
+    col = torch.zeros_like(xt[:, :, 1:-1])
+    col[:, :, -1] = xt[:, :, -2]
+    out = x.new_zeros(n, 2 * h, 2 * w, k.shape[3])
+    for a in (0, 1):
+        for b in (0, 1):
+            # copy f + 1: the padded x's columns from f on, [n, h + 2, w, C]
+            copies = [col if b else xt[:, :, :w], xt[:, :, 1:w + 1], xt[:, :, 2:]]
+            m = sum(copies[f][:, e:e + h] @ kp[a, b, e, f]
+                    for e in range(3) for f in range(3) if not (a and e == 0))
+            if a:
+                m[:, -1] += sum(copies[f][:, h] @ kp[a, b, 0, f] for f in range(3))
+            out[:, a::2, b::2] = m
+    return out
+
+
+@pytest.mark.parametrize("hw", [(1, 1), (1, 5), (2, 3), (5, 2), (7, 5), (8, 8)])
+def test_up2_phase_form_is_exact_on_every_border(rng, hw):
+    """The phase form equals the materialized upsample and conv
+    (ops/resize.py::up2_conv3) in float64, on each border line (output
+    rows and columns 0, 2n - 2, 2n - 1, which cross at the corners) and
+    inside."""
+    h, w = hw
+    x = torch.from_numpy(rng.normal(size=(2, h, w, 3)))
+    k = torch.from_numpy(rng.normal(size=(3, 3, 3, 4)))
+    got, want = _phase_up2_conv3(x, k), ops.up2_conv3(x, k)
+    assert got.shape == want.shape == (2, 2 * h, 2 * w, 4)
+    for r in sorted({0, 2 * h - 2, 2 * h - 1}):
+        torch.testing.assert_close(got[:, r], want[:, r], rtol=1e-12, atol=1e-12)
+    for c in sorted({0, 2 * w - 2, 2 * w - 1}):
+        torch.testing.assert_close(got[:, :, c], want[:, :, c], rtol=1e-12, atol=1e-12)
+    torch.testing.assert_close(got, want, rtol=1e-12, atol=1e-12)
+
+
+def test_up2_phase_weights_match_jax_kbig(rng):
+    """_phase_weights' interior taps are the JAX reference's
+    _up2_phase_kbig, column for column ([3C, 12F]: rows f, C; columns e, a,
+    b, F); the slots that hold the edge terms are 0 there."""
+    c, f = 5, 3
+    k = rng.normal(size=(3, 3, c, f)).astype(np.float32)
+    kbig = np.asarray(jax_up2_phase_kbig(jnp.asarray(k)), np.float64)
+    jx = torch.from_numpy(kbig).reshape(3, c, 3, 2, 2, f).permute(3, 4, 2, 0, 1, 5)
+    kp = _phase_weights(torch.from_numpy(k))
+    edge = torch.zeros(2, 2, 3, 3, dtype=torch.bool)
+    edge[1, :, 0] = edge[:, 1, :, 0] = True
+    torch.testing.assert_close(kp[~edge], jx[~edge], rtol=1e-6, atol=1e-6)
+    assert edge.sum() == 11 and not jx[edge].any()
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
