@@ -32,7 +32,7 @@ imports nothing of JAX or of the JAX package, and:
 3. serves 4 requests through ``InferenceEngine`` at ``Config()`` with random
    weights from a seed (BN statistics and biases randomized), checks the
    shapes, the uint8 outputs, the mask range, that a seed gives the same
-   video twice, and that every generate launched 8 / 1 / 2 / 1 / 2 kernels;
+   video twice, and that every generate launched 8 / 1 / 2 / 1 / 2 / 28 kernels;
    then runs the whole path in float32 through the kernels and through the
    plain versions on the card and compares them;
 4. times ``generate`` at batch 32 (1,024 frames, bfloat16), each of its
@@ -45,7 +45,7 @@ imports nothing of JAX or of the JAX package, and:
    in a spawned process of their own (PNGs drawn from seed 0, alternating
    160x120 and 120x160; npz and a few GIFs), once with the depth-1 pipeline
    and once without. It checks every response, that the launch counters
-   show 8 / 1 / 2 / 1 / 2 per dispatched batch, that a request sent twice comes
+   show 8 / 1 / 2 / 1 / 2 / 28 per dispatched batch, that a request sent twice comes
    back with the same bits, and that 4 responses, and a batch of 32 run at
    once, agree with the same requests run alone at bucket 1: images within
    0.02 (3 uint8 steps), points within 0.016 (two bf16 steps); and that
@@ -61,7 +61,7 @@ imports nothing of JAX or of the JAX package, and:
    export time; loads each, once written, in a fresh spawned process that
    imports the loader and the engine only (it checks that no model, config,
    checkpoint or JAX module was imported) and runs each bucket's batch through
-   ``ArtifactEngine``: launches 8 / 1 / 2 / 1 / 2 per batch, and the outputs
+   ``ArtifactEngine``: launches 8 / 1 / 2 / 1 / 2 / 28 per batch, and the outputs
    against ``InferenceEngine.run`` on the same batch (uint8 within one step,
    points within 1e-5; it says whether the bits are the same); times the
    batch-32 generate of the CPU-traced artifact against the live one, host
@@ -153,7 +153,7 @@ imports nothing of JAX or of the JAX package, and:
    the card and on the host. (d) the labeler on those two ranks (a stride of
    the videos each) within 1e-5 of the one-process labels of the same
    checkpoint, one #3 a chunk; evaluate on the two ranks at batch 4 (one
-   batch each, 8 / 1 / 2 / 1 / 4 launches) writes the one-process tree byte
+   batch each, 8 / 1 / 2 / 1 / 4 / 28 launches) writes the one-process tree byte
    for byte. Phase 11's two TF1 imports run beside the ranks;
 11. interop: (a) both stages' trainer weights at ``Config()`` from seed 0
    (the generators with phase 3's randomized parameters, the stage-2
@@ -164,7 +164,7 @@ imports nothing of JAX or of the JAX package, and:
    with TensorFlow unimportable (stage 2 at ``--step 1000``): every mapped
    tensor matched, none missing or mismatched; ``FinalGenerator`` on the two
    imported checkpoints gives the bits of the seed-0 parameters loaded
-   directly, with 8 / 1 / 2 / 1 / 2 launches; 3 stage-2 steps of ``train.main``
+   directly, with 8 / 1 / 2 / 1 / 2 / 28 launches; 3 stage-2 steps of ``train.main``
    from the imported ``ckpt-1000`` with finite losses, the first update at
    ``lr(0)``. (b) 16 stage-1 steps of ``train.main`` with
    ``data.decode_cache_mb`` 256, ``--profile-dir`` and (where
@@ -445,7 +445,8 @@ def device_ms(fn, reps: int = 10, budget_s: float = 0.3) -> float:
 KERNEL_SYMBOLS = {"conv3x3": "conv3x3_", "pose_head": "pose_head_kernel",
                   "gaussian_render": "gaussian_render_kernel",
                   "pose_head_backward": "pose_head_backward_kernel",
-                  "gaussian_render_backward": "render_backward_kernel"}
+                  "gaussian_render_backward": "render_backward_kernel",
+                  "bias_bn_relu": "bias_bn_relu_"}
 
 
 REPLAY_SYMBOL = {"conv3x3_affine": "conv3x3", "conv3x3_add_affine": "conv3x3",
@@ -630,6 +631,67 @@ def check_render(gen, m, rows: int, gd, hs: int | None = None) -> tuple[dict, ob
     return errs, mu
 
 
+def bn_layer_shapes(cfg) -> list:
+    """The [H, W, C] of each ``bias_bn_relu`` call of a generate, in launch
+    order: detect's (the pose encoder's trunk and
+    decoder), then embed's (the image trunk through its second octave);
+    recorded from one sample's pass through ``Stage1Generator`` on the card."""
+    import torch
+
+    from kpvid_tpu_torch import ops
+    from kpvid_tpu_torch.eval import FinalGenerator
+
+    stage1 = FinalGenerator(cfg).stage1
+    shapes = []
+
+    def record(y, *args):
+        shapes.append(tuple(y.shape[1:]))
+        return ops.bias_bn_relu(y, *args)
+
+    s = cfg.model.image_size
+    im = torch.zeros((1, s, s, 3), device="cuda")
+    with torch.no_grad(), mock.patch("kpvid_tpu_torch.models.layers.bias_bn_relu", record):
+        stage1.detect(im)
+        stage1.embed(im)
+    check(len(shapes) == EXPECTED_LAUNCHES["bias_bn_relu"],
+          f"a generate's bias + BN + ReLU layers: {len(shapes)}")
+    return shapes
+
+
+def bn_inputs(gen, shape, dtype):
+    """(y, conv_bias, mean, mul, beta) of ``bias_bn_relu`` on the card: a
+    conv output of scale 3 in ``dtype``, NaN every 97th element, the conv
+    bias in ``dtype`` and the f32 vectors of a BN with random statistics."""
+    import torch
+
+    c = shape[-1]
+    y = torch.randn(shape, generator=gen, device="cuda") * 3
+    y.view(-1)[::97] = float("nan")
+    conv_bias, mean, beta = (torch.randn(c, generator=gen, device="cuda") * 0.3 for _ in range(3))
+    var = torch.rand(c, generator=gen, device="cuda") * 1.8 + 0.2
+    mul = torch.randn(c, generator=gen, device="cuda") * torch.rsqrt(var + 1e-5)
+    return y.to(dtype), conv_bias.to(dtype), mean, mul, beta
+
+
+def check_bias_bn_relu(gen, shape, dtype) -> tuple[float, tuple]:
+    """``bias_bn_relu`` on ``bn_inputs`` against its plain version on the
+    same card tensors: the same bits (NaN payloads and signed zeros count).
+    Returns the max abs error over the non-NaN elements (0) and the inputs."""
+    import torch
+
+    from kpvid_tpu_torch import ops
+
+    args = bn_inputs(gen, shape, dtype)
+    got = ops.bias_bn_relu(*args, True)
+    want = ops.bias_bn_relu_plain(*args, True)
+    bits = torch.int32 if dtype == torch.float32 else torch.int16
+    differ = int((got.view(bits) != want.view(bits)).sum())
+    if differ or got.stride() != want.stride():
+        raise CheckFailed(f"bias_bn_relu {shape} {dtype}: {differ} elements differ from the "
+                          f"plain version's bits, strides {got.stride()} / {want.stride()}")
+    return float((got.float() - want.float()).nan_to_num().abs().max()), args
+
+
 def kernel_phase(cfg) -> dict:
     """Every kernel against its plain version at the main path's shapes."""
     import torch
@@ -768,6 +830,38 @@ def kernel_phase(cfg) -> dict:
               f"{times['bound_ms']:.4f} ms), host loop {times['host_loop_ms']:.4f} ms, plain "
               f"{times['plain_ms']:.4f} ms", flush=True)
     records["gaussian_render"] = rec
+
+    # the encoders' inference bias + BN + ReLU at each of a generate's 28
+    # layer shapes, bit for bit against the plain version; bound: the
+    # activation read and written once, the conv bias and 12 bytes a channel
+    rec = dict(library_ms=None, max_abs_err=0.0, max_abs_err_f32=0.0)
+    layer_shapes = bn_layer_shapes(cfg)
+    for b in (BATCH, BATCH_B32):
+        times = dict(ms=0.0, host_loop_ms=0.0, plain_ms=0.0)
+        n_bytes = 0.0
+        for shape in ((b, *hwc) for hwc in layer_shapes):
+            for dtype in (torch.float32, torch.bfloat16):
+                err, args = check_bias_bn_relu(gen, shape, dtype)
+                key = "max_abs_err_f32" if dtype == torch.float32 else "max_abs_err"
+                rec[key] = max(rec[key], err)
+            # args are the bfloat16 inputs of the path
+            times["ms"] += device_ms(lambda: ops.bias_bn_relu(*args, True))
+            times["host_loop_ms"] += time_ms(lambda: ops.bias_bn_relu(*args, True))
+            times["plain_ms"] += time_ms(lambda: ops.bias_bn_relu_plain(*args, True))
+            n_bytes += 2.0 * (2 * args[0].numel() + shape[-1]) + 12.0 * shape[-1]
+            del args
+        times["bound_ms"], times["bound_by"] = bound_ms(n_bytes, 0.0, "float32")
+        if b == BATCH:
+            rec.update(times)
+        else:
+            rec["b32"] = times
+        print(f"bias_bn_relu bf16 per generate at batch {b} (28 layers, bits of the plain "
+              f"version in f32 and bf16): device {times['ms']:.4f} ms "
+              f"({100 * times['bound_ms'] / times['ms']:.1f}% of the bound "
+              f"{times['bound_ms']:.4f} ms), host loop {times['host_loop_ms']:.4f} ms, plain "
+              f"{times['plain_ms']:.4f} ms", flush=True)
+        torch.cuda.empty_cache()
+    records["bias_bn_relu"] = rec
     for name, r in records.items():
         lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
         print(f"{name} per generate at batch {BATCH}: device {r['ms']:.4f} ms, host loop "
@@ -780,15 +874,16 @@ def kernel_phase(cfg) -> dict:
 def bucket_kernel_phase(cfg) -> dict:
     """Every kernel against its plain version, f32 and bf16, at the shapes
     each of the daemon's buckets gives it (N = bucket * 32 frames), with the
-    tolerances of ``kernel_phase``; returns the worst error per kernel and
-    bucket, and the device ms of #1 and #2 per generate at each bucket (bf16,
-    the launches of one generate)."""
+    tolerances of ``kernel_phase`` (bias_bn_relu: the same bits); returns
+    the worst error per kernel and bucket, and the device ms of #1 and #2 per
+    generate at each bucket (bf16, the launches of one generate)."""
     import torch
 
     from kpvid_tpu_torch import ops
 
     m = cfg.model
     gen = torch.Generator(device="cuda").manual_seed(1)
+    layer_shapes = bn_layer_shapes(cfg)
     worst = {}
     for b in SERVE_BUCKETS:
         conv_cases, up2_cases = conv_shapes(m, b * m.n_future_frames)
@@ -815,6 +910,9 @@ def bucket_kernel_phase(cfg) -> dict:
         errs["gaussian_render"] = max(
             max(check_render(gen, m, rows, gd)[0].values())
             for rows, gd in ((b, torch.float32), (b * m.n_future_frames, torch.bfloat16)))
+        errs["bias_bn_relu"] = max(check_bias_bn_relu(gen, shape, dtype)[0]
+                                   for shape in ((b, *hwc) for hwc in layer_shapes)
+                                   for dtype in (torch.float32, torch.bfloat16))
         torch.cuda.empty_cache()
         worst[b] = errs
         check(True, f"bucket {b} (N = {b * m.n_future_frames}): every kernel agrees with its "
@@ -868,12 +966,25 @@ def randomized_params(cfg, seed: int) -> dict:
     return params
 
 
+# a generate: #1 / #1+ / #2 / #3 / #4, and the inference bias + BN + ReLU of
+# the image trunk's 6 layers that embed runs, the pose trunk's 8 and the pose
+# decoder's 14
 EXPECTED_LAUNCHES = {"conv3x3_affine": 8, "conv3x3_add_affine": 1, "up2_conv3_affine": 2,
                      "pose_head": 1, "gaussian_render": 2, "pose_head_backward": 0,
-                     "gaussian_render_backward": 0}
+                     "gaussian_render_backward": 0, "bias_bn_relu": 28}
 
 
 NO_LAUNCHES = {name: 0 for name in EXPECTED_LAUNCHES}
+# a detect (a labeling chunk): #3 and the pose encoder's 22 bias + BN + ReLU
+DETECT_LAUNCHES = dict(NO_LAUNCHES, pose_head=1, bias_bn_relu=22)
+# a stage-1 forward with inference BN (a test sweep's batch, a summary): the
+# bias + BN + ReLU of the whole image trunk (8), the pose encoder on the
+# pair batch (22) and the translator's training form (10)
+S1_INFERENCE_BN = 40
+
+
+def per_chunk(launches: dict, chunks: int) -> dict:
+    return {name: c * chunks for name, c in launches.items()}
 
 
 def slice_phase(cfg, params) -> dict:
@@ -894,7 +1005,7 @@ def slice_phase(cfg, params) -> dict:
     out = engine.run(images, actions, z)
     counts = ops.launch_counts()
     print(f"launches in one generate: {counts}", flush=True)
-    check(counts == EXPECTED_LAUNCHES, "launches per generate are 8 / 1 / 2 / 1 / 2")
+    check(counts == EXPECTED_LAUNCHES, "launches per generate are 8 / 1 / 2 / 1 / 2 / 28")
     t, s, k = m.n_future_frames, m.image_size, m.n_pts
     check(out["pred_im_seq"].shape == (BATCH, t, s, s, 3) and out["pred_im_seq"].dtype == np.uint8,
           f"pred_im_seq is uint8 {out['pred_im_seq'].shape}")
@@ -916,7 +1027,7 @@ def slice_phase(cfg, params) -> dict:
     check(all(np.array_equal(out[key], again[key]) for key in engine.OUTPUT_KEYS),
           "the same seeds give the same videos twice")
     check(ops.launch_counts() == {name: 3 * c for name, c in EXPECTED_LAUNCHES.items()},
-          "every generate call launched 8 / 1 / 2 / 1 / 2 kernels")
+          "every generate call launched 8 / 1 / 2 / 1 / 2 / 28 kernels")
     return counts
 
 
@@ -1007,6 +1118,7 @@ def plain_path(ops):
         ("kpvid_tpu_torch.eval.final.conv3x3_add_affine", ops.conv3x3_add_affine_plain),
         ("kpvid_tpu_torch.models.networks.pose_head", ops.heatmaps_to_keypoints),
         ("kpvid_tpu_torch.eval.final.gaussian_render", ops.render_gaussian_maps),
+        ("kpvid_tpu_torch.models.layers.bias_bn_relu", ops.bias_bn_relu_plain),
     ):
         stack.enter_context(mock.patch(target, fn))
     return stack
@@ -1205,7 +1317,7 @@ def serve_phase(cfg, params, card: str) -> dict:
         check(stats["requests_total"] == len(reqs) and batches > 0,
               f"{mode}: {len(reqs)} requests in {batches} batches")
         check(counts == {name: c * batches for name, c in EXPECTED_LAUNCHES.items()},
-              f"{mode}: launches {counts} are 8 / 1 / 2 / 1 / 2 per dispatched batch")
+              f"{mode}: launches {counts} are 8 / 1 / 2 / 1 / 2 / 28 per dispatched batch")
         outs, gifs = {}, []
         for i, (req, (_, ctype, body)) in enumerate(zip(reqs, results)):
             if req["format"] == "gif":
@@ -1496,7 +1608,8 @@ def artifact_phase(cfg, params, card: str, root: Path) -> dict:
             for b in buckets[traced_on]:
                 counts = child["launches"][str(b)]
                 check(counts == EXPECTED_LAUNCHES,
-                      f"{traced_on}-traced artifact, bucket {b}: launches {counts} are 8 / 1 / 2 / 1 / 2")
+                      f"{traced_on}-traced artifact, bucket {b}: launches {counts} are "
+                      "8 / 1 / 2 / 1 / 2 / 28")
                 with np.load(out_dir / f"out_{b}.npz") as got:
                     for key in engine.OUTPUT_KEYS:
                         a, w = got[key], live[b][key]
@@ -1668,8 +1781,8 @@ def label_phase(cfg, params, card: str, root: Path) -> dict:
     n_frames = stats["frames"]
     check(stats["videos"] == 32 and stats["chunks"] == -(-n_frames // chunk),
           f"labeled 32 videos, {n_frames} frames, in {stats['chunks']} chunks of {chunk}")
-    check(counts == dict(NO_LAUNCHES, pose_head=stats["chunks"]),
-          f"launches {counts}: one pose_head per chunk, nothing else")
+    check(counts == per_chunk(DETECT_LAUNCHES, stats["chunks"]),
+          f"launches {counts}: one pose_head and 22 bias_bn_relu per chunk, nothing else")
     labels = {}
     for subset in ("train", "test"):
         for rel, _ in read_split(str(root / "penn"), subset):
@@ -1734,7 +1847,7 @@ STEP_LOSS_RTOL = 1e-4
 STEP_GRAD_REL = 1e-3
 EVAL_LAUNCHES = {"conv3x3_affine": 8, "conv3x3_add_affine": 1, "up2_conv3_affine": 2,
                  "pose_head": 1, "gaussian_render": 4, "pose_head_backward": 0,
-                 "gaussian_render_backward": 0}
+                 "gaussian_render_backward": 0, "bias_bn_relu": 28}
 
 
 def train_config(cfg, root: Path, name: str, log: str, data: dict | None = None,
@@ -1997,9 +2110,10 @@ def stage1_phase(cfg, card: str, root: Path) -> dict:
     want = {name: c * S1_STEPS for name, c in S1_PER_STEP.items()}
     for name in ("pose_head", "gaussian_render"):
         want[name] += 2 * S1_PER_STEP[name]
+    want["bias_bn_relu"] += 2 * S1_INFERENCE_BN
     check(counts == want, f"the stage-1 run launched {counts}: 1 / 2 forward and 1 / 2 backward "
-                          "#3 / #4 a step (+ the test sweep's and the summary's forwards), no "
-                          "#1 / #2")
+                          "#3 / #4 a step (+ the test sweep's and the summary's forwards, with "
+                          "their inference BN), no #1 / #2")
     check(list_checkpoint_steps(ck) == [S1_CKPT, S1_STEPS],
           f"checkpoints at steps {S1_CKPT} and {S1_STEPS}")
     stage1_moved_and_finite(run, f"{S1_STEPS} fused stage-1 steps at Config(), bf16, batch "
@@ -2184,7 +2298,7 @@ def relabel_phase(cfg, root: Path) -> dict:
     counts = ops.launch_counts()
     after = {p.name: np.load(p) for p in (root / "penn" / "pseudo_labels").glob("*.npy")}
     moved = sum(not np.array_equal(before[k], after[k]) for k in before)
-    check(stats["videos"] == 32 and counts == dict(NO_LAUNCHES, pose_head=stats["chunks"])
+    check(stats["videos"] == 32 and counts == per_chunk(DETECT_LAUNCHES, stats["chunks"])
           and sorted(after) == sorted(before) and moved == len(before)
           and all(np.isfinite(a).all() and np.abs(a).max() <= 1.0 for a in after.values()),
           f"relabeled 32 videos from the stage-1 ckpt-{S1_STEPS} ({stats['frames']} frames, "
@@ -2332,7 +2446,7 @@ def evaluate_phase(cfg, card: str, root: Path) -> dict:
         check(stats["samples"] == 8 and stats["batches"] == 1
               and counts == {k: v * stats["batches"] for k, v in EVAL_LAUNCHES.items()},
               f"evaluate wrote 8 samples in {stats['batches']} batch; launches {counts} are "
-              "8 / 1 / 2 / 1 / 4 per batch")
+              "8 / 1 / 2 / 1 / 4 / 28 per batch")
         per_batch = {k: v / stats["batches"] for k, v in counts.items()}
         files = {p.relative_to(root / name).as_posix(): p.read_bytes()
                  for p in sorted((root / name).rglob("*.png"))}
@@ -2615,7 +2729,8 @@ def dp_phase(cfg, card: str, root: Path, base_step_ms: dict) -> dict:
     inputs = dp_inputs(cfg, root)
     rep = {}
     modes = {1: "detector_translator", 2: "motion_generator"}
-    sweep = {1: dict(NO_LAUNCHES, pose_head=1, gaussian_render=2), 2: NO_LAUNCHES}
+    sweep = {1: dict(NO_LAUNCHES, pose_head=1, gaussian_render=2, bias_bn_relu=S1_INFERENCE_BN),
+             2: NO_LAUNCHES}
     per_step = {1: S1_PER_STEP, 2: NO_LAUNCHES}
 
     def cli(stage: int, name: str, **training):
@@ -2854,7 +2969,7 @@ def dp_ranks_phase(cfg, card: str, root: Path, rep: dict) -> dict:
     n_chunks = sum(i["label"]["chunks"] for i in infos)
     check(sorted(labels) == sorted(labels_before) and label_gap <= 1e-5
           and sum(i["label"]["videos"] for i in infos) == 32
-          and all(i["label"]["launches"] == dict(NO_LAUNCHES, pose_head=i["label"]["chunks"])
+          and all(i["label"]["launches"] == per_chunk(DETECT_LAUNCHES, i["label"]["chunks"])
                   for i in infos),
           f"the labeler on 2 ranks ({[i['label']['videos'] for i in infos]} videos, "
           f"{n_chunks} chunks, one pose_head each) writes the one-process labels of the same "
@@ -2866,8 +2981,8 @@ def dp_ranks_phase(cfg, card: str, root: Path, rep: dict) -> dict:
           and all(i["evaluate"]["launches"] == EVAL_LAUNCHES for i in infos)
           and sorted(got) == sorted(want) and all(got[k] == want[k] for k in want)
           and len(want) == 8 * (2 + 5 * m.n_future_frames),
-          f"evaluate on 2 ranks at batch 4 (one batch each, 8 / 1 / 2 / 1 / 4 launches) writes the "
-          f"one-process tree byte for byte ({len(want)} PNGs)")
+          "evaluate on 2 ranks at batch 4 (one batch each, 8 / 1 / 2 / 1 / 4 / 28 launches) "
+          f"writes the one-process tree byte for byte ({len(want)} PNGs)")
     rep.update(spawn_seconds=spawn_s, label_gap=label_gap,
                rank_label=[i["label"] for i in infos], rank_evaluate=[i["evaluate"] for i in infos])
     print(f"dp on {card}: " + json.dumps({k: v for k, v in rep.items()
@@ -3086,6 +3201,7 @@ def interop_phase(cfg, params, card: str, root: Path, imports: dict) -> dict:
     want_counts = {k: c * CACHE_STEPS for k, c in S1_PER_STEP.items()}
     want_counts["pose_head"] += 1  # the test sweep at step 0: one batch's forward
     want_counts["gaussian_render"] += 2
+    want_counts["bias_bn_relu"] += S1_INFERENCE_BN
     a, b = (load_checkpoint(root / f"log_s1_{n}" / "detector_translator" / f"ckpt-{CACHE_STEPS}")
             for n in ("cached", "plain"))
     differ = [k for k in b if not np.array_equal(a.get(k), b[k])]
@@ -3522,8 +3638,8 @@ def tp_mesh_phase(cfg, params, card: str, root: Path) -> dict:
         n = eng.n_data
         where = "the one device" if devices is None else [str(d) for d in devices]
         check(counts == {k: v * n for k, v in EXPECTED_LAUNCHES.items()},
-              f"engine over {where}: launches {counts}, 8 / 1 / 2 / 1 / 2 per replica batch of "
-              f"{b // n}")
+              f"engine over {where}: launches {counts}, 8 / 1 / 2 / 1 / 2 / 28 per replica "
+              f"batch of {b // n}")
         if n == 1:
             same = [k for k in want if np.array_equal(got[k], want[k])]
             check(len(same) == len(want), f"engine over {where} ({n} replica): the bits of "
@@ -3632,8 +3748,8 @@ def evaluate_mesh_checks(root: Path, s1_dir: str, ck2: str) -> dict:
                                    str(root / name), "--seed", str(seed), "--mesh"])
             counts = ops.launch_counts()
         check(stats["batches"] == 1 and counts == {k: 2 * v for k, v in EVAL_LAUNCHES.items()},
-              f"evaluate --mesh over two replicas ({name}): launches {counts}, 8 / 1 / 2 / 1 / 4 per "
-              "replica batch of 4")
+              f"evaluate --mesh over two replicas ({name}): launches {counts}, "
+              "8 / 1 / 2 / 1 / 4 / 28 per replica batch of 4")
         trees[name] = tree_bytes(root / name)
     got, want = trees["eval_mesh2_delayed"], trees["eval_mesh2"]
     other = sum(trees["eval_mesh2_seed1"][k] != want[k] for k in want)
@@ -3823,7 +3939,8 @@ def multi_correctness(cfg, stage: int, vgg) -> dict:
 
     rec = replay_kernels(next(iter(a._graphs.values())).graph)
     want_launches = ({"conv3x3": 0, "pose_head": 1, "gaussian_render": 2,
-                      "pose_head_backward": 1, "gaussian_render_backward": 2} if stage == 1
+                      "pose_head_backward": 1, "gaussian_render_backward": 2,
+                      "bias_bn_relu": 0} if stage == 1
                      else {name: 0 for name in KERNEL_SYMBOLS})
     check(rec["kernels"] > 0 and rec["launches"] == want_launches,
           f"stage {stage}: one replay of the step graph (torch.profiler) runs "
@@ -4142,6 +4259,7 @@ def learn_phase(card: str, root: Path) -> dict:
     sweep_fwd = {name: 2 * batches * S1_PER_STEP[name] if name in ("pose_head",
                                                                    "gaussian_render") else 0
                  for name in S1_PER_STEP}
+    sweep_fwd["bias_bn_relu"] = 2 * batches * S1_INFERENCE_BN
     want = {name: c * steps + sweep_fwd[name] for name, c in S1_PER_STEP.items()}
     check(counts == want, f"learn: {steps} steps launched {counts}: 1 / 2 forward and 1 / 2 "
                           "backward #3 / #4 a step (+ two sweeps' forwards), no #1 / #2")
@@ -4205,6 +4323,9 @@ KERNEL_META = {
                            "kpvid_tpu/ops/pallas_kernels.py:92"),
     "gaussian_render_backward": ("cuda", "kpvid_tpu_torch/csrc/keypoint.cu",
                                  "kpvid_tpu/ops/pallas_kernels.py:146"),
+    # no TPU kernel: XLA fuses a ConvBNReLU's bias add, BN and ReLU
+    "bias_bn_relu": ("cuda", "kpvid_tpu_torch/csrc/bias_bn_relu.cu",
+                     "none: XLA fuses kpvid_tpu/models/layers.py's ConvBNReLU"),
 }
 
 

@@ -54,6 +54,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.inference_bn import bias_bn_relu
 from ..ops.resize import upsample2x
 from ..parallel.distributed import all_reduce_mean
 from ..parallel.tensor import copy_to_model, join
@@ -79,7 +80,8 @@ class Conv(nn.Module):
         self.bias = nn.Parameter(torch.zeros(out_ch)) if use_bias else None
         self.shard, self.sharded = None, {}
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, bias: bool = True) -> torch.Tensor:
+        """``bias=False`` leaves the bias add to the caller."""
         x = x.to(self.dtype).permute(0, 3, 1, 2)
         col = "weight" in self.sharded  # column-parallel: this rank's output channels
         if col:
@@ -93,7 +95,8 @@ class Conv(nn.Module):
         else:
             y = F.conv2d(F.pad(x, (l, r, t, b)), self.weight.to(self.dtype), stride=self.stride)
         y = y.permute(0, 2, 3, 1)
-        y = y if self.bias is None else y + self.bias.to(self.dtype)
+        if bias and self.bias is not None:
+            y = y + self.bias.to(self.dtype)
         return join(y, -1, self.shard) if col else y
 
 
@@ -137,13 +140,21 @@ class BatchNorm(nn.Module):
                             batch = self.shard.local(batch, 0)
                         run = getattr(self, name)
                         run.copy_(m * run + (1 - m) * batch)
+            mul = self._full("weight") * torch.rsqrt(var + self.eps)
+            beta = self._full("bias")
         else:
-            with torch.no_grad():
-                mean, var = self._full("running_mean"), self._full("running_var")
+            mean, mul, beta = self.running_affine()
             xf = x.float()
-        mul = self._full("weight") * torch.rsqrt(var + self.eps)
-        y = (xf - mean) * mul + self._full("bias")
+        y = (xf - mean) * mul + beta
         return y.to(x.dtype)
+
+    def running_affine(self) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """(mean, mul, beta), f32 [C], of the inference form ``(x - mean) *
+        mul + beta``: the running mean, ``weight * rsqrt(running_var + eps)``
+        and the BN bias."""
+        with torch.no_grad():
+            mean, var = self._full("running_mean"), self._full("running_var")
+        return mean, self._full("weight") * torch.rsqrt(var + self.eps), self._full("bias")
 
 
 @contextlib.contextmanager
@@ -180,7 +191,15 @@ def syncing_batch_stats(model: nn.Module, enabled: bool = True, group=None):
 
 class ConvBNReLU(nn.Module):
     """conv + BN + ReLU. ``up2`` upsamples the input 2x first (TF1-legacy);
-    ``skip`` is concatenated after it along the channels."""
+    ``skip`` is concatenated after it along the channels.
+
+    The inference forward of an unsharded layer (``train`` False, neither
+    the conv nor the BN sharded) runs the conv without its bias, then the
+    bias add, BN and ReLU as one ``kpvid::bias_bn_relu`` op (ops/inference_bn.py),
+    which gives the bits of the torch passes it replaces. Training, the
+    sharded layers and a forward that autograd would record (grad mode on
+    and an input or parameter that requires a gradient; the op has no
+    gradient formula) run the conv, :class:`BatchNorm` and the ReLU."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel: int, stride: int = 1,
                  dtype: torch.dtype = torch.float32):
@@ -194,7 +213,13 @@ class ConvBNReLU(nn.Module):
             x = upsample2x(x)
         if skip is not None:
             x = torch.cat([x.to(self.conv.dtype), skip.to(self.conv.dtype)], dim=-1)
-        return torch.relu(self.bn(self.conv(x), train))
+        conv, bn = self.conv, self.bn
+        recording = torch.is_grad_enabled() and (
+            x.requires_grad or any(p.requires_grad for p in self.parameters()))
+        if train or recording or conv.shard is not None or bn.shard is not None:
+            return torch.relu(bn(conv(x), train))
+        return bias_bn_relu(conv(x, bias=False), conv.bias.to(conv.dtype), *bn.running_affine(),
+                            True)
 
 
 class StackedLSTM(nn.Module):

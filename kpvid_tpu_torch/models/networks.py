@@ -10,9 +10,10 @@ SeqDiscriminator. Module and parameter names follow the Flax tree
 one onto the other by name.
 
 The encoders and the pose decoder run torch convolutions, as the JAX
-package leaves them to XLA; the pose decoder upsamples and concatenates its
-skip input before each octave's first conv, which is the same function as
-the JAX fused form. The soft-argmax runs the fused ``pose_head`` kernel and
+package leaves them to XLA, each inference layer's bias, BN and ReLU one
+``bias_bn_relu`` op after it (models/layers.py::ConvBNReLU); the pose
+decoder upsamples and concatenates its skip input before each octave's
+first conv, which is the same function as the JAX fused form. The soft-argmax runs the fused ``pose_head`` kernel and
 the stage-1 forward's maps the ``gaussian_render`` kernel, both
 differentiable through their backward kernels. The translator's training
 form runs torch convolutions, as JAX training takes the XLA path;
@@ -39,22 +40,27 @@ from .layers import Conv, ConvBNReLU, Dense, StackedLSTM
 
 class ConvEncoder(nn.Module):
     """7x7s1 + 3x3s1 at base width, then 3 octaves of [3x3s2 + 3x3s1] with
-    doubling filters; returns the four block features (full, 1/2, 1/4, 1/8)."""
+    doubling filters; returns the four block features (full, 1/2, 1/4, 1/8).
+    ``octaves`` < 3 stops the trunk after that many octaves (an inference
+    caller that reads no deeper feature): the first ``octaves + 1``."""
+
+    OCTAVES = 3
 
     def __init__(self, in_ch: int = 3, filters: int = 32, dtype=torch.float32):
         super().__init__()
         f = filters
         self.in0 = ConvBNReLU(in_ch, f, 7, 1, dtype)
         self.in1 = ConvBNReLU(f, f, 3, 1, dtype)
-        for i in range(3):
+        for i in range(self.OCTAVES):
             setattr(self, f"down{i}", ConvBNReLU(f, 2 * f, 3, 2, dtype))
             setattr(self, f"keep{i}", ConvBNReLU(2 * f, 2 * f, 3, 1, dtype))
             f *= 2
 
-    def forward(self, x: torch.Tensor, train: bool = False) -> list[torch.Tensor]:
+    def forward(self, x: torch.Tensor, train: bool = False,
+                octaves: int = OCTAVES) -> list[torch.Tensor]:
         x = self.in1(self.in0(x, train=train), train=train)
         feats = [x]
-        for i in range(3):
+        for i in range(octaves):
             x = getattr(self, f"down{i}")(x, train=train)
             x = getattr(self, f"keep{i}")(x, train=train)
             feats.append(x)
@@ -276,8 +282,10 @@ class Stage1Generator(nn.Module):
         return self.pose_encoder(im)
 
     def embed(self, im: torch.Tensor) -> torch.Tensor:
-        """Appearance embedding [B, H/4, W/4, 4 * encoder_filters]."""
-        return self.image_encoder(im)[-2]
+        """Appearance embedding [B, H/4, W/4, 4 * encoder_filters]: the
+        forward's ``[-2]``, the trunk run through its second octave only (the
+        third's layers keep their parameters for training)."""
+        return self.image_encoder.trunk(im, octaves=2)[-1]
 
 
 class MotionGenerator(nn.Module):

@@ -1,4 +1,5 @@
 from . import library  # registers the torch.ops.kpvid ops
+from .inference_bn import bias_bn_relu, bias_bn_relu_plain
 from .chain import translator_chain
 from .conv3x3 import (
     conv3x3_add_affine,
@@ -27,6 +28,7 @@ KERNELS = {
     "gaussian_render": gaussian_render,
     "pose_head_backward": pose_head_backward,
     "gaussian_render_backward": gaussian_render_backward,
+    "bias_bn_relu": bias_bn_relu,
 }
 
 
@@ -41,6 +43,8 @@ def reset_launch_counts() -> None:
 
 __all__ = [
     "KERNELS",
+    "bias_bn_relu",
+    "bias_bn_relu_plain",
     "blend",
     "colorize_point_maps",
     "conv3x3_add_affine",

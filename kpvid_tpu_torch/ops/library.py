@@ -7,7 +7,7 @@ branch a wrapper took, and a program exported on one device runs on
 another through the registration of that device. Each op has
 
 - a CPU implementation: the plain PyTorch version (ops/conv3x3.py,
-  ops/coords.py, ops/keypoint_kernels.py);
+  ops/coords.py, ops/keypoint_kernels.py, ops/inference_bn.py);
 - a CUDA implementation: the ctypes launch of the hand-written kernel, which
   launches or raises, and counts its launches (``ops.launch_counts``);
 - a fake implementation: shapes and dtypes only; it launches and counts
@@ -24,6 +24,8 @@ ops, by TPU kernel they replace:
   #4  kpvid::gaussian_render       [B,K,2] f32 -> [B,H,W,K] out_dtype
   #3' kpvid::pose_head_backward    -> the maps' gradient [B,H,W,K] in dtype
   #4' kpvid::gaussian_render_backward  -> [N,K,2] f32
+      kpvid::bias_bn_relu       [..., C] -> [..., C], y.dtype: a ConvBNReLU's
+                                bias, inference BN and ReLU (no TPU kernel)
 
 Importing ``kpvid_tpu_torch.ops`` registers them; nothing is built until a
 CUDA implementation first runs.
@@ -32,6 +34,7 @@ CUDA implementation first runs.
 import torch
 from torch import Tensor
 
+from . import inference_bn as _bbr
 from . import conv3x3 as _conv
 from . import keypoint_kernels as _kp
 from .coords import heatmaps_to_keypoints, render_gaussian_maps
@@ -184,3 +187,22 @@ def _(dmaps, mu, inv_std, grid_dtype):
     n, _, _, k = dmaps.shape
     return mu.new_empty((n, k, 2), dtype=torch.float32)
 
+
+
+# --- the encoders' inference bias + BN + ReLU ----------------------------------
+
+
+@_custom_op("bias_bn_relu")
+def bias_bn_relu(y: Tensor, conv_bias: Tensor, mean: Tensor, mul: Tensor, beta: Tensor,
+                 relu: bool) -> Tensor:
+    return _bbr.bias_bn_relu_plain(y, conv_bias, mean, mul, beta, relu)
+
+
+@bias_bn_relu.register_kernel("cuda")
+def _(y, conv_bias, mean, mul, beta, relu):
+    return _bbr.launch(y, conv_bias, mean, mul, beta, relu)
+
+
+@bias_bn_relu.register_fake
+def _(y, conv_bias, mean, mul, beta, relu):
+    return torch.empty_like(y)

@@ -41,9 +41,10 @@ from test_torch_final import SMOKE, _setup
 
 REPO = Path(__file__).resolve().parent.parent
 BUCKETS = (1, 2)
-# kernel nodes per program: #1 / #1+ / #2 / #3 / #4, as the live path launches them
+# kernel nodes per program: #1 / #1+ / #2 / #3 / #4 and the encoders' 28
+# bias + BN + ReLU layers, as the live path launches them
 KERNEL_NODES = {"conv3x3_affine": 8, "conv3x3_add_affine": 1, "up2_conv3_affine": 2,
-                "pose_head": 1, "gaussian_render": 2}
+                "pose_head": 1, "gaussian_render": 2, "bias_bn_relu": 28}
 
 
 @pytest.fixture(scope="module")
@@ -122,7 +123,7 @@ def test_unknown_format_version_is_refused(setup, tmp_path):
 @pytest.mark.parametrize("b", BUCKETS)
 def test_graph_carries_the_kernels(setup, b):
     """Each program holds the kernels as torch.ops.kpvid nodes, 8 / 1 / 2 / 1
-    / 2, and none of their plain versions: no torch conv runs over all B*T
+    / 2 and 28 bias + BN + ReLU, and none of their plain versions: no torch conv runs over all B*T
     frames (the split first conv's per-frame part is the #1+ node), and no
     softmax or exp is left (the soft-argmax's and the render's plain
     forms)."""
@@ -204,7 +205,13 @@ def _op_cases():
     mu = torch.rand(3, 4, 2, generator=g) * 2 - 1
     dmaps = torch.randn(3, 8, 6, 4, generator=g)
     f32, bf16 = torch.float32, torch.bfloat16
+    h = torch.Generator().manual_seed(1)
+    y = torch.randn(2, 5, 3, 16, generator=h)
+    mean, mul, beta = (torch.randn(16, generator=h) for _ in range(3))
+    cb = torch.randn(16, generator=h) / 10
     return {
+        "bias_bn_relu": [(y, cb, mean, mul, beta, True),
+                         (y.to(bf16), cb.to(bf16), mean, mul, beta, False)],
         "conv3x3_affine": [(x, k, sc, sh, True), (x.to(bf16), k.to(bf16), sc, sh, False)],
         "conv3x3_add_affine": [(x, k, add, sc, sh, True),
                                (x.to(bf16), k.to(bf16), add, sc, sh, False)],
@@ -246,6 +253,10 @@ def test_ops_cpu_implementations_are_the_plain_versions():
     maps = torch.ops.kpvid.gaussian_render(mu, h, w, inv_std, gd, od)
     assert maps.is_contiguous()
     assert torch.equal(maps, render_gaussian_maps(mu, h, w, inv_std, gd, od))
+    from kpvid_tpu_torch.ops import bias_bn_relu_plain
+
+    for args in cases["bias_bn_relu"]:
+        assert torch.equal(torch.ops.kpvid.bias_bn_relu(*args), bias_bn_relu_plain(*args))
 
 
 def test_pose_head_backward_plain_matches_autograd():

@@ -31,7 +31,7 @@ to the same bits (and generate the same bits).
 
 Each ``torch.ops.kpvid`` op passes ``torch.library.opcheck`` on CUDA tensors,
 and a serving artifact traced on the CPU or on the card runs on the card
-through the kernels: 8 / 1 / 2 / 1 / 2 launches a batch, the live engine's
+through the kernels: 8 / 1 / 2 / 1 / 2 / 28 launches a batch, the live engine's
 outputs within one uint8 step and 1e-5 on the points.
 
 The conv shapes cover the main path at N = 2 (Config() widths), ragged
@@ -48,6 +48,16 @@ addend row per 32 frames), on ragged borders with one frame a row, at
 Cout = 72 and 4 (the 64- and 8-channel tiles), at C = 12 (the element-wise
 loader) with Cout = 30 (the addend copied element by element), f32 and
 bf16, and twice to the same bytes.
+
+The encoders' inference bias + BN + ReLU (``kpvid::bias_bn_relu``) gives
+the bits of the torch passes it replaces (its plain version on the card's
+tensors) at each of the 30 layers' batch-32 shapes and at odd sizes (C = 16
+at 1 x 1 and N = 1, C not a multiple of the 16-byte vector, C = 40 and 264,
+an empty batch, a pointer off a 16-byte boundary, NHWC over NCHW memory),
+f32 and bf16, on values that land on bf16 rounding ties, negative values,
+signed zeros and NaN; a batch-32 generate at Config() through it launches it
+28 times and gives the bits of the module-by-module route with the full
+image trunk, as do generates at batch 1 and 3 from HWC views of CHW images.
 
 Generate's motion decode replayed from a CUDA graph (eval/final.py::
 GraphedDecode) gives the eager decode's bits at batch 1, 4 and 32 of
@@ -76,6 +86,8 @@ from kpvid_tpu_torch import ops
 from kpvid_tpu_torch.configs import Config, load_config
 from kpvid_tpu_torch.eval import FinalGenerator, InferenceEngine, MicroBatcher, request_z
 from kpvid_tpu_torch.ops import (
+    bias_bn_relu,
+    bias_bn_relu_plain,
     conv3x3_add_affine,
     conv3x3_add_affine_plain,
     conv3x3_affine,
@@ -418,7 +430,7 @@ def test_stage1_step_on_card_launches_and_matches_cpu(dev):
     (lc, gc, counts), (lp, gp, _) = out[str(dev)], out["cpu"]
     assert counts == {"conv3x3_affine": 0, "conv3x3_add_affine": 0, "up2_conv3_affine": 0,
                       "pose_head": 1, "gaussian_render": 2, "pose_head_backward": 1,
-                      "gaussian_render_backward": 2}
+                      "gaussian_render_backward": 2, "bias_bn_relu": 0}
     for k in lp:
         assert lc[k] == pytest.approx(lp[k], rel=1e-4), k
     for name, a, b in zip(names, gc, gp):
@@ -434,10 +446,21 @@ def test_wrappers_count_launches_and_check_inputs(dev):
     up2_conv3_affine(x, k, s, t)
     pose_head(torch.zeros(1, 8, 8, 4, device=dev))
     gaussian_render(torch.zeros(1, 4, 2, device=dev), 8, 8)
+    v = torch.ones(16, device=dev)
+    bias_bn_relu(x, v, v, v, v)
     assert launch_counts() == {
         "conv3x3_affine": 1, "conv3x3_add_affine": 1, "up2_conv3_affine": 1, "pose_head": 1,
         "gaussian_render": 1, "pose_head_backward": 0, "gaussian_render_backward": 0,
+        "bias_bn_relu": 1,
     }
+    with pytest.raises(TypeError):
+        bias_bn_relu(x.half(), v.half(), v, v, v)
+    with pytest.raises(TypeError):
+        bias_bn_relu(x.bfloat16(), v, v, v, v)  # the conv bias in another dtype
+    with pytest.raises(ValueError, match="dense"):
+        bias_bn_relu(x.transpose(1, 2), v, v, v, v)
+    with pytest.raises(ValueError):
+        bias_bn_relu(x, v, v[:8], v, v)
     with pytest.raises(TypeError):
         conv3x3_affine(x.half(), k.half(), s, t)
     with pytest.raises(ValueError, match="addend"):
@@ -465,6 +488,7 @@ def test_generate_on_card_matches_cpu(dev):
     assert launch_counts() == {
         "conv3x3_affine": 8, "conv3x3_add_affine": 1, "up2_conv3_affine": 2, "pose_head": 1,
         "gaussian_render": 2, "pose_head_backward": 0, "gaussian_render_backward": 0,
+        "bias_bn_relu": 28,
     }
     want = cpu.generate(im, act, z)
     for key in ("current_points", "future_points", "pred_im_seq", "mask"):
@@ -537,6 +561,7 @@ def test_generate_bf16_on_card_matches_plain(dev):
     assert launch_counts() == {
         "conv3x3_affine": 8, "conv3x3_add_affine": 1, "up2_conv3_affine": 2, "pose_head": 1,
         "gaussian_render": 2, "pose_head_backward": 0, "gaussian_render_backward": 0,
+        "bias_bn_relu": 28,
     }
     with contextlib.ExitStack() as stack:
         for target, fn in (
@@ -545,6 +570,7 @@ def test_generate_bf16_on_card_matches_plain(dev):
             ("kpvid_tpu_torch.eval.final.conv3x3_add_affine", ops.conv3x3_add_affine_plain),
             ("kpvid_tpu_torch.models.networks.pose_head", ops.heatmaps_to_keypoints),
             ("kpvid_tpu_torch.eval.final.gaussian_render", ops.render_gaussian_maps),
+            ("kpvid_tpu_torch.models.layers.bias_bn_relu", ops.bias_bn_relu_plain),
         ):
             stack.enter_context(mock.patch(target, fn))
         want = gen.generate(im, act, z)
@@ -697,6 +723,9 @@ def _op_cases(dev):
     ct = torch.randn(2, 8, 2, generator=g).to(dev)
     mu = (torch.rand(3, 8, 2, generator=g) * 2 - 1).to(dev)
     dmaps = torch.randn(3, 8, 6, 8, generator=g).to(dev)
+    cb = (torch.randn(12, generator=g) / 10).to(dev)
+    m12 = (torch.rand(12, generator=g) + 0.5).to(dev)
+    s12 = (torch.randn(12, generator=g) / 10).to(dev)
     f32, bf16 = torch.float32, torch.bfloat16
     return {
         "conv3x3_affine": [(x, k, sc, sh, True), (x.to(bf16), k.to(bf16), sc, sh, False)],
@@ -708,12 +737,15 @@ def _op_cases(dev):
         "pose_head_backward": [(ct, pts, p, q, f32), (ct, pts, p, q, bf16)],
         "gaussian_render": [(mu, 8, 6, 14.3, f32, f32), (mu, 8, 6, 14.3, bf16, bf16)],
         "gaussian_render_backward": [(dmaps, mu, 14.3, f32), (dmaps.to(bf16), mu, 14.3, bf16)],
+        "bias_bn_relu": [(x, cb, s12, m12, s12, True),
+                         (x.to(bf16), cb.to(bf16), s12, m12, s12, False),
+                         (x[..., :6].contiguous(), cb[:6], s12[:6], m12[:6], s12[:6], True)],
     }
 
 
 @pytest.mark.parametrize("name", ["conv3x3_affine", "gaussian_render", "gaussian_render_backward",
                                   "pose_head", "pose_head_backward", "pose_head_train",
-                                  "up2_conv3_affine", "conv3x3_add_affine"])
+                                  "up2_conv3_affine", "conv3x3_add_affine", "bias_bn_relu"])
 def test_opcheck_on_card(dev, name):
     """Each op's schema, fake implementation (shapes, dtypes and strides of
     the kernel's output) and autograd registration against its CUDA
@@ -726,7 +758,7 @@ def test_opcheck_on_card(dev, name):
 def test_artifact_runs_on_card_through_the_kernels(dev, tmp_path, traced_on):
     """The smoke config in bfloat16: an artifact traced on the CPU (no card
     needed to write it) or on the card, loaded onto the card, launches
-    8 / 1 / 2 / 1 / 2 kernels a batch (#1 / #1+ / #2 / #3 / #4) and serves
+    8 / 1 / 2 / 1 / 2 / 28 kernels a batch (#1 / #1+ / #2 / #3 / #4 / bias_bn_relu) and serves
     what the live engine serves:
     uint8 within one step, points within 1e-5."""
     from kpvid_tpu_torch.eval import ArtifactEngine, export_serving, load_serving
@@ -756,6 +788,7 @@ def test_artifact_runs_on_card_through_the_kernels(dev, tmp_path, traced_on):
     assert launch_counts() == {
         "conv3x3_affine": 8, "conv3x3_add_affine": 1, "up2_conv3_affine": 2, "pose_head": 1,
         "gaussian_render": 2, "pose_head_backward": 0, "gaussian_render_backward": 0,
+        "bias_bn_relu": 28,
     }
     for key in ("pred_im_seq", "mask"):
         assert got[key].dtype == np.uint8
@@ -1134,9 +1167,9 @@ def test_graphed_multi_replays_the_same_bits(deterministic, stage):
     assert not differ, differ
     rec = replay_kernels(graph.graph)
     want = ({"conv3x3": 0, "pose_head": 1, "gaussian_render": 2, "pose_head_backward": 1,
-             "gaussian_render_backward": 2} if stage == 1
+             "gaussian_render_backward": 2, "bias_bn_relu": 0} if stage == 1
             else {"conv3x3": 0, "pose_head": 0, "gaussian_render": 0, "pose_head_backward": 0,
-                  "gaussian_render_backward": 0})
+                  "gaussian_render_backward": 0, "bias_bn_relu": 0})
     assert rec["kernels"] > 0 and rec["launches"] == want, rec
     # the graph holds no reference to its trainer: both go with the trainer's
     # last reference, not with a later pass of the garbage collector (which
@@ -1430,3 +1463,180 @@ def test_export_on_the_card_keeps_the_eager_decode(dev):
     assert _counts(dec) == (1, 1, 1)
     sigmoids = sum("sigmoid" in str(n.target) for n in program.graph.nodes)
     assert sigmoids == 3 * m.n_future_frames * len(m.cell_info) + 1  # + the mask's
+
+
+# --- kpvid::bias_bn_relu: the encoders' inference bias + BN + ReLU ----------
+
+# every inference ConvBNReLU of the batch-32 generate ([N, H, W, C] of its
+# output): the image and pose encoders' trunks (the image trunk's down2/keep2
+# no longer run, their shapes are the pose trunk's) and the pose decoder
+_TRUNK = [("in0", (32, 128, 128, 32)), ("in1", (32, 128, 128, 32)),
+          ("down0", (32, 64, 64, 64)), ("keep0", (32, 64, 64, 64)),
+          ("down1", (32, 32, 32, 128)), ("keep1", (32, 32, 32, 128)),
+          ("down2", (32, 16, 16, 256)), ("keep2", (32, 16, 16, 256))]
+_DECODER = [(f"dec{o}{x}", (32, r, r, c)) for o, (r, c) in
+            enumerate([(16, 128), (32, 64), (64, 32), (128, 16)]) for x in "abcd"
+            if o < 3 or x in "ab"]
+BN_LAYERS = ([(f"image.{n}", s) for n, s in _TRUNK] + [(f"pose.{n}", s) for n, s in _TRUNK]
+             + [(f"pose.{n}", s) for n, s in _DECODER])
+
+
+def _bn_inputs(dev, shape, dtype, seed, nan=False):
+    """(y, conv_bias, mean, mul, beta) on the card: random values, and the
+    channels of tests/test_torch_bias_bn_relu.py::_edge_inputs that land on
+    bf16 ties in the bias add and in the final rounding, negative values and
+    signed zeros after the subtraction and after beta; NaN every 97th element
+    with ``nan``."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    c = shape[-1]
+    y = torch.randn(shape, generator=g, device=dev) * 3
+    conv_bias, mean, beta = (torch.randn(c, generator=g, device=dev) * 0.3 for _ in range(3))
+    weight = torch.randn(c, generator=g, device=dev)
+    var = torch.rand(c, generator=g, device=dev) * 1.8 + 0.2
+    flat = y.view(-1, c)
+    if c >= 3:
+        conv_bias[0], mean[0], beta[0] = 2.0**-8, 0.0, -0.0
+        flat[:, 0] = 1.0
+        flat[::2, 0] = -0.0
+        conv_bias[1], mean[1], weight[1], beta[1] = 0.0, 0.75, -1.25, -0.0
+        flat[::2, 1] = 0.75
+        conv_bias[2], mean[2], weight[2], var[2], beta[2] = 0.0, 0.0, 1.0, 1.0 - 1e-5, 2.0**-8
+        flat[:, 2] = 1.0
+        flat[::2, 2] = 1.0 + 2.0**-7
+    if nan:
+        y.view(-1)[::97] = float("nan")
+    mul = weight * torch.rsqrt(var + 1e-5)
+    return y.to(dtype), conv_bias.to(dtype), mean, mul, beta
+
+
+def _same_bits(got, want):
+    view = torch.int32 if want.dtype == torch.float32 else torch.int16
+    assert got.dtype == want.dtype and got.shape == want.shape and got.stride() == want.stride()
+    diff = got.view(view) != want.view(view)
+    assert not bool(diff.any()), f"{int(diff.sum())} of {diff.numel()} elements differ"
+
+
+@pytest.mark.parametrize("name,shape", BN_LAYERS, ids=[n for n, _ in BN_LAYERS])
+def test_bias_bn_relu_kernel_matches_plain_at_the_generate_layers(dev, name, shape):
+    """bf16 at each of the 30 layers' batch-32 shapes: the kernel gives the
+    bits of the torch passes on the card (the plain version on CUDA
+    tensors), NaN and signed zeros included."""
+    args = _bn_inputs(dev, shape, torch.bfloat16, seed=len(name) * 1000 + shape[-1],
+                      nan=name.endswith(("in1", "keep2", "dec3b")))
+    reset_launch_counts()
+    got = bias_bn_relu(*args, True)
+    assert launch_counts()["bias_bn_relu"] == 1
+    _same_bits(got, bias_bn_relu_plain(*args, True))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "shape,relu",
+    [((1, 1, 1, 16), True), ((1, 5, 3, 16), False), ((32, 64, 64, 64), False),
+     # C not a multiple of the 16-byte vector (the one-element kernel);
+     # C = 40 (a grid rounded to a multiple of 5 blocks), C = 264
+     ((2, 3, 3, 12), True), ((3, 7, 5, 6), False), ((2, 4, 4, 4), True),
+     ((4, 9, 7, 40), True), ((2, 11, 13, 264), False), ((0, 4, 4, 16), True)],
+)
+def test_bias_bn_relu_kernel_matches_plain_at_odd_sizes(dev, dtype, shape, relu):
+    args = _bn_inputs(dev, shape, dtype, seed=shape[-1] + sum(shape), nan=True)
+    _same_bits(bias_bn_relu(*args, relu), bias_bn_relu_plain(*args, relu))
+
+
+def test_bias_bn_relu_kernel_off_a_16_byte_boundary(dev):
+    """A y that starts 2 bytes into its storage takes the one-element kernel."""
+    y, cb, mean, mul, beta = _bn_inputs(dev, (2, 6, 6, 16), torch.bfloat16, seed=5)
+    buf = torch.empty(y.numel() + 1, dtype=y.dtype, device=dev)
+    shifted = buf[1:].view(y.shape)
+    shifted.copy_(y)
+    assert shifted.data_ptr() % 16 != 0
+    _same_bits(bias_bn_relu(shifted, cb, mean, mul, beta, True),
+               bias_bn_relu_plain(y, cb, mean, mul, beta, True))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(32, 128, 128, 32), (1, 128, 128, 32), (2, 5, 3, 16),
+                                   (3, 4, 4, 12)])
+def test_bias_bn_relu_kernel_on_channels_first_memory(dev, dtype, shape):
+    """[N, H, W, C] over NCHW memory, the layout cuDNN returns for an input
+    laid out so: the one-element kernel, the output in the same layout."""
+    y, cb, mean, mul, beta = _bn_inputs(dev, shape, dtype, seed=sum(shape), nan=True)
+    y = y.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+    got = bias_bn_relu(y, cb, mean, mul, beta, True)
+    assert not got.is_contiguous() and got.permute(0, 3, 1, 2).is_contiguous()
+    _same_bits(got, bias_bn_relu_plain(y, cb, mean, mul, beta, True))
+
+
+def _modules_route(layer, x, up2=False, skip=None, train=False):
+    """``ConvBNReLU.forward`` before the op: the conv with its bias, BN, ReLU."""
+    if up2:
+        x = ops.upsample2x(x)
+    if skip is not None:
+        x = torch.cat([x.to(layer.conv.dtype), skip.to(layer.conv.dtype)], dim=-1)
+    return torch.relu(layer.bn(layer.conv(x), train))
+
+
+def _generate_through_the_modules(gen, *args):
+    """``gen.generate(*args)`` on the route before the op: every inference
+    ConvBNReLU as its modules, embed through the full image trunk."""
+    from kpvid_tpu_torch.models import Stage1Generator
+    from kpvid_tpu_torch.models.layers import ConvBNReLU
+
+    with mock.patch.object(ConvBNReLU, "forward", _modules_route), \
+            mock.patch.object(Stage1Generator, "embed",
+                              lambda self, im: self.image_encoder(im)[-2]):
+        return gen.generate(*args)
+
+
+def _config_generator(dev, seed):
+    cfg = Config().validate()
+    cfg.training.compute_dtype = "bfloat16"
+    gen = FinalGenerator(cfg, device="cuda")
+    gen.load_parameters(_randomized(gen, seed))
+    return cfg, gen
+
+
+def test_generate_at_batch_32_gives_the_module_routes_bits(dev):
+    """One batch-32 generate at Config() widths in bf16, random BN statistics:
+    through the op (28 launches: 30 layers less the image trunk's down2 and
+    keep2, which embed no longer runs) against the route before it, each
+    inference ConvBNReLU as its conv, BN and ReLU modules and embed through
+    the full image trunk: the same bits in every output."""
+    cfg, gen = _config_generator(dev, 23)
+    m = cfg.model
+    rng = np.random.default_rng(23)
+    im = rng.uniform(-1, 1, (32, m.image_size, m.image_size, 3)).astype(np.float32)
+    act = np.eye(m.n_action, dtype=np.float32)[rng.integers(0, m.n_action, 32)]
+    z = rng.standard_normal((32, m.vae_dim)).astype(np.float32)
+    reset_launch_counts()
+    got = gen.generate(im, act, z)
+    assert launch_counts()["bias_bn_relu"] == 28
+    reset_launch_counts()
+    want = _generate_through_the_modules(gen, im, act, z)
+    assert launch_counts()["bias_bn_relu"] == 0
+    torch.cuda.synchronize()
+    assert set(got) == set(want)
+    for key in want:
+        _same_bits(got[key].contiguous(), want[key].contiguous())
+
+
+@pytest.mark.parametrize("b", [1, 3])
+def test_generate_from_transposed_images_gives_the_module_routes_bits(dev, b):
+    """Images handed over as an HWC view of CHW memory (as a preprocessing
+    step may leave them): cuDNN's first conv returns NCHW memory, which the
+    op takes and keeps, and the call gives the module route's bits."""
+    cfg, gen = _config_generator(dev, 29)
+    m = cfg.model
+    rng = np.random.default_rng(29 + b)
+    chw = rng.uniform(-1, 1, (b, 3, m.image_size, m.image_size)).astype(np.float32)
+    im = chw.transpose(0, 2, 3, 1)
+    assert not im.flags["C_CONTIGUOUS"]
+    act = np.eye(m.n_action, dtype=np.float32)[rng.integers(0, m.n_action, b)]
+    z = rng.standard_normal((b, m.vae_dim)).astype(np.float32)
+    reset_launch_counts()
+    got = gen.generate(im, act, z)
+    assert launch_counts()["bias_bn_relu"] == 28
+    want = _generate_through_the_modules(gen, im, act, z)
+    torch.cuda.synchronize()
+    for key in want:
+        _same_bits(got[key].contiguous(), want[key].contiguous())

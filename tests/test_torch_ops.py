@@ -459,7 +459,7 @@ def test_build_key_covers_headers(monkeypatch, tmp_path):
 
 
 def test_build_and_load_are_safe_under_threads(monkeypatch, tmp_path):
-    """Many threads loading both libraries at once, with nvcc stubbed: each
+    """Many threads loading every library at once, with nvcc stubbed: each
     source is compiled once, every thread gets the one loaded library, and
     each compile writes to a temporary name that carries the process and
     the thread before it is renamed into place."""
@@ -491,7 +491,7 @@ def test_build_and_load_are_safe_under_threads(monkeypatch, tmp_path):
 
     def worker(i):
         try:
-            src = _build.SOURCES[i % 2]
+            src = _build.SOURCES[i % len(_build.SOURCES)]
             assert _build._target(src).parent == tmp_path
             got.append((src, _build.load(src)))
         except Exception as e:  # noqa: BLE001 - collected and asserted below
@@ -515,5 +515,6 @@ def test_build_and_load_are_safe_under_threads(monkeypatch, tmp_path):
     for src in _build.SOURCES:
         libs = {lib for s, lib in got if s == src}
         assert libs == {("lib", str(_build._target(src)))}
-    assert sorted(p.suffix for p in tmp_path.iterdir()) == [".so", ".so"]
-    assert _build.build_all() >= 0.0 and len(compiles) == 2  # cached: nothing to compile
+    assert sorted(p.suffix for p in tmp_path.iterdir()) == [".so"] * len(_build.SOURCES)
+    # cached: nothing to compile
+    assert _build.build_all() >= 0.0 and len(compiles) == len(_build.SOURCES)
