@@ -274,6 +274,7 @@ the last line the device.
 from __future__ import annotations
 
 import base64
+import contextlib
 import dataclasses
 import io
 import json
@@ -446,7 +447,7 @@ KERNEL_SYMBOLS = {"conv3x3": "conv3x3_", "pose_head": "pose_head_kernel",
                   "gaussian_render": "gaussian_render_kernel",
                   "pose_head_backward": "pose_head_backward_kernel",
                   "gaussian_render_backward": "render_backward_kernel",
-                  "bias_bn_relu": "bias_bn_relu_"}
+                  "bias_bn_relu": "bias_bn_relu_", "lstm_cell": "lstm_cell_kernel"}
 
 
 REPLAY_SYMBOL = {"conv3x3_affine": "conv3x3", "conv3x3_add_affine": "conv3x3",
@@ -692,6 +693,80 @@ def check_bias_bn_relu(gen, shape, dtype) -> tuple[float, tuple]:
     return float((got.float() - want.float()).nan_to_num().abs().max()), args
 
 
+# lstm_cell's h and c (f32) against the plain step's: the same bf16
+# products, summed in f32 in another order
+LSTM_TOL = 1e-5
+
+
+def lstm_layer_shapes(m) -> list:
+    """(input width, hidden units) of each layer of the motion decoder's
+    LSTM: dec_in's 32 outputs feed the first."""
+    h = [int(f) for f in m.cell_info]
+    return list(zip([32] + h[:-1], h))
+
+
+def lstm_inputs(gen, b: int, d: int, h: int) -> tuple:
+    """(x, h, c, kernel, bias) of one LSTM step on the card: x and h in
+    (-1, 1) and the kernel of Xavier's scale in bf16, c N(0, 1) and the bias
+    N(0, 0.3) in f32."""
+    import torch
+
+    bf16 = torch.bfloat16
+    x = (torch.rand((b, d), generator=gen, device="cuda") * 2 - 1).to(bf16)
+    hid = (torch.rand((b, h), generator=gen, device="cuda") * 2 - 1).to(bf16)
+    c = torch.randn((b, h), generator=gen, device="cuda")
+    kernel = (torch.randn((d + h, 4 * h), generator=gen, device="cuda")
+              * (2.0 / (d + 5 * h)) ** 0.5).to(bf16)
+    bias = torch.randn(4 * h, generator=gen, device="cuda") * 0.3
+    return x, hid, c, kernel, bias
+
+
+def check_lstm_cell(gen, m, b: int, timed: bool = True) -> tuple[float, dict]:
+    """``lstm_cell`` at each decoder layer's shape at batch ``b`` against its
+    plain version on the same card tensors: h and c within LSTM_TOL, the
+    bf16 h the rounding of the kernel's f32 h, a second call the same bits.
+    Returns the largest error and, ``timed``, the times of a generate's
+    launches (n_future_frames a layer): device, host loop, plain, library
+    (the route the op replaced: the product of the widened operands and the
+    torch cell) and the HBM reference (each launch reads its kernel from
+    HBM; an upper reference, not the kernel's roofline, since the kernels
+    may stay in L2 from one launch to the next)."""
+    import torch
+
+    from kpvid_tpu_torch import ops
+    from kpvid_tpu_torch.ops.lstm import cell_update
+
+    t = m.n_future_frames
+    err, n_bytes, n_ops = 0.0, 0.0, 0.0
+    times = dict(ms=0.0, host_loop_ms=0.0, plain_ms=0.0, library_ms=0.0)
+    for d, h in lstm_layer_shapes(m):
+        args = lstm_inputs(gen, b, d, h)
+        got, again = ops.lstm_cell(*args), ops.lstm_cell(*args)
+        want = ops.lstm_cell_plain(*args)
+        torch.cuda.synchronize()
+        e = max(float((g - w).abs().max()) for g, w in zip(got[:2], want[:2]))
+        same = all(torch.equal(x, y) for x, y in zip(got, again))
+        if e > LSTM_TOL or not same or not torch.equal(got[2], got[0].to(torch.bfloat16)):
+            raise CheckFailed(f"lstm_cell batch {b}, D {d}, H {h}: max abs err {e} (bound "
+                              f"{LSTM_TOL}), the same bits twice: {same}")
+        err = max(err, e)
+        n_ops += t * 2.0 * b * (d + h) * 4 * h
+        n_bytes += t * (2.0 * (d + h) * 4 * h + 16.0 * h + b * (2.0 * d + 16.0 * h))
+        if timed:
+            wide = args[3].float()
+
+            def library():
+                z = torch.cat([args[0], args[1]], dim=-1).float()
+                return cell_update(torch.matmul(z, wide) + args[4], args[2])
+
+            times["ms"] += t * device_ms(lambda: ops.lstm_cell(*args))
+            times["host_loop_ms"] += t * time_ms(lambda: ops.lstm_cell(*args))
+            times["plain_ms"] += t * time_ms(lambda: ops.lstm_cell_plain(*args))
+            times["library_ms"] += t * device_ms(library)
+    times["bound_ms"], times["bound_by"] = bound_ms(n_bytes, n_ops, "bfloat16")
+    return err, times
+
+
 def kernel_phase(cfg) -> dict:
     """Every kernel against its plain version at the main path's shapes."""
     import torch
@@ -862,6 +937,24 @@ def kernel_phase(cfg) -> dict:
               f"{times['plain_ms']:.4f} ms", flush=True)
         torch.cuda.empty_cache()
     records["bias_bn_relu"] = rec
+
+    # the motion decode's LSTM step at each layer's shape, n_future_frames
+    # launches a layer a generate; bf16 only (f32 keeps the torch route)
+    rec = dict(max_abs_err=0.0, max_abs_err_f32=None)
+    for b in (BATCH, BATCH_B32):
+        err, times = check_lstm_cell(gen, m, b)
+        rec["max_abs_err"] = max(rec["max_abs_err"], err)
+        if b == BATCH:
+            rec.update(times)
+        else:
+            rec["b32"] = times
+        print(f"lstm_cell bf16 per generate at batch {b} ({2 * m.n_future_frames} launches, "
+              f"max abs err {err:.3e}): device {times['ms']:.4f} ms "
+              f"({100 * times['bound_ms'] / times['ms']:.1f}% of the HBM reference "
+              f"{times['bound_ms']:.4f} ms, {times['bound_by']}), host loop "
+              f"{times['host_loop_ms']:.4f} ms, plain {times['plain_ms']:.4f} ms, the route it "
+              f"replaced {times['library_ms']:.4f} ms (device)", flush=True)
+    records["lstm_cell"] = rec
     for name, r in records.items():
         lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
         print(f"{name} per generate at batch {BATCH}: device {r['ms']:.4f} ms, host loop "
@@ -874,7 +967,8 @@ def kernel_phase(cfg) -> dict:
 def bucket_kernel_phase(cfg) -> dict:
     """Every kernel against its plain version, f32 and bf16, at the shapes
     each of the daemon's buckets gives it (N = bucket * 32 frames), with the
-    tolerances of ``kernel_phase`` (bias_bn_relu: the same bits); returns
+    tolerances of ``kernel_phase`` (bias_bn_relu: the same bits; lstm_cell
+    bf16 only, within LSTM_TOL); returns
     the worst error per kernel and bucket, and the device ms of #1 and #2 per
     generate at each bucket (bf16, the launches of one generate)."""
     import torch
@@ -913,6 +1007,7 @@ def bucket_kernel_phase(cfg) -> dict:
         errs["bias_bn_relu"] = max(check_bias_bn_relu(gen, shape, dtype)[0]
                                    for shape in ((b, *hwc) for hwc in layer_shapes)
                                    for dtype in (torch.float32, torch.bfloat16))
+        errs["lstm_cell"] = check_lstm_cell(gen, m, b, timed=False)[0]
         torch.cuda.empty_cache()
         worst[b] = errs
         check(True, f"bucket {b} (N = {b * m.n_future_frames}): every kernel agrees with its "
@@ -966,15 +1061,51 @@ def randomized_params(cfg, seed: int) -> dict:
     return params
 
 
-# a generate: #1 / #1+ / #2 / #3 / #4, and the inference bias + BN + ReLU of
+# a generate: #1 / #1+ / #2 / #3 / #4, the inference bias + BN + ReLU of
 # the image trunk's 6 layers that embed runs, the pose trunk's 8 and the pose
-# decoder's 14
+# decoder's 14, and the motion decode's LSTM step, one a step and layer
+# (2 x 32)
 EXPECTED_LAUNCHES = {"conv3x3_affine": 8, "conv3x3_add_affine": 1, "up2_conv3_affine": 2,
                      "pose_head": 1, "gaussian_render": 2, "pose_head_backward": 0,
-                     "gaussian_render_backward": 0, "bias_bn_relu": 28}
+                     "gaussian_render_backward": 0, "bias_bn_relu": 28, "lstm_cell": 64}
 
 
 NO_LAUNCHES = {name: 0 for name in EXPECTED_LAUNCHES}
+
+
+@contextlib.contextmanager
+def decode_paths():
+    """Counts the motion decode's calls by path (eval/final.py::GraphedDecode's
+    ``captures``, ``replays`` and ``eager_calls``) over every generator that
+    decodes inside the block, in any thread."""
+    from kpvid_tpu_torch.eval.final import GraphedDecode
+
+    tally = dict(captures=0, replays=0, eager_calls=0)
+    lock = threading.Lock()
+    call = GraphedDecode.__call__
+
+    def counted(self, *args):
+        before = {k: getattr(self, k) for k in tally}
+        try:
+            return call(self, *args)
+        finally:
+            with lock:
+                for k in tally:
+                    tally[k] += getattr(self, k) - before[k]
+
+    with mock.patch.object(GraphedDecode, "__call__", counted):
+        yield tally
+
+
+def generate_launches(paths: dict, generates: int, per: dict = EXPECTED_LAUNCHES) -> dict:
+    """What the wrappers count over ``generates`` generates whose motion
+    decodes took ``paths`` (decode_paths): ``per``'s launches outside the
+    decode once a generate, and lstm_cell's once for each decode that ran
+    eager and twice for each capture (its eager warm-up and the launches
+    captured into the graph). A replay's kernels run on the device alone,
+    and only the profiler counts them (replay_kernels)."""
+    return dict({k: v * generates for k, v in per.items()},
+                lstm_cell=per["lstm_cell"] * (paths["eager_calls"] + 2 * paths["captures"]))
 # a detect (a labeling chunk): #3 and the pose encoder's 22 bias + BN + ReLU
 DETECT_LAUNCHES = dict(NO_LAUNCHES, pose_head=1, bias_bn_relu=22)
 # a stage-1 forward with inference BN (a test sweep's batch, a summary): the
@@ -1001,11 +1132,31 @@ def slice_phase(cfg, params) -> dict:
     actions = np.array([0, 3, 5, 8]) % m.n_action
     z = np.stack([request_z(seed, m.vae_dim) for seed in (11, 12, 13, 14)])
 
-    ops.reset_launch_counts()
-    out = engine.run(images, actions, z)
-    counts = ops.launch_counts()
-    print(f"launches in one generate: {counts}", flush=True)
-    check(counts == EXPECTED_LAUNCHES, "launches per generate are 8 / 1 / 2 / 1 / 2 / 28")
+    with decode_paths() as paths:
+        ops.reset_launch_counts()
+        engine.run(images, actions, z)
+        first = ops.launch_counts()
+    check(paths == dict(captures=1, replays=1, eager_calls=0)
+          and first == generate_launches(paths, 1),
+          f"the first generate captures the decode's graph: launches {first} are "
+          "8 / 1 / 2 / 1 / 2 / 28 and lstm_cell's 64 twice (the warm-up and the capture)")
+    # a generate that replays the graph: the wrappers count the kernels
+    # outside it, one replay under the profiler the graph's
+    with decode_paths() as paths:
+        ops.reset_launch_counts()
+        out = engine.run(images, actions, z)
+        counts = ops.launch_counts()
+    graphs = engine.final.model.motion_decode.graphs
+    replayed = replay_kernels(next(iter(graphs.values()))[0])["launches"]
+    print(f"launches in one generate: {counts} from the wrappers, {replayed} from the decode's "
+          "replay", flush=True)
+    counts = {name: n + replayed.get(name, 0) for name, n in counts.items()}
+    check(paths == dict(captures=0, replays=1, eager_calls=0) and len(graphs) == 1
+          and counts == EXPECTED_LAUNCHES
+          and replayed == dict({name: 0 for name in KERNEL_SYMBOLS},
+                               lstm_cell=EXPECTED_LAUNCHES["lstm_cell"]),
+          "launches per generate are 8 / 1 / 2 / 1 / 2 / 28 / 64, the 64 lstm_cell in the "
+          "decode's replay")
     t, s, k = m.n_future_frames, m.image_size, m.n_pts
     check(out["pred_im_seq"].shape == (BATCH, t, s, s, 3) and out["pred_im_seq"].dtype == np.uint8,
           f"pred_im_seq is uint8 {out['pred_im_seq'].shape}")
@@ -1019,15 +1170,18 @@ def slice_phase(cfg, params) -> dict:
     check(int(out["pred_im_seq"].max()) > int(out["pred_im_seq"].min()), "the video is not constant")
 
     act = np.eye(m.n_action, dtype=np.float32)[actions]
-    raw = engine.final.generate(images, act, z)
+    with decode_paths() as paths:
+        ops.reset_launch_counts()
+        raw = engine.final.generate(images, act, z)
+        again = engine.run(images, actions, z)
+        twice = ops.launch_counts()
     mask = raw["mask"]
     check(bool(torch.isfinite(raw["pred_im_seq"]).all()) and float(mask.min()) >= 0.0
           and float(mask.max()) <= 1.0, "mask in [0, 1] before quantization, video finite")
-    again = engine.run(images, actions, z)
     check(all(np.array_equal(out[key], again[key]) for key in engine.OUTPUT_KEYS),
           "the same seeds give the same videos twice")
-    check(ops.launch_counts() == {name: 3 * c for name, c in EXPECTED_LAUNCHES.items()},
-          "every generate call launched 8 / 1 / 2 / 1 / 2 / 28 kernels")
+    check(twice == generate_launches(paths, 2),
+          f"every generate call launched 8 / 1 / 2 / 1 / 2 / 28 kernels (decodes: {paths})")
     return counts
 
 
@@ -1119,6 +1273,7 @@ def plain_path(ops):
         ("kpvid_tpu_torch.models.networks.pose_head", ops.heatmaps_to_keypoints),
         ("kpvid_tpu_torch.eval.final.gaussian_render", ops.render_gaussian_maps),
         ("kpvid_tpu_torch.models.layers.bias_bn_relu", ops.bias_bn_relu_plain),
+        ("kpvid_tpu_torch.models.layers.lstm_cell", ops.lstm_cell_plain),
     ):
         stack.enter_context(mock.patch(target, fn))
     return stack
@@ -1296,9 +1451,10 @@ def serve_phase(cfg, params, card: str) -> dict:
             try:
                 timer.seconds.clear()
                 timer.calls.clear()
-                ops.reset_launch_counts()
-                results, latency, wall = drive(base, reqs)
-                counts = ops.launch_counts()
+                with decode_paths() as paths:
+                    ops.reset_launch_counts()
+                    results, latency, wall = drive(base, reqs)
+                    counts = ops.launch_counts()
                 with urllib.request.urlopen(f"{base}/stats", timeout=30) as r:
                     stats = json.loads(r.read())
                 host = dict(timer.seconds)
@@ -1316,8 +1472,9 @@ def serve_phase(cfg, params, card: str) -> dict:
         batches = stats["batches_total"]
         check(stats["requests_total"] == len(reqs) and batches > 0,
               f"{mode}: {len(reqs)} requests in {batches} batches")
-        check(counts == {name: c * batches for name, c in EXPECTED_LAUNCHES.items()},
-              f"{mode}: launches {counts} are 8 / 1 / 2 / 1 / 2 / 28 per dispatched batch")
+        check(counts == generate_launches(paths, batches),
+              f"{mode}: launches {counts} are 8 / 1 / 2 / 1 / 2 / 28 per dispatched batch "
+              f"(decodes: {paths})")
         outs, gifs = {}, []
         for i, (req, (_, ctype, body)) in enumerate(zip(reqs, results)):
             if req["format"] == "gif":
@@ -1609,7 +1766,7 @@ def artifact_phase(cfg, params, card: str, root: Path) -> dict:
                 counts = child["launches"][str(b)]
                 check(counts == EXPECTED_LAUNCHES,
                       f"{traced_on}-traced artifact, bucket {b}: launches {counts} are "
-                      "8 / 1 / 2 / 1 / 2 / 28")
+                      "8 / 1 / 2 / 1 / 2 / 28 / 64")
                 with np.load(out_dir / f"out_{b}.npz") as got:
                     for key in engine.OUTPUT_KEYS:
                         a, w = got[key], live[b][key]
@@ -1847,7 +2004,7 @@ STEP_LOSS_RTOL = 1e-4
 STEP_GRAD_REL = 1e-3
 EVAL_LAUNCHES = {"conv3x3_affine": 8, "conv3x3_add_affine": 1, "up2_conv3_affine": 2,
                  "pose_head": 1, "gaussian_render": 4, "pose_head_backward": 0,
-                 "gaussian_render_backward": 0, "bias_bn_relu": 28}
+                 "gaussian_render_backward": 0, "bias_bn_relu": 28, "lstm_cell": 64}
 
 
 def train_config(cfg, root: Path, name: str, log: str, data: dict | None = None,
@@ -2307,6 +2464,26 @@ def relabel_phase(cfg, root: Path) -> dict:
     return {"frames_per_s": stats["frames"] / stats["seconds"], "chunks": stats["chunks"]}
 
 
+def s2_launches(cfg, root: Path, sweeps: int = 0, forwards: int = 0) -> dict:
+    """The launches of a bf16 stage-2 run on the card: lstm_cell alone, one a
+    step and layer of each LSTM forward that autograd does not record. A
+    test sweep's batch (phase 6's test split at TRAIN_BATCH) runs the
+    encoder over the real sequence, the decoder over n_future_frames and the
+    discriminator over the (real, fake) pair in one batch; a summary runs
+    the generator alone, encoder and decoder. The training steps record
+    every forward and launch nothing."""
+    from kpvid_tpu_torch.data import SequenceDataset
+
+    m = cfg.model
+    n_test = len(SequenceDataset(str(root / "penn"), "test", m.n_pts, m.n_action,
+                                 image_size=m.image_size))
+    real = cfg.data.sequence_len - 1  # the first frame is the keypoints' start
+    generator = real + m.n_future_frames
+    batch = generator + m.n_future_frames
+    per_layer = sweeps * -(-n_test // TRAIN_BATCH) * batch + forwards * generator
+    return dict(NO_LAUNCHES, lstm_cell=len(m.cell_info) * per_layer)
+
+
 def train_phase(cfg, card: str, root: Path) -> dict:
     """Stage 2 at Config() in bf16 on phase 6's tree and the labels of the
     stage-1 checkpoint."""
@@ -2328,7 +2505,9 @@ def train_phase(cfg, card: str, root: Path) -> dict:
     run = train_main(args + ["--config", str(train_config(cfg, root, "train_a", "log_a"))])
     counts = ops.launch_counts()
     ck = root / "log_a" / "motion_generator"
-    check(sum(counts.values()) == 0, f"the trainer launched none of the four kernels: {counts}")
+    want = s2_launches(cfg, root, sweeps=1, forwards=1)
+    check(counts == want, f"the trainer launched {counts}: lstm_cell {want['lstm_cell']} for the "
+                          "test sweep's and the summary's forwards, nothing for the steps")
     check(list_checkpoint_steps(ck) == [TRAIN_CKPT, TRAIN_STEPS],
           f"checkpoints at steps {TRAIN_CKPT} and {TRAIN_STEPS}")
     moved_and_finite(run, f"{TRAIN_STEPS} fused steps at Config(), bf16, batch {TRAIN_BATCH}")
@@ -2437,16 +2616,17 @@ def evaluate_phase(cfg, card: str, root: Path) -> dict:
     ckpt = root / "log_a" / "motion_generator" / f"ckpt-{TRAIN_STEPS}"
     runs, trees, per_batch = [], [], {}
     for name in ("eval_a", "eval_b"):
-        ops.reset_launch_counts()
-        stats = evaluate.main(["--config", str(conf), "--checkpoint_stage1",
-                               str(root / "log_s1" / "detector_translator"),
-                               "--checkpoint_stage2", str(ckpt),
-                               "--save_dir", str(root / name)])
-        counts = ops.launch_counts()
+        with decode_paths() as paths:
+            ops.reset_launch_counts()
+            stats = evaluate.main(["--config", str(conf), "--checkpoint_stage1",
+                                   str(root / "log_s1" / "detector_translator"),
+                                   "--checkpoint_stage2", str(ckpt),
+                                   "--save_dir", str(root / name)])
+            counts = ops.launch_counts()
         check(stats["samples"] == 8 and stats["batches"] == 1
-              and counts == {k: v * stats["batches"] for k, v in EVAL_LAUNCHES.items()},
+              and counts == generate_launches(paths, stats["batches"], EVAL_LAUNCHES),
               f"evaluate wrote 8 samples in {stats['batches']} batch; launches {counts} are "
-              "8 / 1 / 2 / 1 / 4 / 28 per batch")
+              f"8 / 1 / 2 / 1 / 4 / 28 per batch (decodes: {paths})")
         per_batch = {k: v / stats["batches"] for k, v in counts.items()}
         files = {p.relative_to(root / name).as_posix(): p.read_bytes()
                  for p in sorted((root / name).rglob("*.png"))}
@@ -2659,9 +2839,11 @@ def dp_rank_worker(job_path: str) -> int:
     info["label"] = {"launches": ops.launch_counts(), "videos": stats["videos"],
                      "frames": stats["frames"], "chunks": stats["chunks"],
                      "seconds": stats["seconds"]}
-    ops.reset_launch_counts()
-    stats = evaluate.main(job["evaluate_args"])
-    info["evaluate"] = {"launches": ops.launch_counts(), "samples": stats["samples"],
+    with decode_paths() as paths:
+        ops.reset_launch_counts()
+        stats = evaluate.main(job["evaluate_args"])
+        counts = ops.launch_counts()
+    info["evaluate"] = {"launches": counts, "decodes": paths, "samples": stats["samples"],
                         "batches": stats["batches"], "seconds": stats["seconds"]}
     np.savez(out / f"rank{rank}.npz", **arrays)
     (out / f"rank{rank}.json").write_text(json.dumps(info))
@@ -2730,7 +2912,7 @@ def dp_phase(cfg, card: str, root: Path, base_step_ms: dict) -> dict:
     rep = {}
     modes = {1: "detector_translator", 2: "motion_generator"}
     sweep = {1: dict(NO_LAUNCHES, pose_head=1, gaussian_render=2, bias_bn_relu=S1_INFERENCE_BN),
-             2: NO_LAUNCHES}
+             2: s2_launches(cfg, root, sweeps=1)}
     per_step = {1: S1_PER_STEP, 2: NO_LAUNCHES}
 
     def cli(stage: int, name: str, **training):
@@ -2978,7 +3160,8 @@ def dp_ranks_phase(cfg, card: str, root: Path, rep: dict) -> dict:
     one = evaluate.main(eval_args + ["--save_dir", str(root / "eval_dp1")])
     got, want = tree_bytes(root / "eval_dp2"), tree_bytes(root / "eval_dp1")
     check(one["batches"] == 2 and [i["evaluate"]["batches"] for i in infos] == [1, 1]
-          and all(i["evaluate"]["launches"] == EVAL_LAUNCHES for i in infos)
+          and all(i["evaluate"]["launches"] == generate_launches(i["evaluate"]["decodes"], 1,
+                                                                 EVAL_LAUNCHES) for i in infos)
           and sorted(got) == sorted(want) and all(got[k] == want[k] for k in want)
           and len(want) == 8 * (2 + 5 * m.n_future_frames),
           "evaluate on 2 ranks at batch 4 (one batch each, 8 / 1 / 2 / 1 / 4 / 28 launches) "
@@ -3146,13 +3329,15 @@ def interop_phase(cfg, params, card: str, root: Path, imports: dict) -> dict:
     act = np.eye(m.n_action, dtype=np.float32)[[2, 4, 6, 8]]
     z = np.stack([request_z(seed, m.vae_dim) for seed in (31, 32, 33, 34)])
     want = direct.generate(images, act, z)
-    ops.reset_launch_counts()
-    got = gen.generate(images, act, z)
-    counts = ops.launch_counts()
+    with decode_paths() as paths:
+        ops.reset_launch_counts()
+        got = gen.generate(images, act, z)
+        counts = ops.launch_counts()
     same = [k for k in want if torch.equal(got[k], want[k])]
-    check(counts == EXPECTED_LAUNCHES and len(same) == len(want),
+    check(counts == generate_launches(paths, 1) and len(same) == len(want),
           f"generate from the two imported checkpoints: the bits of the seed-0 parameters "
-          f"loaded directly in {len(same)} of {len(want)} outputs, launches {counts}")
+          f"loaded directly in {len(same)} of {len(want)} outputs, launches {counts} "
+          f"(decodes: {paths})")
     rep["generate_launches"] = counts
 
     rates = []
@@ -3632,14 +3817,15 @@ def tp_mesh_phase(cfg, params, card: str, root: Path) -> dict:
     for name, devices in engines.items():
         eng = InferenceEngine(cfg, params, devices=devices)
         eng.run(images, actions, z)  # warm-up: cuDNN's choices on the replicas' streams
-        ops.reset_launch_counts()
-        got = eng.run(images, actions, z)
-        counts = ops.launch_counts()
+        with decode_paths() as paths:
+            ops.reset_launch_counts()
+            got = eng.run(images, actions, z)
+            counts = ops.launch_counts()
         n = eng.n_data
         where = "the one device" if devices is None else [str(d) for d in devices]
-        check(counts == {k: v * n for k, v in EXPECTED_LAUNCHES.items()},
+        check(counts == generate_launches(paths, n),
               f"engine over {where}: launches {counts}, 8 / 1 / 2 / 1 / 2 / 28 per replica "
-              f"batch of {b // n}")
+              f"batch of {b // n} (decodes: {paths})")
         if n == 1:
             same = [k for k in want if np.array_equal(got[k], want[k])]
             check(len(same) == len(want), f"engine over {where} ({n} replica): the bits of "
@@ -3710,16 +3896,17 @@ def evaluate_mesh_checks(root: Path, s1_dir: str, ck2: str) -> dict:
 
     dev = torch.device("cuda", 0)
     rep = {}
-    ops.reset_launch_counts()
-    stats = evaluate.main(["--config", str(root / "eval.yaml"), "--checkpoint_stage1", s1_dir,
-                           "--checkpoint_stage2", ck2, "--save_dir", str(root / "eval_mesh"),
-                           "--mesh"])
-    counts = ops.launch_counts()
+    with decode_paths() as paths:
+        ops.reset_launch_counts()
+        stats = evaluate.main(["--config", str(root / "eval.yaml"), "--checkpoint_stage1",
+                               s1_dir, "--checkpoint_stage2", ck2, "--save_dir",
+                               str(root / "eval_mesh"), "--mesh"])
+        counts = ops.launch_counts()
     got, want = tree_bytes(root / "eval_mesh"), tree_bytes(root / "eval_a")
-    check(stats["batches"] == 1 and counts == EVAL_LAUNCHES and sorted(got) == sorted(want)
-          and all(got[k] == want[k] for k in want),
+    check(stats["batches"] == 1 and counts == generate_launches(paths, 1, EVAL_LAUNCHES)
+          and sorted(got) == sorted(want) and all(got[k] == want[k] for k in want),
           f"evaluate --mesh over the default list writes phase 9's tree byte for byte "
-          f"({len(want)} PNGs), launches {counts}")
+          f"({len(want)} PNGs), launches {counts} (decodes: {paths})")
     rep["evaluate_mesh_s"] = stats["seconds"]
 
     # evaluate --mesh over two replicas on the card, with and without each
@@ -3741,15 +3928,16 @@ def evaluate_mesh_checks(root: Path, s1_dir: str, ck2: str) -> dict:
     for name, seed, fn in (("eval_mesh2", 0, render), ("eval_mesh2_seed1", 1, render),
                            ("eval_mesh2_delayed", 0, delayed)):
         with mock.patch.object(final_mod, "mesh_devices", lambda device: [dev, dev]), \
-                mock.patch.object(FinalGenerator, "render_point_images", fn):
+                mock.patch.object(FinalGenerator, "render_point_images", fn), \
+                decode_paths() as paths:
             ops.reset_launch_counts()
             stats = evaluate.main(["--config", str(root / "eval.yaml"), "--checkpoint_stage1",
                                    s1_dir, "--checkpoint_stage2", ck2, "--save_dir",
                                    str(root / name), "--seed", str(seed), "--mesh"])
             counts = ops.launch_counts()
-        check(stats["batches"] == 1 and counts == {k: 2 * v for k, v in EVAL_LAUNCHES.items()},
+        check(stats["batches"] == 1 and counts == generate_launches(paths, 2, EVAL_LAUNCHES),
               f"evaluate --mesh over two replicas ({name}): launches {counts}, "
-              "8 / 1 / 2 / 1 / 4 / 28 per replica batch of 4")
+              f"8 / 1 / 2 / 1 / 4 / 28 per replica batch of 4 (decodes: {paths})")
         trees[name] = tree_bytes(root / name)
     got, want = trees["eval_mesh2_delayed"], trees["eval_mesh2"]
     other = sum(trees["eval_mesh2_seed1"][k] != want[k] for k in want)
@@ -3940,7 +4128,7 @@ def multi_correctness(cfg, stage: int, vgg) -> dict:
     rec = replay_kernels(next(iter(a._graphs.values())).graph)
     want_launches = ({"conv3x3": 0, "pose_head": 1, "gaussian_render": 2,
                       "pose_head_backward": 1, "gaussian_render_backward": 2,
-                      "bias_bn_relu": 0} if stage == 1
+                      "bias_bn_relu": 0, "lstm_cell": 0} if stage == 1
                      else {name: 0 for name in KERNEL_SYMBOLS})
     check(rec["kernels"] > 0 and rec["launches"] == want_launches,
           f"stage {stage}: one replay of the step graph (torch.profiler) runs "
@@ -4326,6 +4514,9 @@ KERNEL_META = {
     # no TPU kernel: XLA fuses a ConvBNReLU's bias add, BN and ReLU
     "bias_bn_relu": ("cuda", "kpvid_tpu_torch/csrc/bias_bn_relu.cu",
                      "none: XLA fuses kpvid_tpu/models/layers.py's ConvBNReLU"),
+    # no TPU kernel: XLA fuses the jnp LSTM cell (the f32 dot and the gates)
+    "lstm_cell": ("cuda", "kpvid_tpu_torch/csrc/lstm_cell.cu",
+                  "none: XLA fuses kpvid_tpu/models/layers.py's StackedLSTM cell"),
 }
 
 

@@ -27,9 +27,10 @@ each replay of :class:`GraphedDecode`. The serving artifact's graph has
 none of them.
 
 On the card the motion decode (``MotionGenerator.decode``: 32 steps of a
-2-layer LSTM, some 1,000 small launches at ``Config()``) is replayed from a
-CUDA graph captured once per batch shape (:class:`GraphedDecode`), so that
-the host's launches no longer pace the call.
+2-layer LSTM, each step and layer one ``kpvid::lstm_cell`` launch in bf16,
+~80 launches at ``Config()``) is replayed from a CUDA graph captured once
+per batch shape (:class:`GraphedDecode`), so that the host's launches no
+longer pace the call.
 
 The entry point runs on the card by default and raises where there is none;
 pass ``device="cpu"`` to run the plain versions on the CPU.
@@ -70,7 +71,7 @@ class GraphedDecode:
     CUDA graph captured once per batch shape and device.
 
     The graph runs the eager decode's ops in their dtypes (the LSTM kernels
-    rounded to the compute dtype and widened to f32 inside it), so it reads
+    rounded to the compute dtype inside it), so it reads
     the parameters by address: values copied into them in place
     (``load_state_dict``) show at the next replay; a parameter rebound to
     other storage (``.to``) drops every graph, and the next call captures
@@ -91,7 +92,9 @@ class GraphedDecode:
     ``"thread_local"`` error mode, so that other threads' CUDA calls (the
     daemon's readbacks) go on during it.
 
-    ``captures``, ``replays`` and ``eager_calls`` count the calls by path."""
+    ``captures``, ``replays`` and ``eager_calls`` count the calls by path.
+    The kernels' launch counters (``ops.launch_counts``) count the warm-up's
+    launches and those captured into the graph, and none of a replay's."""
 
     def __init__(self, stage2: MotionGenerator):
         self.stage2 = stage2
@@ -147,7 +150,8 @@ class GraphedDecode:
         side = torch.cuda.Stream(dev)
         side.wait_stream(current)
         with torch.cuda.stream(side):
-            self.stage2.decode(*inputs)  # cuBLAS's handle and workspace, outside the capture
+            # cuBLAS's handle and workspace, the kernels' libraries: outside the capture
+            self.stage2.decode(*inputs)
         current.wait_stream(side)
         if self.pool is None:
             self.pool = torch.cuda.graph_pool_handle()

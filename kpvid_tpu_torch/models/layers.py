@@ -25,12 +25,12 @@ they are. Parity points:
   ``jnp.dot(..., preferred_element_type=float32)`` computes them: the
   step's input and the kernel are rounded to ``dtype``, the products and
   their sums are f32, and nothing is rounded before the f32 bias is added.
-  The route is the same on the CPU and the card: the rounded operands are
-  widened to f32 and multiplied in f32 (with TF32 off, PyTorch's default),
-  which is exact, since a product of two bf16 values fits in f32.
-  ``torch.mm(..., out_dtype=float32)`` is not taken: it has no CPU kernel,
-  and in torch 2.11 on the card it has no derivative, so the trainer could
-  not use it;
+  The torch route widens the rounded operands to f32 and multiplies in f32
+  (with TF32 off, PyTorch's default), which is exact, since a product of
+  two bf16 values fits in f32. An unrecorded bf16 forward takes the
+  ``kpvid::lstm_cell`` op instead: on the card its tensor cores take the
+  bf16 operands as they are and sum in f32, on the CPU it runs the torch
+  route's ops (:class:`StackedLSTM`);
 - ``Dense(relu=True)`` keeps the reference's default-ReLU quirk, and
   ``Dense(tanh=True)`` is the ``to_coord`` head.
 
@@ -55,6 +55,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.inference_bn import bias_bn_relu
+from ..ops.lstm import cell_update, lstm_cell
 from ..ops.resize import upsample2x
 from ..parallel.distributed import all_reduce_mean
 from ..parallel.tensor import copy_to_model, join
@@ -227,7 +228,17 @@ class StackedLSTM(nn.Module):
 
     Per step and layer one [B, D+H] @ [D+H, 4H] product of operands rounded
     to ``dtype``, computed and summed in f32; the gates and the cell state
-    are f32."""
+    are f32.
+
+    A bf16 forward that autograd would not record (grad mode off, or no
+    input or parameter requiring a gradient), with no layer sharded, runs
+    each step and layer as one ``kpvid::lstm_cell`` op (ops/lstm.py), on
+    any device: on the card the product on the tensor cores and the cell
+    in its epilogue, only the order of the f32 sums changed; on the CPU the
+    op's plain version, the torch route's bits. The kernels are rounded to
+    bf16 once a call. Everything else (training, the f32 configurations,
+    whose products bf16 tensor cores cannot give, the sharded layers) runs
+    the torch ops."""
 
     def __init__(self, in_dim: int, features, dtype: torch.dtype = torch.float32):
         super().__init__()
@@ -240,6 +251,13 @@ class StackedLSTM(nn.Module):
         self.shard, self.sharded = None, {}
 
     def forward(self, xs: torch.Tensor) -> torch.Tensor:
+        recording = torch.is_grad_enabled() and (
+            xs.requires_grad or any(p.requires_grad for p in self.parameters()))
+        if self.dtype == torch.bfloat16 and not recording and not self.sharded:
+            return self._forward_op(xs)
+        return self._forward_torch(xs)
+
+    def _forward_torch(self, xs: torch.Tensor) -> torch.Tensor:
         b, t = xs.shape[:2]
         # rounded to the compute dtype once, then widened: the f32 products
         # of the rounded values (see the module docstring)
@@ -262,12 +280,28 @@ class StackedLSTM(nn.Module):
                 gates = torch.matmul(z.float(), kernels[li]) + biases[li]
                 if cols[li]:
                     gates = join(gates, -1, self.shard)
-                i, j, f, o = torch.chunk(gates, 4, dim=-1)
-                c = torch.sigmoid(f + 1.0) * c + torch.sigmoid(i) * torch.tanh(j)
-                h = torch.sigmoid(o) * torch.tanh(c)
+                h, c = cell_update(gates, c)
                 state[li] = (c, h)
                 inp = h
             outs.append(inp)
+        return torch.stack(outs, dim=1)
+
+    def _forward_op(self, xs: torch.Tensor) -> torch.Tensor:
+        b, t = xs.shape[:2]
+        n = len(self.features)
+        kernels = [getattr(self, f"lstm_{i}_kernel").to(self.dtype) for i in range(n)]
+        biases = [getattr(self, f"lstm_{i}_bias") for i in range(n)]
+        # per layer: (c f32, h in the compute dtype)
+        state = [(xs.new_zeros((b, h), dtype=torch.float32), xs.new_zeros((b, h), dtype=self.dtype))
+                 for h in self.features]
+        xs = xs.to(self.dtype)
+        outs = []
+        for step in range(t):
+            inp = xs[:, step]
+            for li, (c, h) in enumerate(state):
+                h32, c, inp = lstm_cell(inp, h, c, kernels[li], biases[li])
+                state[li] = (c, inp)
+            outs.append(h32)
         return torch.stack(outs, dim=1)
 
 

@@ -1,5 +1,6 @@
 from . import library  # registers the torch.ops.kpvid ops
 from .inference_bn import bias_bn_relu, bias_bn_relu_plain
+from .lstm import lstm_cell, lstm_cell_plain
 from .chain import translator_chain
 from .conv3x3 import (
     conv3x3_add_affine,
@@ -29,6 +30,7 @@ KERNELS = {
     "pose_head_backward": pose_head_backward,
     "gaussian_render_backward": gaussian_render_backward,
     "bias_bn_relu": bias_bn_relu,
+    "lstm_cell": lstm_cell,
 }
 
 
@@ -57,6 +59,8 @@ __all__ = [
     "grid",
     "heatmaps_to_keypoints",
     "launch_counts",
+    "lstm_cell",
+    "lstm_cell_plain",
     "pose_head",
     "pose_head_backward",
     "render_gaussian_maps",

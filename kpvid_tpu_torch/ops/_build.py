@@ -26,7 +26,7 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("conv3x3.cu", "keypoint.cu", "bias_bn_relu.cu")
+SOURCES = ("conv3x3.cu", "keypoint.cu", "bias_bn_relu.cu", "lstm_cell.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -7,7 +7,7 @@ branch a wrapper took, and a program exported on one device runs on
 another through the registration of that device. Each op has
 
 - a CPU implementation: the plain PyTorch version (ops/conv3x3.py,
-  ops/coords.py, ops/keypoint_kernels.py, ops/inference_bn.py);
+  ops/coords.py, ops/keypoint_kernels.py, ops/inference_bn.py, ops/lstm.py);
 - a CUDA implementation: the ctypes launch of the hand-written kernel, which
   launches or raises, and counts its launches (``ops.launch_counts``);
 - a fake implementation: shapes and dtypes only; it launches and counts
@@ -26,6 +26,9 @@ ops, by TPU kernel they replace:
   #4' kpvid::gaussian_render_backward  -> [N,K,2] f32
       kpvid::bias_bn_relu       [..., C] -> [..., C], y.dtype: a ConvBNReLU's
                                 bias, inference BN and ReLU (no TPU kernel)
+      kpvid::lstm_cell          (x [B,D], h [B,H], c [B,H], kernel, bias) ->
+                                (h f32, c f32, h bf16): one LSTM step of one
+                                layer (no TPU kernel)
 
 Importing ``kpvid_tpu_torch.ops`` registers them; nothing is built until a
 CUDA implementation first runs.
@@ -37,6 +40,7 @@ from torch import Tensor
 from . import inference_bn as _bbr
 from . import conv3x3 as _conv
 from . import keypoint_kernels as _kp
+from . import lstm as _lstm
 from .coords import heatmaps_to_keypoints, render_gaussian_maps
 
 def _custom_op(name: str):
@@ -206,3 +210,23 @@ def _(y, conv_bias, mean, mul, beta, relu):
 @bias_bn_relu.register_fake
 def _(y, conv_bias, mean, mul, beta, relu):
     return torch.empty_like(y)
+
+
+# --- the motion decode's LSTM step ---------------------------------------------
+
+
+@_custom_op("lstm_cell")
+def lstm_cell(x: Tensor, h: Tensor, c: Tensor, kernel: Tensor,
+              bias: Tensor) -> tuple[Tensor, Tensor, Tensor]:
+    return _lstm.lstm_cell_plain(x, h, c, kernel, bias)
+
+
+@lstm_cell.register_kernel("cuda")
+def _(x, h, c, kernel, bias):
+    return _lstm.launch(x, h, c, kernel, bias)
+
+
+@lstm_cell.register_fake
+def _(x, h, c, kernel, bias):
+    return (torch.empty_like(c, dtype=torch.float32), torch.empty_like(c, dtype=torch.float32),
+            torch.empty_like(c, dtype=kernel.dtype))

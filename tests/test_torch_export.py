@@ -209,7 +209,10 @@ def _op_cases():
     y = torch.randn(2, 5, 3, 16, generator=h)
     mean, mul, beta = (torch.randn(16, generator=h) for _ in range(3))
     cb = torch.randn(16, generator=h) / 10
+    xc, hc, cc = (torch.randn(3, n, generator=h) for n in (12, 8, 8))
+    kc, bc = torch.randn(20, 32, generator=h) / 4, torch.randn(32, generator=h)
     return {
+        "lstm_cell": [(xc.to(bf16), hc.to(bf16), cc, kc.to(bf16), bc), (xc, hc, cc, kc, bc)],
         "bias_bn_relu": [(y, cb, mean, mul, beta, True),
                          (y.to(bf16), cb.to(bf16), mean, mul, beta, False)],
         "conv3x3_affine": [(x, k, sc, sh, True), (x.to(bf16), k.to(bf16), sc, sh, False)],

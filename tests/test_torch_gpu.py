@@ -69,6 +69,13 @@ capture (the graphed stage-2 step too) and under ``torch.export`` the decode
 runs eager; under a profiler a graphed shape replays and a new one runs
 eager without a capture, and the profiler links the replayed kernels to
 the replay's range; the counters read one capture and a replay a call.
+
+The motion decode's LSTM step (``kpvid::lstm_cell``) against its plain
+version at the decoder's two layer shapes, B = 1, 4, 20, 32 and 40 (padded
+and second batch tiles), at odd shapes (the element-wise loader, units past
+H, an empty input) and on strided views, h and c within 1e-5, the same bits
+twice; the decoder's LSTM through it over 32 steps against the torch route
+within the flax test's bf16 bounds.
 """
 
 import contextlib
@@ -85,6 +92,7 @@ import torch
 from kpvid_tpu_torch import ops
 from kpvid_tpu_torch.configs import Config, load_config
 from kpvid_tpu_torch.eval import FinalGenerator, InferenceEngine, MicroBatcher, request_z
+from kpvid_tpu_torch.eval.final import GraphedDecode
 from kpvid_tpu_torch.ops import (
     bias_bn_relu,
     bias_bn_relu_plain,
@@ -96,6 +104,8 @@ from kpvid_tpu_torch.ops import (
     gaussian_render_backward,
     heatmaps_to_keypoints,
     launch_counts,
+    lstm_cell,
+    lstm_cell_plain,
     pose_head,
     pose_head_backward,
     render_gaussian_maps,
@@ -430,7 +440,7 @@ def test_stage1_step_on_card_launches_and_matches_cpu(dev):
     (lc, gc, counts), (lp, gp, _) = out[str(dev)], out["cpu"]
     assert counts == {"conv3x3_affine": 0, "conv3x3_add_affine": 0, "up2_conv3_affine": 0,
                       "pose_head": 1, "gaussian_render": 2, "pose_head_backward": 1,
-                      "gaussian_render_backward": 2, "bias_bn_relu": 0}
+                      "gaussian_render_backward": 2, "bias_bn_relu": 0, "lstm_cell": 0}
     for k in lp:
         assert lc[k] == pytest.approx(lp[k], rel=1e-4), k
     for name, a, b in zip(names, gc, gp):
@@ -448,11 +458,19 @@ def test_wrappers_count_launches_and_check_inputs(dev):
     gaussian_render(torch.zeros(1, 4, 2, device=dev), 8, 8)
     v = torch.ones(16, device=dev)
     bias_bn_relu(x, v, v, v, v)
+    cell = _cell_inputs(dev, 2, 8, 16)
+    lstm_cell(*cell)
     assert launch_counts() == {
         "conv3x3_affine": 1, "conv3x3_add_affine": 1, "up2_conv3_affine": 1, "pose_head": 1,
         "gaussian_render": 1, "pose_head_backward": 0, "gaussian_render_backward": 0,
-        "bias_bn_relu": 1,
+        "bias_bn_relu": 1, "lstm_cell": 1,
     }
+    with pytest.raises(TypeError):
+        lstm_cell(cell[0].float(), *cell[1:])  # the input in f32
+    with pytest.raises(TypeError):
+        lstm_cell(*cell[:2], cell[2].bfloat16(), *cell[3:])  # the cell state in bf16
+    with pytest.raises(ValueError):
+        lstm_cell(*cell[:3], cell[3][1:], cell[4])  # a kernel of another depth
     with pytest.raises(TypeError):
         bias_bn_relu(x.half(), v.half(), v, v, v)
     with pytest.raises(TypeError):
@@ -488,7 +506,7 @@ def test_generate_on_card_matches_cpu(dev):
     assert launch_counts() == {
         "conv3x3_affine": 8, "conv3x3_add_affine": 1, "up2_conv3_affine": 2, "pose_head": 1,
         "gaussian_render": 2, "pose_head_backward": 0, "gaussian_render_backward": 0,
-        "bias_bn_relu": 28,
+        "bias_bn_relu": 28, "lstm_cell": 0,
     }
     want = cpu.generate(im, act, z)
     for key in ("current_points", "future_points", "pred_im_seq", "mask"):
@@ -558,12 +576,17 @@ def test_generate_bf16_on_card_matches_plain(dev):
     z = np.stack([request_z(s, cfg.model.vae_dim) for s in (5, 6)])
     reset_launch_counts()
     got = gen.generate(im, act, z)
+    # the decode's graph is captured: lstm_cell counts the eager warm-up's
+    # launches and the captured ones, a step and layer each
+    assert _counts(gen.model.motion_decode) == (1, 1, 0)
     assert launch_counts() == {
         "conv3x3_affine": 8, "conv3x3_add_affine": 1, "up2_conv3_affine": 2, "pose_head": 1,
         "gaussian_render": 2, "pose_head_backward": 0, "gaussian_render_backward": 0,
-        "bias_bn_relu": 28,
+        "bias_bn_relu": 28, "lstm_cell": 2 * 2 * cfg.model.n_future_frames,
     }
-    with contextlib.ExitStack() as stack:
+    # the plain versions, the decode eager (a replay would run the captured kernels)
+    with mock.patch.object(GraphedDecode, "graphable", lambda self, z: False), \
+            contextlib.ExitStack() as stack:
         for target, fn in (
             ("kpvid_tpu_torch.ops.chain.conv3x3_affine", ops.conv3x3_affine_plain),
             ("kpvid_tpu_torch.ops.chain.up2_conv3_affine", ops.up2_conv3_affine_plain),
@@ -571,9 +594,11 @@ def test_generate_bf16_on_card_matches_plain(dev):
             ("kpvid_tpu_torch.models.networks.pose_head", ops.heatmaps_to_keypoints),
             ("kpvid_tpu_torch.eval.final.gaussian_render", ops.render_gaussian_maps),
             ("kpvid_tpu_torch.models.layers.bias_bn_relu", ops.bias_bn_relu_plain),
+            ("kpvid_tpu_torch.models.layers.lstm_cell", ops.lstm_cell_plain),
         ):
             stack.enter_context(mock.patch(target, fn))
         want = gen.generate(im, act, z)
+    assert _counts(gen.model.motion_decode) == (1, 1, 1)
     torch.testing.assert_close(got["current_points"], want["current_points"], rtol=0, atol=1e-4)
     fut = want["future_points"].float()
     assert (got["future_points"].float() - fut).abs().max() <= 2.0**-8 * fut.abs().max()
@@ -740,12 +765,14 @@ def _op_cases(dev):
         "bias_bn_relu": [(x, cb, s12, m12, s12, True),
                          (x.to(bf16), cb.to(bf16), s12, m12, s12, False),
                          (x[..., :6].contiguous(), cb[:6], s12[:6], m12[:6], s12[:6], True)],
+        "lstm_cell": [_cell_inputs(dev, 3, 32, 64), _cell_inputs(dev, 17, 20, 36)],
     }
 
 
 @pytest.mark.parametrize("name", ["conv3x3_affine", "gaussian_render", "gaussian_render_backward",
                                   "pose_head", "pose_head_backward", "pose_head_train",
-                                  "up2_conv3_affine", "conv3x3_add_affine", "bias_bn_relu"])
+                                  "up2_conv3_affine", "conv3x3_add_affine", "bias_bn_relu",
+                                  "lstm_cell"])
 def test_opcheck_on_card(dev, name):
     """Each op's schema, fake implementation (shapes, dtypes and strides of
     the kernel's output) and autograd registration against its CUDA
@@ -760,7 +787,9 @@ def test_artifact_runs_on_card_through_the_kernels(dev, tmp_path, traced_on):
     needed to write it) or on the card, loaded onto the card, launches
     8 / 1 / 2 / 1 / 2 / 28 kernels a batch (#1 / #1+ / #2 / #3 / #4 / bias_bn_relu) and serves
     what the live engine serves:
-    uint8 within one step, points within 1e-5."""
+    uint8 within one step, points within 1e-5. The motion decode is traced
+    eager, one lstm_cell op a step and layer, which the artifact runs as
+    the kernel on the card wherever it was traced."""
     from kpvid_tpu_torch.eval import ArtifactEngine, export_serving, load_serving
 
     cfg = load_config("kpvid_tpu_torch/configs/smoke.yaml")
@@ -788,7 +817,7 @@ def test_artifact_runs_on_card_through_the_kernels(dev, tmp_path, traced_on):
     assert launch_counts() == {
         "conv3x3_affine": 8, "conv3x3_add_affine": 1, "up2_conv3_affine": 2, "pose_head": 1,
         "gaussian_render": 2, "pose_head_backward": 0, "gaussian_render_backward": 0,
-        "bias_bn_relu": 28,
+        "bias_bn_relu": 28, "lstm_cell": 2 * cfg.model.n_future_frames,
     }
     for key in ("pred_im_seq", "mask"):
         assert got[key].dtype == np.uint8
@@ -1167,9 +1196,9 @@ def test_graphed_multi_replays_the_same_bits(deterministic, stage):
     assert not differ, differ
     rec = replay_kernels(graph.graph)
     want = ({"conv3x3": 0, "pose_head": 1, "gaussian_render": 2, "pose_head_backward": 1,
-             "gaussian_render_backward": 2, "bias_bn_relu": 0} if stage == 1
+             "gaussian_render_backward": 2, "bias_bn_relu": 0, "lstm_cell": 0} if stage == 1
             else {"conv3x3": 0, "pose_head": 0, "gaussian_render": 0, "pose_head_backward": 0,
-                  "gaussian_render_backward": 0, "bias_bn_relu": 0})
+                  "gaussian_render_backward": 0, "bias_bn_relu": 0, "lstm_cell": 0})
     assert rec["kernels"] > 0 and rec["launches"] == want, rec
     # the graph holds no reference to its trainer: both go with the trainer's
     # last reference, not with a later pass of the garbage collector (which
@@ -1444,7 +1473,11 @@ def test_graphed_decode_counters_and_the_profiler(dev):
     replay = next(e for e in events if e.name() == "kpvid.graph.motion_decode")
     linked = [e for e in events if e.device_type() == DeviceType.CUDA
               and e.linked_correlation_id() == replay.correlation_id()]
-    assert len(linked) >= 3 * Config().model.n_future_frames, len(linked)
+    # among them the decode's LSTM steps: one lstm_cell kernel a step and layer
+    steps = len(Config().model.cell_info) * Config().model.n_future_frames
+    assert sum("lstm_cell" in e.name() for e in linked) == steps, sorted(
+        {e.name() for e in linked})
+    assert len(linked) > steps
 
 
 def test_export_on_the_card_keeps_the_eager_decode(dev):
@@ -1640,3 +1673,154 @@ def test_generate_from_transposed_images_gives_the_module_routes_bits(dev, b):
     torch.cuda.synchronize()
     for key in want:
         _same_bits(got[key].contiguous(), want[key].contiguous())
+
+
+# --- kpvid::lstm_cell: the motion decode's LSTM step -----------------------
+
+# the motion decoder's layers at Config(): (input width, hidden units)
+DECODER_LAYERS = [(32, 1024), (1024, 1024)]
+
+
+def _cell_inputs(dev, b, d, h, seed=0):
+    """(x bf16 [b, d], h bf16 [b, h], c f32 [b, h], kernel bf16 [d+h, 4h],
+    bias f32 [4h]): h in (-1, 1) as an LSTM's output is, a kernel of
+    Xavier's scale, biases N(0, 0.3)."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(b, d, generator=g)
+    hid = torch.rand(b, h, generator=g) * 2 - 1
+    c = torch.randn(b, h, generator=g)
+    kernel = torch.randn(d + h, 4 * h, generator=g) * (2.0 / (d + 5 * h)) ** 0.5
+    bias = torch.randn(4 * h, generator=g) * 0.3
+    bf16 = torch.bfloat16
+    return x.to(bf16).to(dev), hid.to(bf16).to(dev), c.to(dev), kernel.to(bf16).to(dev), bias.to(dev)
+
+
+def _cell_close(got, want):
+    """h and c f32 within 1e-5 (the f32 sums of the same products in another
+    order), and the bf16 h the rounding of the op's own f32 h."""
+    for a, b in zip(got[:2], want[:2]):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+    assert got[2].dtype == torch.bfloat16 and torch.equal(got[2], got[0].to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("b", [1, 4, 20, 32, 40])
+@pytest.mark.parametrize("d,h", DECODER_LAYERS)
+def test_lstm_cell_kernel_matches_plain_at_the_decoder_shapes(dev, b, d, h):
+    """One step at each decoder layer's shape, B from one row to two batch
+    tiles (20 and 40 pad their last tile), against the plain step."""
+    args = _cell_inputs(dev, b, d, h, seed=b)
+    reset_launch_counts()
+    got = lstm_cell(*args)
+    assert launch_counts()["lstm_cell"] == 1
+    _cell_close(got, lstm_cell_plain(*args))
+
+
+@pytest.mark.parametrize("b,d,h", [(3, 20, 36), (5, 7, 8), (2, 16, 40), (33, 32, 24), (1, 0, 16)])
+def test_lstm_cell_kernel_at_odd_shapes(dev, b, d, h):
+    """D or H not a multiple of 8 (the element-wise loader), H = 40 (a
+    block with units past H), B = 33 (a third batch tile of one row), no
+    input (D = 0)."""
+    args = _cell_inputs(dev, b, d, h, seed=d + h)
+    _cell_close(lstm_cell(*args), lstm_cell_plain(*args))
+
+
+def test_lstm_cell_kernel_on_strided_inputs(dev):
+    """x a step of the decoder's [B, T, D] input (row stride T * D) and h
+    a column slice off a 16-byte boundary: the rows the op reads are the
+    views', not the memory after them."""
+    b, t, d, h = 4, 32, 32, 64
+    x, hid, c, kernel, bias = _cell_inputs(dev, b, d, h, seed=9)
+    seq = torch.randn(b, t, d, device=dev).to(torch.bfloat16)
+    seq[:, 5] = x
+    wide = torch.zeros(b, h + 3, device=dev, dtype=torch.bfloat16)
+    wide[:, 3:] = hid
+    args = (seq[:, 5], wide[:, 3:], c, kernel, bias)
+    assert args[0].stride() == (t * d, 1) and args[1].data_ptr() % 16
+    _cell_close(lstm_cell(*args), lstm_cell_plain(x, hid, c, kernel, bias))
+
+
+def test_lstm_cell_gives_the_same_bits_twice(dev):
+    for b, (d, h) in ((4, DECODER_LAYERS[1]), (32, DECODER_LAYERS[0]), (3, (20, 36))):
+        args = _cell_inputs(dev, b, d, h, seed=b)
+        first, second = lstm_cell(*args), lstm_cell(*args)
+        for a, c in zip(first, second):
+            _same_bits(a, c)
+
+
+def _decoder_lstm(dev, seed):
+    """Config()'s motion decoder LSTM (2 x 1024, bf16) on the card: Xavier-
+    uniform kernels, biases N(0, 0.1)."""
+    from kpvid_tpu_torch.models import StackedLSTM
+
+    lstm = StackedLSTM(32, Config().model.cell_info, torch.bfloat16)
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in lstm.named_parameters():
+            if "kernel" in name:
+                limit = (6.0 / (p.shape[0] + p.shape[1])) ** 0.5
+                p.copy_((torch.rand(p.shape, generator=g) * 2 - 1) * limit)
+            else:
+                p.copy_(torch.randn(p.shape, generator=g) * 0.1)
+    return lstm.to(dev)
+
+
+def _exact_forward(lstm, xs):
+    """The torch route with each step's gate sums taken in float64 from the
+    same bf16 operands and rounded to f32: the dot that any order of f32
+    sums approximates."""
+    from kpvid_tpu_torch.ops.lstm import cell_update
+
+    b, t = xs.shape[:2]
+    n = len(lstm.features)
+    kernels = [getattr(lstm, f"lstm_{i}_kernel").to(torch.bfloat16).double() for i in range(n)]
+    state = [(xs.new_zeros((b, h), dtype=torch.float32), xs.new_zeros((b, h))) for h in lstm.features]
+    outs = []
+    for step in range(t):
+        inp = xs[:, step]
+        for li, (c, h) in enumerate(state):
+            z = torch.cat([inp, h], dim=-1).double()
+            h, c = cell_update((z @ kernels[li]).float() + getattr(lstm, f"lstm_{li}_bias"), c)
+            state[li] = (c, h.to(torch.bfloat16))
+            inp = state[li][1]
+        outs.append(h)
+    return torch.stack(outs, dim=1)
+
+
+# the B whose data (seed 44) the op and the torch route decode 7.6e-6 apart
+# on the mean, each drifting its own way from the f64-summed dot (op 5.0e-6,
+# torch route 4.3e-6, on an H100): there the op's mean is held to that dot
+# (PERF.md §6)
+F64_WITNESS = (4,)
+
+
+@pytest.mark.parametrize("b", [1, 4, 20, 32])
+def test_stacked_lstm_op_route_matches_the_torch_route(dev, b):
+    """The decoder's LSTM as MotionGenerator.decode feeds it (dec_in's ReLU
+    output at step 0, zeros after) over 32 steps, one lstm_cell a step and
+    layer, against the torch route on the same card, within
+    test_stacked_lstm_matches_flax's bf16 bounds: max 2e-4, mean 7e-6. Each
+    step hands h on rounded to bf16, so two orders of the f32 sums drift
+    apart over the steps; at the B of F64_WITNESS the op's mean is held to
+    the f64-summed dot instead, which neither order reproduces."""
+    lstm = _decoder_lstm(dev, 40 + b)
+    t = Config().model.n_future_frames
+    xs = torch.zeros(b, t, 32)
+    xs[:, 0] = torch.randn(b, 32, generator=torch.Generator().manual_seed(b)).relu()
+    xs = xs.to(dev).to(torch.bfloat16)
+    with torch.no_grad():
+        reset_launch_counts()
+        got = lstm(xs)
+        assert launch_counts()["lstm_cell"] == 2 * t
+        want = lstm._forward_torch(xs)
+        again = lstm(xs)
+    assert got.dtype == torch.float32 and got.shape == want.shape == (b, t, 1024)
+    err = (got - want).abs()
+    assert float(err.max()) <= 2e-4, float(err.max())
+    if b in F64_WITNESS:
+        with torch.no_grad():
+            exact = _exact_forward(lstm, xs)
+        op = float((got - exact).abs().mean())
+        assert op <= 7e-6, (float(err.mean()), op, float((want - exact).abs().mean()))
+    else:
+        assert float(err.mean()) <= 7e-6, float(err.mean())
+    _same_bits(got, again)
