@@ -20,7 +20,10 @@ inputs, and nothing of its loop changes:
   the start, and the generator's first prediction (what ``g_grads``
   returned); then it writes them to ``capture/<run>/``;
 - each ``MetricLogger.log_metrics`` also writes the process's peak device
-  memory to ``capture/peak.json``.
+  memory to ``capture/peak.json``, and appends to ``capture/waits.jsonl``
+  its step and the seconds the loop has spent so far inside its
+  ``kpvid.train.data_wait`` span (``next(train_iter)``), timed around the
+  CLI's own ``span`` with or without a profiler.
 
 The top-level names of the modules this process has loaded go to
 ``capture/modules.json`` at the capture, at every ``log_metrics`` mark and
@@ -35,12 +38,15 @@ process.
 from __future__ import annotations
 
 import atexit
+import contextlib
 import json
 import runpy
 import sys
+import time
 from pathlib import Path
 
 BENCH = Path(__file__).resolve().parents[1]
+DATA_WAIT = "kpvid.train.data_wait"
 sys.path.insert(0, str(BENCH.parent))
 
 
@@ -151,22 +157,41 @@ def main() -> None:
 
         return step
 
+    real_span, waited = cli.span, [0.0]
+
+    @contextlib.contextmanager
+    def timed(name):
+        t = time.perf_counter()
+        try:
+            with real_span(name):
+                yield
+        finally:
+            waited[0] += time.perf_counter() - t
+
+    def span(name):
+        return timed(name) if name == DATA_WAIT else real_span(name)
+
     real_log = MetricLogger.log_metrics
 
     def log_metrics(self, split, step, metrics):
         real_log(self, split, step, metrics)
         (capture / "peak.json").write_text(json.dumps(
             {"peak": torch.cuda.max_memory_allocated() if torch.cuda.is_available() else 0}))
+        with open(capture / "waits.jsonl", "a") as f:
+            f.write(json.dumps({"split": split, "step": step, "data_wait_s": waited[0]}) + "\n")
         record_modules(f"step {step}")
 
+    plant_input_fault(job.get("fault"))
     GANTrainer.init_parameters = init_parameters
     cli.vgg_params = vgg_params
     parallel.select_step = select_step
+    cli.span = span
     MetricLogger.log_metrics = log_metrics
     capture.mkdir(parents=True, exist_ok=True)
     atexit.register(record_modules, "exit")
     for run, (seed, argv) in enumerate(zip(job["seeds"], job["runs"])):
         state.update(run=run, seed=seed)
+        waited[0] = 0.0
         sys.argv = ["kpvid_tpu_torch.train"] + argv
         try:
             if run == 0:
@@ -175,6 +200,34 @@ def main() -> None:
                 cli.main(argv)
         except Captured:
             pass
+
+
+def plant_input_fault(fault) -> None:
+    """The CLI's inputs broken as ``fault`` says (the benchmark's own tests
+    plant it to see ``batches`` or ``noise`` fail): 'no_rotation' leaves the
+    keypoints' rotation out, 'seed_off_by_one' seeds the train stream with
+    its seed plus one, 'noise_key' draws each step's noise from the second
+    key of a split of its own."""
+    if fault == "no_rotation":
+        import kpvid_tpu_torch.data.augment as augment
+
+        augment.rotate_keypoints = lambda points, degrees: points
+    elif fault == "seed_off_by_one":
+        from kpvid_tpu_torch.data.base import HostDataPipeline
+
+        real_init = HostDataPipeline.__init__
+
+        def init(self, *args, **kwargs):
+            real_init(self, *args, **kwargs)
+            self.seed += 1
+
+        HostDataPipeline.__init__ = init
+    elif fault == "noise_key":
+        import kpvid_tpu_torch.train.cli as cli
+        from kpvid_tpu_torch.utils import jax_random
+
+        real_noise = cli.step_noise
+        cli.step_noise = lambda key, *args: real_noise(jax_random.split(key)[1], *args)
 
 
 if __name__ == "__main__":

@@ -12,17 +12,23 @@ every example of the steps between them over the time between them. Set-up
 is this process's start to the first mark. The child is then interrupted
 and waited for, and the record of its loaded modules that it wrote as it
 exited is held to the import check. A traced run passes ``--profile-dir``: the CLI's own
-``torch.profiler`` trace of loop steps 10-14.
+``torch.profiler`` trace of loop steps 10-14; its window, which follows the trace, also gives
+the loop's wait for its batches, timed by the child around the CLI's span.
 
 The check: the child recorded what its first ``capture_steps`` steps were
 fed and gave (drivers/_train_child.py); once it has ended, the plain
 reference (kpbench/reference) runs the same steps in f32 from the same
-weights, made again from the seed, on the batches and noise the CLI fed.
+weights, made again from the seed. Stage 1's steps take the batches the CLI
+fed. Stage 2's take the batches and noise that the reference works out
+itself from the tree and the seed (kpbench/reference/sequences.py,
+streams.py), and the check holds what the CLI was fed to them (``batches``,
+``noise``).
 """
 
 from __future__ import annotations
 
 import json
+import math
 import os
 import signal
 import subprocess
@@ -46,10 +52,8 @@ def cli_argv(cell: harness.Cell, config: Path, max_steps: int, profile: Path | N
 def prepare(cell: harness.Cell, seeds: list, max_steps: int, profile: Path | None = None,
             stop_after_capture: bool = False):
     """The run's scratch directory, the child's job file and its command."""
-    from kpbench.traffic.tree import ensure_tree
-
     work = harness.fresh_dir(cell.work)
-    tree = ensure_tree(harness.BENCH / ".data", cell.workload["tree"], cell.model["n_pts"])
+    tree = data_tree(cell)
     runs = []
     for i, seed in enumerate(seeds):
         config = harness.port_config_file(
@@ -97,6 +101,7 @@ def run(cell: harness.Cell) -> dict:
         finally:
             stop(child)
     check_modules(work / "capture" / "modules.json")
+    waits = data_wait(work / "capture" / "waits.jsonl", first["step"], last["step"])
     bs = cell.config["training"]["batch_size"]
     window_s = last["time"] - first["time"]
     e2e = {"train_examples_per_s": (last["step"] - first["step"]) * bs / window_s,
@@ -107,6 +112,7 @@ def run(cell: harness.Cell) -> dict:
         records = profile_records(profile, wl["mode"])
         records["wall_per_step_s"] = window_s / (last["step"] - first["step"])
         records["flops_per_step"] = step_flops(cell)
+        records["data_wait"] = waits
     checks, _ = compare(cell, work / "capture" / "0", cell.seed)
     steps = last["step"] - first["step"]
     return {"e2e": e2e, "records": records, "checks": checks, "attempted": steps, "failed": 0,
@@ -134,6 +140,16 @@ def watch(child, jsonl: Path, warmup: int, seconds: float, poll: float = 0.2, re
             # at least one interval, even where marks are further apart
             return first, inside[-1] if len(inside) > 1 else ms[1]
         time.sleep(poll)
+
+
+def data_wait(path: Path, first: int, last: int):
+    """(seconds the CLI's loop spent waiting for its batches in the steps
+    after mark ``first`` up to mark ``last``, their number), from the
+    child's ``waits.jsonl``; None where either mark is missing."""
+    at = {w["step"]: w["data_wait_s"] for w in marks(path) if w["split"] == "train"}
+    if first not in at or last not in at:
+        return None
+    return at[last] - at[first], last - first
 
 
 def check_modules(path: Path) -> None:
@@ -182,10 +198,50 @@ def profile_records(profile: Path, mode: str) -> dict:
 
 
 # ------------------------------------------------------------------ the check
-def reference_side(cell, capture: Path, seed: int, variant: str = "program"):
-    """The reference's steps on the captured inputs, and the same steps as
-    ``variant`` computes them ('control': float8 operands; 'half': each
-    step on the first half of its batch, the mean over those rows)."""
+def data_tree(cell: harness.Cell) -> Path:
+    """The cell's synthetic tree, written on first use."""
+    from kpbench.traffic.tree import ensure_tree
+
+    return ensure_tree(harness.BENCH / ".data", cell.workload["tree"], cell.model["n_pts"])
+
+
+def fed_batches(cell, capture: Path) -> list:
+    """What the CLI's first ``capture_steps`` steps were fed, as recorded:
+    one dict of arrays a step."""
+    inputs = np.load(capture / "inputs.npz")
+    return [{key.split(".", 1)[1]: inputs[key] for key in inputs.files
+             if key.startswith(f"{i}.")} for i in range(cell.workload["capture_steps"])]
+
+
+def own_batches(cell, seed: int) -> list:
+    """Stage 2's first batches and noise as the reference works them out
+    from the tree and the CLI's seed (kpbench/reference/sequences.py and
+    streams.py)."""
+    from kpbench.reference.sequences import first_batches
+    from kpbench.reference.streams import stage2_noise
+
+    k, bs = cell.workload["capture_steps"], cell.config["training"]["batch_size"]
+    batches = first_batches(data_tree(cell), seed % 2**31, bs, k, cell.model["n_action"])
+    noise = stage2_noise(seed % 2**31, k, bs, cell.model["vae_dim"])
+    return [dict(b, noise=z) for b, z in zip(batches, noise)]
+
+
+def fed_numbers(fed: list, own: list) -> dict:
+    """Stage 2's inputs, what the CLI was fed against what the reference
+    works out: ``batches``, the widest gap of the batches' arrays; ``noise``,
+    of the noise. An array missing, or of another shape, reads infinite."""
+    def widest(keys):
+        return max(harness.gap(f[k], o[k]) if k in f and f[k].shape == o[k].shape else math.inf
+                   for f, o in zip(fed, own) for k in keys)
+
+    return {"batches": widest([k for k in own[0] if k != "noise"]), "noise": widest(["noise"])}
+
+
+def reference_side(cell, batches: list, seed: int, variant: str = "program"):
+    """The reference's steps on ``batches`` (one dict of arrays a step), and
+    the same steps as ``variant`` computes them ('control': float8 operands;
+    'half': each step on the first half of its batch, the mean over those
+    rows)."""
     import torch
 
     from kpbench.reference import model as ref
@@ -195,10 +251,7 @@ def reference_side(cell, capture: Path, seed: int, variant: str = "program"):
     plain_backends()
     m, dev = cell.model, cell.device
     stage = STEP_OUT[cell.workload["mode"]]
-    inputs = np.load(capture / "inputs.npz")
-    k = cell.workload["capture_steps"]
-    batches = [{key.split(".", 1)[1]: torch.from_numpy(inputs[key]).to(dev)
-                for key in inputs.files if key.startswith(f"{i}.")} for i in range(k)]
+    batches = [{key: torch.from_numpy(v).to(dev) for key, v in b.items()} for b in batches]
     shapes = spec.stage1_trainer(m) if stage == "stage1" else spec.stage2_trainer(m)
     p0 = harness.make_params(shapes, seed, 2, dev)
     G = {n: v for n, v in p0.items() if n.startswith(("stage1.", "stage2."))}
@@ -271,17 +324,24 @@ def as_got(side: dict, p0: dict) -> dict:
 def compare(cell, capture: Path, seed: int, variant: str = "program"):
     """(checks, readings) of a run: the program's recorded steps (or, for a
     control or fault variant, the reference's variant) against the
-    reference."""
+    reference. Stage 2's reference runs on its own batches and noise, and
+    its readings add :func:`fed_numbers`."""
     from kpbench.reference import spec
 
     stage = STEP_OUT[cell.workload["mode"]]
     shapes = spec.stage1_trainer(cell.model) if stage == "stage1" else spec.stage2_trainer(
         cell.model)
     p0 = harness.make_params(shapes, seed, 2, cell.device)
-    want, side = reference_side(cell, capture, seed, variant)
+    batches = fed_batches(cell, capture)
+    fed = {}
+    if stage == "stage2":
+        own = own_batches(cell, seed)
+        fed = fed_numbers(batches, own)
+        batches = own
+    want, side = reference_side(cell, batches, seed, variant)
     got = (dict(json.loads((capture / "capture.json").read_text()),
                 pred=np.load(capture / "pred.npy")) if side is None else as_got(side, p0))
-    vals = numbers(want, got, p0)
+    vals = {**numbers(want, got, p0), **fed}
     if variant == "program":
         cell.notes["readings"] = vals
     limits = cell.workload["checks"]

@@ -2,13 +2,17 @@
 benchmark's own runs):
 
     python kpbench/tools/readings.py --workload <cell> --variant program|control
-        --seeds 1 2 3 ... [--seconds S] [--device D] [--out chiprun_out/readings.jsonl]
+        --seeds 1 2 3 ... [--seconds S] [--device D] [--fault F]
+        [--out readings.jsonl]
 
 runs the cell's driver once per seed in one process, with the program
 (``program``) or with the driver's ``control`` in its place, and prints each
-run's check values, one JSON line a run. The lower reading of a check is the
-largest that the program's runs give, the upper the smallest the control's
-give; kpbench/workloads/<cell>.json keeps the limit set between them.
+run's check values, one JSON line a run. A training cell reads every seed and
+each of a comma-separated list of variants at once; ``--fault`` plants one of
+its CLI's faults (drivers/_train_child.py) underneath. The lower reading of a
+check is the largest that the program's runs give, the upper the smallest the
+control's give; kpbench/workloads/<cell>.json keeps the limit set between
+them.
 """
 
 from __future__ import annotations
@@ -31,6 +35,8 @@ def main(argv=None) -> int:
     p.add_argument("--seconds", type=float, default=2.0)
     p.add_argument("--device", default="cuda")
     p.add_argument("--rate", type=float, default=None, help="a serving cell's rate")
+    p.add_argument("--fault", default=None,
+                   help="a training cell's fault planted in its CLI (drivers/_train_child.py)")
     p.add_argument("--out", default=None)
     args = p.parse_args(argv)
     from kpbench import harness
@@ -40,8 +46,9 @@ def main(argv=None) -> int:
     driver = harness.load_module(BENCH / "drivers" / f"{first.workload['kind']}.py",
                                  "kpbench_driver")
     if hasattr(driver, "readings"):  # the driver reads every seed and variant at once
+        first.notes["fault"] = args.fault
         for line in driver.readings(first, args.seeds, args.variant.split(",")):
-            line["workload"] = args.workload
+            line.update(workload=args.workload, fault=args.fault)
             print(json.dumps(line), flush=True)
             if args.out:
                 Path(args.out).parent.mkdir(parents=True, exist_ok=True)
